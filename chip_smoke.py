@@ -1,0 +1,583 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. ``device`` — the card's name and power limit (``nvidia-smi``), and the
+   torch, CUDA and nvcc versions.
+2. ``build`` — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all at once) and reports the seconds taken
+   and each kernel's registers and spills.
+3. ``kernels`` — each kernel against its plain PyTorch version on the card,
+   over a sweep of edge cases and at the full-width shapes of the main
+   path, then the kernel's time (a CUDA graph of one wrapper call,
+   replayed; median over many replays), the plain version's time, and the
+   least time the card could take (``bound_ms``).
+4. ``main_path`` — ``DIPPM.from_params`` at the paper's width (GraphSAGE,
+   packed, hidden 512, 3 + 3 blocks, random weights from a seed):
+   ``warmup(rungs="all")``, seeded ``repro.opgraph.v1`` documents through
+   ``predict_json`` / ``predict_many``, and a bulk of synthetic samples
+   through ``engine().predict_samples``. The kernels' launch counts are
+   zeroed before and read after, and must equal bins × layers. The card's
+   predictions are held against the same ``DIPPM`` on ``device="cpu"``,
+   which runs the plain versions.
+
+Then it prints ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
+limit, and, as the last line, ``{"ok": true, "device": {...}}``. Any failed
+check raises, so the script exits non-zero and prints no result; it also
+exits non-zero without a CUDA device. It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+#: NVIDIA H100 SXM data sheet, dense, at the 700 W power limit.
+PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
+PEAK_BYTES = 3.35e12        # HBM3
+#: kernel vs plain version on the card: the atomics and the product sum in
+#: another order than the plain version (see the notes in csrc/*.cu)
+KERNEL_ATOL = KERNEL_RTOL = 1e-4
+#: the card's predictions vs the CPU's plain versions at full width: three
+#: message-passing layers of depth up to 1024, a head of depth 1029, then
+#: expm1, which turns an absolute error in log space into a relative one
+E2E_ATOL = E2E_RTOL = 1e-3
+#: the bulk sweep runs this many times; its time is the median (host time
+#: on a machine that shares its CPU cores varies from run to run)
+BULK_REPEATS = 5
+#: full packed bin of the engine's default budgets (batching.py:372-405)
+FULL_P, FULL_Q, FULL_G = 4096, 6656, 256
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def rel_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))) \
+        if a.size else 0.0
+
+
+def check_close(what: str, got, want, atol: float, rtol: float) -> float:
+    got = got.detach().cpu().numpy() if hasattr(got, "detach") else got
+    want = want.detach().cpu().numpy() if hasattr(want, "detach") else want
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
+    if not np.allclose(got, want, atol=atol, rtol=rtol, equal_nan=False):
+        d = np.abs(got.astype(np.float64) - want)
+        raise AssertionError(f"{what}: max |diff| {d.max():.3e} exceeds "
+                             f"atol {atol} + rtol {rtol}")
+    return float(np.max(np.abs(got.astype(np.float64) - want))) \
+        if got.size else 0.0
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_graph_ms(torch, fn, replays: int = 200) -> float:
+    """Device time of one ``fn()`` call: capture it in a CUDA graph, replay
+    it, and take the median of per-replay CUDA-event times."""
+    for _ in range(3):                   # warm up outside the capture
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(10):
+        graph.replay()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_breakdown_us(torch, calls: dict, reps: int = 20) -> dict:
+    """Device microseconds per call of every CUDA kernel that each of
+    ``calls`` launches, from ``torch.profiler``; empty where the profiler
+    recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for label, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = {}
+        for evt in prof.key_averages():
+            t = getattr(evt, "self_device_time_total", 0.0)
+            if t > 0 and not evt.key.startswith("cuda"):
+                # "void (anonymous namespace)::node_gemm_kernel<true>(...)"
+                # -> "node_gemm_kernel"
+                name = evt.key.removeprefix("void ").replace(
+                    "(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].split("::")[-1]
+                rows[name] = rows.get(name, 0.0) + t / reps
+        out[label] = rows
+    return out
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def packed_graph(torch, dev, p, q, f=16, seed=0, masked_tail=0.2):
+    """A packed flat-axis graph: x [P,F], globally-offset edges [Q,2],
+    masks with a padded tail (the JAX package's test sweep shape)."""
+    rng = np.random.default_rng(seed)
+    n_real = max(1, int(p * (1 - masked_tail)))
+    x = rng.standard_normal((p, f)).astype(np.float32)
+    edges = (rng.integers(0, n_real, (q, 2)).astype(np.int32) if q
+             else np.zeros((0, 2), np.int32))
+    emask = np.zeros((q,), np.float32)
+    if q:
+        emask[:max(1, q * 3 // 4)] = 1.0
+    nmask = np.zeros((p,), np.float32)
+    nmask[:n_real] = 1.0
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return t(x), t(edges), t(emask), t(nmask)
+
+
+def weights(torch, dev, f, h, seed=0):
+    rng = np.random.default_rng(seed + 100)
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32) * .1,
+                            device=dev) for s in ((f, h), (f, h), (h,))]
+
+
+def random_dag_doc(rng: np.random.Generator, n: int, idx: int) -> dict:
+    """A seeded ``repro.opgraph.v1`` document: a DAG of ``n`` operator
+    nodes, each fed by one to three earlier nodes."""
+    from repro_torch.core.ir import OP_VOCAB
+    batch = int(rng.choice([1, 8, 32]))
+    nodes, edges = [], []
+    for i in range(n):
+        op = str(rng.choice(OP_VOCAB))
+        width = int(rng.choice([64, 128, 256, 512, 1024]))
+        shape = [batch, width] if op in ("dense", "softmax", "norm") else \
+            [batch, int(rng.integers(4, 64)), int(rng.integers(4, 64)), width]
+        numel = float(np.prod(shape))
+        macs = numel * width if op in ("dense", "conv") else 0.0
+        nodes.append({"id": i, "op": op, "out_shape": shape,
+                      "dtype": "float32", "attrs": {},
+                      "flops": 2 * macs or numel, "macs": macs,
+                      "bytes_accessed": 8 * numel,
+                      "param_bytes": 4.0 * width * width if macs else 0.0})
+        if i:
+            for s in sorted(set(rng.integers(0, i, size=min(i, 3)).tolist())):
+                edges.append([s, i])
+    return {"schema": "repro.opgraph.v1", "nodes": nodes, "edges": edges,
+            "meta": {"batch": batch, "family": "synthetic", "index": idx}}
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device(torch) -> str:
+    name_limit = smi()
+    from repro_torch.kernels.build import nvcc_path
+    nvcc = subprocess.run([nvcc_path(), "--version"], check=True,
+                          capture_output=True, text=True).stdout
+    emit({"phase": "device", "nvidia_smi": name_limit,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nvcc": nvcc.strip().splitlines()[-1],
+          "count": torch.cuda.device_count()})
+    return name_limit
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    seconds = build.build_all()
+    total = time.perf_counter() - t0
+    ptxas = {}
+    for name in seconds:
+        ptxas[name] = [ln.strip() for ln in build.build_log(name).splitlines()
+                       if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": round(total, 3),
+          "per_source_s": {k: round(v, 3) for k, v in seconds.items()},
+          "ptxas": ptxas})
+
+
+def sweep_fused(torch, dev) -> float:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import fused_mp_layer_cuda
+    worst = 0.0
+    cases = []
+    for p, q in [(128, 128), (128, 129), (100, 50), (257, 300), (64, 0)]:
+        for mode in ("sum", "mean"):
+            for combine in ("split", "pre"):
+                cases.append(dict(p=p, q=q, mode=mode, combine=combine,
+                                  scale="vector", act="relu", nm=True,
+                                  weighted=False))
+    for scale in ("vector", "scalar", "tensor0d", None):
+        for act in ("relu", "none"):
+            cases.append(dict(p=96, q=140, mode="sum", combine="pre",
+                              scale=scale, act=act, nm=True, weighted=False))
+    cases.append(dict(p=80, q=200, mode="sum", combine="split", scale=None,
+                      act="none", nm=False, weighted=True))
+    cases.append(dict(p=80, q=200, mode="mean", combine="pre", scale="vector",
+                      act="relu", nm=False, weighted=True))
+    # widths that are not multiples of 4 take the scalar-load kernel, and so
+    # does an input view that starts one float into its storage
+    cases.append(dict(p=300, q=500, mode="mean", combine="split", scale=None,
+                      act="relu", nm=True, weighted=True, f=70, h=130))
+    cases.append(dict(p=150, q=90, mode="mean", combine="pre", scale="vector",
+                      act="relu", nm=True, weighted=False, f=13, h=7))
+    cases.append(dict(p=128, q=129, mode="mean", combine="split", scale=None,
+                      act="relu", nm=True, weighted=False, unaligned=True))
+    for i, c in enumerate(cases):
+        f, h = c.get("f", 16), c.get("h", 24)
+        x, edges, emask, nmask = packed_graph(torch, dev, c["p"], c["q"], f=f,
+                                              seed=i)
+        if c.get("unaligned"):
+            shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+            x = shifted.copy_(x)
+        if c["weighted"]:
+            emask = emask * torch.rand(c["q"], device=dev,
+                                       generator=torch.Generator(dev)
+                                       .manual_seed(i))
+        wn, ws, b = weights(torch, dev, f, h, seed=i)
+        ss = {"vector": torch.rand(c["p"], device=dev,
+                                   generator=torch.Generator(dev)
+                                   .manual_seed(i)),
+              "scalar": 1.37,
+              "tensor0d": torch.tensor(0.63, device=dev),
+              None: None}[c["scale"]]
+        kw = dict(w_neigh=wn, w_self=ws, bias=b, mode=c["mode"],
+                  combine=c["combine"], self_scale=ss, act=c["act"])
+        nm = nmask if c["nm"] else None
+        got = fused_mp_layer_cuda(x, edges, emask, nm, **kw)
+        want = ref.fused_mp_layer_ref(x, edges, emask, nm, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(f"fused_mp_layer case {c}", got, want,
+                                       KERNEL_ATOL, KERNEL_RTOL))
+    return worst
+
+
+def sweep_readout(torch, dev) -> float:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import segment_readout_cuda
+    worst = 0.0
+    rng = np.random.default_rng(7)
+    cases = []
+    for kind in ("mean", "mean_max"):
+        # contiguous runs, padded tail with id 0, trailing empty graphs
+        cases.append((kind, 300, 16, 12, "runs"))
+        cases.append((kind, 130, 130, 8, "runs"))
+        # ids in no order, some rows masked
+        cases.append((kind, 257, 40, 9, "random"))
+        # a bin with every row masked
+        cases.append((kind, 64, 8, 4, "empty"))
+    for kind, p, f, g, layout in cases:
+        h = rng.standard_normal((p, f)).astype(np.float32)
+        if layout == "runs":
+            n_real = p * 3 // 4
+            ids = np.zeros(p, np.int32)
+            ids[:n_real] = np.sort(rng.integers(0, g - 3, n_real))
+            nm = np.zeros(p, np.float32)
+            nm[:n_real] = 1.0
+            h[n_real:] = 1e6            # padding garbage must not leak
+        elif layout == "random":
+            ids = rng.integers(0, g, p).astype(np.int32)
+            nm = (rng.random(p) < 0.8).astype(np.float32)
+        else:
+            ids = np.zeros(p, np.int32)
+            nm = np.zeros(p, np.float32)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        got = segment_readout_cuda(t(h), t(ids), t(nm), g, kind=kind)
+        want = ref.segment_readout_ref(t(h), t(ids), t(nm), g, kind=kind)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(
+            f"segment_readout {kind} p={p} f={f} g={g} {layout}", got, want,
+            KERNEL_ATOL, KERNEL_RTOL))
+    return worst
+
+
+def full_bin(torch, dev, cfg):
+    """The first (fullest) packed bin of a seeded synthetic bulk, staged
+    as the engine stages it, plus full-width random weights."""
+    from repro_torch.core.batching import (collate_packed, pack_graphs,
+                                           packed_shape)
+    from repro_torch.core.gnn import pmgns_init
+    from repro_torch.dataset.builder import synthetic_samples
+    samples = synthetic_samples(120, seed=3, n_min=16, n_max=200)
+    bins = pack_graphs(samples, FULL_P, None, None)
+    chunk = [samples[j] for j in bins[0]]
+    shape = packed_shape(chunk, FULL_P, 2 * FULL_P, FULL_P // 16)
+    if shape != (FULL_P, FULL_Q, FULL_G):
+        raise AssertionError(f"full bin has shape {shape}")
+    batch = collate_packed(chunk, FULL_P, 2 * FULL_P, FULL_P // 16)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    tree = pmgns_init(0, cfg)
+    w = {k: torch.as_tensor(v, device=dev)
+         for k, v in [("ws0", tree["gnn"]["b0"]["self"]["w"]),
+                      ("wn0", tree["gnn"]["b0"]["neigh"]["w"]),
+                      ("b0", tree["gnn"]["b0"]["self"]["b"]),
+                      ("ws1", tree["gnn"]["b1"]["self"]["w"]),
+                      ("wn1", tree["gnn"]["b1"]["neigh"]["w"]),
+                      ("b1", tree["gnn"]["b1"]["self"]["b"])]}
+    return batch, w, len(chunk)
+
+
+def phase_kernels(torch, dev, cfg) -> list:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import (fused_mp_layer_cuda,
+                                                  segment_readout_cuda)
+    t0 = time.perf_counter()
+    sweep_mp = sweep_fused(torch, dev)
+    sweep_ro = sweep_readout(torch, dev)
+    batch, w, n_graphs = full_bin(torch, dev, cfg)
+    x, edges, em, nm = (batch["x"], batch["edges"], batch["edge_mask"],
+                        batch["mask"])
+    gid = batch["graph_ids"]
+    P, F0 = x.shape
+    H = w["wn0"].shape[1]
+    Q = edges.shape[0]
+    q_real = int((em != 0).sum())
+    p_real = int((nm > 0).sum())
+
+    def layer(fn, h, i):
+        return fn(h, edges, em, nm, w_neigh=w[f"wn{i}"], w_self=w[f"ws{i}"],
+                  bias=w[f"b{i}"], mode="mean", combine="split", act="relu")
+
+    h0_k = layer(fused_mp_layer_cuda, x, 0)
+    h0_r = layer(ref.fused_mp_layer_ref, x, 0)
+    h1_k = layer(fused_mp_layer_cuda, h0_r, 1)
+    h1_r = layer(ref.fused_mp_layer_ref, h0_r, 1)
+    z_k = segment_readout_cuda(h1_r, gid, nm, FULL_G, kind=cfg.readout)
+    z_r = ref.segment_readout_ref(h1_r, gid, nm, FULL_G, kind=cfg.readout)
+    torch.cuda.synchronize()
+    err_mp = max(check_close("fused_mp_layer full width F=32", h0_k, h0_r,
+                             KERNEL_ATOL, KERNEL_RTOL),
+                 check_close("fused_mp_layer full width F=512", h1_k, h1_r,
+                             KERNEL_ATOL, KERNEL_RTOL))
+    err_ro = check_close("segment_readout full width", z_k, z_r,
+                         KERNEL_ATOL, KERNEL_RTOL)
+
+    t_mp = {}
+    for label, i, h in (("f32", 0, x), ("f512", 1, h0_r)):
+        t_mp[label] = {
+            "ms": time_graph_ms(torch, lambda: layer(fused_mp_layer_cuda, h, i)),
+            "plain_ms": time_graph_ms(
+                torch, lambda: layer(ref.fused_mp_layer_ref, h, i)),
+        }
+    t_ro = time_graph_ms(torch, lambda: segment_readout_cuda(
+        h1_r, gid, nm, FULL_G, kind=cfg.readout))
+    breakdown = device_breakdown_us(torch, {
+        "fused_mp_layer F=32": lambda: layer(fused_mp_layer_cuda, x, 0),
+        "fused_mp_layer F=512": lambda: layer(fused_mp_layer_cuda, h0_r, 1),
+        "segment_readout": lambda: segment_readout_cuda(
+            h1_r, gid, nm, FULL_G, kind=cfg.readout)})
+    t_ro_plain = time_graph_ms(torch, lambda: ref.segment_readout_ref(
+        h1_r, gid, nm, FULL_G, kind=cfg.readout))
+
+    # least time for one bin's three layers: each input read once, the
+    # output written once; the product's FLOPs plus the real edges' scatter
+    def layer_bound(f):
+        flops = 2.0 * P * (2 * f) * H + 2.0 * q_real * f + q_real
+        nbytes = 4.0 * (P * f + 2 * Q + Q + P + 2 * f * H + H + P * H)
+        return flops, nbytes
+    fl0, by0 = layer_bound(F0)
+    fl1, by1 = layer_bound(H)
+    mp_bound, mp_by = bound_ms(fl0 + 2 * fl1, by0 + 2 * by1)
+    ro_flops = 3.0 * p_real * H + 2.0 * FULL_G * H
+    ro_bytes = 4.0 * (P * H + 2 * P + FULL_G * 2 * H)
+    ro_bound, ro_by = bound_ms(ro_flops, ro_bytes)
+    blocks = cfg.n_gnn_blocks
+    mp_ms = t_mp["f32"]["ms"] + (blocks - 1) * t_mp["f512"]["ms"]
+    mp_plain = t_mp["f32"]["plain_ms"] + (blocks - 1) * t_mp["f512"]["plain_ms"]
+    entries = [
+        {"name": "fused_mp_layer", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_mp.cu",
+         "replaces": "src/repro/kernels/segment_spmm.py:370",
+         "launches": None, "max_abs_err": max(err_mp, sweep_mp),
+         "ms": mp_ms, "plain_ms": mp_plain, "bound_ms": mp_bound,
+         "bound_by": mp_by, "library_ms": None,
+         "unit": f"one full bin: {blocks} GraphSAGE layers at P={P} Q={Q} "
+                 f"F={F0}->{H}, then {H}->{H}",
+         "per_layer": t_mp,
+         "bound_per_layer_ms": {"f32": bound_ms(fl0, by0)[0],
+                                "f512": bound_ms(fl1, by1)[0]},
+         "library_note": "no single PyTorch call computes the gather, "
+                         "scatter-mean, combine product and epilogue"},
+        {"name": "segment_readout", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/segment_readout.cu",
+         "replaces": "src/repro/kernels/segment_spmm.py:241",
+         "launches": None, "max_abs_err": max(err_ro, sweep_ro),
+         "ms": t_ro, "plain_ms": t_ro_plain, "bound_ms": ro_bound,
+         "bound_by": ro_by, "library_ms": None,
+         "unit": f"one full bin: P={P} F={H} G={FULL_G} {cfg.readout}",
+         "library_note": "no single PyTorch call computes the masked "
+                         "segment mean and max with empty graphs at 0"},
+    ]
+    emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
+          "graphs_in_full_bin": n_graphs, "real_nodes": p_real,
+          "real_edges": q_real,
+          "sweep_max_abs_err": {"fused_mp_layer": sweep_mp,
+                                "segment_readout": sweep_ro},
+          "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
+          "device_us_per_call": breakdown,
+          "kernels": entries})
+    return entries
+
+
+def phase_main_path(torch, cfg, name_limit: str) -> dict:
+    from repro_torch.core import DIPPM, from_json, pmgns_init
+    from repro_torch.dataset.builder import synthetic_samples
+    from repro_torch.kernels.segment_spmm import (fused_mp_layer_cuda,
+                                                  segment_readout_cuda)
+    rng = np.random.default_rng(11)
+    sizes = [20, 75, 160, 333, 512, 800]
+    docs = [random_dag_doc(rng, n, i) for i, n in enumerate(sizes)]
+    graphs = [from_json(d) for d in docs]
+    samples = synthetic_samples(400, seed=1, n_min=16, n_max=200)
+    tree = pmgns_init(0, cfg)
+    dippm = DIPPM.from_params(tree, cfg)          # on the card by default
+    if dippm.device.type != "cuda":
+        raise AssertionError(f"DIPPM ran on {dippm.device}")
+    engine = dippm.engine()
+
+    fused_mp_layer_cuda.launches = 0
+    segment_readout_cuda.launches = 0
+    t0 = time.perf_counter()
+    warmed = engine.warmup(rungs="all")
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    one = dippm.predict_json(docs[0])
+    many, _ = dippm.predict_many(graphs, return_stats=True)
+    bins_before = engine.stats.batches_run
+    bulk_s = []
+    for _ in range(BULK_REPEATS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ys = engine.predict_samples(samples)
+        torch.cuda.synchronize()
+        bulk_s.append(time.perf_counter() - t1)
+    t_bulk = statistics.median(bulk_s)
+    launches = {"fused_mp_layer": fused_mp_layer_cuda.launches,
+                "segment_readout": segment_readout_cuda.launches}
+    stats = engine.stats.snapshot()
+    bulk_bins = (stats.batches_run - bins_before) // BULK_REPEATS
+
+    runs = stats.batches_run + warmed
+    want = {"fused_mp_layer": runs * cfg.n_gnn_blocks,
+            "segment_readout": runs}
+    if launches != want or min(launches.values()) <= 0:
+        raise AssertionError(f"launch counts {launches} != bins x layers "
+                             f"{want} ({stats.batches_run} bins + {warmed} "
+                             f"warmup shapes)")
+    card = np.concatenate([
+        np.asarray([[p.latency_ms, p.energy_j, p.memory_mb]
+                    for p in [one] + many]), ys])
+    if card.shape != (1 + len(graphs) + len(samples), cfg.n_targets) or \
+            not np.isfinite(card).all():
+        raise AssertionError(f"bad predictions: shape {card.shape}, finite "
+                             f"{np.isfinite(card).all()}")
+
+    cpu = DIPPM.from_params(tree, cfg, device="cpu")
+    c_one = cpu.predict_json(docs[0])
+    c_many = cpu.predict_many(graphs)
+    c_ys = cpu.engine().predict_samples(samples)
+    ref = np.concatenate([
+        np.asarray([[p.latency_ms, p.energy_j, p.memory_mb]
+                    for p in [c_one] + c_many]), c_ys])
+    err = check_close("card vs CPU predictions", card, ref, E2E_ATOL, E2E_RTOL)
+    migs_equal = [p.mig for p in [one] + many] == \
+        [p.mig for p in [c_one] + c_many]
+    out = {"phase": "main_path", "card": name_limit,
+           "config": {"variant": cfg.variant, "hidden": cfg.hidden,
+                      "gnn_blocks": cfg.n_gnn_blocks,
+                      "fc_blocks": cfg.n_fc_blocks, "readout": cfg.readout,
+                      "layout": cfg.layout, "precision": cfg.precision},
+           "warmup_shapes": warmed, "warmup_s": t_warm,
+           "json_docs": len(docs), "json_nodes": sizes,
+           "bulk_graphs": len(samples), "bulk_bins": bulk_bins,
+           "bulk_s": bulk_s, "bulk_predictions_per_s": len(samples) / t_bulk,
+           "bulk_ms_per_bin": 1e3 * t_bulk / max(bulk_bins, 1),
+           "launches": launches,
+           "engine_stats": {**{k: getattr(stats, k) for k in (
+               "graphs_predicted", "batches_run", "cache_hits",
+               "cache_misses", "cache_entries", "recompiles",
+               "node_slots_total", "node_slots_real", "precision")},
+               "padding_waste_frac": stats.padding_waste_frac},
+           "vs_cpu": {"max_abs_err": err, "max_rel_err": rel_err(card, ref),
+                      "atol": E2E_ATOL, "rtol": E2E_RTOL,
+                      "mig_equal": migs_equal},
+           "example": {"latency_ms": one.latency_ms, "energy_j": one.energy_j,
+                       "memory_mb": one.memory_mb, "mig": one.mig}}
+    if not migs_equal:
+        raise AssertionError("MIG advice differs between the card and the CPU")
+    emit(out)
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on an NVIDIA card", file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.core.gnn import PMGNSConfig, resolve_device
+
+    dev = resolve_device("cuda")         # also turns TF32 off
+    cfg = PMGNSConfig(variant="graphsage", layout="packed", precision="f32")
+    name_limit = phase_device(torch)
+    phase_build()
+    entries = phase_kernels(torch, dev, cfg)
+    launches = phase_main_path(torch, cfg, name_limit)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    emit({"kernels": entries})
+    print(smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,133 @@
+"""User-facing DIPPM API — the paper's Fig. 5 usability surface.
+
+    from repro_torch.core import DIPPM
+    dippm = DIPPM.load("model.npz")              # on the card by default
+    out = dippm.predict_json(doc)
+    out.latency_ms, out.energy_j, out.memory_mb, out.mig, out.tpu_slice
+
+The port of ``repro.core.predictor``. In this slice ``predict_graph``
+and ``predict_many`` run the default :class:`PredictionEngine` directly;
+the JAX package reaches the same ``run_bin`` bins through its default
+``PredictionService``, so the numbers are the same. The serving layer is
+the next slice (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .frontends import from_json
+from .gnn import PMGNS, PMGNSConfig
+from .ir import OpGraph
+from .mig import predict_mig, predict_pods, predict_tpu_slice
+
+
+@dataclasses.dataclass
+class Prediction:
+    """One model's predicted inference profile + resource advice.
+
+    ``latency_ms`` / ``energy_j`` / ``memory_mb`` are the PMGNS regression
+    targets in physical units; ``mig`` / ``tpu_slice`` / ``pods`` are the
+    §3.5 resource recommendations derived from the predicted memory.
+    """
+
+    latency_ms: float
+    energy_j: float
+    memory_mb: float
+    mig: Optional[str]
+    tpu_slice: Optional[str]
+    pods: int
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __repr__(self) -> str:  # pragma: no cover — cosmetic
+        return (f"Prediction(latency={self.latency_ms:.3f} ms, "
+                f"energy={self.energy_j:.4f} J, "
+                f"memory={self.memory_mb:.1f} MB, mig={self.mig}, "
+                f"tpu_slice={self.tpu_slice}, pods={self.pods})")
+
+
+def make_prediction(y: np.ndarray,
+                    meta: Optional[Dict[str, Any]] = None) -> Prediction:
+    """Wrap decoded targets ``[latency_ms, energy_j, memory_mb]`` into a
+    :class:`Prediction` with the §3.5 MIG / TPU-slice advice attached."""
+    lat, enr, mem = [float(v) for v in np.asarray(y).reshape(-1)[:3]]
+    return Prediction(
+        latency_ms=lat, energy_j=enr, memory_mb=mem,
+        mig=predict_mig(mem),
+        tpu_slice=predict_tpu_slice(mem),
+        pods=predict_pods(mem),
+        meta=dict(meta or {}),
+    )
+
+
+class DIPPM:
+    """Trained predictor + frontends + resource advisors, on one device."""
+
+    def __init__(self, params: Union[PMGNS, dict], cfg: PMGNSConfig, *,
+                 device: Union[None, str, torch.device] = None):
+        from .engine import EngineConfig, PredictionEngine
+        self.cfg = cfg
+        #: the default engine: holds the parameters on ``device``
+        #: (``"cuda"`` unless the caller asks for another)
+        self._engine = PredictionEngine(params, cfg, EngineConfig(),
+                                        device=device)
+        self.params = self._engine.params
+        self.device = self._engine.device
+
+    # -- constructors ---------------------------------------------------------
+    @classmethod
+    def from_params(cls, params: Union[PMGNS, dict], cfg: PMGNSConfig, *,
+                    device: Union[None, str, torch.device] = None) -> "DIPPM":
+        """Wrap already-trained PMGNS parameters (a numpy pytree or a
+        :class:`PMGNS`). ``device`` defaults to ``"cuda"`` and raises if
+        CUDA is missing; pass ``device="cpu"`` for the plain versions."""
+        return cls(params, cfg, device=device)
+
+    @classmethod
+    def load(cls, path: str, *,
+             device: Union[None, str, torch.device] = None) -> "DIPPM":
+        """Load a predictor from a v2/v3 artifact written by either
+        package (``repro_torch.serve.artifact.load_artifact``)."""
+        from ..serve.artifact import load_artifact
+        params, cfg, _meta = load_artifact(path)
+        return cls(params, cfg, device=device)
+
+    # -- prediction -----------------------------------------------------------
+    def engine(self, **overrides) -> "PredictionEngine":
+        """The batched prediction engine for this predictor.
+
+        With no arguments, returns the default engine that
+        ``predict_graph`` / ``predict_many`` use. Keyword overrides are
+        :class:`~repro_torch.core.engine.EngineConfig` fields and return a
+        **fresh** engine on the same device, sharing the parameters.
+        """
+        from .engine import EngineConfig, PredictionEngine
+        if overrides:
+            return PredictionEngine(self.params, self.cfg,
+                                    EngineConfig(**overrides),
+                                    device=self.device)
+        return self._engine
+
+    def predict_graph(self, g: OpGraph) -> Prediction:
+        """Predict one pre-built :class:`OpGraph`."""
+        return self._engine.predict_graphs([g])[0]
+
+    def predict_json(self, doc: Dict[str, Any]) -> Prediction:
+        """Predict a portable serialized graph (``repro.opgraph.v1``)."""
+        return self.predict_graph(from_json(doc))
+
+    def predict_many(self, graphs: Sequence[OpGraph],
+                     return_stats: bool = False):
+        """Predict many graphs at once, bin-packed, preserving input order.
+
+        With ``return_stats=True`` returns ``(predictions, stats)`` where
+        ``stats`` is a detached
+        :class:`~repro_torch.core.engine.EngineStats` snapshot.
+        """
+        preds: List[Prediction] = self._engine.predict_graphs(list(graphs))
+        if return_stats:
+            return preds, self._engine.stats.snapshot()
+        return preds

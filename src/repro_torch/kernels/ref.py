@@ -1,0 +1,114 @@
+"""Plain PyTorch versions of the packed path's kernels.
+
+Each function is the mathematically direct form of one kernel, written
+with ``index_select`` / ``index_add_`` / ``scatter_reduce_``. They are
+the oracles the CUDA kernels are held against on the card, and the path
+a CPU tensor takes (:mod:`repro_torch.kernels.ops`). Semantics follow
+``repro.kernels.ref`` function for function.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def segment_degree_ref(edges: torch.Tensor, edge_mask: torch.Tensor,
+                       n_nodes: int) -> torch.Tensor:
+    """In-degree per destination node: [B, E, 2] → [B, N].
+
+    The degree is the sum of edge-mask *values*, so weighted or padded
+    edges count by their weight.
+    """
+    b = edges.shape[0]
+    dst = edges[..., 1].long() + n_nodes * torch.arange(
+        b, device=edges.device)[:, None]
+    out = torch.zeros((b * n_nodes,), dtype=edge_mask.dtype,
+                      device=edge_mask.device)
+    out.index_add_(0, dst.reshape(-1), edge_mask.reshape(-1))
+    return out.reshape(b, n_nodes)
+
+
+def segment_readout_ref(h: torch.Tensor, graph_ids: torch.Tensor,
+                        node_mask: torch.Tensor, n_graphs: int,
+                        kind: str = "mean_max") -> torch.Tensor:
+    """Per-graph pooled readout over a packed flat node axis.
+
+    ``h [P, F]`` holds every graph's nodes on one axis, ``graph_ids [P]``
+    maps each node to its graph, ``node_mask [P]`` zeroes tail padding.
+    Returns ``[G, F]`` (``kind="mean"``) or ``[G, 2F]`` (``"mean_max"``:
+    mean ⊕ max). Graph slots with no real nodes pool to exact zeros.
+    """
+    if kind not in ("mean", "mean_max"):
+        raise ValueError(f"kind must be 'mean' or 'mean_max', got {kind!r}")
+    ids = graph_ids.long()
+    w = node_mask.to(h.dtype)
+    f = h.shape[1]
+    sums = torch.zeros((n_graphs, f), dtype=h.dtype, device=h.device)
+    sums.index_add_(0, ids, h * w[:, None])
+    cnt = torch.zeros((n_graphs,), dtype=h.dtype, device=h.device)
+    cnt.index_add_(0, ids, w)
+    mean = sums / cnt.clamp_min(1.0)[:, None]
+    if kind == "mean":
+        return mean
+    neg = torch.finfo(h.dtype).min
+    mx = torch.full((n_graphs, f), neg, dtype=h.dtype, device=h.device)
+    mx.scatter_reduce_(0, ids[:, None].expand(-1, f),
+                       torch.where(w[:, None] > 0, h, neg), reduce="amax")
+    mx = torch.where(cnt[:, None] > 0, mx, 0.0)
+    return torch.cat([mean, mx], dim=-1)
+
+
+def fused_mp_layer_ref(x: torch.Tensor, edges: torch.Tensor,
+                       edge_mask: torch.Tensor,
+                       node_mask: Optional[torch.Tensor] = None, *,
+                       w_neigh: torch.Tensor,
+                       w_self: Optional[torch.Tensor] = None,
+                       bias: Optional[torch.Tensor] = None,
+                       mode: str = "mean", combine: str = "split",
+                       self_scale: Union[None, float, torch.Tensor] = None,
+                       act: str = "relu") -> torch.Tensor:
+    """One full message-passing layer over the packed flat node axis.
+
+    gather → mask → segment-scatter(+mean) → combine-with-self → bias →
+    activation → node-mask. x: [P, F]; edges: [Q, 2] int32 globally
+    offset (src, dst); edge_mask: [Q] — may carry real-valued edge
+    weights (GCN normalization); node_mask: [P] or None.
+
+    ``combine="split"`` computes ``x @ w_self + agg @ w_neigh``
+    (GraphSAGE). ``combine="pre"`` computes
+    ``(self_scale * x + agg) @ w_neigh`` where ``self_scale`` is a
+    scalar (GIN's ``1 + eps``) or a [P] vector (GCN's ``d̂⁻¹·d̂⁻¹``);
+    ``w_self`` is ignored. Returns [P, H].
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    if combine not in ("split", "pre"):
+        raise ValueError(f"combine must be 'split' or 'pre', got {combine!r}")
+    if act not in ("relu", "none"):
+        raise ValueError(f"act must be 'relu' or 'none', got {act!r}")
+    p = x.shape[0]
+    src, dst = edges[:, 0].long(), edges[:, 1].long()
+    msgs = x.index_select(0, src) * edge_mask[:, None]
+    agg = torch.zeros_like(x).index_add_(0, dst, msgs)
+    if mode == "mean":
+        deg = torch.zeros((p,), dtype=x.dtype, device=x.device)
+        deg.index_add_(0, dst, edge_mask.to(x.dtype))
+        agg = agg / deg.clamp_min(1.0)[:, None]
+    if combine == "split":
+        if w_self is None:
+            raise ValueError("combine='split' requires w_self")
+        y = x @ w_self + agg @ w_neigh
+    else:
+        s = torch.as_tensor(1.0 if self_scale is None else self_scale,
+                            dtype=x.dtype, device=x.device)
+        if s.dim() == 1:
+            s = s[:, None]
+        y = (s * x + agg) @ w_neigh
+    if bias is not None:
+        y = y + bias
+    if act == "relu":
+        y = torch.relu(y)
+    if node_mask is not None:
+        y = y * node_mask[:, None]
+    return y
