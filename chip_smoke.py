@@ -10,19 +10,28 @@ Phases, each printing one JSON line:
 2. ``build`` — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and reports the seconds taken
    and each kernel's registers and spills.
-3. ``kernels`` — each kernel against its plain PyTorch version on the card,
-   over a sweep of edge cases and at the full-width shapes of the main
-   path, then the kernel's time (a CUDA graph of one wrapper call,
-   replayed; median over many replays), the plain version's time, and the
-   least time the card could take (``bound_ms``).
+3. ``kernels`` — each of the four kernels against its plain PyTorch
+   version on the card, over a sweep of edge cases and at the full-width
+   shapes of its path, then the kernel's time (a CUDA graph of 20
+   back-to-back wrapper calls, replayed; median over many replays, per
+   call), the plain version's time,
+   the least time the card could take (``bound_ms``) and the device µs of
+   each CUDA kernel it launches (``torch.profiler``).
 4. ``main_path`` — ``DIPPM.from_params`` at the paper's width (GraphSAGE,
    packed, hidden 512, 3 + 3 blocks, random weights from a seed):
    ``warmup(rungs="all")``, seeded ``repro.opgraph.v1`` documents through
-   ``predict_json`` / ``predict_many``, and a bulk of synthetic samples
-   through ``engine().predict_samples``. The kernels' launch counts are
-   zeroed before and read after, and must equal bins × layers. The card's
-   predictions are held against the same ``DIPPM`` on ``device="cpu"``,
-   which runs the plain versions.
+   ``predict_json`` / ``predict_many`` (the default ``PredictionService``),
+   and a bulk of synthetic samples through ``engine().predict_samples``.
+   The kernels' launch counts are zeroed before and read after, and must
+   equal bins × layers. The card's predictions are held against the same
+   ``DIPPM`` on ``device="cpu"``, which runs the plain versions.
+5. ``gat_path`` — the same for GAT at the paper's width: every layer
+   launches ``edge_softmax`` and ``fused_gat_aggregate`` once per bin.
+6. ``serving`` — ``dippm.serve()`` on the GAT model answers a burst of
+   ``submit_json`` requests from 8 threads, unique and repeated documents
+   mixed: every future resolves, the counters conserve, cache hits are
+   bit-equal to the cold prediction and every answer matches the direct
+   engine's; p50/p99 latency and the hit rate are printed.
 
 Then it prints ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
 limit, and, as the last line, ``{"ok": true, "device": {...}}``. Any failed
@@ -35,6 +44,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -52,9 +62,14 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-4
 #: message-passing layers of depth up to 1024, a head of depth 1029, then
 #: expm1, which turns an absolute error in log space into a relative one
 E2E_ATOL = E2E_RTOL = 1e-3
-#: the bulk sweep runs this many times; its time is the median (host time
-#: on a machine that shares its CPU cores varies from run to run)
-BULK_REPEATS = 5
+#: each path's bulk sweep runs this many times; its time is the median
+#: (host time on a machine that shares its CPU cores varies run to run)
+BULK_REPEATS = 3
+#: the serving burst: threads × requests each, drawn from a pool of
+#: documents that all threads share (repeats) and documents of their own
+SERVE_THREADS, SERVE_PER_THREAD, SERVE_SHARED = 8, 50, 16
+#: seconds any one request of the burst may take before the run fails
+SERVE_TIMEOUT = 120
 #: full packed bin of the engine's default budgets (batching.py:372-405)
 FULL_P, FULL_Q, FULL_G = 4096, 6656, 256
 
@@ -93,9 +108,11 @@ def smi() -> str:
 # timing
 # ---------------------------------------------------------------------------
 
-def time_graph_ms(torch, fn, replays: int = 200) -> float:
-    """Device time of one ``fn()`` call: capture it in a CUDA graph, replay
-    it, and take the median of per-replay CUDA-event times."""
+def time_graph_ms(torch, fn, replays: int = 50, calls: int = 20) -> float:
+    """Device time of one ``fn()`` call: capture ``calls`` back-to-back
+    calls in one CUDA graph, replay it, and take the median of per-replay
+    CUDA-event times over ``calls``. Back to back, a short call's time
+    holds no host latency of the graph launch."""
     for _ in range(3):                   # warm up outside the capture
         fn()
     torch.cuda.synchronize()
@@ -104,7 +121,8 @@ def time_graph_ms(torch, fn, replays: int = 200) -> float:
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         with torch.cuda.graph(graph, stream=stream):
-            fn()
+            for _ in range(calls):
+                fn()
     torch.cuda.current_stream().wait_stream(stream)
     for _ in range(10):
         graph.replay()
@@ -118,7 +136,7 @@ def time_graph_ms(torch, fn, replays: int = 200) -> float:
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return statistics.median(s.elapsed_time(e) for s, e in events) / calls
 
 
 def device_breakdown_us(torch, calls: dict, reps: int = 20) -> dict:
@@ -331,9 +349,103 @@ def sweep_readout(torch, dev) -> float:
     return worst
 
 
+def check_close_nan(what: str, got, want, atol: float, rtol: float) -> float:
+    """:func:`check_close` where NaN is expected: the kernel's NaNs must sit
+    exactly where the plain version's are, and the rest must agree."""
+    got, want = got.detach().cpu().numpy(), want.detach().cpu().numpy()
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        raise AssertionError(f"{what}: NaN pattern differs from the plain "
+                             f"version")
+    return check_close(what, got[~nan], want[~nan], atol, rtol)
+
+
+def sweep_edge_softmax(torch, dev) -> float:
+    """edge_softmax_cuda against its plain version: E in {129, 256, 0},
+    H in {1, 4, 8}, B in {1, 2}, then an all-masked bin, a fully masked
+    destination, a padded edge scoring 1e30 and a NaN score."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import edge_softmax_cuda
+    worst = 0.0
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    n = 40
+    for i, (b, e, h) in enumerate((b, e, h) for b in (1, 2)
+                                  for e in (129, 256, 0) for h in (1, 4, 8)):
+        rng = np.random.default_rng(i)
+        s = rng.standard_normal((b, e, h)).astype(np.float32) * 3
+        dst = rng.integers(0, n, (b, e)).astype(np.int32)
+        em = (rng.random((b, e)) < 0.8).astype(np.float32)
+        got = edge_softmax_cuda(t(s), t(dst), t(em), n)
+        want = ref.edge_softmax_ref(t(s), t(dst), t(em), n)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(f"edge_softmax b={b} e={e} h={h}",
+                                       got, want, KERNEL_ATOL, KERNEL_RTOL))
+    rng = np.random.default_rng(99)
+    s = rng.standard_normal((1, 192, 4)).astype(np.float32)
+    dst = rng.integers(0, 24, (1, 192)).astype(np.int32)
+    fixed = {
+        "all masked": (s, dst, np.zeros((1, 192), np.float32), 24),
+        "fully masked destination": (
+            s[:, :8, :2].copy(), np.array([[0, 0, 0, 0, 1, 1, 1, 1]], np.int32),
+            np.array([[1, 1, 1, 1, 0, 0, 0, 0]], np.float32), 2),
+        "padded edge scoring 1e30": (
+            np.array([[[-100.0], [-101.0], [1e30]]], np.float32),
+            np.zeros((1, 3), np.int32),
+            np.array([[1.0, 1.0, 0.0]], np.float32), 4),
+    }
+    for name, (s, dst, em, nodes) in fixed.items():
+        got = edge_softmax_cuda(t(s), t(dst), t(em), nodes)
+        want = ref.edge_softmax_ref(t(s), t(dst), t(em), nodes)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(f"edge_softmax {name}", got, want,
+                                       KERNEL_ATOL, KERNEL_RTOL))
+        if not bool((got[t(em) == 0] == 0).all()):
+            raise AssertionError(f"edge_softmax {name}: a masked edge is "
+                                 f"not exactly 0")
+    s, dst, em, nodes = fixed["fully masked destination"]
+    s = s.copy()
+    s[0, 1, 0] = np.nan
+    got = edge_softmax_cuda(t(s), t(dst), t(em), nodes)
+    want = ref.edge_softmax_ref(t(s), t(dst), t(em), nodes)
+    torch.cuda.synchronize()
+    worst = max(worst, check_close_nan("edge_softmax NaN score", got, want,
+                                       KERNEL_ATOL, KERNEL_RTOL))
+    if np.isfinite(got[0, :4, 0].cpu().numpy()).any():
+        raise AssertionError("edge_softmax: a NaN score left its "
+                             "destination finite")
+    return worst
+
+
+def sweep_gat_aggregate(torch, dev) -> float:
+    """fused_gat_aggregate_cuda against its plain version at (P, Q, H) in
+    {(64, 96, 4), (130, 257, 2), (4096, 6656, 4), (64, 0, 4)}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import fused_gat_aggregate_cuda
+    worst = 0.0
+    for p, q, h in ((64, 96, 4), (130, 257, 2), (FULL_P, FULL_Q, 4),
+                    (64, 0, 4)):
+        rng = np.random.default_rng(p + q)
+        d = 512 if p == FULL_P else 16
+        arrays = (rng.standard_normal((p, d)).astype(np.float32),
+                  (rng.integers(0, p, (q, 2)).astype(np.int32) if q
+                   else np.zeros((0, 2), np.int32)),
+                  (rng.random(q) < 0.8).astype(np.float32),
+                  rng.random((q, h)).astype(np.float32),
+                  (rng.random(p) < 0.9).astype(np.float32))
+        t = [torch.as_tensor(a, device=dev) for a in arrays]
+        got = fused_gat_aggregate_cuda(*t)
+        want = ref.fused_gat_aggregate_ref(*t)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(f"fused_gat_aggregate p={p} q={q} "
+                                       f"h={h}", got, want, KERNEL_ATOL,
+                                       KERNEL_RTOL))
+    return worst
+
+
 def full_bin(torch, dev, cfg):
     """The first (fullest) packed bin of a seeded synthetic bulk, staged
-    as the engine stages it, plus full-width random weights."""
+    as the engine stages it, and full-width random weights for ``cfg``
+    (numpy pytree)."""
     from repro_torch.core.batching import (collate_packed, pack_graphs,
                                            packed_shape)
     from repro_torch.core.gnn import pmgns_init
@@ -346,25 +458,22 @@ def full_bin(torch, dev, cfg):
         raise AssertionError(f"full bin has shape {shape}")
     batch = collate_packed(chunk, FULL_P, 2 * FULL_P, FULL_P // 16)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    tree = pmgns_init(0, cfg)
-    w = {k: torch.as_tensor(v, device=dev)
-         for k, v in [("ws0", tree["gnn"]["b0"]["self"]["w"]),
-                      ("wn0", tree["gnn"]["b0"]["neigh"]["w"]),
-                      ("b0", tree["gnn"]["b0"]["self"]["b"]),
-                      ("ws1", tree["gnn"]["b1"]["self"]["w"]),
-                      ("wn1", tree["gnn"]["b1"]["neigh"]["w"]),
-                      ("b1", tree["gnn"]["b1"]["self"]["b"])]}
-    return batch, w, len(chunk)
+    return batch, pmgns_init(0, cfg), len(chunk)
 
 
-def phase_kernels(torch, dev, cfg) -> list:
+def sage_kernel_entries(torch, dev, cfg) -> tuple:
+    """fused_mp_layer and segment_readout at the GraphSAGE full bin."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_spmm import (fused_mp_layer_cuda,
                                                   segment_readout_cuda)
-    t0 = time.perf_counter()
     sweep_mp = sweep_fused(torch, dev)
     sweep_ro = sweep_readout(torch, dev)
-    batch, w, n_graphs = full_bin(torch, dev, cfg)
+    batch, tree, n_graphs = full_bin(torch, dev, cfg)
+    w = {f"{k}{i}": torch.as_tensor(tree["gnn"][f"b{i}"][blk][leaf],
+                                    device=dev)
+         for i in (0, 1)
+         for k, blk, leaf in (("ws", "self", "w"), ("wn", "neigh", "w"),
+                              ("b", "self", "b"))}
     x, edges, em, nm = (batch["x"], batch["edges"], batch["edge_mask"],
                         batch["mask"])
     gid = batch["graph_ids"]
@@ -448,22 +557,138 @@ def phase_kernels(torch, dev, cfg) -> list:
          "library_note": "no single PyTorch call computes the masked "
                          "segment mean and max with empty graphs at 0"},
     ]
+    info = {"graphs_in_full_bin": n_graphs, "real_nodes": p_real,
+            "real_edges": q_real,
+            "sweep_max_abs_err": {"fused_mp_layer": sweep_mp,
+                                  "segment_readout": sweep_ro}}
+    return entries, breakdown, info
+
+
+def gat_kernel_entries(torch, dev, cfg) -> tuple:
+    """edge_softmax and fused_gat_aggregate at the GAT full bin: the first
+    layer's projection, scores and attention, as ``_fused_mp_stack``
+    computes them."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import (edge_softmax_cuda,
+                                                  fused_gat_aggregate_cuda)
+    sweep_sm = sweep_edge_softmax(torch, dev)
+    sweep_ga = sweep_gat_aggregate(torch, dev)
+    batch, tree, _ = full_bin(torch, dev, cfg)
+    lp = {k: torch.as_tensor(v, device=dev) for k, v in
+          (("w", tree["gnn"]["b0"]["proj"]["w"]),
+           ("src", tree["gnn"]["b0"]["att_src"]),
+           ("dst", tree["gnn"]["b0"]["att_dst"]))}
+    x, edges, em, nm = (batch["x"], batch["edges"], batch["edge_mask"],
+                        batch["mask"])
+    P, Q = x.shape[0], edges.shape[0]
+    heads = lp["src"].shape[0]
+    src, dst = edges[:, 0].long(), edges[:, 1].long()
+    z = x @ lp["w"]
+    D = z.shape[1]
+    zh = z.reshape(P, heads, -1)
+    es = torch.einsum("phd,hd->ph", zh, lp["src"])
+    ed = torch.einsum("phd,hd->ph", zh, lp["dst"])
+    s = torch.nn.functional.leaky_relu(ed[dst] + es[src], 0.2)[None]
+    d32, em1 = edges[:, 1].contiguous()[None], em[None]
+    q_real = int((em != 0).sum())
+
+    att_k = edge_softmax_cuda(s, d32, em1, P)
+    att_r = ref.edge_softmax_ref(s, d32, em1, P)
+    out_k = fused_gat_aggregate_cuda(z, edges, em, att_r[0], nm)
+    out_r = ref.fused_gat_aggregate_ref(z, edges, em, att_r[0], nm)
+    torch.cuda.synchronize()
+    err_sm = check_close("edge_softmax full bin", att_k, att_r,
+                         KERNEL_ATOL, KERNEL_RTOL)
+    err_ga = check_close("fused_gat_aggregate full bin", out_k, out_r,
+                         KERNEL_ATOL, KERNEL_RTOL)
+    att = att_r[0].contiguous()
+    calls = {
+        "edge_softmax": (lambda: edge_softmax_cuda(s, d32, em1, P),
+                         lambda: ref.edge_softmax_ref(s, d32, em1, P)),
+        "fused_gat_aggregate": (
+            lambda: fused_gat_aggregate_cuda(z, edges, em, att, nm),
+            lambda: ref.fused_gat_aggregate_ref(z, edges, em, att, nm)),
+    }
+    times = {k: {"ms": time_graph_ms(torch, kern),
+                 "plain_ms": time_graph_ms(torch, plain)}
+             for k, (kern, plain) in calls.items()}
+    breakdown = device_breakdown_us(torch, {k: kern for k, (kern, _)
+                                            in calls.items()})
+    # each input read once, each output written once; the operations this
+    # run's real edges need: max, subtract, exp, scale, add and divide per
+    # (edge, head); a product, two scalings and an add per (edge, feature)
+    sm_bound, sm_by = bound_ms(6.0 * q_real * heads,
+                               4.0 * (2 * Q * heads + 2 * Q))
+    ga_bound, ga_by = bound_ms(4.0 * q_real * D,
+                               4.0 * (2 * P * D + 3 * Q + Q * heads + P))
+    blocks = cfg.n_gnn_blocks
+    entries = [
+        {"name": "edge_softmax", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/edge_softmax.cu",
+         "replaces": "src/repro/kernels/segment_spmm.py:622",
+         "launches": None, "max_abs_err": max(err_sm, sweep_sm),
+         "ms": times["edge_softmax"]["ms"] * blocks,
+         "plain_ms": times["edge_softmax"]["plain_ms"] * blocks,
+         "bound_ms": sm_bound * blocks, "bound_by": sm_by,
+         "library_ms": None,
+         "unit": f"one full bin: {blocks} GAT layers, each B=1 E={Q} "
+                 f"H={heads} N={P}",
+         "per_layer": times["edge_softmax"], "bound_per_layer_ms": sm_bound,
+         "library_note": "no single PyTorch call computes a segment "
+                         "softmax over a destination index"},
+        {"name": "fused_gat_aggregate", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gat_aggregate.cu",
+         "replaces": "src/repro/kernels/segment_spmm.py:503",
+         "launches": None, "max_abs_err": max(err_ga, sweep_ga),
+         "ms": times["fused_gat_aggregate"]["ms"] * blocks,
+         "plain_ms": times["fused_gat_aggregate"]["plain_ms"] * blocks,
+         "bound_ms": ga_bound * blocks, "bound_by": ga_by,
+         "library_ms": None,
+         "unit": f"one full bin: {blocks} GAT layers, each P={P} Q={Q} "
+                 f"D={D} H={heads}",
+         "per_layer": times["fused_gat_aggregate"],
+         "bound_per_layer_ms": ga_bound,
+         "library_note": "no single PyTorch call computes the per-head "
+                         "gather ⊙ attention → masked scatter"},
+    ]
+    info = {"gat_real_edges": q_real,
+            "sweep_max_abs_err": {"edge_softmax": sweep_sm,
+                                  "fused_gat_aggregate": sweep_ga}}
+    return entries, breakdown, info
+
+
+def phase_kernels(torch, dev, sage_cfg, gat_cfg) -> list:
+    t0 = time.perf_counter()
+    sage, sage_us, sage_info = sage_kernel_entries(torch, dev, sage_cfg)
+    gat, gat_us, gat_info = gat_kernel_entries(torch, dev, gat_cfg)
+    entries = sage + gat
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
-          "graphs_in_full_bin": n_graphs, "real_nodes": p_real,
-          "real_edges": q_real,
-          "sweep_max_abs_err": {"fused_mp_layer": sweep_mp,
-                                "segment_readout": sweep_ro},
+          **sage_info, "gat_real_edges": gat_info["gat_real_edges"],
+          "sweep_max_abs_err": {**sage_info["sweep_max_abs_err"],
+                                **gat_info["sweep_max_abs_err"]},
           "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
-          "device_us_per_call": breakdown,
+          "device_us_per_call": {**sage_us, **gat_us},
           "kernels": entries})
     return entries
 
 
-def phase_main_path(torch, cfg, name_limit: str) -> dict:
+def path_kernels(variant: str) -> dict:
+    """The wrappers a variant's forward launches, each with its launches
+    per bin (per layer, or once)."""
+    from repro_torch.kernels import segment_spmm as k
+    per_layer = {"graphsage": ["fused_mp_layer_cuda"],
+                 "gat": ["edge_softmax_cuda", "fused_gat_aggregate_cuda"]}
+    out = {name.removesuffix("_cuda"): (getattr(k, name), "layer")
+           for name in per_layer[variant]}
+    out["segment_readout"] = (k.segment_readout_cuda, "bin")
+    return out
+
+
+def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
+    """Drive one variant's main path on the card and hold it against the
+    CPU; returns the launch counts and the card's ``DIPPM``."""
     from repro_torch.core import DIPPM, from_json, pmgns_init
     from repro_torch.dataset.builder import synthetic_samples
-    from repro_torch.kernels.segment_spmm import (fused_mp_layer_cuda,
-                                                  segment_readout_cuda)
     rng = np.random.default_rng(11)
     sizes = [20, 75, 160, 333, 512, 800]
     docs = [random_dag_doc(rng, n, i) for i, n in enumerate(sizes)]
@@ -474,9 +699,10 @@ def phase_main_path(torch, cfg, name_limit: str) -> dict:
     if dippm.device.type != "cuda":
         raise AssertionError(f"DIPPM ran on {dippm.device}")
     engine = dippm.engine()
+    kernels = path_kernels(cfg.variant)
 
-    fused_mp_layer_cuda.launches = 0
-    segment_readout_cuda.launches = 0
+    for fn, _ in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     warmed = engine.warmup(rungs="all")
     torch.cuda.synchronize()
@@ -492,25 +718,24 @@ def phase_main_path(torch, cfg, name_limit: str) -> dict:
         torch.cuda.synchronize()
         bulk_s.append(time.perf_counter() - t1)
     t_bulk = statistics.median(bulk_s)
-    launches = {"fused_mp_layer": fused_mp_layer_cuda.launches,
-                "segment_readout": segment_readout_cuda.launches}
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
     stats = engine.stats.snapshot()
     bulk_bins = (stats.batches_run - bins_before) // BULK_REPEATS
 
     runs = stats.batches_run + warmed
-    want = {"fused_mp_layer": runs * cfg.n_gnn_blocks,
-            "segment_readout": runs}
+    want = {name: runs * (cfg.n_gnn_blocks if per == "layer" else 1)
+            for name, (_, per) in kernels.items()}
     if launches != want or min(launches.values()) <= 0:
-        raise AssertionError(f"launch counts {launches} != bins x layers "
-                             f"{want} ({stats.batches_run} bins + {warmed} "
-                             f"warmup shapes)")
+        raise AssertionError(f"{phase}: launch counts {launches} != bins x "
+                             f"layers {want} ({stats.batches_run} bins + "
+                             f"{warmed} warmup shapes)")
     card = np.concatenate([
         np.asarray([[p.latency_ms, p.energy_j, p.memory_mb]
                     for p in [one] + many]), ys])
     if card.shape != (1 + len(graphs) + len(samples), cfg.n_targets) or \
             not np.isfinite(card).all():
-        raise AssertionError(f"bad predictions: shape {card.shape}, finite "
-                             f"{np.isfinite(card).all()}")
+        raise AssertionError(f"{phase}: bad predictions: shape {card.shape}, "
+                             f"finite {np.isfinite(card).all()}")
 
     cpu = DIPPM.from_params(tree, cfg, device="cpu")
     c_one = cpu.predict_json(docs[0])
@@ -519,10 +744,11 @@ def phase_main_path(torch, cfg, name_limit: str) -> dict:
     ref = np.concatenate([
         np.asarray([[p.latency_ms, p.energy_j, p.memory_mb]
                     for p in [c_one] + c_many]), c_ys])
-    err = check_close("card vs CPU predictions", card, ref, E2E_ATOL, E2E_RTOL)
+    err = check_close(f"{phase}: card vs CPU predictions", card, ref,
+                      E2E_ATOL, E2E_RTOL)
     migs_equal = [p.mig for p in [one] + many] == \
         [p.mig for p in [c_one] + c_many]
-    out = {"phase": "main_path", "card": name_limit,
+    out = {"phase": phase, "card": name_limit,
            "config": {"variant": cfg.variant, "hidden": cfg.hidden,
                       "gnn_blocks": cfg.n_gnn_blocks,
                       "fc_blocks": cfg.n_fc_blocks, "readout": cfg.readout,
@@ -544,9 +770,107 @@ def phase_main_path(torch, cfg, name_limit: str) -> dict:
            "example": {"latency_ms": one.latency_ms, "energy_j": one.energy_j,
                        "memory_mb": one.memory_mb, "mig": one.mig}}
     if not migs_equal:
-        raise AssertionError("MIG advice differs between the card and the CPU")
+        raise AssertionError(f"{phase}: MIG advice differs between the card "
+                             f"and the CPU")
     emit(out)
-    return launches
+    return launches, dippm
+
+
+def phase_serving(torch, dippm, name_limit: str) -> dict:
+    """A burst of submit_json requests from many threads through a
+    dedicated service on the card."""
+    from repro_torch.core import from_json
+    rng = np.random.default_rng(23)
+    shared = [random_dag_doc(rng, int(rng.integers(10, 300)), i)
+              for i in range(SERVE_SHARED)]
+    own = [[random_dag_doc(rng, int(rng.integers(10, 300)),
+                           1000 * (t + 1) + j)
+            for j in range(SERVE_PER_THREAD // 2)]
+           for t in range(SERVE_THREADS)]
+    # the same fingerprint always gets the same key: its index in `docs`
+    docs = shared + [d for ds in own for d in ds]
+    direct = dippm.engine().predict_graphs([from_json(d) for d in docs])
+    kernels = path_kernels(dippm.cfg.variant)
+    results = [[] for _ in range(SERVE_THREADS)]
+    errors = []
+    with dippm.serve(max_wait_ms=2.0) as svc:
+        svc.warmup()
+        torch.cuda.synchronize()
+        for fn, _ in kernels.values():
+            fn.launches = 0
+        start = threading.Barrier(SERVE_THREADS)
+
+        def client(t):
+            r = np.random.default_rng(t)
+            mine = list(range(SERVE_SHARED + t * len(own[0]),
+                              SERVE_SHARED + (t + 1) * len(own[0])))
+            keys = mine + [int(k) for k in r.integers(
+                0, SERVE_SHARED, SERVE_PER_THREAD - len(mine))]
+            r.shuffle(keys)
+            try:
+                start.wait(timeout=SERVE_TIMEOUT)
+                futs = [(k, svc.submit_json(docs[k])) for k in keys]
+                results[t] = [(k, f.result(timeout=SERVE_TIMEOUT))
+                              for k, f in futs]
+            except Exception as e:           # reported on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(SERVE_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=2 * SERVE_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"serving: {len(errors)} client errors "
+                                 f"{errors[:3]}, alive "
+                                 f"{[th.is_alive() for th in threads]}")
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+        st = svc.stats
+    answers = [kp for rs in results for kp in rs]
+    n_req = SERVE_THREADS * SERVE_PER_THREAD
+    if len(answers) != n_req or st.submitted != n_req:
+        raise AssertionError(f"serving: {len(answers)} answers, "
+                             f"{st.submitted} submitted, want {n_req}")
+    if st.submitted != st.completed + st.failed + st.deadline_expired + \
+            st.shed_count or st.failed:
+        raise AssertionError(f"serving: counters do not conserve or a "
+                             f"request failed: {st}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"serving: the batcher launched no kernel "
+                             f"{launches}")
+    vec = lambda p: [p.latency_ms, p.energy_j, p.memory_mb]  # noqa: E731
+    first = {}
+    for k, p in answers:
+        if k in first and vec(p) != first[k]:
+            raise AssertionError(f"serving: document {k} got two different "
+                                 f"answers; a cache hit must be bit-equal")
+        first.setdefault(k, vec(p))
+    got = np.asarray([vec(p) for _, p in answers])
+    want = np.asarray([vec(direct[k]) for k, _ in answers])
+    err = check_close("serving vs direct engine", got, want, E2E_ATOL,
+                      E2E_RTOL)
+    out = {"phase": "serving", "card": name_limit,
+           "variant": dippm.cfg.variant, "threads": SERVE_THREADS,
+           "requests": n_req, "distinct_documents": len(first),
+           "wall_s": wall, "requests_per_s": n_req / wall,
+           "latency_ms_p50": st.latency_ms_p50,
+           "latency_ms_p99": st.latency_ms_p99, "hit_rate": st.hit_rate,
+           "cache": {"hits": st.cache_hits, "coalesced": st.cache_coalesced,
+                     "misses": st.cache_misses},
+           "batches": st.batches, "bins": st.bins,
+           "batch_occupancy": st.batch_occupancy,
+           "counters": {k: getattr(st, k) for k in (
+               "submitted", "completed", "failed", "deadline_expired",
+               "shed_count", "rejected")},
+           "launches": launches,
+           "vs_direct_engine": {"max_abs_err": err,
+                                "atol": E2E_ATOL, "rtol": E2E_RTOL}}
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -564,13 +888,20 @@ def main() -> int:
     from repro_torch.core.gnn import PMGNSConfig, resolve_device
 
     dev = resolve_device("cuda")         # also turns TF32 off
-    cfg = PMGNSConfig(variant="graphsage", layout="packed", precision="f32")
+    sage_cfg = PMGNSConfig(variant="graphsage", layout="packed",
+                           precision="f32")
+    gat_cfg = PMGNSConfig(variant="gat", layout="packed", precision="f32")
     name_limit = phase_device(torch)
     phase_build()
-    entries = phase_kernels(torch, dev, cfg)
-    launches = phase_main_path(torch, cfg, name_limit)
+    entries = phase_kernels(torch, dev, sage_cfg, gat_cfg)
+    launches, _ = phase_path(torch, sage_cfg, name_limit, "main_path")
+    gat_launches, gat_dippm = phase_path(torch, gat_cfg, name_limit,
+                                         "gat_path")
+    phase_serving(torch, gat_dippm, name_limit)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        # each kernel's count from the path that carries it: GraphSAGE
+        # for the first two, GAT for the edge softmax and the aggregate
+        e["launches"] = launches.get(e["name"], gat_launches.get(e["name"]))
     emit({"kernels": entries})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,8 @@
 
 The PMGNS is: 3 × GraphSAGE blocks → graph readout → ``z ⊕ F_s`` →
 3 × FC blocks → 3-way multi-regression head (latency ms, energy J,
-memory MB). Table 4 baselines — GCN, GIN, and a no-GNN MLP — share the
-same skeleton with the message-passing layer swapped.
+memory MB). Table 4 baselines — GCN, GAT, GIN, and a no-GNN MLP — share
+the same skeleton with the message-passing layer swapped.
 
 This is the port of the packed inference path of ``repro.core.gnn``.
 A batch is the packed layout of ``repro_torch.core.batching``:
@@ -15,9 +15,11 @@ A batch is the packed layout of ``repro_torch.core.batching``:
     edge_mask [Q]       1.0 real edge / 0.0 padding
     static [G, D]       per-graph rows
 
-Every message-passing layer is one call of
-:func:`repro_torch.kernels.ops.fused_mp_layer` and the pooling one call
-of :func:`repro_torch.kernels.ops.segment_readout`: the hand-written
+Every SAGE/GCN/GIN layer is one call of
+:func:`repro_torch.kernels.ops.fused_mp_layer`, every GAT layer one call
+each of :func:`~repro_torch.kernels.ops.edge_softmax` and
+:func:`~repro_torch.kernels.ops.fused_gat_aggregate`, and the pooling one
+call of :func:`repro_torch.kernels.ops.segment_readout`: the hand-written
 CUDA kernels for a CUDA tensor, their plain versions for a CPU tensor.
 
 Parameters keep the JAX package's pytree and layout: nested dicts with
@@ -47,10 +49,10 @@ Params = Dict[str, Any]
 TARGET_NAMES = ("latency_ms", "energy_j", "memory_mb")
 N_TARGETS = 3
 
-#: Variants this slice runs, and what the others wait for in ROADMAP.md.
-PORTED_VARIANTS = ("graphsage", "gcn", "gin", "mlp")
-_NOT_PORTED_GAT = ("variant 'gat' is not ported yet: it needs the edge-softmax "
-                   "and GAT-aggregate kernels (ROADMAP.md A9, kernels B3/B4)")
+#: Variants the port runs: all of the JAX package's.
+PORTED_VARIANTS = ("graphsage", "gcn", "gat", "gin", "mlp")
+#: attention heads of a GAT layer (``repro.core.gnn.gat_layer_init``)
+GAT_HEADS = 4
 _NOT_PORTED_LAYOUT = ("repro_torch runs the packed layout only; the dense and "
                       "sparse layouts come with training (ROADMAP.md A11)")
 _NOT_PORTED_COMPOSED = ("fused_mp='off' selects the composed per-op layers, "
@@ -134,8 +136,6 @@ class PMGNSConfig:
 def check_supported(cfg: PMGNSConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration this slice does
     not run, naming the ROADMAP item that ports it."""
-    if cfg.variant == "gat":
-        raise NotImplementedError(_NOT_PORTED_GAT)
     if cfg.variant not in PORTED_VARIANTS:
         raise ValueError(f"unknown variant {cfg.variant!r}")
     if cfg.resolved_layout != "packed":
@@ -184,7 +184,10 @@ def _layer_init(rng: np.random.Generator, variant: str, d_in: int,
                         "l1": nn.linear_init(rng, d_out, d_out)},
                 "eps": np.zeros((), np.float32)}
     if variant == "gat":
-        raise NotImplementedError(_NOT_PORTED_GAT)
+        dh = d_out // GAT_HEADS
+        return {"proj": nn.linear_init(rng, d_in, d_out, bias=False),
+                "att_src": nn.normal_init(rng, (GAT_HEADS, dh)),
+                "att_dst": nn.normal_init(rng, (GAT_HEADS, dh))}
     raise ValueError(f"unknown variant {variant!r}")
 
 
@@ -304,8 +307,11 @@ def _fused_mp_stack(p: Params, cfg: PMGNSConfig, x: torch.Tensor,
     through ``edge_mask`` (both depend only on the graph, so they are
     computed once, outside the loop); GIN's first MLP linear as
     ``sum``/``pre`` with scale ``1 + ε`` — its second linear stays
-    outside, because its bias comes before the node mask; the MLP
-    baseline has no message passing.
+    outside, because its bias comes before the node mask. GAT projects
+    and scores with plain products and gathers (as XLA ran them), then
+    runs the edge softmax and the fused gather ⊙ attention → scatter as
+    kernels; it has no self term. The MLP baseline has no message
+    passing.
     """
     h = x
     blocks = [p["gnn"][f"b{i}"] for i in range(cfg.n_gnn_blocks)]
@@ -335,6 +341,20 @@ def _fused_mp_stack(p: Params, cfg: PMGNSConfig, x: torch.Tensor,
                 mode="sum", combine="pre", self_scale=1.0 + lp["eps"],
                 act="relu")
             h = torch.relu((r @ m1["w"] + m1["b"]) * mask[:, None])
+    elif cfg.variant == "gat":
+        n = x.shape[0]
+        src, dst = edges[:, 0].long(), edges[:, 1].long()
+        dst32 = edges[:, 1].contiguous()[None]
+        for lp in blocks:
+            heads = lp["att_src"].shape[0]
+            z = nn.linear(lp["proj"], h)                 # [P, D]
+            zh = z.reshape(n, heads, -1)
+            es = torch.einsum("phd,hd->ph", zh, lp["att_src"])
+            ed = torch.einsum("phd,hd->ph", zh, lp["att_dst"])
+            s = torch.nn.functional.leaky_relu(ed[dst] + es[src], 0.2)
+            att = ops.edge_softmax(s[None], dst32, edge_mask[None], n)[0]
+            h = torch.relu(ops.fused_gat_aggregate(z, edges, edge_mask, att,
+                                                   mask))
     elif cfg.variant == "mlp":
         for lp in blocks:
             h = torch.relu(nn.linear(lp["lin"], h) * mask[:, None])

@@ -5,15 +5,20 @@
     out = dippm.predict_json(doc)
     out.latency_ms, out.energy_j, out.memory_mb, out.mig, out.tpu_slice
 
-The port of ``repro.core.predictor``. In this slice ``predict_graph``
-and ``predict_many`` run the default :class:`PredictionEngine` directly;
-the JAX package reaches the same ``run_bin`` bins through its default
-``PredictionService``, so the numbers are the same. The serving layer is
-the next slice (ROADMAP A8).
+The port of ``repro.core.predictor``. Every prediction path is a thin
+client of a shared default :class:`~repro_torch.serve.PredictionService`
+over the default engine: ``predict_graph`` is a submit + flush + wait
+round trip, ``predict_many`` a synchronous burst through the same
+micro-batcher. ``DIPPM.serve(**overrides)`` hands out a dedicated service
+for request traffic, and ``save`` writes the pickle-free artifact that
+both packages load. ``predict_jax`` and ``predict_zoo`` wait for the
+torch frontend (ROADMAP.md A13).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -76,6 +81,10 @@ class DIPPM:
                                         device=device)
         self.params = self._engine.params
         self.device = self._engine.device
+        self._service = None
+        #: guards the lazy default service — concurrent first calls must
+        #: share ONE batcher thread, not race into duplicates
+        self._init_lock = threading.Lock()
 
     # -- constructors ---------------------------------------------------------
     @classmethod
@@ -95,6 +104,49 @@ class DIPPM:
         params, cfg, _meta = load_artifact(path)
         return cls(params, cfg, device=device)
 
+    def save(self, path: str, metadata: Optional[Dict[str, Any]] = None,
+             precision: Optional[str] = None) -> str:
+        """Write a v3 artifact (npz params + JSON config) to ``path`` —
+        see :func:`repro_torch.serve.artifact.save_artifact`; the JAX
+        package's ``DIPPM.load`` reads it too."""
+        from ..serve.artifact import save_artifact
+        from .gnn import params_to_numpy
+        return save_artifact(path, params_to_numpy(self.params), self.cfg,
+                             metadata=metadata, precision=precision)
+
+    # -- serving --------------------------------------------------------------
+    def serve(self, **overrides) -> "PredictionService":
+        """A dedicated micro-batching service over this predictor.
+
+        Keyword overrides are :class:`repro_torch.serve.ServeConfig`
+        fields (``max_wait_ms``, ``max_batch_graphs``, ``node_budget``,
+        ``max_queue``, ...). Each call returns a **fresh** service with its
+        own engine (sharing these parameters, on this device) and batcher
+        thread — close it, or use it as a context manager, when done. The
+        facade's own ``predict_*`` methods use a separate shared default
+        service and are unaffected.
+        """
+        from ..serve import PredictionService, ServeConfig
+        return PredictionService(self.params, self.cfg,
+                                 ServeConfig(**overrides), device=self.device)
+
+    def _default_service(self) -> "PredictionService":
+        """The lazily built shared service behind ``predict_graph`` /
+        ``predict_many``. It wraps the default engine, so facade calls
+        and direct engine sweeps share one shape set and one set of
+        stats. A finalizer closes it when this ``DIPPM`` is collected, so
+        a loop over many loaded predictors does not pile up batcher
+        threads."""
+        if self._service is None:
+            from ..serve import PredictionService
+            with self._init_lock:
+                if self._service is None:   # double-checked: one batcher
+                    svc = PredictionService(engine=self._engine)
+                    weakref.finalize(self, PredictionService.close, svc,
+                                     timeout=1.0)
+                    self._service = svc
+        return self._service
+
     # -- prediction -----------------------------------------------------------
     def engine(self, **overrides) -> "PredictionEngine":
         """The batched prediction engine for this predictor.
@@ -112,8 +164,10 @@ class DIPPM:
         return self._engine
 
     def predict_graph(self, g: OpGraph) -> Prediction:
-        """Predict one pre-built :class:`OpGraph`."""
-        return self._engine.predict_graphs([g])[0]
+        """Predict one pre-built :class:`OpGraph`: a synchronous round
+        trip through the shared default service, so concurrent callers
+        coalesce into shared bins."""
+        return self._default_service().predict_one(g)
 
     def predict_json(self, doc: Dict[str, Any]) -> Prediction:
         """Predict a portable serialized graph (``repro.opgraph.v1``)."""
@@ -121,13 +175,16 @@ class DIPPM:
 
     def predict_many(self, graphs: Sequence[OpGraph],
                      return_stats: bool = False):
-        """Predict many graphs at once, bin-packed, preserving input order.
+        """Predict many graphs at once, bin-packed, preserving input order:
+        a synchronous burst through the shared default service (the same
+        bins as a direct engine sweep).
 
         With ``return_stats=True`` returns ``(predictions, stats)`` where
         ``stats`` is a detached
         :class:`~repro_torch.core.engine.EngineStats` snapshot.
         """
-        preds: List[Prediction] = self._engine.predict_graphs(list(graphs))
+        svc = self._default_service()
+        preds: List[Prediction] = svc.predict_many(list(graphs))
         if return_stats:
-            return preds, self._engine.stats.snapshot()
+            return preds, svc.engine.stats.snapshot()
         return preds

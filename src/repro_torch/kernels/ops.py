@@ -52,3 +52,22 @@ def segment_readout(h: torch.Tensor, graph_ids: torch.Tensor,
                                           kind=kind)
     return _ref.segment_readout_ref(h, graph_ids, node_mask, n_graphs,
                                     kind=kind)
+
+
+def edge_softmax(scores: torch.Tensor, dst: torch.Tensor,
+                 edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Per-destination softmax over incoming edges (GAT attention) — see
+    :func:`repro_torch.kernels.ref.edge_softmax_ref`."""
+    fn = (_cuda.edge_softmax_cuda if _route(scores) == "cuda"
+          else _ref.edge_softmax_ref)
+    return fn(scores, dst, edge_mask, n_nodes)
+
+
+def fused_gat_aggregate(z: torch.Tensor, edges: torch.Tensor,
+                        edge_mask: torch.Tensor, att: torch.Tensor,
+                        node_mask: torch.Tensor) -> torch.Tensor:
+    """GAT's gather ⊙ per-head attention → scatter over the packed flat
+    node axis — see :func:`repro_torch.kernels.ref.fused_gat_aggregate_ref`."""
+    fn = (_cuda.fused_gat_aggregate_cuda if _route(z) == "cuda"
+          else _ref.fused_gat_aggregate_ref)
+    return fn(z, edges, edge_mask, att, node_mask)

@@ -59,6 +59,57 @@ def segment_readout_ref(h: torch.Tensor, graph_ids: torch.Tensor,
     return torch.cat([mean, mx], dim=-1)
 
 
+def edge_softmax_ref(scores: torch.Tensor, dst: torch.Tensor,
+                     edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Per-destination softmax over incoming edges, NaN-safe.
+
+    scores: [B, E, H] per-edge (multi-head) attention logits; dst: [B, E]
+    int32; edge_mask: [B, E]. Returns [B, E, H] weights that sum to 1 over
+    each destination's real incoming edges. Padded edges' scores are
+    masked to ``finfo.min`` before the exp, an empty destination's max is
+    zeroed and the denominator floored at ``finfo.tiny``, so a destination
+    with no real incoming edge gives exact zeros, never NaN.
+    """
+    b, e, h = scores.shape
+    neg = torch.finfo(scores.dtype).min
+    live = (edge_mask > 0)[..., None]
+    s = torch.where(live, scores, neg)
+    # flat (b, dst) segment ids, so one scatter covers the whole batch
+    seg = (dst.long() + n_nodes * torch.arange(
+        b, device=dst.device)[:, None]).reshape(-1)
+    m = torch.full((b * n_nodes, h), neg, dtype=scores.dtype,
+                   device=scores.device)
+    m.scatter_reduce_(0, seg[:, None].expand(-1, h), s.reshape(-1, h),
+                      reduce="amax")
+    m = torch.where(m > neg, m, 0.0)
+    p = torch.exp(s.reshape(-1, h) - m[seg]) * edge_mask.reshape(-1, 1)
+    denom = torch.zeros_like(m).index_add_(0, seg, p)
+    denom = denom.clamp_min(torch.finfo(scores.dtype).tiny)
+    return (p / denom[seg]).reshape(b, e, h)
+
+
+def fused_gat_aggregate_ref(z: torch.Tensor, edges: torch.Tensor,
+                            edge_mask: torch.Tensor, att: torch.Tensor,
+                            node_mask: torch.Tensor) -> torch.Tensor:
+    """Fused GAT post-softmax stage: gather ⊙ per-head attention → scatter.
+
+    z: [P, D] projected node features (D = H·dh, heads concatenated);
+    edges: [Q, 2] int32; edge_mask: [Q]; att: [Q, H] per-edge attention
+    (softmax-normalized per destination); node_mask: [P]. Returns [P, D],
+    ``out[i] = Σ_{e: dst_e=i} m_e · α_e[h] ⊙ z[src_e]`` with each head's
+    weight broadcast over its dh slice, times ``node_mask``.
+    """
+    p, d = z.shape
+    h = att.shape[1]
+    if d % h:
+        raise ValueError(f"head count {h} must divide feature dim {d}")
+    src, dst = edges[:, 0].long(), edges[:, 1].long()
+    zs = z.index_select(0, src)
+    msgs = (zs.reshape(-1, h, d // h) * att[:, :, None]).reshape(-1, d)
+    out = torch.zeros_like(z).index_add_(0, dst, msgs * edge_mask[:, None])
+    return out * node_mask[:, None]
+
+
 def fused_mp_layer_ref(x: torch.Tensor, edges: torch.Tensor,
                        edge_mask: torch.Tensor,
                        node_mask: Optional[torch.Tensor] = None, *,

@@ -4,6 +4,10 @@
   (``csrc/fused_mp.cu``), the port of ``fused_mp_layer_pallas``.
 * :func:`segment_readout_cuda` — per-graph mean / mean⊕max pooling
   (``csrc/segment_readout.cu``), the port of ``segment_readout_pallas``.
+* :func:`edge_softmax_cuda` — per-destination softmax of GAT's edge
+  scores (``csrc/edge_softmax.cu``), the port of ``edge_softmax_pallas``.
+* :func:`fused_gat_aggregate_cuda` — GAT's gather ⊙ attention → scatter
+  (``csrc/gat_aggregate.cu``), the port of ``fused_gat_aggregate_pallas``.
 
 Semantics are exactly those of :mod:`repro_torch.kernels.ref`. Each
 wrapper takes CUDA tensors only: it checks device, dtype (float32, int32
@@ -38,6 +42,10 @@ _SIGNATURES = {
                                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "segment_readout_finalize": ("segment_readout",
                                  [_P, _P, _P, _P, _I, _I, _P]),
+    "edge_softmax": ("edge_softmax",
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "fused_gat_aggregate": ("gat_aggregate",
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 _bind_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -225,3 +233,86 @@ def segment_readout_cuda(h: torch.Tensor, graph_ids: torch.Tensor,
 
 
 segment_readout_cuda.launches = 0
+
+
+def edge_softmax_cuda(scores: torch.Tensor, dst: torch.Tensor,
+                      edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Per-destination softmax over incoming edges on the card
+    (``csrc/edge_softmax.cu``).
+
+    scores: [B, E, H] float32; dst: [B, E] int32; edge_mask: [B, E]
+    float32. Returns [B, E, H] weights summing to 1 over each
+    destination's real incoming edges; a destination with none gives
+    exact zeros. ``E = 0`` returns zeros without a launch. One C call of
+    four launches (scratch init, max, exp, normalize).
+    """
+    dev = _cuda_device(scores)
+    if scores.dim() != 3:
+        raise ValueError(f"scores must be [B, E, H], got shape "
+                         f"{tuple(scores.shape)}")
+    b, e, h = scores.shape
+    n = int(n_nodes)
+    if n < 0:
+        raise ValueError(f"n_nodes must be ≥ 0, got {n}")
+    _check_dims(B=b, E=e, H=h, N=n)
+    f32 = torch.float32
+    _check(scores, "scores", f32, (b, e, h), dev)
+    _check(dst, "dst", torch.int32, (b, e), dev)
+    _check(edge_mask, "edge_mask", f32, (b, e), dev)
+    if e == 0:
+        return torch.zeros_like(scores)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out = torch.empty((b, e, h), dtype=f32, device=dev)
+        mx = torch.empty((b * n * h,), dtype=torch.int32, device=dev)
+        den = torch.empty((b * n * h,), dtype=f32, device=dev)
+        _call("edge_softmax", _ptr(scores), _ptr(dst), _ptr(edge_mask),
+              _ptr(out), _ptr(mx), _ptr(den), b, e, h, n, stream)
+    with _count_lock:
+        edge_softmax_cuda.launches += 1
+    return out
+
+
+edge_softmax_cuda.launches = 0
+
+
+def fused_gat_aggregate_cuda(z: torch.Tensor, edges: torch.Tensor,
+                             edge_mask: torch.Tensor, att: torch.Tensor,
+                             node_mask: torch.Tensor) -> torch.Tensor:
+    """GAT's post-softmax gather ⊙ attention → scatter on the card
+    (``csrc/gat_aggregate.cu``).
+
+    z: [P, D] float32 (D = H·dh); edges: [Q, 2] int32 globally offset
+    (src, dst); edge_mask: [Q]; att: [Q, H]; node_mask: [P]. Returns
+    [P, D]. ``Q = 0`` returns zeros without a launch; ``D % H != 0``
+    raises. One launch into a zeroed output.
+    """
+    dev = _cuda_device(z)
+    if z.dim() != 2:
+        raise ValueError(f"z must be [P, D], got shape {tuple(z.shape)}")
+    p, d = z.shape
+    if att.dim() != 2:
+        raise ValueError(f"att must be [Q, H], got shape {tuple(att.shape)}")
+    q, h = att.shape
+    if h <= 0 or d % h:
+        raise ValueError(f"head count {h} must divide feature dim {d}")
+    _check_dims(P=p, D=d, Q=q, H=h)
+    f32 = torch.float32
+    _check(z, "z", f32, (p, d), dev)
+    _check(edges, "edges", torch.int32, (q, 2), dev)
+    _check(edge_mask, "edge_mask", f32, (q,), dev)
+    _check(att, "att", f32, (q, h), dev)
+    _check(node_mask, "node_mask", f32, (p,), dev)
+    with torch.cuda.device(dev):
+        out = torch.zeros((p, d), dtype=f32, device=dev)
+        if q == 0:
+            return out
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _call("fused_gat_aggregate", _ptr(z), _ptr(edges), _ptr(edge_mask),
+              _ptr(att), _ptr(node_mask), _ptr(out), p, d, q, h, stream)
+    with _count_lock:
+        fused_gat_aggregate_cuda.launches += 1
+    return out
+
+
+fused_gat_aggregate_cuda.launches = 0

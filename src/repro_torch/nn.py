@@ -25,6 +25,13 @@ def glorot(rng: np.random.Generator, shape: Tuple[int, ...]) -> np.ndarray:
     return rng.uniform(-lim, lim, size=shape).astype(np.float32)
 
 
+def normal_init(rng: np.random.Generator,
+                shape: Tuple[int, ...]) -> np.ndarray:
+    """Normal float32 array of ``shape`` with standard deviation 0.02
+    (``repro.nn.normal_init``'s default)."""
+    return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+
 def linear_init(rng: np.random.Generator, d_in: int, d_out: int,
                 bias: bool = True) -> Params:
     p = {"w": glorot(rng, (d_in, d_out))}
