@@ -10,13 +10,17 @@ Phases, each printing one JSON line:
 2. ``build`` — builds every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and reports the seconds taken
    and each kernel's registers and spills.
-3. ``kernels`` — each of the four kernels against its plain PyTorch
-   version on the card, over a sweep of edge cases and at the full-width
-   shapes of its path, then the kernel's time (a CUDA graph of 20
-   back-to-back wrapper calls, replayed; median over many replays, per
-   call), the plain version's time,
-   the least time the card could take (``bound_ms``) and the device µs of
-   each CUDA kernel it launches (``torch.profiler``).
+3. ``kernels`` — each kernel against its plain PyTorch version on the
+   card, over a sweep of edge cases and at the full-width shapes of its
+   path (the prediction bins; the training steps of ``train_path`` for
+   ``segment_aggregate``, ``segment_scatter``, ``segment_gather`` and
+   ``dense_aggregate``), and every ``autograd.Function``'s backward on the
+   card against the same backward on the CPU; then the kernel's time (a
+   CUDA graph of 20 back-to-back wrapper calls, replayed; median over many
+   replays, per call), the plain version's time, one library call's time
+   where one computes the same function, the least time the card could
+   take (``bound_ms``) and the device µs of each CUDA kernel it launches
+   (``torch.profiler``).
 4. ``main_path`` — ``DIPPM.from_params`` at the paper's width (GraphSAGE,
    packed, hidden 512, 3 + 3 blocks, random weights from a seed):
    ``warmup(rungs="all")``, seeded ``repro.opgraph.v1`` documents through
@@ -32,6 +36,16 @@ Phases, each printing one JSON line:
    mixed: every future resolves, the counters conserve, cache hits are
    bit-equal to the cold prediction and every answer matches the direct
    engine's; p50/p99 latency and the hit rate are printed.
+7. ``train_path`` — ``train_pmgns`` on the card at the paper's Table 3
+   settings over 400 synthetic graphs: GraphSAGE on the dense layout and
+   on the packed one for 2 epochs each, each against the same run on the
+   CPU's plain versions (per-epoch loss, the first step's gradients, the
+   final parameters); one dense epoch with dropout 0.05; one packed GAT
+   epoch; one sparse GraphSAGE epoch at depth 2. Every run's launch
+   counts are zeroed before and must equal ``train_launch_rule`` after.
+   It prints ms per step, steps/s and the host share of a step, and
+   reloads the trained model through ``save_artifact`` / ``DIPPM.load``
+   to hold one served bin against the trainer's own evaluation.
 
 Then it prints ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
 limit, and, as the last line, ``{"ok": true, "device": {...}}``. Any failed
@@ -72,6 +86,23 @@ SERVE_THREADS, SERVE_PER_THREAD, SERVE_SHARED = 8, 50, 16
 SERVE_TIMEOUT = 120
 #: full packed bin of the engine's default budgets (batching.py:372-405)
 FULL_P, FULL_Q, FULL_G = 4096, 6656, 256
+#: train_path: the paper's width, batch and learning rate (Table 3) over
+#: this many synthetic graphs of 16–200 nodes
+TRAIN_HIDDEN, TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_LR = 512, 400, 32, 2.754e-5
+#: the card's training run vs the same run on the CPU's plain versions:
+#: per-epoch loss (relative) and final parameters, the bar of
+#: tests/test_trainer.py:255-276
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_RTOL = 1e-4, 1e-4, 1e-3
+#: Adam's step is about lr whatever the gradient's size, so an element
+#: whose gradient is float32 noise (|g| near 1e-8 beside a leaf maximum
+#: near 1e-2) takes steps whose signs the two devices' summation orders
+#: decide. Such elements may leave the bar above, in this share of the
+#: parameters at most, and each by no more than the drift of two Adam
+#: trajectories that disagree on every step (2 · steps · lr).
+TRAIN_PARAM_NOISE_SHARE = 1e-4
+#: one step's gradients, card vs CPU, relative to each leaf's largest:
+#: float32 sums in another order through 3 layers, the readout and the head
+TRAIN_GRAD_RTOL = 1e-5
 
 
 def emit(obj: dict) -> None:
@@ -156,14 +187,18 @@ def device_breakdown_us(torch, calls: dict, reps: int = 20) -> dict:
         for evt in prof.key_averages():
             t = getattr(evt, "self_device_time_total", 0.0)
             if t > 0 and not evt.key.startswith("cuda"):
-                # "void (anonymous namespace)::node_gemm_kernel<true>(...)"
-                # -> "node_gemm_kernel"
-                name = evt.key.removeprefix("void ").replace(
-                    "(anonymous namespace)::", "")
-                name = name.split("(")[0].split("<")[0].split("::")[-1]
+                name = kernel_name(evt.key)
                 rows[name] = rows.get(name, 0.0) + t / reps
         out[label] = rows
     return out
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without its signature:
+    "void (anonymous namespace)::node_gemm_kernel<true>(...)" ->
+    "node_gemm_kernel"."""
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1]
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -442,6 +477,214 @@ def sweep_gat_aggregate(torch, dev) -> float:
     return worst
 
 
+def edge_list(rng, b, n, e, weighted, pad=0.25):
+    """``[B, E, 2]`` edges whose rows end in padding ((0, 0), mask 0), with
+    a self-loop and a duplicate among the real edges of every row that has
+    two; nodes no edge reaches are isolated destinations."""
+    edges = np.zeros((b, e, 2), np.int32)
+    em = np.zeros((b, e), np.float32)
+    for i in range(b):
+        real = e - int(e * pad)
+        if real:
+            edges[i, :real] = rng.integers(0, n, (real, 2))
+            em[i, :real] = (rng.uniform(0.2, 2.0, real) if weighted else 1.0)
+        if real >= 2:
+            edges[i, 0, 1] = edges[i, 0, 0]          # a self-loop
+            edges[i, 1] = edges[i, 0]                # and its duplicate
+    return edges, em
+
+
+def sweep_segment(torch, dev) -> dict:
+    """segment_aggregate_cuda, segment_scatter_cuda and segment_gather_cuda
+    against their plain versions: B in {1, 3}, E in {0, 1, 129, 300}, N
+    and F off the tile sizes, sum and mean, weighted masks, self-loops,
+    duplicates, padded and isolated rows, then NaN in a masked row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import (segment_aggregate_cuda,
+                                                  segment_gather_cuda,
+                                                  segment_scatter_cuda)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    worst = {"segment_aggregate": 0.0, "segment_scatter": 0.0,
+             "segment_gather": 0.0}
+    cases = [(b, n, e, f, w) for b in (1, 3) for n, e in
+             ((1, 1), (37, 0), (37, 129), (130, 129), (130, 300))
+             for f in (1, 7, 16, 130) for w in (False, True)]
+    for i, (b, n, e, f, weighted) in enumerate(cases):
+        rng = np.random.default_rng(1000 + i)
+        edges, em = edge_list(rng, b, n, e, weighted)
+        h = rng.standard_normal((b, n, f)).astype(np.float32)
+        msgs = rng.standard_normal((b, e, f)).astype(np.float32)
+        te, tm, th, tg = t(edges), t(em), t(h), t(msgs)
+        if f == 16 and weighted:
+            # a view one float into its storage: the scalar-load kernels
+            th = torch.empty(th.numel() + 1, device=dev)[1:].view(
+                th.shape).copy_(th)
+        for mode in ("sum", "mean"):
+            got, gdeg = segment_aggregate_cuda(te, tm, th, mode,
+                                               return_degree=True)
+            want, wdeg = ref.segment_aggregate_ref(te, tm, th, mode,
+                                                   return_degree=True)
+            torch.cuda.synchronize()
+            worst["segment_aggregate"] = max(
+                worst["segment_aggregate"],
+                check_close(f"segment_aggregate {mode} case {i}", got, want,
+                            KERNEL_ATOL, KERNEL_RTOL),
+                check_close(f"segment degree case {i}", gdeg, wdeg,
+                            KERNEL_ATOL, KERNEL_RTOL))
+        got = segment_scatter_cuda(te[..., 1], tm, tg, n)
+        want = ref.segment_scatter_ref(te[..., 1], tm, tg, n)
+        got_g = segment_gather_cuda(th, te[..., 0], tm)
+        want_g = ref.segment_gather_ref(th, te[..., 0], tm)
+        torch.cuda.synchronize()
+        worst["segment_scatter"] = max(worst["segment_scatter"], check_close(
+            f"segment_scatter case {i}", got, want, KERNEL_ATOL, KERNEL_RTOL))
+        worst["segment_gather"] = max(worst["segment_gather"], check_close(
+            f"segment_gather case {i}", got_g, want_g, KERNEL_ATOL,
+            KERNEL_RTOL))
+    # NaN in a masked row: edge 2 is masked and its source row (and
+    # message) is NaN; NaN·0 reaches its destination in both versions
+    rng = np.random.default_rng(77)
+    edges, em = edge_list(rng, 2, 40, 64, True)
+    edges[1, edges[1, :, 0] == 39, 0] = 0            # no real edge leaves 39
+    edges[1, 2] = (39, 5)
+    em[1, 2] = 0.0
+    h = rng.standard_normal((2, 40, 9)).astype(np.float32)
+    h[1, 39] = np.nan
+    msgs = rng.standard_normal((2, 64, 9)).astype(np.float32)
+    msgs[1, 2] = np.nan
+    te, tm = t(edges), t(em)
+    for mode in ("sum", "mean"):
+        got = segment_aggregate_cuda(te, tm, t(h), mode)
+        want = ref.segment_aggregate_ref(te, tm, t(h), mode)
+        torch.cuda.synchronize()
+        check_close_nan(f"segment_aggregate {mode} NaN in a masked row", got,
+                        want, KERNEL_ATOL, KERNEL_RTOL)
+        if not bool(torch.isnan(got[1, 5]).all()):
+            raise AssertionError("segment_aggregate: NaN·0 of a masked edge "
+                                 "did not reach its destination")
+    got = segment_scatter_cuda(te[..., 1], tm, t(msgs), 40)
+    want = ref.segment_scatter_ref(te[..., 1], tm, t(msgs), 40)
+    torch.cuda.synchronize()
+    check_close_nan("segment_scatter NaN in a masked row", got, want,
+                    KERNEL_ATOL, KERNEL_RTOL)
+    return worst
+
+
+def sweep_dense(torch, dev) -> float:
+    """dense_aggregate_cuda against its plain version: B in {1, 3}, N and F
+    off the tile sizes, sum and mean, 0/1 and weighted adjacency,
+    transposed with a row scale (the backward's form), degree out, and NaN
+    in a row of h."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sage_spmm import dense_aggregate_cuda
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    worst = 0.0
+    cases = [(b, n, f) for b in (1, 3) for n, f in
+             ((1, 1), (5, 7), (32, 32), (130, 70), (256, 512), (257, 130))]
+    for i, (b, n, f) in enumerate(cases):
+        rng = np.random.default_rng(2000 + i)
+        adj = (rng.random((b, n, n)) < 0.05).astype(np.float32)
+        if i % 2:
+            adj *= rng.uniform(0.1, 1.0, adj.shape).astype(np.float32)
+        h = rng.standard_normal((b, n, f)).astype(np.float32)
+        scale = rng.uniform(0.2, 1.0, (b, n)).astype(np.float32)
+        for mode in ("sum", "mean"):
+            for trans, sc in ((False, None), (True, scale), (True, None)):
+                kw = dict(scale=None if sc is None else t(sc),
+                          transpose=trans, return_degree=True)
+                got, gdeg = dense_aggregate_cuda(t(adj), t(h), mode, **kw)
+                want, wdeg = ref.dense_aggregate_ref(t(adj), t(h), mode, **kw)
+                torch.cuda.synchronize()
+                worst = max(worst, check_close(
+                    f"dense_aggregate {mode} trans={trans} case {(b, n, f)}",
+                    got, want, KERNEL_ATOL, KERNEL_RTOL),
+                    check_close(f"dense degree case {(b, n, f)}", gdeg, wdeg,
+                                KERNEL_ATOL, KERNEL_RTOL))
+    rng = np.random.default_rng(2100)
+    adj = (rng.random((2, 64, 64)) < 0.1).astype(np.float32)
+    h = rng.standard_normal((2, 64, 16)).astype(np.float32)
+    h[1, 7, 3] = np.nan
+    for mode in ("sum", "mean"):
+        got = dense_aggregate_cuda(t(adj), t(h), mode)
+        want = ref.dense_aggregate_ref(t(adj), t(h), mode)
+        torch.cuda.synchronize()
+        check_close_nan(f"dense_aggregate {mode} NaN in h", got, want,
+                        KERNEL_ATOL, KERNEL_RTOL)
+    return worst
+
+
+def backward_cases(rng) -> list:
+    """(name, differentiable entry of ops, numpy inputs, index of the input
+    that takes the gradient) for each autograd.Function, on the edge
+    cases."""
+    from repro_torch.kernels import ops
+    out = []
+    for b, n, e, f in ((1, 37, 0, 8), (3, 130, 300, 7), (2, 64, 129, 64)):
+        edges, em = edge_list(rng, b, n, e, True)
+        h = rng.standard_normal((b, n, f)).astype(np.float32)
+        msgs = rng.standard_normal((b, e, f)).astype(np.float32)
+        for mode in ("sum", "mean"):
+            out.append((f"segment_aggregate {mode} {(b, n, e, f)}",
+                        lambda x, y, z, m=mode: ops.segment_aggregate(
+                            x, y, z, m), [edges, em, h], 2))
+        out.append((f"segment_scatter {(b, n, e, f)}",
+                    lambda x, y, z, n=n: ops.segment_scatter(x, y, z, n),
+                    [edges[..., 1].copy(), em, msgs], 2))
+        out.append((f"segment_gather {(b, n, e, f)}", ops.segment_gather,
+                    [h, edges[..., 0].copy(), em], 0))
+        heads = 4
+        s = rng.standard_normal((b, e, heads)).astype(np.float32) * 3
+        out.append((f"edge_softmax {(b, n, e)}",
+                    lambda x, y, z, n=n: ops.edge_softmax(x, y, z, n),
+                    [s, edges[..., 1].copy(), (em > 0).astype(np.float32)],
+                    0))
+    for b, n, f in ((1, 5, 3), (3, 130, 70), (2, 256, 64)):
+        adj = (rng.random((b, n, n)) < 0.05).astype(np.float32)
+        h = rng.standard_normal((b, n, f)).astype(np.float32)
+        for mode in ("sum", "mean"):
+            out.append((f"dense_aggregate {mode} {(b, n, f)}",
+                        lambda x, y, m=mode: ops.dense_aggregate(x, y, m),
+                        [adj, h], 1))
+    for p, f, g in ((64, 5, 6), (300, 16, 12)):
+        # small integers tie within a graph; the last graph stays empty
+        h = rng.integers(-2, 3, (p, f)).astype(np.float32)
+        ids = np.sort(rng.integers(0, g - 1, p)).astype(np.int32)
+        nm = (rng.random(p) < 0.85).astype(np.float32)
+        for kind in ("mean", "mean_max"):
+            out.append((f"segment_readout {kind} {(p, f, g)}",
+                        lambda x, y, z, g=g, k=kind: ops.segment_readout(
+                            x, y, z, g, kind=k), [h, ids, nm], 0))
+    return out
+
+
+def sweep_backward(torch, dev) -> dict:
+    """Each autograd.Function's backward on the card (its kernels) against
+    the same backward on the CPU (the plain versions), same inputs and
+    the same upstream gradient; the worst error per kernel."""
+    worst = {}
+    rng = np.random.default_rng(3000)
+    for name, fn, arrays, k in backward_cases(rng):
+        grads, outs = [], []
+        for d in (dev, torch.device("cpu")):
+            ts = [torch.as_tensor(a, device=d) for a in arrays]
+            ts[k].requires_grad_(True)
+            y = fn(*ts)
+            gout = torch.as_tensor(np.random.default_rng(len(name))
+                                   .standard_normal(tuple(y.shape))
+                                   .astype(np.float32), device=d)
+            y.backward(gout)
+            outs.append(y.detach())
+            grads.append(ts[k].grad)
+        torch.cuda.synchronize()
+        kern = name.split()[0]
+        worst[kern] = max(worst.get(kern, 0.0),
+                          check_close(f"{name} forward", outs[0], outs[1],
+                                      KERNEL_ATOL, KERNEL_RTOL),
+                          check_close(f"{name} backward", grads[0], grads[1],
+                                      KERNEL_ATOL, KERNEL_RTOL))
+    return worst
+
+
 def full_bin(torch, dev, cfg):
     """The first (fullest) packed bin of a seeded synthetic bulk, staged
     as the engine stages it, and full-width random weights for ``cfg``
@@ -657,17 +900,204 @@ def gat_kernel_entries(torch, dev, cfg) -> tuple:
     return entries, breakdown, info
 
 
+def train_steps(layout: str) -> dict:
+    """The first step of the training segment with the largest node
+    axis, as ``train_pmgns`` stacks the ``train_path`` data in epoch 0."""
+    from repro_torch.core.batching import stack_epoch_segments
+    from repro_torch.dataset.builder import synthetic_samples
+    from repro_torch.train.gnn_trainer import _epoch_rng
+    samples = synthetic_samples(TRAIN_SAMPLES, seed=1, n_min=16, n_max=200)
+    segs = stack_epoch_segments(samples, TRAIN_BATCH, rng=_epoch_rng(0, 0),
+                                layout=layout)
+    seg = max(segs, key=lambda sg: sg["x"].shape[-2])
+    return {k: v[0] for k, v in seg.items()}
+
+
+def train_kernel_entries(torch, dev) -> tuple:
+    """segment_aggregate, segment_scatter, segment_gather and
+    dense_aggregate at the full-width training shapes of ``train_path``
+    (hidden 512), held against their plain versions and timed beside
+    their bound, plain version and library call; the sweeps of all three
+    sources and of every autograd.Function's backward."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sage_spmm import dense_aggregate_cuda
+    from repro_torch.kernels.segment_spmm import (segment_aggregate_cuda,
+                                                  segment_gather_cuda,
+                                                  segment_scatter_cuda)
+    sweep = sweep_segment(torch, dev)
+    sweep["dense_aggregate"] = sweep_dense(torch, dev)
+    back = sweep_backward(torch, dev)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    rng = np.random.default_rng(4000)
+    hid = TRAIN_HIDDEN
+
+    # packed step: B=1 over the flat axis (B5 forward; B6 and the gather
+    # at GAT's projected width)
+    pk = train_steps("packed")
+    edges, em = t(pk["edges"][None]), t(pk["edge_mask"][None])
+    p_nodes, q = pk["x"].shape[0], pk["edges"].shape[0]
+    q_real = int(pk["edge_mask"].sum())
+    h = t(rng.standard_normal((1, p_nodes, hid)).astype(np.float32))
+    msgs = t(rng.standard_normal((1, q, hid)).astype(np.float32))
+    dst, src = edges[..., 1], edges[..., 0]
+    # dense step: the largest bucket
+    dn = train_steps("dense")
+    adj = t(dn["adj"])
+    b, n = adj.shape[:2]
+    nnz = int((dn["adj"] != 0).sum())
+    hd = t(rng.standard_normal((b, n, hid)).astype(np.float32))
+    deg = adj.sum(-1)
+    inv = (1.0 / deg.clamp_min(1.0)).contiguous()
+
+    pairs = {
+        "segment_aggregate": (
+            lambda: segment_aggregate_cuda(edges, em, h, "mean"),
+            lambda: ref.segment_aggregate_ref(edges, em, h, "mean")),
+        "segment_scatter": (
+            lambda: segment_scatter_cuda(dst, em, msgs, p_nodes),
+            lambda: ref.segment_scatter_ref(dst, em, msgs, p_nodes)),
+        "segment_gather": (
+            lambda: segment_gather_cuda(h, src),
+            lambda: ref.segment_gather_ref(h, src)),
+        "dense_aggregate": (
+            lambda: dense_aggregate_cuda(adj, hd, "mean"),
+            lambda: ref.dense_aggregate_ref(adj, hd, "mean")),
+        "dense_aggregate_backward": (
+            lambda: dense_aggregate_cuda(adj, hd, "sum", scale=inv,
+                                         transpose=True),
+            lambda: ref.dense_aggregate_ref(adj, hd, "sum", scale=inv,
+                                            transpose=True)),
+        "dense_aggregate_sum": (
+            lambda: dense_aggregate_cuda(adj, hd, "sum"),
+            lambda: ref.dense_aggregate_ref(adj, hd, "sum")),
+    }
+    err, times = {}, {}
+    for name, (kern, plain) in pairs.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err[name] = check_close(f"{name} at training width", got, want,
+                                KERNEL_ATOL, KERNEL_RTOL)
+        times[name] = {"ms": time_graph_ms(torch, kern),
+                       "plain_ms": time_graph_ms(torch, plain)}
+    # one PyTorch call each that computes the same function
+    flat_dst = (dst.long() + 0).reshape(-1)
+    weighted = (msgs * em[..., None]).reshape(-1, hid).contiguous()
+    h2 = h[0]
+    src_flat = src.reshape(-1).long()
+    library = {
+        "segment_scatter": time_graph_ms(torch, lambda: torch.zeros(
+            (p_nodes, hid), device=dev).index_add_(0, flat_dst, weighted)),
+        "segment_gather": time_graph_ms(
+            torch, lambda: torch.index_select(h2, 0, src_flat)),
+        "dense_aggregate_sum": time_graph_ms(torch,
+                                             lambda: torch.bmm(adj, hd)),
+    }
+    us = device_breakdown_us(torch, {k: v[0] for k, v in pairs.items()})
+
+    # bounds: each input read once, each output written once; the
+    # operations this run's data needs (real edges; the adjacency's
+    # nonzeros, which the dense product does not skip)
+    bounds = {
+        "segment_aggregate": bound_ms(
+            2.0 * q_real * hid + p_nodes * hid,
+            4.0 * (2 * p_nodes * hid + 3 * q + p_nodes)),
+        "segment_scatter": bound_ms(
+            2.0 * q_real * hid, 4.0 * (q * hid + 2 * q + p_nodes * hid)),
+        "segment_gather": bound_ms(0.0, 4.0 * (p_nodes * hid + q
+                                              + q * hid)),
+        "dense_aggregate": bound_ms(
+            2.0 * nnz * hid + b * n * hid + b * n * n,
+            4.0 * (b * n * n + 2 * b * n * hid)),
+    }
+    src_root = "src/repro_torch/kernels/csrc/"
+    shapes_p = f"B=1 N={p_nodes} E={q} ({q_real} real) F={hid}"
+    entries = [
+        {"name": "segment_aggregate", "route": "cuda",
+         "source": src_root + "segment_aggregate.cu",
+         "replaces": "src/repro/kernels/segment_spmm.py:125",
+         "launches": None,
+         "max_abs_err": max(err["segment_aggregate"],
+                            sweep["segment_aggregate"],
+                            back.get("segment_aggregate", 0.0)),
+         **times["segment_aggregate"],
+         "bound_ms": bounds["segment_aggregate"][0],
+         "bound_by": bounds["segment_aggregate"][1], "library_ms": None,
+         "unit": f"one packed training layer, mean: {shapes_p}",
+         "library_note": "no single PyTorch call gathers, weights, "
+                         "scatters and divides by the weighted degree"},
+        {"name": "segment_scatter", "route": "cuda",
+         "source": src_root + "segment_aggregate.cu",
+         "replaces": "src/repro/kernels/segment_spmm.py:177",
+         "launches": None,
+         "max_abs_err": max(err["segment_scatter"], sweep["segment_scatter"],
+                            back.get("segment_scatter", 0.0)),
+         **times["segment_scatter"],
+         "bound_ms": bounds["segment_scatter"][0],
+         "bound_by": bounds["segment_scatter"][1],
+         "library_ms": library["segment_scatter"],
+         "unit": f"one packed GAT layer's scatter: {shapes_p}",
+         "library_note": "index_add_ of the pre-weighted messages into a "
+                         "fresh zero tensor, flattened"},
+        {"name": "segment_gather", "route": "cuda",
+         "source": src_root + "segment_aggregate.cu",
+         "replaces": "src/repro/kernels/segment_spmm.py:53",
+         "launches": None,
+         "max_abs_err": max(err["segment_gather"], sweep["segment_gather"],
+                            back.get("segment_gather", 0.0)),
+         **times["segment_gather"],
+         "bound_ms": bounds["segment_gather"][0],
+         "bound_by": bounds["segment_gather"][1],
+         "library_ms": library["segment_gather"],
+         "unit": f"one packed GAT layer's z[src] gather: {shapes_p}",
+         "library_note": "index_select of the flat rows"},
+        {"name": "dense_aggregate", "route": "cuda",
+         "source": src_root + "dense_aggregate.cu",
+         "replaces": "src/repro/kernels/sage_spmm.py:42",
+         "launches": None,
+         "max_abs_err": max(err["dense_aggregate"],
+                            err["dense_aggregate_backward"],
+                            err["dense_aggregate_sum"],
+                            sweep["dense_aggregate"],
+                            back.get("dense_aggregate", 0.0)),
+         **times["dense_aggregate"],
+         "bound_ms": bounds["dense_aggregate"][0],
+         "bound_by": bounds["dense_aggregate"][1],
+         "library_ms": library["dense_aggregate_sum"],
+         "unit": f"one dense training layer, mean: B={b} N={n} F={hid} "
+                 f"({nnz} nonzeros of {b * n * n})",
+         "sum_ms": times["dense_aggregate_sum"]["ms"],
+         "backward_ms": times["dense_aggregate_backward"]["ms"],
+         "dense_product_flops": 2.0 * b * n * n * hid,
+         "library_note": "torch.bmm(adj, h): the sum form; compare with "
+                         "sum_ms"},
+    ]
+    info = {"train_shapes": {"packed": shapes_p,
+                             "dense": f"B={b} N={n} F={hid}"},
+            "device_us_per_call": us,
+            "sweep_max_abs_err": sweep, "backward_max_abs_err": back}
+    return entries, info
+
+
 def phase_kernels(torch, dev, sage_cfg, gat_cfg) -> list:
     t0 = time.perf_counter()
     sage, sage_us, sage_info = sage_kernel_entries(torch, dev, sage_cfg)
     gat, gat_us, gat_info = gat_kernel_entries(torch, dev, gat_cfg)
-    entries = sage + gat
+    train, train_info = train_kernel_entries(torch, dev)
+    back = train_info["backward_max_abs_err"]
+    for e in sage + gat:
+        # the backward passes of the readout and the edge softmax
+        e["max_abs_err"] = max(e["max_abs_err"], back.get(e["name"], 0.0))
+    entries = sage + gat + train
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
           **sage_info, "gat_real_edges": gat_info["gat_real_edges"],
           "sweep_max_abs_err": {**sage_info["sweep_max_abs_err"],
-                                **gat_info["sweep_max_abs_err"]},
+                                **gat_info["sweep_max_abs_err"],
+                                **train_info["sweep_max_abs_err"]},
+          "backward_max_abs_err": back,
+          "train_shapes": train_info["train_shapes"],
           "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
-          "device_us_per_call": {**sage_us, **gat_us},
+          "device_us_per_call": {**sage_us, **gat_us,
+                                 **train_info["device_us_per_call"]},
           "kernels": entries})
     return entries
 
@@ -873,6 +1303,267 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
     return out
 
 
+#: every wrapper, so a training run can show it launched none it should not
+TRAIN_WRAPPERS = ("segment_aggregate", "segment_scatter", "segment_gather",
+                  "dense_aggregate", "segment_readout", "edge_softmax",
+                  "fused_mp_layer", "fused_gat_aggregate")
+
+
+def wrapper(name: str):
+    from repro_torch.kernels import sage_spmm, segment_spmm
+    mod = sage_spmm if name == "dense_aggregate" else segment_spmm
+    return getattr(mod, f"{name}_cuda")
+
+
+def train_launch_rule(cfg, steps: int) -> dict:
+    """The launches each wrapper counts in ``steps`` training steps of
+    ``cfg`` (L message-passing layers):
+
+    * GraphSAGE: the aggregation (``dense_aggregate`` on the dense
+      layout, ``segment_aggregate`` on the others) once per layer
+      forward, and once per layer backward for every layer whose input
+      requires grad — all but the first, whose input is the data:
+      ``steps · (2L − 1)``.
+    * GAT on an edge list: per layer forward three gathers (``ed[dst]``,
+      ``es[src]``, ``z[src]``), one edge softmax and one scatter; per layer
+      backward a scatter for each gather, a scatter and a gather for the
+      softmax, and a gather for the scatter: ``5L`` gathers, ``5L``
+      scatters and ``L`` softmaxes a step.
+    * The packed readout: once forward; backward one gather of the max
+      (mean⊕max), one scatter of the counts and ties, one gather of the
+      per-graph gradient.
+    * The fused inference kernels: never.
+    """
+    n_layers = cfg.n_gnn_blocks
+    layout = cfg.resolved_layout
+    want = dict.fromkeys(TRAIN_WRAPPERS, 0)
+    if cfg.variant == "graphsage":
+        agg = "dense_aggregate" if layout == "dense" else "segment_aggregate"
+        want[agg] = steps * (2 * n_layers - 1)
+    elif cfg.variant == "gat" and layout != "dense":
+        want["segment_gather"] = steps * 5 * n_layers
+        want["segment_scatter"] = steps * 5 * n_layers
+        want["edge_softmax"] = steps * n_layers
+    else:
+        raise ValueError(f"no launch rule for {cfg.variant} on {layout}")
+    if layout == "packed":
+        want["segment_readout"] += steps
+        want["segment_gather"] += steps * (
+            2 if cfg.readout == "mean_max" else 1)
+        want["segment_scatter"] += steps
+    return want
+
+
+def device_busy_ms(torch, fn) -> tuple:
+    """Device milliseconds of every kernel and copy that ``fn()`` runs,
+    from ``torch.profiler``, and the ten largest by kernel name; 0.0
+    and {} where it recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if t > 0 and not e.key.startswith("cuda"):
+            name = kernel_name(e.key)
+            rows[name] = rows.get(name, 0.0) + t / 1e3
+    top = dict(sorted(rows.items(), key=lambda kv: -kv[1])[:10])
+    return sum(rows.values()), top
+
+
+def train_run(torch, cfg, samples, epochs: int, phase: str,
+              compare_cpu: bool) -> dict:
+    """``train_pmgns`` on the card (``device=None``) with the launch
+    counts zeroed before and checked after; optionally the same run on
+    the CPU's plain versions, held to the trainer's parity bar."""
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
+    tcfg = TrainConfig(epochs=epochs, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                       seed=0)
+    for name in TRAIN_WRAPPERS:
+        wrapper(name).launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, hist = train_pmgns(cfg, samples, (), tcfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: wrapper(n).launches for n in TRAIN_WRAPPERS}
+    steps = sum(r["steps"] for r in hist)
+    want = train_launch_rule(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches} != the rule's "
+                             f"{want} over {steps} steps")
+    losses = [r["train_loss"] for r in hist]
+    leaves = [np.asarray(v) for v in tree_leaves(params)]
+    if not (np.isfinite(losses).all()
+            and all(np.isfinite(v).all() for v in leaves)):
+        raise AssertionError(f"{phase}: non-finite losses {losses} or "
+                             f"parameters")
+    last = hist[-1]
+    out = {"config": {"variant": cfg.variant, "layout": cfg.resolved_layout,
+                      "hidden": cfg.hidden, "gnn_blocks": cfg.n_gnn_blocks,
+                      "fc_blocks": cfg.n_fc_blocks, "readout": cfg.readout,
+                      "dropout": cfg.dropout},
+           "epochs": epochs, "steps": steps, "losses": losses,
+           "wall_s": wall, "launches": launches,
+           "ms_per_step": 1e3 * last["seconds"] / last["steps"],
+           "steps_per_s": last["steps"] / last["seconds"]}
+    if compare_cpu:
+        c_params, c_hist = train_pmgns(cfg, samples, (), tcfg, device="cpu")
+        c_losses = [r["train_loss"] for r in c_hist]
+        loss_err = rel_err(losses, c_losses)
+        if loss_err > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{phase}: losses {losses} vs the CPU's "
+                                 f"{c_losses}: relative {loss_err:.3e}")
+        out["vs_cpu"] = {"cpu_losses": c_losses, "loss_rel_err": loss_err,
+                         "loss_rtol": TRAIN_LOSS_RTOL,
+                         "first_step_grads": step_grads_vs_cpu(
+                             torch, cfg, samples, phase),
+                         **params_vs_cpu(leaves, tree_leaves(c_params), steps,
+                                         phase)}
+    return out, params
+
+
+def params_vs_cpu(card: list, cpu: list, steps: int, phase: str) -> dict:
+    """The trained parameters against the CPU's at the trainer's bar,
+    with the Adam-noise allowance of ``TRAIN_PARAM_NOISE_SHARE``."""
+    drift = 2.0 * steps * TRAIN_LR
+    over, total, worst, worst_leaf = 0, 0, 0.0, None
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        d = np.abs(a - b)
+        over += int((d > TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * np.abs(b))
+                    .sum())
+        total += d.size
+        if d.size and d.max() > worst:
+            worst, worst_leaf = float(d.max()), i
+    out = {"param_max_abs_err": worst, "param_worst_leaf": worst_leaf,
+           "params_outside_bar": over, "params_total": total,
+           "param_atol": TRAIN_PARAM_ATOL, "param_rtol": TRAIN_PARAM_RTOL,
+           "noise_share_allowed": TRAIN_PARAM_NOISE_SHARE,
+           "adam_drift_bound": drift}
+    if over > TRAIN_PARAM_NOISE_SHARE * total or \
+            worst > TRAIN_PARAM_ATOL + drift:
+        raise AssertionError(f"{phase}: parameters vs the CPU: {out}")
+    return out
+
+
+def step_grads_vs_cpu(torch, cfg, samples, phase: str) -> dict:
+    """The first training step's gradients on the card against the CPU's,
+    from the trainer's initial tree and its first batch."""
+    from repro_torch.core.batching import stack_epoch_segments
+    from repro_torch.core import gnn
+    from repro_torch.train import gnn_trainer as gt
+    seg = stack_epoch_segments(samples, TRAIN_BATCH, rng=gt._epoch_rng(0, 0),
+                               layout=cfg.resolved_layout)[0]
+    batch = {k: v[0] for k, v in seg.items()}
+    mean, std = gt._target_stats(samples)
+    grads = []
+    for d in (gnn.resolve_device(None), torch.device("cpu")):
+        model = gnn.params_from_numpy(gnn.pmgns_init(0, cfg), cfg, d,
+                                      requires_grad=True)
+        t = lambda a: torch.as_tensor(a, device=d)  # noqa: E731
+        wl, wn = gt._loss_terms(model.tree(), cfg,
+                                {k: t(v) for k, v in batch.items()}, None,
+                                1.0, t(mean), t(std))
+        grads.append([g.cpu().numpy() for g in torch.autograd.grad(
+            wl / wn, gt.tree_leaves(model.tree()))])
+    worst = 0.0
+    for a, b in zip(*grads):
+        err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if err > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{phase}: first-step gradient of a leaf "
+                                 f"{b.shape} differs from the CPU's by "
+                                 f"{err:.3e} of its largest element")
+        worst = max(worst, err)
+    return {"max_rel_to_leaf_max": worst, "rtol": TRAIN_GRAD_RTOL}
+
+
+def reload_check(torch, params, cfg) -> dict:
+    """The trained parameters through ``save_artifact`` and
+    ``DIPPM.load`` on a packed config, one ``predict_samples`` bin against
+    the trainer's own evaluation of the same bin."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core import DIPPM
+    from repro_torch.core.batching import (collate_packed, next_pow2,
+                                           pack_graphs,
+                                           resolve_packed_budgets)
+    from repro_torch.core.gnn import params_from_numpy
+    from repro_torch.dataset.builder import synthetic_samples
+    from repro_torch.serve.artifact import save_artifact
+    from repro_torch.train.gnn_trainer import _eval_batch
+    packed = dataclasses.replace(cfg, layout="packed")
+    val = synthetic_samples(48, seed=5, n_min=16, n_max=200)
+    budgets = resolve_packed_budgets(min(
+        next_pow2(TRAIN_BATCH * 256),
+        next_pow2(sum(s.n_nodes for s in val))))
+    chunk = [val[j] for j in pack_graphs(val, *budgets)[0]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trained.npz")
+        save_artifact(path, params, packed)
+        dippm = DIPPM.load(path)                    # on the card
+        got = dippm.engine().predict_samples(chunk)
+    dev = dippm.device
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in collate_packed(chunk, *budgets).items()}
+    _, _, want = _eval_batch(params_from_numpy(params, packed, dev).tree(),
+                             packed, batch)
+    err = check_close("train_path: reloaded predictions vs the trainer's",
+                      got, want[:len(chunk)], E2E_ATOL, E2E_RTOL)
+    return {"graphs": len(chunk), "max_abs_err": err,
+            "max_rel_err": rel_err(got, want[:len(chunk)])}
+
+
+def phase_train(torch, name_limit: str) -> dict:
+    """Train the PMGNS on the card through ``train_pmgns``: GraphSAGE at
+    the paper's width on the dense layout (the default) and the packed
+    one, each held against the CPU; a dropout epoch; packed GAT; sparse
+    GraphSAGE at a smaller depth; the trained model reloaded and served."""
+    import dataclasses
+    from repro_torch.core.gnn import PMGNSConfig
+    from repro_torch.dataset.builder import synthetic_samples
+    t0 = time.perf_counter()
+    samples = synthetic_samples(TRAIN_SAMPLES, seed=1, n_min=16, n_max=200)
+    sage = PMGNSConfig(variant="graphsage", hidden=TRAIN_HIDDEN, dropout=0.0)
+    runs = {}
+    runs["dense"], _ = train_run(torch, sage, samples, 2, "train dense",
+                                 compare_cpu=True)
+    packed_cfg = dataclasses.replace(sage, layout="packed")
+    runs["packed"], packed_params = train_run(
+        torch, packed_cfg, samples, 2, "train packed", compare_cpu=True)
+    runs["dense_dropout"], _ = train_run(
+        torch, dataclasses.replace(sage, dropout=0.05), samples, 1,
+        "train dense dropout", compare_cpu=False)
+    runs["gat_packed"], _ = train_run(
+        torch, dataclasses.replace(packed_cfg, variant="gat"), samples, 1,
+        "train packed GAT", compare_cpu=False)
+    runs["sparse"], _ = train_run(
+        torch, dataclasses.replace(sage, layout="sparse", n_gnn_blocks=2),
+        samples, 1, "train sparse", compare_cpu=False)
+    from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
+    one = TrainConfig(epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR)
+    for key, cfg in (("dense", sage), ("packed", packed_cfg)):
+        r = runs[key]
+        steps = r["steps"] // 2
+        busy, top = device_busy_ms(torch, lambda: train_pmgns(
+            cfg, samples, (), one))
+        r["device_busy_ms_per_step"] = busy / steps
+        r["device_ms_per_step_by_kernel"] = {k: v / steps
+                                             for k, v in top.items()}
+        r["host_share"] = (1.0 - r["device_busy_ms_per_step"]
+                           / r["ms_per_step"]) if busy else None
+    out = {"phase": "train_path", "card": name_limit,
+           "samples": TRAIN_SAMPLES, "batch_size": TRAIN_BATCH,
+           "lr": TRAIN_LR, "runs": runs,
+           "reload": reload_check(torch, packed_params, packed_cfg),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -898,10 +1589,22 @@ def main() -> int:
     gat_launches, gat_dippm = phase_path(torch, gat_cfg, name_limit,
                                          "gat_path")
     phase_serving(torch, gat_dippm, name_limit)
+    train = phase_train(torch, name_limit)
+    train_launches = {
+        "segment_aggregate": train["runs"]["packed"]["launches"],
+        "dense_aggregate": train["runs"]["dense"]["launches"],
+        "segment_scatter": train["runs"]["gat_packed"]["launches"],
+        "segment_gather": train["runs"]["gat_packed"]["launches"],
+    }
     for e in entries:
         # each kernel's count from the path that carries it: GraphSAGE
-        # for the first two, GAT for the edge softmax and the aggregate
-        e["launches"] = launches.get(e["name"], gat_launches.get(e["name"]))
+        # for the first two, GAT for the edge softmax and the aggregate,
+        # the training run that carries each of the others
+        name = e["name"]
+        if name in train_launches:
+            e["launches"] = train_launches[name][name]
+        else:
+            e["launches"] = launches.get(name, gat_launches.get(name))
     emit({"kernels": entries})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,17 @@
-"""Packed graph batching: the prediction path's batch layout.
+"""Graph batching in the three layouts of ``repro.core.batching``.
 
-The port's copy of the packed subset of ``repro.core.batching``, numpy
-as there. A set of graphs is flattened into **one node axis** —
+The port's copy of ``repro.core.batching``, numpy as there, so that the
+same samples and the same ``rng`` give exactly equal arrays:
+
+* **dense** (:func:`collate`): every graph pads to a node bucket ``N``
+  and the batch carries ``adj [B, N, N]``; aggregation is a batched
+  product (``repro_torch.kernels.ops.dense_aggregate``).
+* **sparse** (``collate(..., sparse=True)``): the batch carries a padded
+  edge list ``edges [B, E, 2]`` + ``edge_mask [B, E]`` with ``E``
+  rounded up to an edge bucket; aggregation is gather → segment-scatter
+  (``repro_torch.kernels.ops.segment_aggregate``).
+* **packed** (:func:`pack_graphs` + :func:`collate_packed`, the
+  prediction path): a set of graphs is flattened into **one node axis** —
 ``x [P, F]`` with a ``graph_ids [P]`` segment vector, globally-offset
 ``edges [Q, 2]``, and per-graph ``static [G, ·]`` / ``y [G, ·]`` — the
 PyG block-diagonal form. A greedy token-budget bin-packer
@@ -15,8 +25,10 @@ Storage is sparse until collate: a :class:`GraphSample` carries an
 ``[E, 2]`` edge list, and per-bin arrays are materialized only when a
 bin is assembled (:func:`collate_packed`, the prediction engine's
 staging). Padding exists only at the tail of each budgeted bin, so
-waste is ``1 - Σ real / P`` per bin. The dense and sparse layouts of
-the JAX package are later work (ROADMAP A11).
+waste is ``1 - Σ real / P`` per bin.
+
+Training stacks an epoch into ``[S, B, ...]`` segments of any layout
+(:func:`stack_epoch_segments`) under one batch schedule.
 """
 from __future__ import annotations
 
@@ -30,6 +42,20 @@ from .node_features import node_feature_matrix
 from .static_features import static_features
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
+
+
+def dense_adj(edges: np.ndarray, size: int,
+              out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Densify an ``[E, 2]`` (src, dst) edge list into ``A[dst, src]``.
+
+    Writes into ``out`` (a zeroed ``[size, size]`` view) when given — the
+    batch assemblers pass slices of a preallocated batch array so the
+    dense adjacency never exists per sample.
+    """
+    a = out if out is not None else np.zeros((size, size), dtype=np.float32)
+    if len(edges):
+        a[edges[:, 1], edges[:, 0]] = 1.0
+    return a
 
 
 @dataclasses.dataclass
@@ -77,6 +103,11 @@ def next_pow2(n: int) -> int:
 MIN_EDGE_BUCKET = 16
 
 
+#: Feature-cell proxy for the sparse memory envelope: the widest
+#: activation a batch row carries through the model (hidden width 512).
+SPARSE_ENVELOPE_FEAT = 512
+
+
 def edge_bucket_for(n_edges: int) -> int:
     """Edge-count bucket: next power of two, floored at MIN_EDGE_BUCKET.
 
@@ -97,6 +128,49 @@ def edge_floor(node_bucket: int) -> int:
     to a larger edge bucket.
     """
     return edge_bucket_for(2 * node_bucket)
+
+
+def max_batch_for_bucket(size: int, batch_size: int,
+                         ref_size: int = 256,
+                         edges: Optional[int] = None) -> int:
+    """Per-bucket batch cap under a constant memory envelope.
+
+    **Dense** (``edges=None``): the padded ``[B, N, N]`` adjacency
+    dominates batch memory, so the cap scales ``batch_size`` down for
+    buckets larger than ``ref_size`` such that ``B · N²`` stays within
+    ``batch_size · ref_size²`` cells.
+
+    **Sparse** (``edges`` = the bucket's padded edge count): there is no
+    N² term — a batch row costs O(N·F + E) cells (widest activation
+    ``N · SPARSE_ENVELOPE_FEAT`` plus ~4 cells per edge for endpoints,
+    mask, and per-edge messages) — so the cap is re-derived from that
+    footprint against the same reference envelope at
+    ``(ref_size, 2·ref_size)``. Big buckets keep far larger batches than
+    the quadratic dense rule allows: at N=512 the dense cap is
+    ``batch_size/4``; the sparse cap stays ≈ ``batch_size/2``.
+    """
+    if edges is None:
+        base_cells = batch_size * ref_size * ref_size
+        return max(1, min(batch_size, base_cells // (size * size)))
+    ref_fp = ref_size * SPARSE_ENVELOPE_FEAT + 4 * (2 * ref_size)
+    fp = size * SPARSE_ENVELOPE_FEAT + 4 * max(int(edges), 1)
+    return max(1, min(batch_size, (batch_size * ref_fp) // fp))
+
+
+def group_by_bucket(
+    samples: Sequence[GraphSample],
+) -> Dict[int, List[int]]:
+    """Group sample *indices* by padded bucket size, preserving input order.
+
+    Shared by training batching (:func:`batches_by_bucket`), the stacked
+    scan schedule (:func:`stack_epoch_segments`), and the inference engine
+    (``repro_torch.core.engine``), which needs the indices to restore input
+    order after per-bucket batched execution.
+    """
+    by_bucket: Dict[int, List[int]] = {}
+    for i, s in enumerate(samples):
+        by_bucket.setdefault(s.x.shape[0], []).append(i)
+    return by_bucket
 
 
 def pad_sample(
@@ -167,6 +241,74 @@ def sample_from_graph(
         y=y, meta=dict(g.meta), buckets=buckets,
         truncate_weight=np.asarray([nd.flops for nd in g.nodes]),
     )
+
+
+def pack_edges(samples: Sequence[GraphSample],
+               e_pad: Optional[int] = None,
+               edges_out: Optional[np.ndarray] = None,
+               mask_out: Optional[np.ndarray] = None,
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad per-sample edge lists into ``edges [B, E, 2]`` + ``edge_mask``.
+
+    ``E`` defaults to the edge bucket of the largest member
+    (:func:`edge_bucket_for`). Padding rows are ``(0, 0)`` with mask 0 —
+    in-range endpoints so gathers stay legal; the mask makes their
+    contribution exactly zero in every sparse kernel. The batch
+    assemblers can pass preallocated ``edges_out``/``mask_out`` views.
+
+    Edge lists are copied as stored: :class:`GraphSample`'s contract
+    guarantees unique rows (``pad_sample`` deduplicates at construction,
+    matching ``dense_adj``'s collapse-by-assignment semantics), so
+    packing is a straight memcpy on the batch-assembly hot path.
+    """
+    if e_pad is None:
+        e_pad = edge_bucket_for(max((s.n_edges for s in samples), default=0))
+    b = len(samples)
+    edges = (edges_out if edges_out is not None
+             else np.zeros((b, e_pad, 2), dtype=np.int32))
+    emask = (mask_out if mask_out is not None
+             else np.zeros((b, e_pad), dtype=np.float32))
+    for i, s in enumerate(samples):
+        e = s.n_edges
+        if e > e_pad:
+            raise ValueError(
+                f"sample has {e} edges, edge bucket is {e_pad}")
+        if e:
+            edges[i, :e] = s.edges
+            emask[i, :e] = 1.0
+    return edges, emask
+
+
+def collate(samples: Sequence[GraphSample],
+            sparse: bool = False,
+            edge_bucket: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Stack same-bucket samples into one batch dict (numpy arrays).
+
+    Dense (default): the ``[B, N, N]`` adjacency is built from each
+    sample's edge list, so dense adjacency memory is O(batch), never
+    O(dataset). Sparse: the batch carries ``edges [B, E, 2]`` +
+    ``edge_mask [B, E]`` (E = the chunk's edge bucket) instead — no
+    dense adjacency is ever materialized.
+    """
+    sizes = {s.x.shape[0] for s in samples}
+    if len(sizes) != 1:
+        raise ValueError(f"collate needs a single bucket size, got {sizes}")
+    size = sizes.pop()
+    batch = {
+        "x": np.stack([s.x for s in samples]),
+        "mask": np.stack([s.mask for s in samples]),
+        "static": np.stack([s.static for s in samples]),
+    }
+    if sparse:
+        batch["edges"], batch["edge_mask"] = pack_edges(samples, edge_bucket)
+    else:
+        adj = np.zeros((len(samples), size, size), dtype=np.float32)
+        for i, s in enumerate(samples):
+            dense_adj(s.edges, size, out=adj[i])
+        batch["adj"] = adj
+    if all(s.y is not None for s in samples):
+        batch["y"] = np.stack([s.y for s in samples])
+    return batch
 
 
 # ---------------------------------------------------------------------------
@@ -408,3 +550,181 @@ def collate_packed(samples: Sequence[GraphSample],
     return out
 
 
+def batches_by_bucket(
+    samples: Sequence[GraphSample],
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    drop_remainder: bool = False,
+    sparse: bool = False,
+) -> List[Dict[str, np.ndarray]]:
+    """Group samples into per-bucket shuffled batches.
+
+    Per-bucket batch size is scaled down for big buckets so the batch
+    stays within a constant memory envelope — the padded ``[B, N, N]``
+    adjacency cells when dense, the O(N·F + E) footprint when
+    ``sparse=True`` (see :func:`max_batch_for_bucket`).
+    """
+    out: List[Dict[str, np.ndarray]] = []
+    for size, members in sorted(group_by_bucket(samples).items()):
+        e_bucket = (max(edge_bucket_for(
+            max((samples[j].n_edges for j in members), default=0)),
+            edge_floor(size))
+            if sparse else None)
+        bs = max_batch_for_bucket(size, batch_size, edges=e_bucket)
+        idx = np.arange(len(members))
+        if rng is not None:
+            rng.shuffle(idx)
+        for i in range(0, len(members), bs):
+            chunk = [samples[members[j]] for j in idx[i:i + bs]]
+            if drop_remainder and len(chunk) < bs:
+                continue
+            out.append(collate(chunk, sparse=sparse, edge_bucket=e_bucket))
+    if rng is not None:
+        rng.shuffle(out)  # type: ignore[arg-type]
+    return out
+
+
+def stack_epoch_segments(
+    samples: Sequence[GraphSample],
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    batch_multiple: int = 1,
+    max_steps: int = 32,
+    sparse: bool = False,
+    layout: Optional[str] = None,
+) -> List[Dict[str, np.ndarray]]:
+    """Stack an epoch into ``[S, B, ...]`` segments, the trainer's unit
+    of host → device transfer.
+
+    Every sample in a bucket lands in a step of the *same* shape:
+    the per-bucket batch size ``B`` is fixed (memory-envelope cap, rounded
+    up to ``batch_multiple`` so a data-parallel mesh divides it), chunks
+    short of ``B`` are completed with zero-weight rows, and at most
+    ``max_steps`` steps stack into one segment — so host/device transient
+    memory is O(max_steps · B · N²) per segment (dense) or
+    O(max_steps · B · (N·F + E)) (sparse), never O(dataset · N²).
+
+    ``layout`` selects the step format (``"dense"`` | ``"sparse"`` |
+    ``"packed"``; default follows the legacy ``sparse`` flag). Dense and
+    sparse segments carry ``x [S,B,N,F]``, ``mask [S,B,N]``,
+    ``static [S,B,D]``, ``y [S,B,T]``, ``wt [S,B]`` (1.0 for real rows,
+    0.0 for batch padding), plus either ``adj [S,B,N,N]`` or
+    ``edges [S,B,E,2]`` + ``edge_mask [S,B,E]`` (E = the bucket's edge
+    bucket, floored at :func:`edge_floor` so segment shapes stay stable
+    across epochs). **Packed** segments keep the *identical* batch
+    schedule — same grouping, caps (the sparse envelope), and shuffle
+    order, so per-step losses and updates match the padded-sparse
+    reference to float tolerance — but each step's rows are flattened
+    into the packed layout: ``x [S,P,F]``, ``mask [S,P]``,
+    ``graph_ids [S,P]``, ``edges [S,Q,2]`` (globally offset),
+    ``edge_mask [S,Q]``, ``static [S,G,D]``, ``y [S,G,T]``,
+    ``wt [S,G]`` with G = B and (P, Q) the segment's tight
+    power-of-two budgets over real node/edge totals — typically ~half
+    the padded row volume. (Note dropout draws per-activation: packed
+    steps have different activation shapes, so train-mode RNG streams
+    diverge from the padded layouts; disable dropout when comparing.)
+
+    The trainer's weighted loss makes padded rows/graph-slots exact
+    no-ops, so every layout matches the eager reference numerically.
+
+    With ``rng``, samples shuffle within buckets and the segment list
+    shuffles across buckets (the scan analogue of ``batches_by_bucket``'s
+    global batch shuffle — step *order within* a segment is the fusion
+    trade-off, so ``max_steps`` also sets the shuffle granularity).
+    """
+    if batch_multiple < 1:
+        raise ValueError(f"batch_multiple must be ≥ 1, got {batch_multiple}")
+    if layout is None:
+        layout = "sparse" if sparse else "dense"
+    if layout not in ("dense", "sparse", "packed"):
+        raise ValueError(f"layout must be dense|sparse|packed, got {layout!r}")
+    sparse = layout == "sparse"
+    packed = layout == "packed"
+    segments: List[Dict[str, np.ndarray]] = []
+    for size, members in sorted(group_by_bucket(samples).items()):
+        e_bucket = (max(edge_bucket_for(
+            max((samples[j].n_edges for j in members), default=0)),
+            edge_floor(size))
+            if (sparse or packed) else None)
+        bs = max_batch_for_bucket(size, batch_size, edges=e_bucket)
+        bs = -(-bs // batch_multiple) * batch_multiple
+        idx = np.arange(len(members))
+        if rng is not None:
+            rng.shuffle(idx)
+        ordered = [samples[members[j]] for j in idx]
+        if any(s.y is None for s in ordered):
+            raise ValueError("stack_epoch_segments needs labeled samples")
+        feat = ordered[0].x.shape[1]
+        sdim = ordered[0].static.shape[0]
+        tdim = ordered[0].y.shape[0]
+        per_seg = bs * max_steps
+        for start in range(0, len(ordered), per_seg):
+            seg = ordered[start:start + per_seg]
+            n_steps = -(-len(seg) // bs)
+            steps = [seg[k * bs:(k + 1) * bs] for k in range(n_steps)]
+            if packed:
+                segments.append(_pack_segment(steps, bs, feat, sdim, tdim))
+                continue
+            arrs = {
+                "x": np.zeros((n_steps, bs, size, feat), np.float32),
+                "mask": np.zeros((n_steps, bs, size), np.float32),
+                "static": np.zeros((n_steps, bs, sdim), np.float32),
+                "y": np.ones((n_steps, bs, tdim), np.float32),
+                "wt": np.zeros((n_steps, bs), np.float32),
+            }
+            if sparse:
+                arrs["edges"] = np.zeros((n_steps, bs, e_bucket, 2),
+                                         np.int32)
+                arrs["edge_mask"] = np.zeros((n_steps, bs, e_bucket),
+                                             np.float32)
+            else:
+                arrs["adj"] = np.zeros((n_steps, bs, size, size),
+                                       np.float32)
+            for k, s in enumerate(seg):
+                si, bi = divmod(k, bs)
+                arrs["x"][si, bi] = s.x
+                if sparse:
+                    pack_edges([s], e_bucket,
+                               edges_out=arrs["edges"][si, bi:bi + 1],
+                               mask_out=arrs["edge_mask"][si, bi:bi + 1])
+                else:
+                    dense_adj(s.edges, size, out=arrs["adj"][si, bi])
+                arrs["mask"][si, bi] = s.mask
+                arrs["static"][si, bi] = s.static
+                arrs["y"][si, bi] = s.y
+                arrs["wt"][si, bi] = 1.0
+            segments.append(arrs)
+    if rng is not None:
+        rng.shuffle(segments)  # type: ignore[arg-type]
+    return segments
+
+
+def _pack_segment(steps: List[List[GraphSample]], bs: int, feat: int,
+                  sdim: int, tdim: int) -> Dict[str, np.ndarray]:
+    """Flatten one segment's steps into packed ``[S, P, ...]`` arrays.
+
+    Every step shares the segment's (P, Q, G=bs) budgets — tight
+    powers of two over the largest step's real node/edge totals — so one
+    shape serves the whole segment.
+    """
+    p = next_pow2(max(sum(s.n_nodes for s in st) for st in steps))
+    q = edge_bucket_for(max(sum(s.n_edges for s in st) for st in steps))
+    n_steps = len(steps)
+    arrs = {
+        "x": np.zeros((n_steps, p, feat), np.float32),
+        "mask": np.zeros((n_steps, p), np.float32),
+        "graph_ids": np.zeros((n_steps, p), np.int32),
+        "edges": np.zeros((n_steps, q, 2), np.int32),
+        "edge_mask": np.zeros((n_steps, q), np.float32),
+        "static": np.zeros((n_steps, bs, sdim), np.float32),
+        "y": np.ones((n_steps, bs, tdim), np.float32),
+        "wt": np.zeros((n_steps, bs), np.float32),
+    }
+    for si, st in enumerate(steps):
+        b = collate_packed(st, node_budget=p, edge_budget=q, graph_budget=bs)
+        for k in arrs:
+            # collate_packed may choose a smaller ladder rung than the
+            # segment budget; the tail stays at its init value (zeros,
+            # or ones for y — both are wt-masked no-ops)
+            arrs[k][si, :b[k].shape[0]] = b[k]
+    return arrs

@@ -1,6 +1,10 @@
 """Batched multi-graph prediction engine, packed layout.
 
-The port of the packed hot path of ``repro.core.engine``.
+The port of the packed hot path of ``repro.core.engine``; the JAX
+engine's dense and sparse chunking is not ported (ROADMAP A11c), and a
+dense or sparse ``PMGNSConfig`` raises ``NotImplementedError`` here.
+Trained parameters do not depend on the layout, so a model trained on
+any layout serves through this engine under ``layout="packed"``.
 :class:`PredictionEngine` bin-packs mixed-size graphs onto one flat node
 axis (:func:`~repro_torch.core.batching.pack_graphs`), stages each bin
 into two flat host buffers (float32 ``x ⊕ mask ⊕ edge_mask ⊕ static``
@@ -34,6 +38,13 @@ from .gnn import (PMGNS, PMGNSConfig, check_supported,
                   params_from_numpy, resolve_device)
 from .ir import OpGraph
 from .static_features import STATIC_FEATURE_DIM, STATIC_FEATURE_DIM_EXT
+
+
+_NOT_PORTED_CHUNKING = (
+    "the engine runs the packed layout only; its dense and sparse chunking "
+    "is not ported yet (ROADMAP.md A11c) — predict with "
+    "dataclasses.replace(cfg, layout='packed'), which takes the same "
+    "parameters")
 
 
 class PredictionInvalidError(RuntimeError):
@@ -122,6 +133,8 @@ class PredictionEngine:
                  engine_cfg: EngineConfig = EngineConfig(), *,
                  device: Union[None, str, torch.device] = None):
         check_supported(cfg)
+        if cfg.resolved_layout != "packed":
+            raise NotImplementedError(_NOT_PORTED_CHUNKING)
         feat_dim = (STATIC_FEATURE_DIM_EXT if engine_cfg.extended_static
                     else STATIC_FEATURE_DIM)
         if cfg.static_dim != feat_dim:

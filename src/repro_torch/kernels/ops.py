@@ -1,27 +1,57 @@
 """Kernel dispatch by the device of the tensor.
 
 A CUDA tensor always goes to the hand-written kernel
-(:mod:`repro_torch.kernels.segment_spmm`): if the kernel cannot build or
-launch, the call raises, and nothing falls back to the plain version. A
-CPU tensor goes to the plain version (:mod:`repro_torch.kernels.ref`),
-which is how the CPU tests run the port. There is no switch between the
-two other than the device, and no size limit: the kernels run at every
-packed rung and every layer.
+(:mod:`repro_torch.kernels.segment_spmm`, :mod:`~repro_torch.kernels.sage_spmm`):
+if the kernel cannot build or launch, the call raises, and nothing falls
+back to the plain version. A CPU tensor goes to the plain version
+(:mod:`repro_torch.kernels.ref`), which is how the CPU tests run the
+port. There is no switch between the two other than the device, and no
+size limit.
+
+The entries that training differentiates through — ``segment_aggregate``,
+``segment_scatter``, ``segment_gather``, ``dense_aggregate``,
+``segment_readout`` and ``edge_softmax`` — record their gradients through
+:mod:`repro_torch.kernels.autograd`, whose backward passes run on
+:func:`kernel` again. ``fused_mp_layer`` and ``fused_gat_aggregate`` are
+inference only: training runs the composed layers.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
+from . import autograd as _ag
 from . import ref as _ref
+from . import sage_spmm as _dense
 from . import segment_spmm as _cuda
+
+_KERNELS = {
+    "fused_mp_layer": (_cuda, _ref),
+    "segment_readout": (_cuda, _ref),
+    "edge_softmax": (_cuda, _ref),
+    "fused_gat_aggregate": (_cuda, _ref),
+    "segment_aggregate": (_cuda, _ref),
+    "segment_scatter": (_cuda, _ref),
+    "segment_gather": (_cuda, _ref),
+    "dense_aggregate": (_dense, _ref),
+}
 
 
 def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cuda", "cpu"):
         return t.device.type
     raise ValueError(f"no kernel for tensors on {t.device} (cuda or cpu)")
+
+
+def kernel(name: str, t: torch.Tensor) -> Callable:
+    """The primitive ``name`` for the device of ``t``: the CUDA kernel's
+    wrapper (``<name>_cuda``) or the plain version (``<name>_ref``). It
+    records no gradient."""
+    cuda_mod, ref_mod = _KERNELS[name]
+    if _route(t) == "cuda":
+        return getattr(cuda_mod, f"{name}_cuda")
+    return getattr(ref_mod, f"{name}_ref")
 
 
 def fused_mp_layer(x: torch.Tensor, edges: torch.Tensor,
@@ -34,40 +64,67 @@ def fused_mp_layer(x: torch.Tensor, edges: torch.Tensor,
                    self_scale: Union[None, float, torch.Tensor] = None,
                    act: str = "relu") -> torch.Tensor:
     """One message-passing layer over the packed flat node axis — see
-    :func:`repro_torch.kernels.ref.fused_mp_layer_ref`."""
-    fn = (_cuda.fused_mp_layer_cuda if _route(x) == "cuda"
-          else _ref.fused_mp_layer_ref)
-    return fn(x, edges, edge_mask, node_mask, w_neigh=w_neigh, w_self=w_self,
-              bias=bias, mode=mode, combine=combine, self_scale=self_scale,
-              act=act)
-
-
-def segment_readout(h: torch.Tensor, graph_ids: torch.Tensor,
-                    node_mask: torch.Tensor, n_graphs: int, *,
-                    kind: str = "mean_max") -> torch.Tensor:
-    """Per-graph mean / mean⊕max readout — see
-    :func:`repro_torch.kernels.ref.segment_readout_ref`."""
-    if _route(h) == "cuda":
-        return _cuda.segment_readout_cuda(h, graph_ids, node_mask, n_graphs,
-                                          kind=kind)
-    return _ref.segment_readout_ref(h, graph_ids, node_mask, n_graphs,
-                                    kind=kind)
-
-
-def edge_softmax(scores: torch.Tensor, dst: torch.Tensor,
-                 edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    """Per-destination softmax over incoming edges (GAT attention) — see
-    :func:`repro_torch.kernels.ref.edge_softmax_ref`."""
-    fn = (_cuda.edge_softmax_cuda if _route(scores) == "cuda"
-          else _ref.edge_softmax_ref)
-    return fn(scores, dst, edge_mask, n_nodes)
+    :func:`repro_torch.kernels.ref.fused_mp_layer_ref`. Inference only."""
+    return kernel("fused_mp_layer", x)(
+        x, edges, edge_mask, node_mask, w_neigh=w_neigh, w_self=w_self,
+        bias=bias, mode=mode, combine=combine, self_scale=self_scale, act=act)
 
 
 def fused_gat_aggregate(z: torch.Tensor, edges: torch.Tensor,
                         edge_mask: torch.Tensor, att: torch.Tensor,
                         node_mask: torch.Tensor) -> torch.Tensor:
     """GAT's gather ⊙ per-head attention → scatter over the packed flat
-    node axis — see :func:`repro_torch.kernels.ref.fused_gat_aggregate_ref`."""
-    fn = (_cuda.fused_gat_aggregate_cuda if _route(z) == "cuda"
-          else _ref.fused_gat_aggregate_ref)
-    return fn(z, edges, edge_mask, att, node_mask)
+    node axis — see :func:`repro_torch.kernels.ref.fused_gat_aggregate_ref`.
+    Inference only."""
+    return kernel("fused_gat_aggregate", z)(z, edges, edge_mask, att,
+                                            node_mask)
+
+
+def segment_readout(h: torch.Tensor, graph_ids: torch.Tensor,
+                    node_mask: torch.Tensor, n_graphs: int, *,
+                    kind: str = "mean_max") -> torch.Tensor:
+    """Per-graph mean / mean⊕max readout — see
+    :func:`repro_torch.kernels.ref.segment_readout_ref`. Differentiable
+    in ``h``."""
+    return _ag.SegmentReadout.apply(h, graph_ids, node_mask, n_graphs, kind)
+
+
+def edge_softmax(scores: torch.Tensor, dst: torch.Tensor,
+                 edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Per-destination softmax over incoming edges (GAT attention) — see
+    :func:`repro_torch.kernels.ref.edge_softmax_ref`. Differentiable in
+    ``scores``."""
+    return _ag.EdgeSoftmax.apply(scores, dst, edge_mask, n_nodes)
+
+
+def segment_aggregate(edges: torch.Tensor, edge_mask: torch.Tensor,
+                      h: torch.Tensor, mode: str = "mean") -> torch.Tensor:
+    """Edge-list sum / weighted-mean aggregation ``[B, E]`` edges →
+    ``[B, N, F]`` — see :func:`repro_torch.kernels.ref.segment_aggregate_ref`.
+    Differentiable in ``h``."""
+    return _ag.SegmentAggregate.apply(edges, edge_mask, h, mode)
+
+
+def segment_scatter(dst: torch.Tensor, edge_mask: torch.Tensor,
+                    msgs: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Masked scatter of per-edge messages into per-node sums — see
+    :func:`repro_torch.kernels.ref.segment_scatter_ref`. Differentiable in
+    ``msgs``."""
+    return _ag.SegmentScatter.apply(dst, edge_mask, msgs, n_nodes)
+
+
+def segment_gather(h: torch.Tensor, idx: torch.Tensor,
+                   w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted row gather ``w[b, e] · h[b, idx[b, e]]`` — see
+    :func:`repro_torch.kernels.ref.segment_gather_ref`. Differentiable in
+    ``h``."""
+    return _ag.SegmentGather.apply(h, idx, w)
+
+
+def dense_aggregate(adj: torch.Tensor, h: torch.Tensor, mode: str = "mean",
+                    *, scale: Optional[torch.Tensor] = None,
+                    transpose: bool = False) -> torch.Tensor:
+    """Dense ``A' @ (scale ⊙ h)`` with the degree-mean folded in — see
+    :func:`repro_torch.kernels.ref.dense_aggregate_ref`. Differentiable in
+    ``h``."""
+    return _ag.DenseAggregate.apply(adj, h, mode, scale, transpose)

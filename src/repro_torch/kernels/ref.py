@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the packed path's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function is the mathematically direct form of one kernel, written
-with ``index_select`` / ``index_add_`` / ``scatter_reduce_``. They are
-the oracles the CUDA kernels are held against on the card, and the path
-a CPU tensor takes (:mod:`repro_torch.kernels.ops`). Semantics follow
-``repro.kernels.ref`` function for function.
+with ``index_select`` / ``index_add_`` / ``scatter_reduce_`` / ``bmm``.
+They are the oracles the CUDA kernels are held against on the card, and
+the path a CPU tensor takes (:mod:`repro_torch.kernels.ops`). Semantics
+follow ``repro.kernels.ref`` function for function. Every function works
+in the dtype of its float inputs, float64 included, so that
+``torch.autograd.gradcheck`` can run the backward passes of
+:mod:`repro_torch.kernels.autograd` on the CPU.
 """
 from __future__ import annotations
 
@@ -27,6 +30,98 @@ def segment_degree_ref(edges: torch.Tensor, edge_mask: torch.Tensor,
                       device=edge_mask.device)
     out.index_add_(0, dst.reshape(-1), edge_mask.reshape(-1))
     return out.reshape(b, n_nodes)
+
+
+def _flat_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx [B, E]`` local node indices → flat ``b·n + idx`` (long)."""
+    b = idx.shape[0]
+    return (idx.long() + n * torch.arange(b, device=idx.device)[:, None]
+            ).reshape(-1)
+
+
+def segment_gather_ref(h: torch.Tensor, idx: torch.Tensor,
+                       w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted row gather: ``out[b, e] = w[b, e] · h[b, idx[b, e]]``.
+
+    h: [B, N, F]; idx: [B, E] int32; w: [B, E] or None (weight 1).
+    Returns [B, E, F]. The primitive the backward passes share.
+    """
+    b, n, f = h.shape
+    out = h.reshape(b * n, f).index_select(0, _flat_index(idx, n))
+    out = out.reshape(b, idx.shape[1], f)
+    return out if w is None else out * w[..., None]
+
+
+def segment_scatter_ref(dst: torch.Tensor, edge_mask: torch.Tensor,
+                        msgs: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Scatter per-edge messages into per-node sums.
+
+    dst: [B, E] int32; edge_mask: [B, E]; msgs: [B, E, F]. Returns
+    [B, N, F] with ``out[b, i] = Σ_{e: dst_e=i} edge_mask_e · msgs_e``.
+    """
+    b, _, f = msgs.shape
+    m = (msgs * edge_mask[..., None]).reshape(-1, f)
+    out = torch.zeros((b * n_nodes, f), dtype=msgs.dtype, device=msgs.device)
+    out.index_add_(0, _flat_index(dst, n_nodes), m)
+    return out.reshape(b, n_nodes, f)
+
+
+def segment_aggregate_ref(edges: torch.Tensor, edge_mask: torch.Tensor,
+                          h: torch.Tensor, mode: str = "mean", *,
+                          return_degree: bool = False):
+    """Edge-list aggregation: ``out[b, i] = agg_{e: dst_e=i} em_e·h[b, src_e]``.
+
+    edges: [B, E, 2] int32 (src, dst), padded rows (0, 0) with mask 0;
+    edge_mask: [B, E], which may carry weights (GCN); h: [B, N, F].
+    ``mode="mean"`` divides by the weighted in-degree
+    ``max(Σ edge_mask, 1)``. Returns [B, N, F], or ``(out, deg [B, N])``
+    with ``return_degree``.
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    n = h.shape[1]
+    msgs = segment_gather_ref(h, edges[..., 0], edge_mask)
+    out = segment_scatter_ref(edges[..., 1], torch.ones_like(edge_mask),
+                              msgs, n)
+    deg = None
+    if mode == "mean" or return_degree:
+        deg = segment_degree_ref(edges, edge_mask.to(h.dtype), n)
+    if mode == "mean":
+        out = out / deg.clamp_min(1.0)[..., None]
+    return (out, deg) if return_degree else out
+
+
+def dense_aggregate_ref(adj: torch.Tensor, h: torch.Tensor,
+                        mode: str = "mean", *,
+                        scale: Optional[torch.Tensor] = None,
+                        transpose: bool = False,
+                        return_degree: bool = False):
+    """Dense aggregation ``out[b] = A'_b @ (scale ⊙ h_b)``.
+
+    adj: [B, N, N] with ``adj[b, dst, src]`` (weights allowed: GCN's
+    normalized adjacency); h: [B, N, F]; ``A' = adj`` or ``adjᵀ``
+    (``transpose``); scale: [B, N] per source row or None. ``mode="mean"``
+    divides row i by ``max(Σ_k A'[i, k], 1)``. Returns [B, N, F], or
+    ``(out, deg [B, N])`` with ``return_degree`` (the row sums of A').
+    ``transpose`` and ``scale`` make the backward pass the same function.
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    a = adj.transpose(1, 2) if transpose else adj
+    if scale is not None:
+        h = h * scale[..., None]
+    deg = a.sum(dim=-1) if (mode == "mean" or return_degree) else None
+    if mode == "mean":
+        out = torch.bmm(a / deg.clamp_min(1.0)[..., None], h)
+    else:
+        out = torch.bmm(a, h)
+    return (out, deg) if return_degree else out
+
+
+def sage_aggregate_ref(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``mean_{j∈N(i)} h_j`` — adj: [B, N, N] (``adj[b, dst, src]``),
+    h: [B, N, F]."""
+    return dense_aggregate_ref(adj, h, mode="mean")
 
 
 def segment_readout_ref(h: torch.Tensor, graph_ids: torch.Tensor,

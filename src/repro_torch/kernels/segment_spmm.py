@@ -1,4 +1,4 @@
-"""Python wrappers around the hand-written CUDA kernels of the packed path.
+"""Python wrappers around the hand-written CUDA kernels.
 
 * :func:`fused_mp_layer_cuda` — one whole message-passing layer
   (``csrc/fused_mp.cu``), the port of ``fused_mp_layer_pallas``.
@@ -8,6 +8,16 @@
   scores (``csrc/edge_softmax.cu``), the port of ``edge_softmax_pallas``.
 * :func:`fused_gat_aggregate_cuda` — GAT's gather ⊙ attention → scatter
   (``csrc/gat_aggregate.cu``), the port of ``fused_gat_aggregate_pallas``.
+* :func:`segment_aggregate_cuda` — weighted edge-list sum/mean
+  aggregation over ``[B, E]`` edges (``csrc/segment_aggregate.cu``), the
+  port of ``segment_aggregate_pallas``.
+* :func:`segment_scatter_cuda` — masked scatter of per-edge messages
+  (same source), the port of ``segment_scatter_pallas``.
+* :func:`segment_gather_cuda` — weighted row gather (same source), the
+  port of the gather half ``_seg_gather_kernel``; the backward passes of
+  :mod:`repro_torch.kernels.autograd` run on it.
+* ``dense_aggregate_cuda`` in :mod:`repro_torch.kernels.sage_spmm` — the
+  port of ``dense_aggregate_pallas``, with its helpers from here.
 
 Semantics are exactly those of :mod:`repro_torch.kernels.ref`. Each
 wrapper takes CUDA tensors only: it checks device, dtype (float32, int32
@@ -16,6 +26,12 @@ outputs and scratch with ``torch.empty`` / ``torch.zeros``, launches on
 the current stream, and raises if the C entry returns a non-zero
 ``cudaError_t``. Choosing between a kernel and its plain version by
 device is :mod:`repro_torch.kernels.ops`' job.
+
+A launch writes into a fresh tensor, which has no ``grad_fn``. So each
+wrapper raises ``RuntimeError`` when grad mode is on and a floating
+input requires grad, naming the entry of :mod:`repro_torch.kernels.ops`
+that records the gradient (through :mod:`repro_torch.kernels.autograd`);
+a wrapper never returns a silently detached result.
 
 Each wrapper carries a plain integer ``launches``: one per call that
 launched its kernel, counted under a lock because the engine's
@@ -46,6 +62,27 @@ _SIGNATURES = {
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "fused_gat_aggregate": ("gat_aggregate",
                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "segment_scatter": ("segment_aggregate",
+                        [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _P]),
+    "segment_gather": ("segment_aggregate",
+                       [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "dense_aggregate": ("dense_aggregate",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+}
+#: what each wrapper's autograd refusal tells the caller to use instead
+_GRAD_ENTRY = {
+    "fused_mp_layer": "nothing: it is inference only; training runs the "
+                      "composed layers through ops.segment_aggregate",
+    "fused_gat_aggregate": "nothing: it is inference only; training runs "
+                           "the composed GAT layer through "
+                           "ops.segment_scatter",
+    "segment_readout": "ops.segment_readout",
+    "edge_softmax": "ops.edge_softmax",
+    "segment_aggregate": "ops.segment_aggregate",
+    "segment_scatter": "ops.segment_scatter",
+    "segment_gather": "ops.segment_gather",
+    "dense_aggregate": "ops.dense_aggregate",
 }
 _bind_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -72,6 +109,19 @@ def _call(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} was not launched: "
                            f"cudaError_t {rc}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if ``name``'s launch would drop autograd history: grad mode
+    is on and a floating input requires grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.is_floating_point()
+            and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}_cuda launches into a fresh tensor and records no "
+            f"autograd history, but an input requires grad; use "
+            f"{_GRAD_ENTRY[name]} (repro_torch.kernels.ops), or call it "
+            f"under torch.no_grad()")
 
 
 def _check(t, what: str, dtype: torch.dtype, shape: tuple,
@@ -130,6 +180,8 @@ def fused_mp_layer_cuda(x: torch.Tensor, edges: torch.Tensor,
         raise ValueError(f"combine must be 'split' or 'pre', got {combine!r}")
     if act not in ("relu", "none"):
         raise ValueError(f"act must be 'relu' or 'none', got {act!r}")
+    refuse_grad("fused_mp_layer", x, edge_mask, node_mask, w_neigh, w_self,
+                bias, self_scale)
     dev = _cuda_device(x)
     if x.dim() != 2:
         raise ValueError(f"x must be [P, F], got shape {tuple(x.shape)}")
@@ -203,6 +255,7 @@ def segment_readout_cuda(h: torch.Tensor, graph_ids: torch.Tensor,
     """
     if kind not in ("mean", "mean_max"):
         raise ValueError(f"kind must be 'mean' or 'mean_max', got {kind!r}")
+    refuse_grad("segment_readout", h, node_mask)
     dev = _cuda_device(h)
     if h.dim() != 2:
         raise ValueError(f"h must be [P, F], got shape {tuple(h.shape)}")
@@ -246,6 +299,7 @@ def edge_softmax_cuda(scores: torch.Tensor, dst: torch.Tensor,
     exact zeros. ``E = 0`` returns zeros without a launch. One C call of
     four launches (scratch init, max, exp, normalize).
     """
+    refuse_grad("edge_softmax", scores, edge_mask)
     dev = _cuda_device(scores)
     if scores.dim() != 3:
         raise ValueError(f"scores must be [B, E, H], got shape "
@@ -287,6 +341,7 @@ def fused_gat_aggregate_cuda(z: torch.Tensor, edges: torch.Tensor,
     [P, D]. ``Q = 0`` returns zeros without a launch; ``D % H != 0``
     raises. One launch into a zeroed output.
     """
+    refuse_grad("fused_gat_aggregate", z, edge_mask, att, node_mask)
     dev = _cuda_device(z)
     if z.dim() != 2:
         raise ValueError(f"z must be [P, D], got shape {tuple(z.shape)}")
@@ -316,3 +371,165 @@ def fused_gat_aggregate_cuda(z: torch.Tensor, edges: torch.Tensor,
 
 
 fused_gat_aggregate_cuda.launches = 0
+
+
+def _count(fn) -> None:
+    with _count_lock:
+        fn.launches += 1
+
+
+def _check_index(t, what: str, b: int, e: int, dev: torch.device) -> int:
+    """Check an int32 index view of shape [B, E] whose rows are contiguous
+    up to one element stride (a column of an ``[B, E, 2]`` edge array);
+    returns that stride."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device != dev:
+        raise ValueError(f"{what} is on {t.device}, expected {dev}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what} must be torch.int32, got {t.dtype}")
+    if tuple(t.shape) != (b, e):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
+                         f"{(b, e)}")
+    if e > 1:
+        stride = t.stride(1)
+        if b > 1 and t.stride(0) != e * stride:
+            raise ValueError(f"{what} must be a strided view of a contiguous "
+                             f"[B, E, k] array")
+    elif e == 1 and b > 1:
+        stride = t.stride(0)
+    else:
+        return 1                      # at most one element is read
+    if stride < 1:
+        raise ValueError(f"{what} has element stride {stride}")
+    return int(stride)
+
+
+def _vec(f: int, *rows) -> bool:
+    """float4 loads need rows of whole float4s on 16-byte aligned bases
+    (the outputs are fresh allocations, aligned)."""
+    return f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows
+                              if t is not None)
+
+
+def _scatter(fn, dev, h, msgs, src, dst, em, b: int, e: int, n: int,
+             f: int, mean: bool, want_deg: bool):
+    """Zeroed outputs, then the ``segment_scatter`` C call, counted on
+    ``fn``; nothing is launched (or counted) when there is no edge, since
+    the sums are then zero and a mean divides them by 1."""
+    s_stride = 1 if src is None else _check_index(src, "src", b, e, dev)
+    d_stride = _check_index(dst, "dst", b, e, dev)
+    with torch.cuda.device(dev):
+        out = torch.zeros((b, n, f), dtype=torch.float32, device=dev)
+        deg = (torch.zeros((b, n), dtype=torch.float32, device=dev)
+               if mean or want_deg else None)
+        if b * e * f and n:
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _call("segment_scatter", _ptr(h), _ptr(msgs), _ptr(src), s_stride,
+                  _ptr(dst), d_stride, _ptr(em), _ptr(out), _ptr(deg),
+                  int(mean), b, n, e, f, int(_vec(f, h, msgs)), stream)
+            _count(fn)
+    return out, deg
+
+
+def segment_aggregate_cuda(edges: torch.Tensor, edge_mask: torch.Tensor,
+                           h: torch.Tensor, mode: str = "mean", *,
+                           return_degree: bool = False):
+    """Edge-list aggregation on the card (``csrc/segment_aggregate.cu``):
+    ``out[b, i] = agg_{e: dst_e=i} edge_mask_e · h[b, src_e]``.
+
+    edges: [B, E, 2] int32 (src, dst); edge_mask: [B, E] float32 (may
+    carry weights); h: [B, N, F] float32. ``mode="mean"`` divides by the
+    weighted in-degree ``max(Σ edge_mask, 1)``. Returns [B, N, F], or
+    ``(out, deg [B, N])`` with ``return_degree``. One fused
+    gather-scatter launch, plus the division in mean mode; ``E = 0``
+    gives zeros (and a zero degree) without a launch.
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    refuse_grad("segment_aggregate", h, edge_mask)
+    dev = _cuda_device(h)
+    if h.dim() != 3:
+        raise ValueError(f"h must be [B, N, F], got shape {tuple(h.shape)}")
+    b, n, f = h.shape
+    if edges.dim() != 3 or edges.shape[-1] != 2:
+        raise ValueError(f"edges must be [B, E, 2], got {tuple(edges.shape)}")
+    e = edges.shape[1]
+    _check_dims(B=b, N=n, E=e, F=f, BNF=b * n * f, BEF=b * e * f)
+    _check(h, "h", torch.float32, (b, n, f), dev)
+    _check(edges, "edges", torch.int32, (b, e, 2), dev)
+    _check(edge_mask, "edge_mask", torch.float32, (b, e), dev)
+    out, deg = _scatter(segment_aggregate_cuda, dev, h, None, edges[..., 0],
+                        edges[..., 1], edge_mask, b, e, n, f, mode == "mean",
+                        return_degree)
+    return (out, deg) if return_degree else out
+
+
+segment_aggregate_cuda.launches = 0
+
+
+def segment_scatter_cuda(dst: torch.Tensor, edge_mask: torch.Tensor,
+                         msgs: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Scatter per-edge messages on the card (``csrc/segment_aggregate.cu``):
+    ``out[b, i] = Σ_{e: dst_e=i} edge_mask_e · msgs[b, e]``.
+
+    dst: [B, E] int32 (a column view of ``[B, E, 2]`` edges is taken
+    without a copy); edge_mask: [B, E] float32; msgs: [B, E, F] float32.
+    Returns [B, N, F]. One launch into a zeroed output; ``E = 0`` gives
+    zeros without a launch.
+    """
+    refuse_grad("segment_scatter", msgs, edge_mask)
+    dev = _cuda_device(msgs)
+    if msgs.dim() != 3:
+        raise ValueError(f"msgs must be [B, E, F], got shape "
+                         f"{tuple(msgs.shape)}")
+    b, e, f = msgs.shape
+    n = int(n_nodes)
+    if n < 0:
+        raise ValueError(f"n_nodes must be ≥ 0, got {n}")
+    _check_dims(B=b, N=n, E=e, F=f, BNF=b * n * f, BEF=b * e * f)
+    _check(msgs, "msgs", torch.float32, (b, e, f), dev)
+    _check(edge_mask, "edge_mask", torch.float32, (b, e), dev)
+    out, _ = _scatter(segment_scatter_cuda, dev, None, msgs, None, dst,
+                      edge_mask, b, e, n, f, False, False)
+    return out
+
+
+segment_scatter_cuda.launches = 0
+
+
+def segment_gather_cuda(h: torch.Tensor, idx: torch.Tensor,
+                        w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted row gather on the card (``csrc/segment_aggregate.cu``):
+    ``out[b, e] = w[b, e] · h[b, idx[b, e]]``.
+
+    h: [B, N, F] float32; idx: [B, E] int32 (a column view of edges is
+    taken without a copy); w: [B, E] float32 or None (weight 1). Returns
+    [B, E, F]; ``E = 0`` returns an empty tensor without a launch.
+    """
+    refuse_grad("segment_gather", h, w)
+    dev = _cuda_device(h)
+    if h.dim() != 3:
+        raise ValueError(f"h must be [B, N, F], got shape {tuple(h.shape)}")
+    b, n, f = h.shape
+    if idx.dim() != 2 or idx.shape[0] != b:
+        raise ValueError(f"idx must be [B, E] with B={b}, got "
+                         f"{tuple(idx.shape)}")
+    e = idx.shape[1]
+    _check_dims(B=b, N=n, E=e, F=f, BNF=b * n * f, BEF=b * e * f)
+    _check(h, "h", torch.float32, (b, n, f), dev)
+    stride = _check_index(idx, "idx", b, e, dev)
+    if w is not None:
+        _check(w, "w", torch.float32, (b, e), dev)
+    with torch.cuda.device(dev):
+        out = torch.empty((b, e, f), dtype=torch.float32, device=dev)
+        if b * e * f == 0:
+            return out
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _call("segment_gather", _ptr(h), _ptr(idx), stride, _ptr(w),
+              _ptr(out), b, n, e, f, int(_vec(f, h)), stream)
+    _count(segment_gather_cuda)
+    return out
+
+
+segment_gather_cuda.launches = 0

@@ -140,7 +140,7 @@ def test_config_mirrors_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    # GAT runs on the packed layout now; its composed layers still wait
+    # the composed packed layers ("composed") run now, GAT's included
     pytest.param({"variant": "gat", "layout": "packed", "fused_mp": "off"},
                  "composed", id="kw0-gat"),
     ({"layout": "auto"}, "packed layout only"),
@@ -150,11 +150,29 @@ def test_config_mirrors_jax():
     ({"layout": "packed", "precision": "bf16"}, "bf16"),
 ])
 def test_unported_configurations_raise(kw, match):
+    """What the port refuses, and where: bf16 staging everywhere (A10);
+    the dense and sparse layouts only at the prediction engine (A11c),
+    since they build, train and run ``pmgns_apply``; the composed packed
+    layers ("composed") are no longer refused and predict through the
+    engine."""
+    from repro_torch.core.engine import PredictionEngine
     cfg = tg.PMGNSConfig(hidden=8, n_gnn_blocks=1, n_fc_blocks=1, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        tg.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg, device="cpu")
+    if match == "bf16":
+        with pytest.raises(NotImplementedError, match=match):
+            tg.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg, device="cpu")
+        return
+    tg.check_supported(cfg)
+    model = tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg, device="cpu")
+    if match == "packed layout only":
+        with pytest.raises(NotImplementedError, match=match):
+            PredictionEngine(model, cfg, device="cpu")
+        return
+    from repro_torch.dataset.builder import synthetic_samples
+    out = PredictionEngine(model, cfg, device="cpu").predict_samples(
+        synthetic_samples(5, seed=1))
+    assert out.shape == (5, 3) and np.isfinite(out).all()
 
 
 def test_int8_weights_runs_as_f32():
