@@ -94,12 +94,15 @@ TRAIN_HIDDEN, TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_LR = 512, 400, 32, 2.754e-5
 #: tests/test_trainer.py:255-276
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_RTOL = 1e-4, 1e-4, 1e-3
 #: Adam's step is about lr whatever the gradient's size, so an element
-#: whose gradient is float32 noise (|g| near 1e-8 beside a leaf maximum
-#: near 1e-2) takes steps whose signs the two devices' summation orders
-#: decide. Such elements may leave the bar above, in this share of the
-#: parameters at most, and each by no more than the drift of two Adam
-#: trajectories that disagree on every step (2 · steps · lr).
-TRAIN_PARAM_NOISE_SHARE = 1e-4
+#: whose gradient is near zero takes steps whose signs float32 noise (the
+#: two devices' summation orders) decides at some steps. Such an element
+#: may leave the bar above: one whose first-step CPU gradient is below
+#: TRAIN_NOISE_FLOOR of its leaf's largest, and then by no more than
+#: TRAIN_NOISE_ATOL. At hidden 512 the elements outside the bar are 17
+#: weights of the head's first two layers: 16 had a first-step gradient
+#: of exactly 0 and one 5.2e-5 of its leaf's largest; the largest
+#: distance was 2.5e-4.
+TRAIN_NOISE_FLOOR, TRAIN_NOISE_ATOL = 1e-4, 5e-4
 #: one step's gradients, card vs CPU, relative to each leaf's largest:
 #: float32 sums in another order through 3 layers, the readout and the head
 TRAIN_GRAD_RTOL = 1e-5
@@ -631,7 +634,7 @@ def backward_cases(rng) -> list:
                     lambda x, y, z, n=n: ops.segment_scatter(x, y, z, n),
                     [edges[..., 1].copy(), em, msgs], 2))
         out.append((f"segment_gather {(b, n, e, f)}", ops.segment_gather,
-                    [h, edges[..., 0].copy(), em], 0))
+                    [h, edges[..., 0].copy()], 0))
         heads = 4
         s = rng.standard_normal((b, e, heads)).astype(np.float32) * 3
         out.append((f"edge_softmax {(b, n, e)}",
@@ -1417,42 +1420,56 @@ def train_run(torch, cfg, samples, epochs: int, phase: str,
         if loss_err > TRAIN_LOSS_RTOL:
             raise AssertionError(f"{phase}: losses {losses} vs the CPU's "
                                  f"{c_losses}: relative {loss_err:.3e}")
+        grads, cpu_grads = step_grads_vs_cpu(torch, cfg, samples, phase)
         out["vs_cpu"] = {"cpu_losses": c_losses, "loss_rel_err": loss_err,
                          "loss_rtol": TRAIN_LOSS_RTOL,
-                         "first_step_grads": step_grads_vs_cpu(
-                             torch, cfg, samples, phase),
-                         **params_vs_cpu(leaves, tree_leaves(c_params), steps,
-                                         phase)}
+                         "first_step_grads": grads,
+                         **params_vs_cpu(leaves, tree_leaves(c_params),
+                                         cpu_grads, phase)}
     return out, params
 
 
-def params_vs_cpu(card: list, cpu: list, steps: int, phase: str) -> dict:
-    """The trained parameters against the CPU's at the trainer's bar,
-    with the Adam-noise allowance of ``TRAIN_PARAM_NOISE_SHARE``."""
-    drift = 2.0 * steps * TRAIN_LR
-    over, total, worst, worst_leaf = 0, 0, 0.0, None
-    for i, (a, b) in enumerate(zip(card, cpu)):
+def params_vs_cpu(card: list, cpu: list, grads: list, phase: str) -> dict:
+    """The trained parameters against the CPU's at the trainer's bar.
+    Elements outside it are listed; each must be Adam noise: a first-step
+    CPU gradient (``grads``, per leaf) below ``TRAIN_NOISE_FLOOR`` of its
+    leaf's largest, and a distance within ``TRAIN_NOISE_ATOL``."""
+    outside, total, worst, worst_leaf, bad, near_zero = [], 0, 0.0, None, 0, 0
+    for i, (a, b, g) in enumerate(zip(card, cpu, grads)):
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if g.shape != b.shape:
+            raise AssertionError(f"{phase}: gradient {g.shape} of leaf {i} "
+                                 f"{b.shape}")
         d = np.abs(a - b)
-        over += int((d > TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * np.abs(b))
-                    .sum())
         total += d.size
         if d.size and d.max() > worst:
             worst, worst_leaf = float(d.max()), i
+        gmax = max(float(np.abs(g).max()), 1e-30)
+        near_zero += int((np.abs(g) < TRAIN_NOISE_FLOOR * gmax).sum())
+        for j in np.flatnonzero(d > TRAIN_PARAM_ATOL
+                                + TRAIN_PARAM_RTOL * np.abs(b)):
+            g_rel = float(abs(g.flat[j])) / gmax
+            noise = g_rel < TRAIN_NOISE_FLOOR and d.flat[j] <= TRAIN_NOISE_ATOL
+            bad += not noise
+            outside.append({"leaf": i, "shape": list(b.shape),
+                            "index": int(j), "abs_err": float(d.flat[j]),
+                            "first_grad_rel_to_leaf_max": g_rel,
+                            "noise": bool(noise)})
     out = {"param_max_abs_err": worst, "param_worst_leaf": worst_leaf,
-           "params_outside_bar": over, "params_total": total,
+           "params_outside_bar": len(outside), "params_total": total,
            "param_atol": TRAIN_PARAM_ATOL, "param_rtol": TRAIN_PARAM_RTOL,
-           "noise_share_allowed": TRAIN_PARAM_NOISE_SHARE,
-           "adam_drift_bound": drift}
-    if over > TRAIN_PARAM_NOISE_SHARE * total or \
-            worst > TRAIN_PARAM_ATOL + drift:
-        raise AssertionError(f"{phase}: parameters vs the CPU: {out}")
+           "noise_floor": TRAIN_NOISE_FLOOR, "noise_atol": TRAIN_NOISE_ATOL,
+           "params_below_noise_floor": near_zero, "outside": outside[:40]}
+    if bad:
+        raise AssertionError(f"{phase}: {bad} parameters outside the bar "
+                             f"are not Adam noise: {out}")
     return out
 
 
-def step_grads_vs_cpu(torch, cfg, samples, phase: str) -> dict:
+def step_grads_vs_cpu(torch, cfg, samples, phase: str) -> tuple:
     """The first training step's gradients on the card against the CPU's,
-    from the trainer's initial tree and its first batch."""
+    from the trainer's initial tree and its first batch; returns the
+    comparison and the CPU's gradients (numpy, one per leaf)."""
     from repro_torch.core.batching import stack_epoch_segments
     from repro_torch.core import gnn
     from repro_torch.train import gnn_trainer as gt
@@ -1478,7 +1495,7 @@ def step_grads_vs_cpu(torch, cfg, samples, phase: str) -> dict:
                                  f"{b.shape} differs from the CPU's by "
                                  f"{err:.3e} of its largest element")
         worst = max(worst, err)
-    return {"max_rel_to_leaf_max": worst, "rtol": TRAIN_GRAD_RTOL}
+    return {"max_rel_to_leaf_max": worst, "rtol": TRAIN_GRAD_RTOL}, grads[1]
 
 
 def reload_check(torch, params, cfg) -> dict:

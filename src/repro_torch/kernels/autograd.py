@@ -11,9 +11,10 @@ therefore gets a ``torch.autograd.Function`` here:
 * :class:`SegmentScatter` (``segment_scatter``, B6) — ``dmsgs`` is the
   gather of ``g[dst]`` times ``em``.
 * :class:`SegmentGather` (``segment_gather``) — ``dh`` is the scatter of
-  ``w·g`` into ``idx``.
+  ``g`` into ``idx``.
 * :class:`DenseAggregate` (``dense_aggregate``, B7) — ``dh`` is the same
-  kernel with the transpose flag and the input scale ``1 / max(deg, 1)``.
+  kernel with the transpose flag and the input scale ``1 / max(deg, 1)``
+  (``Aᵀ @ (g / deg)``).
 * :class:`SegmentReadout` (``segment_readout``, B2) — the mean part
   ``w·g_mean[gid] / max(cnt, 1)``; the max part ``g_max[gid]`` split
   evenly among tied real nodes (``w > 0``), JAX's ``segment_max`` rule,
@@ -101,55 +102,46 @@ class SegmentScatter(torch.autograd.Function):
 
 
 class SegmentGather(torch.autograd.Function):
-    """``out[b, e] = w[b, e] · h[b, idx[b, e]]`` (w None: weight 1)."""
+    """``out[b, e] = h[b, idx[b, e]]``."""
 
     @staticmethod
-    def forward(ctx, h, idx, w):
-        _refuse(ctx, {2: "w"})
+    def forward(ctx, h, idx):
         ctx.n = h.shape[1]
-        ctx.save_for_backward(idx, w)
-        return ops.kernel("segment_gather", h)(h, idx, w)
+        ctx.save_for_backward(idx)
+        return ops.kernel("segment_gather", h)(h, idx)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None, None
-        idx, w = ctx.saved_tensors
-        if w is None:
-            w = torch.ones(idx.shape, dtype=g.dtype, device=g.device)
-        return ops.kernel("segment_scatter", g)(idx, w, _c(g), ctx.n), \
-            None, None
+            return None, None
+        idx, = ctx.saved_tensors
+        ones = torch.ones(idx.shape, dtype=g.dtype, device=g.device)
+        return ops.kernel("segment_scatter", g)(idx, ones, _c(g), ctx.n), None
 
 
 class DenseAggregate(torch.autograd.Function):
-    """``out[b] = A'_b @ (scale ⊙ h_b)`` (sum | mean), ``A' = adj`` or
-    ``adjᵀ``."""
+    """``out[b] = adj_b @ h_b`` (sum | mean)."""
 
     @staticmethod
-    def forward(ctx, adj, h, mode, scale, transpose):
-        _refuse(ctx, {0: "adj", 3: "scale"})
+    def forward(ctx, adj, h, mode):
+        _refuse(ctx, {0: "adj"})
         run = ops.kernel("dense_aggregate", h)
         deg = None
         if mode == "mean":
-            out, deg = run(adj, h, mode, scale=scale, transpose=transpose,
-                           return_degree=True)
+            out, deg = run(adj, h, mode, return_degree=True)
         else:
-            out = run(adj, h, mode, scale=scale, transpose=transpose)
-        ctx.transpose = transpose
-        ctx.save_for_backward(adj, scale, deg)
+            out = run(adj, h, mode)
+        ctx.save_for_backward(adj, deg)
         return out
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[1]:
-            return None, None, None, None, None
-        adj, scale, deg = ctx.saved_tensors
+            return None, None, None
+        adj, deg = ctx.saved_tensors
         inv = None if deg is None else _c(1.0 / deg.clamp_min(1.0))
-        dh = ops.kernel("dense_aggregate", g)(
-            adj, _c(g), "sum", scale=inv, transpose=not ctx.transpose)
-        if scale is not None:
-            dh = dh * scale[..., None]
-        return None, dh, None, None, None
+        return None, ops.kernel("dense_aggregate", g)(
+            adj, _c(g), "sum", scale=inv, transpose=True), None
 
 
 class SegmentReadout(torch.autograd.Function):

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), loaded through :mod:`ctypes`. The output directory is keyed by
-a hash of every source and of ``nvcc --version``, under ``build/`` at
-the root of the checkout, so an edited source or another toolkit builds
-anew and an unchanged one loads what is there. :func:`build_all` starts
+seconds), loaded through :mod:`ctypes`; the ``csrc/*.cuh`` headers hold
+the device code that several sources share. The output directory is
+keyed by a hash of every source and header and of ``nvcc --version``,
+under ``build/`` at the root of the checkout, so an edited source or
+another toolkit builds anew and an unchanged one loads what is there. :func:`build_all` starts
 one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -56,7 +57,7 @@ def build_dir() -> Path:
                              capture_output=True, text=True).stdout
     h = hashlib.sha256(version.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

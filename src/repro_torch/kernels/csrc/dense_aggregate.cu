@@ -20,13 +20,13 @@
 //
 // The TPU kernel holds whole in-neighbourhood rows (bn x N) and the source
 // block (N x bf) in VMEM for one MXU product per tile. Here it is the tiled
-// SGEMM of fused_mp.cu's node phase: a 128x64 output tile per block of 256
-// threads, 8x4 outputs per thread in registers, depth 16 per stage, two
-// shared-memory stages with the next stage's global loads in flight, operands
-// read from shared memory as float4. A goes into shared memory depth-major;
-// untransposed its global rows run along the depth, transposed along the
-// output rows, and each case loads in the order that keeps its global reads
-// coalesced. One block row per batch row: blockIdx.z is b.
+// SGEMM of sgemm_tile.cuh, which fused_mp.cu's node phase runs too (a 128x64
+// output tile per block of 256 threads, two shared-memory stages with the
+// next stage's global loads in flight, float4 operand reads). A goes into
+// shared memory depth-major; untransposed its global rows run along the
+// depth, transposed along the output rows, and each case loads in the order
+// that keeps its global reads coalesced. One block row per batch row:
+// blockIdx.z is b.
 //
 // What bounds it on the H100: the product. At the largest dense training
 // bucket used by chip_smoke.py (B=32, N=256, F=512) a layer is 2.1 GFLOP
@@ -44,12 +44,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "sgemm_tile.cuh"
 
-constexpr int kBM = 128;  // output rows per block
-constexpr int kBN = 64;   // output columns per block
-constexpr int kBK = 16;   // depth per shared-memory stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 4 outputs each
+namespace {
 
 struct Args {
   const float* adj;    // [B, N, N]
@@ -151,12 +148,11 @@ struct Stage {
 
 template <bool kVec, bool kTrans>
 __global__ void __launch_bounds__(kThreads, 2) dense_gemm_kernel(Args p) {
-  __shared__ __align__(16) float As[2][kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
+  __shared__ __align__(16) Tiles tiles;
   __shared__ float rowsum[kBM];
   const int tid = threadIdx.x;
-  const int tx = tid % 16;   // columns 4tx .. 4tx+3
-  const int ty = tid / 16;   // rows 4ty .. 4ty+3 and 64+4ty .. 64+4ty+3
+  const int tx = tid % 16;
+  const int ty = tid / 16;
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBN;
   const long long bz = blockIdx.z;
@@ -166,44 +162,19 @@ __global__ void __launch_bounds__(kThreads, 2) dense_gemm_kernel(Args p) {
   // the row sums are needed for the mean, or to hand deg to the backward
   const bool sums = p.mean || (p.deg != nullptr && blockIdx.y == 0);
 
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
   float rs = 0.0f;   // thread tid < kBM: the row sum of tile row tid
-
-  const int steps = (p.n + kBK - 1) / kBK;
   Stage<kVec, kTrans> st;
-  if (steps > 0) {
-    st.load(p, adj, h, scale, row0, 0, col0);
-    st.store(As[0], Bs[0]);
-  }
-  __syncthreads();
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
-    const bool more = step + 1 < steps;
-    if (more) st.load(p, adj, h, scale, row0, (step + 1) * kBK, col0);
-    if (sums && tid < kBM) {
+  float acc[8][4];
+  sgemm_mainloop(
+      tiles, (p.n + kBK - 1) / kBK, acc,
+      [&](int step) { st.load(p, adj, h, scale, row0, step * kBK, col0); },
+      [&](float (*As)[kBM + 4], float (*Bs)[kBN]) { st.store(As, Bs); },
+      [&](const float (*As)[kBM + 4]) {
+        if (sums && tid < kBM) {
 #pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) rs += As[buf][kk][tid];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][kBM / 2 + 4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) st.store(As[buf ^ 1], Bs[buf ^ 1]);
-    __syncthreads();
-  }
+          for (int kk = 0; kk < kBK; ++kk) rs += As[kk][tid];
+        }
+      });
   if (sums && tid < kBM) {
     rowsum[tid] = rs;
     const int r = row0 + tid;
@@ -215,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, 2) dense_gemm_kernel(Args p) {
   float* out = p.out + bz * p.n * p.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int tr = i < 4 ? 4 * ty + i : kBM / 2 + 4 * ty + i - 4;
+    const int tr = tile_row(i, ty);
     const int r = row0 + tr;
     if (r >= p.n) continue;
     float d = 1.0f;

@@ -14,21 +14,20 @@
 // matmuls and a whole-[P, F] accumulator in VMEM. Hopper blocks run in no
 // order, so the two phases are two launches here:
 //
-//   * Edge phase: one thread per (edge, feature). Neighbouring threads take
-//     neighbouring features of one edge, so the read of x[src] and the
-//     atomicAdd into agg[dst] are both coalesced. It is bound by the L2
-//     atomics: at the packed bin of P=4096, Q=6656, F=512 it issues 3.4M of
-//     them, a few microseconds of work.
-//   * Node phase: a shared-memory tiled SGEMM: a 128x64 output tile per
-//     block of 256 threads, 8x4 outputs per thread in registers, depth 16
-//     per stage, two shared-memory stages so that the next stage's loads are in
-//     flight during this stage's product, and operands read from shared
-//     memory as float4 (32 FMAs for every three 16-byte loads). Its
-//     prologue builds the A tile on the fly: for `split`, A = [x | agg/d]
-//     against B = [Ws; Wn], one product of depth 2F; for `pre`,
-//     A = s*x + agg/d against Wn, with d = max(deg, 1). Each thread loads
-//     the same two A rows at every stage, so it reads their 1/d and s once.
-//     The epilogue adds the bias, applies relu and the node mask.
+//   * Edge phase: the weighted edge scatter of edge_rows.cuh, which
+//     segment_aggregate.cu runs too: one warp per edge, its lanes along the
+//     features, so the read of x[src] and the atomicAdd into agg[dst] are
+//     both coalesced. It is bound by the L2 atomics: at the packed bin of
+//     P=4096, Q=6656, F=512 it issues 3.4M of them, a few microseconds of
+//     work.
+//   * Node phase: the shared-memory tiled SGEMM of sgemm_tile.cuh (a 128x64
+//     output tile per block of 256 threads, two shared-memory stages,
+//     float4 operand reads). Its prologue builds the A tile on the fly: for
+//     `split`, A = [x | agg/d] against B = [Ws; Wn], one product of depth
+//     2F; for `pre`, A = s*x + agg/d against Wn, with d = max(deg, 1). Each
+//     thread loads the same two A rows at every stage, so it reads their
+//     1/d and s once. The epilogue adds the bias, applies relu and the node
+//     mask.
 //
 // What bounds it on the H100: the node phase. At F=H=512 it does 4.3 GFLOP
 // per layer against 19 MB of traffic, so it is compute-bound (64 us at the
@@ -46,35 +45,14 @@
 // Edges whose endpoints fall outside [0, P) are skipped, so a bad index can
 // never write outside agg; the packed layout never produces one.
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
+#include "edge_rows.cuh"
+#include "sgemm_tile.cuh"
+
 namespace {
-
-constexpr int kBM = 128;  // output rows per block
-constexpr int kBN = 64;   // output columns per block
-constexpr int kBK = 16;   // depth per shared-memory stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 4 outputs each
-constexpr int kEdgeThreads = 256;
-
-__global__ void __launch_bounds__(kEdgeThreads)
-edge_scatter_kernel(const float* __restrict__ x, const int* __restrict__ edges,
-                    const float* __restrict__ em, float* __restrict__ agg,
-                    float* __restrict__ deg, int p, int f, int q) {
-  const long long total = static_cast<long long>(q) * f;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int e = static_cast<int>(idx / f);
-    const int col = static_cast<int>(idx - static_cast<long long>(e) * f);
-    const int s = edges[2 * e];
-    const int d = edges[2 * e + 1];
-    if (s < 0 || s >= p || d < 0 || d >= p) continue;
-    const float w = em[e];
-    atomicAdd(&agg[static_cast<long long>(d) * f + col],
-              w * x[static_cast<long long>(s) * f + col]);
-    if (deg != nullptr && col == 0) atomicAdd(&deg[d], w);
-  }
-}
 
 struct NodeArgs {
   const float* x;        // [P, F]
@@ -186,11 +164,10 @@ struct Stage {
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2) node_gemm_kernel(NodeArgs p) {
-  __shared__ __align__(16) float As[2][kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
+  __shared__ __align__(16) Tiles tiles;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;   // columns 4tx .. 4tx+3
-  const int ty = tid / 16;   // rows 4ty .. 4ty+3 and 64+4ty .. 64+4ty+3
+  const int tx = tid % 16;
+  const int ty = tid / 16;
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBN;
 
@@ -207,47 +184,21 @@ __global__ void __launch_bounds__(kThreads, 2) node_gemm_kernel(NodeArgs p) {
                     ? p.ss[static_cast<long long>(r) * p.ss_stride] : 0.0f;
   }
 
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
   const int per_seg = (p.f + kBK - 1) / kBK;
   const int steps = (p.split ? 2 : 1) * per_seg;
   Stage<kVec> st;
-  if (steps > 0) {
-    st.load(p, rows, 0, 0, col0);
-    st.store(As[0], Bs[0]);
-  }
-  __syncthreads();
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
-    const bool more = step + 1 < steps;
-    if (more) {   // the next stage's loads are in flight during this product
-      const int nxt = step + 1;
-      st.load(p, rows, nxt / per_seg, (nxt % per_seg) * kBK, col0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][kBM / 2 + 4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) st.store(As[buf ^ 1], Bs[buf ^ 1]);
-    __syncthreads();
-  }
+  float acc[8][4];
+  sgemm_mainloop(
+      tiles, steps, acc,
+      [&](int step) {
+        st.load(p, rows, step / per_seg, (step % per_seg) * kBK, col0);
+      },
+      [&](float (*As)[kBM + 4], float (*Bs)[kBN]) { st.store(As, Bs); },
+      [](const float (*)[kBM + 4]) {});
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = row0 + (i < 4 ? 4 * ty + i : kBM / 2 + 4 * ty + i - 4);
+    const int r = row0 + tile_row(i, ty);
     if (r >= p.p) continue;
     const float nm = p.node_mask != nullptr ? p.node_mask[r] : 1.0f;
 #pragma unroll
@@ -266,19 +217,19 @@ __global__ void __launch_bounds__(kThreads, 2) node_gemm_kernel(NodeArgs p) {
 extern "C" {
 
 // Scatter-adds em[e] * x[src_e] into agg[dst_e] (and em[e] into deg[dst_e]
-// when deg is not null). agg and deg must be zeroed by the caller.
-// Returns the cudaError_t of the launch.
+// when deg is not null): edge_rows.cuh's scatter over one edge list, read
+// from the two columns of edges [Q, 2]. agg and deg must be zeroed by the
+// caller. Returns the cudaError_t of the launch.
 int fused_mp_edge_phase(const float* x, const int* edges, const float* em,
                         float* agg, float* deg, int p, int f, int q,
                         void* stream) {
-  if (q <= 0 || f <= 0 || p <= 0) return 0;
-  const long long total = static_cast<long long>(q) * f;
-  long long blocks = (total + kEdgeThreads - 1) / kEdgeThreads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride covers the rest
-  edge_scatter_kernel<<<static_cast<unsigned>(blocks), kEdgeThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, edges, em, agg, deg, p, f, q);
-  return static_cast<int>(cudaGetLastError());
+  ScatterArgs a{x, nullptr, edges, edges + 1, 2, 2, em, agg, deg, 1, p, q, f};
+  // float4 loads need rows of whole float4s on 16-byte aligned bases
+  const bool vec = f % 4 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(agg) % 16 == 0;
+  return static_cast<int>(
+      launch_scatter(a, vec, static_cast<cudaStream_t>(stream)));
 }
 
 // out[P, H] = act(A @ B + bias) * node_mask with A, B built as described at

@@ -17,28 +17,22 @@
 //
 // The TPU kernel gathers every edge's message into a [B, E, F] array with a
 // one-hot matmul, then scatters it with a second one-hot matmul into node
-// tiles it revisits in order. Here the aggregate is one pass, like
-// fused_mp.cu's edge scatter: a warp reads h[src] and adds it straight into
-// out[dst] with an atomic, so the [B, E, F] messages never reach device
-// memory (half the bytes of gather-then-scatter). Blocks run in no order, so
-// the mean needs every edge's weight in deg before it can divide: a second,
-// short launch divides. Both passes are one C call.
-//
-// One warp per (b, e) row, its lanes along the features (float4 loads when
-// F is a multiple of 4 and the rows are 16-byte aligned), so the reads of a
-// message row and the atomics into its destination row are coalesced and
-// the row's indices, weight and offsets are computed once per row.
+// tiles it revisits in order. Here the aggregate is one pass, the weighted
+// edge scatter of edge_rows.cuh that fused_mp.cu's edge phase also runs: a
+// warp reads h[src] and adds it straight into out[dst] with an atomic, so
+// the [B, E, F] messages never reach device memory (half the bytes of
+// gather-then-scatter). Blocks run in no order, so the mean needs every
+// edge's weight in deg before it can divide: a second, short launch
+// divides. Both passes are one C call. The gather is one warp per (b, e)
+// row as well.
 //
 // What bounds it on the H100: the atomics in L2. At a packed training step
 // (B=1, E=8192, F=512) it issues about 4M of them against 34 MB of traffic.
 // A destination-sorted CSR without atomics is later work.
 //
-// Masking and NaN follow the plain version: a masked edge's message is
-// multiplied by its weight, so NaN * 0 reaches the destination. An edge of
-// weight 0 whose message is finite adds exactly 0 and is skipped, which
-// keeps the padded edges of a batch row (all at (0, 0)) from piling their
-// atomics onto node 0. The division takes max(deg, 1) as `deg < 1 ? 1 : deg`
-// so that a NaN degree stays NaN, as clamp_min keeps it.
+// Masking and NaN are edge_rows.cuh's (NaN * 0 reaches the destination).
+// The division takes max(deg, 1) as `deg < 1 ? 1 : deg` so that a NaN
+// degree stays NaN, as clamp_min keeps it.
 //
 // Tolerance: the atomics add in an order that changes from run to run, so
 // sums agree with the plain version to about 1e-6 relative; the tests and
@@ -49,77 +43,12 @@
 
 #include <cuda_runtime.h>
 
+#include "edge_rows.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;        // lanes along the features of one row
-constexpr int kThreads = 256;    // eight rows per block
-constexpr long long kMaxBlocks = 1LL << 20;  // grid-stride covers the rest
-
-// Not inf and not NaN: the exponent bits are not all ones.
-__device__ __forceinline__ bool finite(float v) {
-  return (__float_as_uint(v) & 0x7f800000u) != 0x7f800000u;
-}
-
-struct ScatterArgs {
-  const float* h;      // [B, N, F], read at src_e (aggregate); or null
-  const float* msgs;   // [B, E, F] per-edge messages (scatter); or null
-  const int* src;      // [B, E] at stride src_stride; null with msgs
-  const int* dst;      // [B, E] at stride dst_stride
-  int src_stride, dst_stride;
-  const float* em;     // [B, E]
-  float* out;          // [B, N, F], zeroed by the caller
-  float* deg;          // [B, N], zeroed by the caller; or null
-  int b, n, e, f;
-};
-
-// The rows this warp walks: row = warp, warp + warps, ... < rows.
-#define FOR_EACH_ROW(row, rows)                                              \
-  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.y +     \
-                       threadIdx.y;                                          \
-       row < (rows); row += static_cast<long long>(gridDim.x) * blockDim.y)
-
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads) scatter_kernel(ScatterArgs a) {
-  FOR_EACH_ROW(be, static_cast<long long>(a.b) * a.e) {
-    const int bi = static_cast<int>(be / a.e);
-    const int d = a.dst[be * a.dst_stride];
-    if (d < 0 || d >= a.n) continue;
-    const float* m;
-    if (a.src != nullptr) {
-      const int s = a.src[be * a.src_stride];
-      if (s < 0 || s >= a.n) continue;
-      m = a.h + (static_cast<long long>(bi) * a.n + s) * a.f;
-    } else {
-      m = a.msgs + be * a.f;
-    }
-    const float w = a.em[be];
-    float* o = a.out + (static_cast<long long>(bi) * a.n + d) * a.f;
-    if (kVec) {
-      for (int c = 4 * threadIdx.x; c < a.f; c += 4 * kWarp) {
-        const float4 v = *reinterpret_cast<const float4*>(m + c);
-        // w == 0 with finite messages adds exactly +0: skip it
-        if (w == 0.0f && finite(v.x) && finite(v.y) && finite(v.z) &&
-            finite(v.w))
-          continue;
-        atomicAdd(o + c, w * v.x);
-        atomicAdd(o + c + 1, w * v.y);
-        atomicAdd(o + c + 2, w * v.z);
-        atomicAdd(o + c + 3, w * v.w);
-      }
-    } else {
-      for (int c = threadIdx.x; c < a.f; c += kWarp) {
-        const float v = m[c];
-        if (w == 0.0f && finite(v)) continue;
-        atomicAdd(o + c, w * v);
-      }
-    }
-    if (a.deg != nullptr && threadIdx.x == 0 && w != 0.0f)
-      atomicAdd(&a.deg[static_cast<long long>(bi) * a.n + d], w);
-  }
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowThreads)
 mean_kernel(float* __restrict__ out, const float* __restrict__ deg,
             long long rows, int f) {
   FOR_EACH_ROW(r, rows) {
@@ -139,7 +68,7 @@ mean_kernel(float* __restrict__ out, const float* __restrict__ deg,
 }
 
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowThreads)
 gather_kernel(const float* __restrict__ h, const int* __restrict__ idx,
               int idx_stride, const float* __restrict__ w,
               float* __restrict__ out, int b, int n, int e, int f) {
@@ -172,14 +101,6 @@ gather_kernel(const float* __restrict__ h, const int* __restrict__ idx,
   }
 }
 
-dim3 block() { return dim3(kWarp, kThreads / kWarp); }
-
-unsigned grid_for(long long rows) {
-  long long blocks = (rows + kThreads / kWarp - 1) / (kThreads / kWarp);
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return static_cast<unsigned>(blocks);
-}
-
 }  // namespace
 
 extern "C" {
@@ -198,24 +119,16 @@ int segment_scatter(const float* h, const float* msgs, const int* src,
                     int n, int e, int f, int vec, void* stream) {
   if (b <= 0 || n <= 0 || f <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = static_cast<long long>(b) * e;
-  if (rows > 0) {
-    ScatterArgs a{h, msgs, src, dst, src_stride, dst_stride, em, out, deg,
-                  b, n, e, f};
-    if (vec) {
-      scatter_kernel<true><<<grid_for(rows), block(), 0, s>>>(a);
-    } else {
-      scatter_kernel<false><<<grid_for(rows), block(), 0, s>>>(a);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  ScatterArgs a{h, msgs, src, dst, src_stride, dst_stride, em, out, deg,
+                b, n, e, f};
+  const cudaError_t err = launch_scatter(a, vec != 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (mean) {
     const long long nodes = static_cast<long long>(b) * n;
     if (vec) {
-      mean_kernel<true><<<grid_for(nodes), block(), 0, s>>>(out, deg, nodes, f);
+      mean_kernel<true><<<row_grid(nodes), row_block(), 0, s>>>(out, deg, nodes, f);
     } else {
-      mean_kernel<false><<<grid_for(nodes), block(), 0, s>>>(out, deg, nodes, f);
+      mean_kernel<false><<<row_grid(nodes), row_block(), 0, s>>>(out, deg, nodes, f);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -232,10 +145,10 @@ int segment_gather(const float* h, const int* idx, int idx_stride,
   if (rows <= 0 || f <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec) {
-    gather_kernel<true><<<grid_for(rows), block(), 0, s>>>(
+    gather_kernel<true><<<row_grid(rows), row_block(), 0, s>>>(
         h, idx, idx_stride, w, out, b, n, e, f);
   } else {
-    gather_kernel<false><<<grid_for(rows), block(), 0, s>>>(
+    gather_kernel<false><<<row_grid(rows), row_block(), 0, s>>>(
         h, idx, idx_stride, w, out, b, n, e, f);
   }
   return static_cast<int>(cudaGetLastError());

@@ -113,18 +113,16 @@ def segment_scatter(dst: torch.Tensor, edge_mask: torch.Tensor,
     return _ag.SegmentScatter.apply(dst, edge_mask, msgs, n_nodes)
 
 
-def segment_gather(h: torch.Tensor, idx: torch.Tensor,
-                   w: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Weighted row gather ``w[b, e] · h[b, idx[b, e]]`` — see
+def segment_gather(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather ``h[b, idx[b, e]]`` — see
     :func:`repro_torch.kernels.ref.segment_gather_ref`. Differentiable in
     ``h``."""
-    return _ag.SegmentGather.apply(h, idx, w)
+    return _ag.SegmentGather.apply(h, idx)
 
 
-def dense_aggregate(adj: torch.Tensor, h: torch.Tensor, mode: str = "mean",
-                    *, scale: Optional[torch.Tensor] = None,
-                    transpose: bool = False) -> torch.Tensor:
-    """Dense ``A' @ (scale ⊙ h)`` with the degree-mean folded in — see
+def dense_aggregate(adj: torch.Tensor, h: torch.Tensor,
+                    mode: str = "mean") -> torch.Tensor:
+    """Dense ``adj @ h`` with the degree-mean folded in — see
     :func:`repro_torch.kernels.ref.dense_aggregate_ref`. Differentiable in
     ``h``."""
-    return _ag.DenseAggregate.apply(adj, h, mode, scale, transpose)
+    return _ag.DenseAggregate.apply(adj, h, mode)

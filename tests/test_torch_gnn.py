@@ -140,39 +140,53 @@ def test_config_mirrors_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    # the composed packed layers ("composed") run now, GAT's included
-    pytest.param({"variant": "gat", "layout": "packed", "fused_mp": "off"},
-                 "composed", id="kw0-gat"),
-    ({"layout": "auto"}, "packed layout only"),
-    ({"layout": "dense"}, "packed layout only"),
-    ({"layout": "sparse"}, "packed layout only"),
-    ({"layout": "packed", "fused_mp": "off"}, "composed"),
-    ({"layout": "packed", "precision": "bf16"}, "bf16"),
+    pytest.param({"layout": "packed", "precision": "bf16"}, "bf16",
+                 id="kw5-bf16"),
 ])
 def test_unported_configurations_raise(kw, match):
-    """What the port refuses, and where: bf16 staging everywhere (A10);
-    the dense and sparse layouts only at the prediction engine (A11c),
-    since they build, train and run ``pmgns_apply``; the composed packed
-    layers ("composed") are no longer refused and predict through the
-    engine."""
-    from repro_torch.core.engine import PredictionEngine
+    """bf16 staging waits for ROADMAP A10: the configuration and its
+    parameters refuse it."""
     cfg = tg.PMGNSConfig(hidden=8, n_gnn_blocks=1, n_fc_blocks=1, **kw)
-    if match == "bf16":
-        with pytest.raises(NotImplementedError, match=match):
-            tg.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg, device="cpu")
-        return
+    with pytest.raises(NotImplementedError, match=match):
+        tg.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["auto", "dense", "sparse"])
+def test_engine_refuses_dense_and_sparse_layouts(layout):
+    """The dense and sparse layouts build, train and run ``pmgns_apply``;
+    the prediction engine runs the packed layout only and refuses them,
+    naming ROADMAP A11c."""
+    from repro_torch.core.engine import PredictionEngine
+    cfg = tg.PMGNSConfig(hidden=8, n_gnn_blocks=1, n_fc_blocks=1,
+                         layout=layout)
     tg.check_supported(cfg)
     model = tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg, device="cpu")
-    if match == "packed layout only":
-        with pytest.raises(NotImplementedError, match=match):
-            PredictionEngine(model, cfg, device="cpu")
-        return
-    from repro_torch.dataset.builder import synthetic_samples
-    out = PredictionEngine(model, cfg, device="cpu").predict_samples(
-        synthetic_samples(5, seed=1))
-    assert out.shape == (5, 3) and np.isfinite(out).all()
+    with pytest.raises(NotImplementedError,
+                       match="packed layout only.*A11c"):
+        PredictionEngine(model, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("variant", VARIANTS + ["gat"])
+def test_composed_engine_matches_fused(variant):
+    """``fused_mp="off"`` predicts through the engine on the composed
+    packed layers (segment aggregate / scatter, edge softmax, readout)
+    and gives the fused layers' predictions for the same weights and
+    samples."""
+    from repro_torch.core.engine import PredictionEngine
+    from repro_torch.dataset.builder import synthetic_samples as samples_of
+    samples = samples_of(12, seed=1)
+    outs = []
+    for fused in ("off", "on"):
+        cfg = tg.PMGNSConfig(variant=variant, hidden=32, n_gnn_blocks=2,
+                             n_fc_blocks=1, layout="packed", fused_mp=fused)
+        model = tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg,
+                                     device="cpu")
+        outs.append(PredictionEngine(model, cfg, device="cpu")
+                    .predict_samples(samples))
+    assert outs[0].shape == (12, 3) and np.isfinite(outs[0]).all()
+    np.testing.assert_allclose(outs[0], outs[1], rtol=RTOL, atol=ATOL)
 
 
 def test_int8_weights_runs_as_f32():

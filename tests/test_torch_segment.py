@@ -280,10 +280,10 @@ def test_gradcheck_float64(name):
 
 
 def test_gradcheck_gather_float64():
-    edges, em, h, _ = _seg_inputs(GRADCHECK_SEG, seed=8)
-    x, idx, w = _t((h, edges[..., 0].copy(), em), dtype=torch.float64)
+    edges, _, h, _ = _seg_inputs(GRADCHECK_SEG, seed=8)
+    x, idx = _t((h, edges[..., 0].copy()), dtype=torch.float64)
     x.requires_grad_(True)
-    assert torch.autograd.gradcheck(lambda v: ops.segment_gather(v, idx, w),
+    assert torch.autograd.gradcheck(lambda v: ops.segment_gather(v, idx),
                                     (x,), eps=1e-6, atol=1e-6, rtol=1e-5)
 
 
