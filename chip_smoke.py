@@ -14,8 +14,15 @@ Phases, each printing one JSON line:
    card, over a sweep of edge cases and at the full-width shapes of its
    path (the prediction bins; the training steps of ``train_path`` for
    ``segment_aggregate``, ``segment_scatter``, ``segment_gather`` and
-   ``dense_aggregate``), and every ``autograd.Function``'s backward on the
-   card against the same backward on the CPU; then the kernel's time (a
+   ``dense_aggregate``; ``lm_path``'s serving run for ``flash_attention``,
+   at prefill and at decode, and ``ssd_scan``), and every
+   ``autograd.Function``'s backward on the card against the same backward
+   on the CPU. The LM stack's two kernels are swept in float32 and
+   bfloat16: grouped heads, windows, the ring cache's negative key
+   offset, fully masked rows, one-row decode, head dims 16 to 128;
+   ragged chunks, sequences shorter than a chunk, an initial state, B/C
+   per group, and a d_state whose shared memory makes the scan halve its
+   chunk. Then the kernel's time (a
    CUDA graph of 20 back-to-back wrapper calls, replayed; median over many
    replays, per call), the plain version's time, one library call's time
    where one computes the same function, the least time the card could
@@ -46,6 +53,18 @@ Phases, each printing one JSON line:
    It prints ms per step, steps/s and the host share of a step, and
    reloads the trained model through ``save_artifact`` / ``DIPPM.load``
    to hold one served bin against the trainer's own evaluation.
+8. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
+   with the depth cut to 12 layers (2 groups), float32, weights from a
+   seed, 2 prompts × 128 tokens through prefill and 16 greedy decode
+   steps on the card against the same weights on the CPU: every step's
+   logits within 1e-3 + 1e-3 relative and the same tokens. Then the full
+   serving run: full width and depth in bfloat16, weights drawn on the
+   card, 8 prompts × 512 tokens through ``make_prefill_step`` and 63
+   ``make_serve_step`` calls (64 new tokens, ``max_len`` 576), the launch
+   counts zeroed before and held to ``lm_launch_rule`` after (flash
+   9 × 64, the scan 54); finite logits and caches; prefill ms, decode ms
+   per step, tokens/s, peak device memory, parameter and cache bytes, and
+   the device time of one prefill and one decode step by kernel.
 
 Then it prints ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
 limit, and, as the last line, ``{"ok": true, "device": {...}}``. Any failed
@@ -68,6 +87,7 @@ ROOT = Path(__file__).resolve().parent
 
 #: NVIDIA H100 SXM data sheet, dense, at the 700 W power limit.
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # bfloat16 on the tensor cores
 PEAK_BYTES = 3.35e12        # HBM3
 #: kernel vs plain version on the card: the atomics and the product sum in
 #: another order than the plain version (see the notes in csrc/*.cu)
@@ -106,6 +126,17 @@ TRAIN_NOISE_FLOOR, TRAIN_NOISE_ATOL = 1e-4, 5e-4
 #: one step's gradients, card vs CPU, relative to each leaf's largest:
 #: float32 sums in another order through 3 layers, the readout and the head
 TRAIN_GRAD_RTOL = 1e-5
+#: a bfloat16 kernel against its plain version on the same bfloat16 inputs:
+#: both sum in float32, then the output rounds to 8 mantissa bits
+KERNEL_BF16_TOL = 2e-2
+#: lm_path: the model it serves (full width; LM_SMOKE_WIDTH swaps in the
+#: smoke config, for rehearsing the script on the CPU), the full serving run
+#: (prompts × prompt length, new tokens; max_len their sum) and the parity
+#: run against the CPU (depth, prompts × prompt length, decode steps)
+LM_ARCH, LM_SMOKE_WIDTH, LM_SEED = "zamba2-2.7b", False, 0
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
+LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_STEPS = (
+    12, 2, 128, 16)
 
 
 def emit(obj: dict) -> None:
@@ -204,8 +235,8 @@ def kernel_name(key: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1]
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1086,21 +1117,25 @@ def phase_kernels(torch, dev, sage_cfg, gat_cfg) -> list:
     sage, sage_us, sage_info = sage_kernel_entries(torch, dev, sage_cfg)
     gat, gat_us, gat_info = gat_kernel_entries(torch, dev, gat_cfg)
     train, train_info = train_kernel_entries(torch, dev)
+    lm_entries, lm_info = lm_kernel_entries(torch, dev)
     back = train_info["backward_max_abs_err"]
     for e in sage + gat:
         # the backward passes of the readout and the edge softmax
         e["max_abs_err"] = max(e["max_abs_err"], back.get(e["name"], 0.0))
-    entries = sage + gat + train
+    entries = sage + gat + train + lm_entries
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
           **sage_info, "gat_real_edges": gat_info["gat_real_edges"],
           "sweep_max_abs_err": {**sage_info["sweep_max_abs_err"],
                                 **gat_info["sweep_max_abs_err"],
-                                **train_info["sweep_max_abs_err"]},
+                                **train_info["sweep_max_abs_err"],
+                                **lm_info["sweep_max_abs_err"]},
           "backward_max_abs_err": back,
           "train_shapes": train_info["train_shapes"],
-          "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
+          "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
+                        "bfloat16": KERNEL_BF16_TOL},
           "device_us_per_call": {**sage_us, **gat_us,
-                                 **train_info["device_us_per_call"]},
+                                 **train_info["device_us_per_call"],
+                                 **lm_info["device_us_per_call"]},
           "kernels": entries})
     return entries
 
@@ -1581,6 +1616,391 @@ def phase_train(torch, name_limit: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM stack: flash attention and the SSD scan, then lm_path
+# ---------------------------------------------------------------------------
+
+def lm_config(**overrides):
+    """``LM_ARCH``'s config (its smoke config under ``LM_SMOKE_WIDTH``)
+    with ``overrides``."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if LM_SMOKE_WIDTH else get_config)(LM_ARCH)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def tree_to(tree, dev):
+    """A nested dict of tensors, copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+#: flash sweep: (B, Sq, Skv, H, Hkv, D, causal, window, q_offset, kv_offset)
+FLASH_SWEEP = [
+    (1, 128, 128, 2, 2, 64, True, 0, 0, 0),
+    (1, 96, 96, 2, 2, 64, False, 0, 0, 0),
+    (1, 128, 128, 2, 2, 64, True, 32, 0, 0),
+    (1, 1, 256, 2, 2, 64, False, 0, 255, 0),          # decode
+    (2, 33, 70, 8, 2, 16, True, 16, 40, -3),          # GQA 4, ring offset
+    (2, 5, 21, 4, 2, 120, True, 16, 3, -16),          # ring early: cols < 0
+    (1, 6, 8, 2, 1, 128, True, 0, 0, 3),              # rows 0-2 fully masked
+    (3, 1, 70, 4, 2, 80, True, 0, 45, 0),             # decode, GQA 2
+    (2, 77, 77, 4, 4, 80, True, 0, 0, 0),             # ragged tiles
+]
+#: SSD sweep: (Bt, S, H, P, N, G, chunk)
+SSD_SWEEP = [
+    (2, 128, 2, 16, 8, 1, 32), (2, 96, 1, 8, 4, 1, 32),
+    (2, 256, 2, 32, 16, 2, 64), (1, 77, 4, 16, 16, 2, 32),   # ragged chunk
+    (1, 5, 4, 64, 64, 1, 128),                                # S < chunk
+    (1, 300, 4, 64, 128, 1, 128),      # N = 128: the kernel halves its chunk
+]
+
+
+def sweep_flash(torch, dev) -> dict:
+    """flash_attention_cuda against its plain version on FLASH_SWEEP, in
+    float32 and bfloat16; the worst |diff| per dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (b, sq, skv, h, hkv, d, causal, window, qo, ko) in enumerate(
+            FLASH_SWEEP):
+        rng = np.random.default_rng(5000 + i)
+        arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
+                  ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+        kw = dict(causal=causal, window=window, q_offset=qo, kv_offset=ko)
+        for name in worst:
+            q, k, v = (torch.as_tensor(a, device=dev).to(getattr(torch, name))
+                       for a in arrays)
+            got = flash_attention_cuda(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = ((KERNEL_BF16_TOL,) * 2 if name == "bfloat16"
+                   else (KERNEL_ATOL, KERNEL_RTOL))
+            worst[name] = max(worst[name], check_close(
+                f"flash_attention {name} case {FLASH_SWEEP[i]}", got.float(),
+                want.float(), *tol))
+    return worst
+
+
+def ssd_inputs(torch, dev, bt, s, h, p, n, g, dtype, seed):
+    """x, dt, A, B, C (x, B, C in ``dtype``) and an initial state."""
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        a.astype(np.float32), device=dev).to(dt)
+    return (t(rng.standard_normal((bt, s, h, p)) * 0.5, dtype),
+            t(rng.random((bt, s, h)) * 0.1 + 0.01),
+            t(-(rng.random(h) * 0.5 + 0.1)),
+            t(rng.standard_normal((bt, s, g, n)) * 0.3, dtype),
+            t(rng.standard_normal((bt, s, g, n)) * 0.3, dtype),
+            t(rng.standard_normal((bt, h, n, p))))
+
+
+def sweep_ssd(torch, dev) -> dict:
+    """ssd_scan_cuda against its plain version on SSD_SWEEP, x / B / C in
+    float32 and bfloat16, from a zero and a given state: y and the last
+    state (both float32); the worst |diff| per input dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (bt, s, h, p, n, g, chunk) in enumerate(SSD_SWEEP):
+        for name in worst:
+            x, dt, a, b, c, s0 = ssd_inputs(torch, dev, bt, s, h, p, n, g,
+                                            getattr(torch, name), 6000 + i)
+            for init in (None, s0):
+                y, last = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, s0=init)
+                y_r, last_r = ref.ssd_scan_ref(x, dt, a, b, c, chunk=chunk,
+                                               s0=init)
+                torch.cuda.synchronize()
+                what = f"ssd_scan {name} case {SSD_SWEEP[i]} s0={init is not None}"
+                worst[name] = max(worst[name],
+                                  check_close(what + " y", y, y_r,
+                                              KERNEL_ATOL, KERNEL_RTOL),
+                                  check_close(what + " state", last, last_r,
+                                              KERNEL_ATOL, KERNEL_RTOL))
+    return worst
+
+
+def lm_kernel_entries(torch, dev) -> tuple:
+    """flash_attention and ssd_scan at the shapes of lm_path's full serving
+    run (prefill and decode for flash, prefill for the scan), in its
+    bfloat16, held against their plain versions and timed beside their
+    bound, plain version and library call; the sweeps."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    sweep = {"flash_attention": sweep_flash(torch, dev),
+             "ssd_scan": sweep_ssd(torch, dev)}
+    cfg = lm_config(param_dtype="bfloat16")
+    bf16 = torch.bfloat16
+    b, s, t_max = LM_BATCH, LM_PROMPT, LM_PROMPT + LM_NEW
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rng = np.random.default_rng(7000)
+    bt = lambda shape: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32), device=dev).to(bf16)
+    q, k, v = bt((b, s, h, hd)), bt((b, t_max, hkv, hd)), bt((b, t_max, hkv,
+                                                             hd))
+    qd = bt((b, 1, h, hd))
+    pre = dict(causal=True)                    # prefill: rows 0..S-1
+    dec = dict(causal=True, q_offset=t_max - 1)  # the last decode step
+    sm = cfg.ssm
+    nh, p, n, g = sm.n_heads(cfg.d_model), sm.head_dim, sm.d_state, sm.n_groups
+    x, dt, a, bm, cm, _ = ssd_inputs(torch, dev, b, s, nh, p, n, g, bf16, 7100)
+
+    pairs = {
+        "flash_prefill": (lambda: flash_attention_cuda(q, k, v, **pre),
+                          lambda: ref.flash_attention_ref(q, k, v, **pre)),
+        "flash_decode": (lambda: flash_attention_cuda(qd, k, v, **dec),
+                         lambda: ref.flash_attention_ref(qd, k, v, **dec)),
+        "ssd_scan": (lambda: ssd_scan_cuda(x, dt, a, bm, cm, chunk=sm.chunk),
+                     lambda: ref.ssd_scan_ref(x, dt, a, bm, cm,
+                                              chunk=sm.chunk)),
+    }
+    err, times = {}, {}
+    for name, (kern, plain) in pairs.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if name == "ssd_scan":
+            err[name] = max(check_close(f"{name} y at full width", got[0],
+                                        want[0], KERNEL_ATOL, KERNEL_RTOL),
+                            check_close(f"{name} state at full width",
+                                        got[1], want[1], KERNEL_ATOL,
+                                        KERNEL_RTOL))
+        else:
+            err[name] = check_close(f"{name} at full width", got.float(),
+                                    want.float(), KERNEL_BF16_TOL,
+                                    KERNEL_BF16_TOL)
+        times[name] = {"ms": time_graph_ms(torch, kern),
+                       "plain_ms": time_graph_ms(torch, plain)}
+    # the yardstick: one library call on the same inputs, the same mask
+    qt, kt, vt, qdt = (z.transpose(1, 2).contiguous() for z in (q, k, v, qd))
+    mask_pre = (torch.arange(t_max, device=dev)[None, :]
+                <= torch.arange(s, device=dev)[:, None])
+    library = {
+        "flash_prefill": time_graph_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask_pre)),
+        "flash_prefill_causal_512": time_graph_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt[:, :, :s], vt[:, :, :s], is_causal=True)),
+        "flash_decode": time_graph_ms(
+            torch, lambda: F.scaled_dot_product_attention(qdt, kt, vt)),
+    }
+    us = device_breakdown_us(torch, {kk: vv[0] for kk, vv in pairs.items()})
+
+    # bounds: each input read once, each output written once (2 bytes a
+    # bfloat16, 4 a float32); the products this run's mask keeps (the
+    # causal pairs; decode: every key), at the bfloat16 tensor-core peak
+    kept_pre = b * h * s * (s + 1) // 2
+    kept_dec = b * h * t_max
+    lc = min(sm.chunk, s)
+    n_chunks = -(-s // lc)
+    tri = lc * (lc + 1) // 2
+    ssd_flops = 2.0 * b * nh * n_chunks * (tri * n + tri * p + 2 * lc * n * p)
+    bounds = {
+        "flash_prefill": bound_ms(4.0 * hd * kept_pre,
+                                  2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                                  PEAK_BF16_FLOPS),
+        "flash_decode": bound_ms(4.0 * hd * kept_dec,
+                                 2.0 * (2 * qd.numel() + k.numel() + v.numel()),
+                                 PEAK_BF16_FLOPS),
+        "ssd_scan": bound_ms(ssd_flops,
+                             2.0 * (x.numel() + bm.numel() + cm.numel())
+                             + 4.0 * (dt.numel() + a.numel() + x.numel()
+                                      + b * nh * n * p),
+                             PEAK_BF16_FLOPS),
+    }
+    src_root = "src/repro_torch/kernels/csrc/"
+    flash_unit = (f"prefill: q [{b}, {s}, {h}, {hd}] over k/v [{b}, {t_max}, "
+                  f"{hkv}, {hd}] bf16, causal")
+    entries = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": src_root + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "launches": None,
+         "max_abs_err": max(err["flash_prefill"], err["flash_decode"],
+                            *sweep["flash_attention"].values()),
+         **times["flash_prefill"],
+         "bound_ms": bounds["flash_prefill"][0],
+         "bound_by": bounds["flash_prefill"][1],
+         "library_ms": library["flash_prefill"],
+         "unit": flash_unit,
+         "library_note": "scaled_dot_product_attention on the same "
+                         "inputs ([B, H, S, D] copies) with the causal "
+                         "mask as a boolean attn_mask",
+         "library_causal_512_ms": library["flash_prefill_causal_512"],
+         "decode": {"unit": f"q [{b}, 1, {h}, {hd}] over k/v [{b}, {t_max}, "
+                            f"{hkv}, {hd}] bf16",
+                    **times["flash_decode"],
+                    "bound_ms": bounds["flash_decode"][0],
+                    "bound_by": bounds["flash_decode"][1],
+                    "library_ms": library["flash_decode"]},
+         "max_abs_err_by_dtype": sweep["flash_attention"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": src_root + "ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:81",
+         "launches": None,
+         "max_abs_err": max(err["ssd_scan"], *sweep["ssd_scan"].values()),
+         **times["ssd_scan"],
+         "bound_ms": bounds["ssd_scan"][0],
+         "bound_by": bounds["ssd_scan"][1],
+         "library_ms": None,
+         "unit": f"x [{b}, {s}, {nh}, {p}] bf16, dt [{b}, {s}, {nh}] f32, "
+                 f"B/C [{b}, {s}, {g}, {n}] bf16, chunk {sm.chunk} → y f32, "
+                 f"state [{b}, {nh}, {n}, {p}] f32",
+         "library_note": "none: no single call does a chunked SSD scan",
+         "chunked_flops": ssd_flops,
+         "max_abs_err_by_dtype": sweep["ssd_scan"]},
+    ]
+    info = {"device_us_per_call": us, "sweep_max_abs_err": sweep}
+    return entries, info
+
+
+def lm_parity(torch, dev) -> dict:
+    """zamba2 at full width, depth cut, float32: the card against the same
+    weights on the CPU, prefill plus greedy decode step by step; every
+    step's logits within E2E_ATOL + E2E_RTOL and the same tokens."""
+    from repro_torch.models import lm
+    cfg = lm_config(n_layers=LM_PARITY_LAYERS, param_dtype="float32")
+    t0 = time.perf_counter()
+    cpu = lm.init_params(cfg, seed=LM_SEED, device="cpu")
+    card = tree_to(cpu, dev)
+    rng = np.random.default_rng(LM_SEED + 1)
+    prompts = rng.integers(0, cfg.vocab, (LM_PARITY_BATCH, LM_PARITY_PROMPT))
+    max_len = LM_PARITY_PROMPT + LM_PARITY_STEPS
+    runs = {}
+    for where, params in (("card", card), ("cpu", cpu)):
+        pd = params["embed"].device
+        toks = torch.as_tensor(prompts, dtype=torch.int32, device=pd)
+        cache = lm.init_cache(cfg, LM_PARITY_BATCH, max_len, device=pd)
+        logits_all = []
+        logits, cache = lm.decode_step(params, cfg, cache, {"tokens": toks},
+                                       0, logits_mode="last")
+        for i in range(LM_PARITY_STEPS):
+            logits_all.append(logits[:, -1].cpu())
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            logits, cache = lm.decode_step(params, cfg, cache,
+                                           {"tokens": tok[:, None]},
+                                           LM_PARITY_PROMPT + i)
+        logits_all.append(logits[:, -1].cpu())
+        runs[where] = torch.stack(logits_all, 1)
+    card_l, cpu_l = runs["card"], runs["cpu"]
+    tok_card, tok_cpu = card_l.argmax(-1), cpu_l.argmax(-1)
+    if not torch.equal(tok_card, tok_cpu):
+        raise AssertionError(f"lm_path parity: greedy tokens differ "
+                             f"{tok_card.tolist()} vs {tok_cpu.tolist()}")
+    err = check_close("lm_path parity logits", card_l, cpu_l, E2E_ATOL,
+                      E2E_RTOL)
+    return {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                       "d_model": cfg.d_model, "dtype": cfg.param_dtype},
+            "prompts": [LM_PARITY_BATCH, LM_PARITY_PROMPT],
+            "decode_steps": LM_PARITY_STEPS, "max_abs_err": err,
+            "max_abs_logit": float(cpu_l.abs().max()),
+            "atol": E2E_ATOL, "rtol": E2E_RTOL,
+            "tokens_equal": True, "seconds": time.perf_counter() - t0}
+
+
+def lm_launch_rule(cfg, new_tokens: int) -> dict:
+    """The launches of one served batch: the flash kernel once per
+    attention block per step (the prefill and every decode step), the SSD
+    scan once per Mamba2 layer at prefill only (a one-token step takes
+    the plain decode update)."""
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every
+    n_mamba = n_attn * cfg.hybrid_attn_every
+    return {"flash_attention": n_attn * new_tokens, "ssd_scan": n_mamba}
+
+
+def phase_lm(torch, dev, name_limit: str) -> dict:
+    """Serve zamba2 on the card through the LM stack's serve steps: the
+    parity run against the CPU, then the full serving run at full width
+    and depth in bfloat16 with its launch counts held to their rule."""
+    from repro_torch import nn as tnn
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.lm import init_params
+    t0 = time.perf_counter()
+    parity = lm_parity(torch, dev)
+    torch.cuda.empty_cache()
+
+    cfg = lm_config(param_dtype="bfloat16")
+    params = init_params(cfg, seed=LM_SEED)
+    rng = np.random.default_rng(LM_SEED + 2)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH,
+                                                          LM_PROMPT)),
+                              dtype=torch.int32, device=dev)
+    max_len = LM_PROMPT + LM_NEW
+    prefill, serve = make_prefill_step(cfg, max_len), make_serve_step(cfg)
+    _, cache = prefill(params, {"tokens": prompts})          # warm up
+    serve(params, cache, {"tokens": prompts[:, :1]}, LM_PROMPT)
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {"flash_attention": flash_attention_cuda,
+                "ssd_scan": ssd_scan_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    idx, toks = LM_PROMPT, [tok]
+    for _ in range(LM_NEW - 1):
+        tok, cache, idx = serve(params, cache, {"tokens": tok[:, None]}, idx)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = lm_launch_rule(cfg, LM_NEW)
+    if launches != want:
+        raise AssertionError(f"lm_path: launches {launches} != the rule's "
+                             f"{want}")
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.stack(toks, 1)
+    finite = {"prefill_logits": bool(torch.isfinite(logits).all()),
+              **{f"cache_{k}": bool(torch.isfinite(v.float()).all())
+                 for k, v in cache.items()}}
+    if not all(finite.values()) or logits.shape != (LM_BATCH, 1, cfg.vocab):
+        raise AssertionError(f"lm_path: logits {tuple(logits.shape)}, "
+                             f"finite {finite}")
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        raise AssertionError("lm_path: a token outside the vocabulary")
+    # where the time goes: one prefill and one decode step under the profiler
+    pre_busy, pre_top = device_busy_ms(torch, lambda: prefill(
+        params, {"tokens": prompts}))
+    dec_busy, dec_top = device_busy_ms(torch, lambda: serve(
+        params, cache, {"tokens": tok[:, None]}, LM_PROMPT + LM_NEW - 1))
+    prefill_ms = 1e3 * (t2 - t1)
+    decode_ms = 1e3 * (t3 - t2) / (LM_NEW - 1)
+    out = {"phase": "lm_path", "card": name_limit, "parity": parity,
+           "serve": {
+               "config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                          "d_model": cfg.d_model, "dtype": cfg.param_dtype},
+               "prompts": [LM_BATCH, LM_PROMPT], "new_tokens": LM_NEW,
+               "max_len": max_len, "launches": launches,
+               "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+               "decode_tokens_per_s": LM_BATCH / (decode_ms / 1e3),
+               "tokens_per_s": LM_BATCH * LM_NEW / (t3 - t1),
+               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / (t2 - t1),
+               "max_memory_allocated": peak,
+               "param_bytes": tnn.tree_bytes(params),
+               "param_count": tnn.tree_size(params),
+               "cache_bytes": tnn.tree_bytes(cache),
+               "finite": finite,
+               "first_tokens": gen[:2, :8].tolist(),
+               "prefill_device_busy_ms": pre_busy,
+               "prefill_device_ms_by_kernel": pre_top,
+               "decode_step_device_busy_ms": dec_busy,
+               "decode_step_device_ms_by_kernel": dec_top},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1607,19 +2027,23 @@ def main() -> int:
                                          "gat_path")
     phase_serving(torch, gat_dippm, name_limit)
     train = phase_train(torch, name_limit)
-    train_launches = {
+    lm_run = phase_lm(torch, dev, name_limit)
+    path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],
         "dense_aggregate": train["runs"]["dense"]["launches"],
         "segment_scatter": train["runs"]["gat_packed"]["launches"],
         "segment_gather": train["runs"]["gat_packed"]["launches"],
+        "flash_attention": lm_run["serve"]["launches"],
+        "ssd_scan": lm_run["serve"]["launches"],
     }
     for e in entries:
         # each kernel's count from the path that carries it: GraphSAGE
         # for the first two, GAT for the edge softmax and the aggregate,
-        # the training run that carries each of the others
+        # the training run that carries each of the next four, the full
+        # serving run of lm_path for the LM stack's two
         name = e["name"]
-        if name in train_launches:
-            e["launches"] = train_launches[name][name]
+        if name in path_launches:
+            e["launches"] = path_launches[name][name]
         else:
             e["launches"] = launches.get(name, gat_launches.get(name))
     emit({"kernels": entries})

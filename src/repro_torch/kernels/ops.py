@@ -13,18 +13,22 @@ The entries that training differentiates through — ``segment_aggregate``,
 ``segment_readout`` and ``edge_softmax`` — record their gradients through
 :mod:`repro_torch.kernels.autograd`, whose backward passes run on
 :func:`kernel` again. ``fused_mp_layer`` and ``fused_gat_aggregate`` are
-inference only: training runs the composed layers.
+inference only: training runs the composed layers. So are the LM stack's
+``flash_attention`` and ``ssd_scan``: on either device they refuse an
+input that requires grad (LM training is ROADMAP A14b).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 from . import autograd as _ag
+from . import flash_attention as _flash
 from . import ref as _ref
 from . import sage_spmm as _dense
 from . import segment_spmm as _cuda
+from . import ssd_scan as _ssd
 
 _KERNELS = {
     "fused_mp_layer": (_cuda, _ref),
@@ -35,6 +39,8 @@ _KERNELS = {
     "segment_scatter": (_cuda, _ref),
     "segment_gather": (_cuda, _ref),
     "dense_aggregate": (_dense, _ref),
+    "flash_attention": (_flash, _ref),
+    "ssd_scan": (_ssd, _ref),
 }
 
 
@@ -126,3 +132,26 @@ def dense_aggregate(adj: torch.Tensor, h: torch.Tensor,
     :func:`repro_torch.kernels.ref.dense_aggregate_ref`. Differentiable in
     ``h``."""
     return _ag.DenseAggregate.apply(adj, h, mode)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int = 0, q_offset: int = 0,
+                    kv_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Masked softmax attention over ``[B, S, H, D]`` with grouped kv heads
+    — see :func:`repro_torch.kernels.ref.flash_attention_ref`. Inference
+    only."""
+    _cuda.refuse_grad("flash_attention", q, k, v)
+    return kernel("flash_attention", q)(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        kv_offset=kv_offset, scale=scale)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+             s0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked Mamba2 SSD scan, y and the last state — see
+    :func:`repro_torch.kernels.ref.ssd_scan_ref`. Inference only."""
+    _cuda.refuse_grad("ssd_scan", x, dt, A, B, C, s0)
+    return kernel("ssd_scan", x)(x, dt, A, B, C, chunk=chunk, s0=s0)

@@ -7,11 +7,14 @@ the path a CPU tensor takes (:mod:`repro_torch.kernels.ops`). Semantics
 follow ``repro.kernels.ref`` function for function. Every function works
 in the dtype of its float inputs, float64 included, so that
 ``torch.autograd.gradcheck`` can run the backward passes of
-:mod:`repro_torch.kernels.autograd` on the CPU.
+:mod:`repro_torch.kernels.autograd` on the CPU. The LM kernels'
+versions (:func:`flash_attention_ref`, :func:`ssd_scan_ref`) compute in
+float32 whatever their inputs, as the JAX package's model code does.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import math
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -258,3 +261,119 @@ def fused_mp_layer_ref(x: torch.Tensor, edges: torch.Tensor,
     if node_mask is not None:
         y = y * node_mask[:, None]
     return y
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, window: int = 0, q_offset: int = 0,
+                        kv_offset: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Masked softmax attention, the function of ``blockwise_attention``
+    (``repro/models/layers.py``) in one piece.
+
+    q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] with ``H % Hkv == 0`` (query
+    head h reads kv head ``h // (H / Hkv)``). Query row i sits at position
+    ``q_offset + i`` and key j at ``kv_offset + j``; a pair is kept when the
+    key position is ``≥ 0`` and, if ``causal``, not after the query's, and,
+    with ``window > 0``, within ``window`` of it (``_mask_for``). Scores
+    and sums in float32, the masked maximum starting at -1e30 and the sum
+    divided by ``max(l, 1e-20)``, so a row with no kept key reads 0 (not
+    NaN, as a softmax over -inf would). Returns [B, Sq, H, D] in q's dtype.
+    """
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=2)
+        vf = vf.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    rows = q_offset + torch.arange(sq, device=q.device)[:, None]
+    cols = kv_offset + torch.arange(skv, device=q.device)[None, :]
+    mask = cols >= 0
+    if causal:
+        mask = mask & (cols <= rows)
+    if window > 0:
+        mask = mask & (cols >= rows - window + 1)
+    s = s.masked_fill(~mask, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    l = p.sum(dim=-1).clamp_min(1e-20)                 # [B, H, Sq]
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+                 s0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan of ``_ssd_chunked`` (``repro/models/layers.py``).
+
+    x: [Bt, S, H, P]; dt: [Bt, S, H]; A: [H]; B, C: [Bt, S, G, N] with
+    ``H % G == 0`` (head h reads group ``h // (H / G)``; G = H is the
+    per-head form); s0: the [Bt, H, N, P] state before the first step, or
+    None for zeros. Returns (y [Bt, S, H, P], last state [Bt, H, N, P]),
+    both float32. The sequence is padded to a chunk multiple with zeros
+    (dt = 0 is the identity decay and adds nothing); inside a chunk the
+    decay ``exp(cum_i − cum_j)`` is masked to ``i ≥ j`` before the exp.
+    """
+    bt, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if g != h:
+        B = B.repeat_interleave(h // g, dim=2)
+        C = C.repeat_interleave(h // g, dim=2)
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    xc = x.reshape(bt, nc, chunk, h, p).float()
+    dtc = dt.reshape(bt, nc, chunk, h).float()
+    bc = B.reshape(bt, nc, chunk, h, n).float()
+    cc = C.reshape(bt, nc, chunk, h, n).float()
+
+    cum = torch.cumsum(dtc * A.float(), dim=2)                # [Bt,nc,Lc,H]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # [.., i, j, H]
+    decay = torch.exp(diff.masked_fill(~tri, 0.0)).masked_fill(~tri, 0.0)
+    cb = torch.einsum("bnihd,bnjhd->bnijh", cc, bc)
+    m = cb * decay * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bnijh,bnjhp->bnihp", m, xc)
+
+    total = cum[:, :, -1, :]                                  # [Bt,nc,H]
+    w = torch.exp(total[:, :, None, :] - cum) * dtc
+    chunk_state = torch.einsum("bnlh,bnlhd,bnlhp->bnhdp", w, bc, xc)
+    state = (torch.zeros((bt, h, n, p), dtype=torch.float32, device=x.device)
+             if s0 is None else s0.float())
+    states_in = []
+    for c in range(nc):
+        states_in.append(state)
+        state = state * torch.exp(total[:, c])[..., None, None] \
+            + chunk_state[:, c]
+    states = torch.stack(states_in, dim=1)                    # [Bt,nc,H,N,P]
+    y_inter = torch.einsum("bnlhd,bnhdp->bnlhp", cc, states) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bt, s + pad, h, p)[:, :s]
+    return y, state
+
+
+def ssd_decode_ref(state: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
+                   A: torch.Tensor, B_t: torch.Tensor, C_t: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One SSD decode step (``repro.kernels.ref.ssd_decode_ref``).
+
+    state: [Bt, H, N, P] float32; x_t: [Bt, H, P]; dt_t: [Bt, H]; A: [H];
+    B_t, C_t: [Bt, H, N]. Returns (y_t [Bt, H, P] in x_t's dtype, state').
+    The JAX package has no kernel for it, so it is plain on every device.
+    """
+    a_t = torch.exp(dt_t.float() * A[None, :])
+    upd = torch.einsum("bh,bhn,bhp->bhnp", dt_t.float(), B_t.float(),
+                       x_t.float())
+    state = state * a_t[..., None, None] + upd
+    y_t = torch.einsum("bhn,bhnp->bhp", C_t.float(), state)
+    return y_t.to(x_t.dtype), state

@@ -18,6 +18,9 @@
   :mod:`repro_torch.kernels.autograd` run on it.
 * ``dense_aggregate_cuda`` in :mod:`repro_torch.kernels.sage_spmm` — the
   port of ``dense_aggregate_pallas``, with its helpers from here.
+* ``flash_attention_cuda`` (:mod:`repro_torch.kernels.flash_attention`)
+  and ``ssd_scan_cuda`` (:mod:`repro_torch.kernels.ssd_scan`) — the LM
+  stack's kernels, bound through the entries here.
 
 Semantics are exactly those of :mod:`repro_torch.kernels.ref`. Each
 wrapper takes CUDA tensors only: it checks device, dtype (float32, int32
@@ -69,6 +72,12 @@ _SIGNATURES = {
                        [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dense_aggregate": ("dense_aggregate",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _I, _I, _I, _I, _P]),
+    "ssd_scan_chunk": ("ssd_scan", [_I, _I, _I]),
+    "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P]),
 }
 #: what each wrapper's autograd refusal tells the caller to use instead
 _GRAD_ENTRY = {
@@ -83,6 +92,10 @@ _GRAD_ENTRY = {
     "segment_scatter": "ops.segment_scatter",
     "segment_gather": "ops.segment_gather",
     "dense_aggregate": "ops.dense_aggregate",
+    "flash_attention": "nothing: it is inference only; LM training waits "
+                       "for ROADMAP A14b",
+    "ssd_scan": "nothing: it is inference only; LM training waits for "
+                "ROADMAP A14b",
 }
 _bind_lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -1,0 +1,328 @@
+"""Transformer and SSM building blocks of the LM stack, in PyTorch.
+
+The port of ``repro/models/layers.py`` for the blocks that serve dense
+decoders, Mamba2 and the zamba2 hybrid. Parameters are nested dicts of
+tensors under the JAX tree's keys, with ``w [d_in, d_out]`` and ``x @ w``;
+a stacked tree (``blocks``, ``groups``) keeps its leading axes, and the
+model code indexes one layer out of it. Activations run in
+``cfg.param_dtype``, softmax, norms and the SSD scan in float32.
+
+The two contractions that the JAX package wrote as jnp twins of its
+Pallas kernels go through the port's kernels: ``blockwise_attention``
+through :func:`repro_torch.kernels.ops.flash_attention` and
+``_ssd_chunked`` through :func:`repro_torch.kernels.ops.ssd_scan`, which
+launch ``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu`` on a CUDA
+tensor and take their plain versions on a CPU one. The one-token SSD
+decode step stays plain on every device (the JAX package has no kernel
+for it either). Inference only: LM training is ROADMAP A14b; MLA,
+mixture-of-experts and cross-attention are A14c.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import nn
+from ..kernels import ops
+from ..kernels.ref import ssd_decode_ref
+from .config import ArchConfig
+
+Params = Dict[str, Any]
+A14C = "ROADMAP A14c"
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` → ``torch.bfloat16`` (a config's dtype names)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def normal(gen: torch.Generator, shape: Tuple[int, ...], std: float,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``repro.nn.normal_init``: a float32 normal draw times ``std``, cast
+    to ``dtype``, on the generator's device. Not JAX's bits."""
+    t = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return t.mul_(std).to(dtype)
+
+
+def _full(gen: torch.Generator, shape, value: float, dtype) -> torch.Tensor:
+    return torch.full(shape, value, dtype=dtype, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float,
+                 dtype: torch.dtype = torch.float32
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [..., S] → cos, sin [..., S, dim / 2]."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                             device=positions.device) / dim))
+    ang = positions[..., None].float() * inv_freq
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               fraction: float = 1.0) -> torch.Tensor:
+    """Rotate the first ``fraction`` of the head dim (interleaved pairs).
+    x: [B, S, H, D]."""
+    d = x.shape[-1]
+    rd = int(d * fraction)
+    rd -= rd % 2
+    if rd == 0:
+        return x
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    c = cos[..., :rd // 2][:, :, None, :]
+    s = sin[..., :rd // 2][:, :, None, :]
+    y1 = (x1 * c - x2 * s).to(x.dtype)
+    y2 = (x2 * c + x1 * s).to(x.dtype)
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr, xp], dim=-1) if rd < d else yr
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, window: int = 0, q_offset: int = 0,
+                        kv_offset: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, Sq, H, D] over k, v [B, Skv, Hkv, D] → [B, Sq, H, D]: the
+    function of the JAX package's ``blockwise_attention``, on the flash
+    kernel. Offsets are Python ints (a decode step's cache index)."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=int(q_offset),
+                               kv_offset=int(kv_offset), scale=scale)
+
+
+def attention_init(gen: torch.Generator, cfg: ArchConfig,
+                   lead: Tuple[int, ...] = (), *, cross: bool = False
+                   ) -> Params:
+    if cross:
+        raise NotImplementedError(f"cross-attention is not ported yet "
+                                  f"({A14C})")
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    dt = torch_dtype(cfg.param_dtype)
+    p = {
+        "wq": normal(gen, lead + (d, cfg.n_heads * hd), 0.02, dt),
+        "wk": normal(gen, lead + (d, cfg.n_kv_heads * hd), 0.02, dt),
+        "wv": normal(gen, lead + (d, cfg.n_kv_heads * hd), 0.02, dt),
+        "wo": normal(gen, lead + (cfg.n_heads * hd, d), 0.02, dt),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = _full(gen, lead + (cfg.n_heads * hd,), 0.0, dt)
+        p["bk"] = _full(gen, lead + (cfg.n_kv_heads * hd,), 0.0, dt)
+        p["bv"] = _full(gen, lead + (cfg.n_kv_heads * hd,), 0.0, dt)
+    return p
+
+
+def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                    positions: torch.Tensor,
+                    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    cache_index: Optional[int] = None,
+                    memory: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor,
+                               Tuple[torch.Tensor, torch.Tensor]]:
+    """Self-attention → (output, cache).
+
+    * ``cache=None`` (a full-sequence forward): attention over x, and the
+      fresh (k, v) returned.
+    * a sliding-window config with ``cache`` (the ring [B, W, Hkv, hd] of
+      the last W positions): attention over ring ++ new tokens with
+      ``kv_offset = cache_index − W`` (negative early in a sequence, where
+      the ring's slots are empty), returning the last W positions as new
+      tensors.
+    * otherwise ``cache`` = (k, v) of shape [B, Smax, Hkv, hd]: the new
+      tokens' k and v are written IN PLACE at ``cache_index`` (the JAX
+      package's functional ``dynamic_update_slice``), and the same two
+      tensors are returned. A write past Smax raises, where JAX would
+      clamp the start.
+
+    Cross-attention (``memory``) is ROADMAP A14c and raises.
+    """
+    if memory is not None:
+        raise NotImplementedError(f"cross-attention is not ported yet "
+                                  f"({A14C})")
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.rope_fraction > 0:
+        rd = int(hd * cfg.rope_fraction)
+        cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
+        frac = 1.0 if hd == rd else cfg.rope_fraction
+        q = apply_rope(q, cos, sin, frac)
+        k = apply_rope(k, cos, sin, frac)
+
+    if cache is None:
+        out = blockwise_attention(q, k, v, causal=cfg.causal,
+                                  window=cfg.window)
+        new_cache = (k, v)
+    elif cfg.window > 0:
+        ck, cv = cache
+        w = ck.shape[1]
+        full_k = torch.cat([ck, k.to(ck.dtype)], dim=1)
+        full_v = torch.cat([cv, v.to(cv.dtype)], dim=1)
+        out = blockwise_attention(q, full_k, full_v, causal=True,
+                                  window=cfg.window, q_offset=cache_index,
+                                  kv_offset=cache_index - w)
+        new_cache = (full_k[:, -w:], full_v[:, -w:])
+    else:
+        ck, cv = cache
+        end = cache_index + s
+        if end > ck.shape[1]:
+            raise ValueError(f"decode past the cache: positions up to {end} "
+                             f"in a cache of {ck.shape[1]}")
+        ck[:, cache_index:end] = k.to(ck.dtype)
+        cv[:, cache_index:end] = v.to(cv.dtype)
+        out = blockwise_attention(q, ck, cv, causal=True, window=cfg.window,
+                                  q_offset=cache_index)
+        new_cache = (ck, cv)
+    return out.reshape(b, s, h * hd) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg: ArchConfig,
+             lead: Tuple[int, ...] = ()) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = torch_dtype(cfg.param_dtype)
+    return {"wg": normal(gen, lead + (d, f), 0.02, dt),
+            "wu": normal(gen, lead + (d, f), 0.02, dt),
+            "wd": normal(gen, lead + (f, d), 0.02, dt)}
+
+
+def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba2_init(gen: torch.Generator, cfg: ArchConfig,
+                lead: Tuple[int, ...] = ()) -> Params:
+    """The JAX tree's separate projections (z / x / B / C / dt) and
+    per-stream convolutions; ``dt_bias``, ``A_log`` and ``D`` in float32."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di, nh = s.d_inner(d), s.n_heads(d)
+    gn = s.n_groups * s.d_state
+    dt = torch_dtype(cfg.param_dtype)
+    f32 = torch.float32
+    return {
+        "wz": normal(gen, lead + (d, di), 0.02, dt),
+        "wx": normal(gen, lead + (d, di), 0.02, dt),
+        "wb": normal(gen, lead + (d, gn), 0.02, dt),
+        "wc": normal(gen, lead + (d, gn), 0.02, dt),
+        "wdt": normal(gen, lead + (d, nh), 0.02, dt),
+        "conv_x": normal(gen, lead + (s.d_conv, di), 0.02, dt),
+        "conv_xb": _full(gen, lead + (di,), 0.0, dt),
+        "conv_bw": normal(gen, lead + (s.d_conv, gn), 0.02, dt),
+        "conv_bb": _full(gen, lead + (gn,), 0.0, dt),
+        "conv_cw": normal(gen, lead + (s.d_conv, gn), 0.02, dt),
+        "conv_cb": _full(gen, lead + (gn,), 0.0, dt),
+        "dt_bias": _full(gen, lead + (nh,), 0.0, f32),
+        "A_log": normal(gen, lead + (nh,), 0.1, f32),
+        "D": _full(gen, lead + (nh,), 1.0, f32),
+        "norm": nn.rmsnorm_init(di, dt, gen.device, lead),
+        "out_proj": normal(gen, lead + (di, d), 0.02, dt),
+    }
+
+
+def _causal_dwconv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Depthwise causal conv1d: x [B, S, C], w [K, C] → ([B, S, C], the last
+    K − 1 inputs). ``state`` carries the K − 1 inputs before x."""
+    k, s = w.shape[0], x.shape[1]
+    if state is None:
+        padded = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        padded = torch.cat([state.to(x.dtype), x], dim=1)
+    new_state = padded[:, -(k - 1):] if k > 1 else None
+    y = None
+    for i in range(k):
+        t = padded[:, i:i + s] * w[i]
+        y = t if y is None else y + t
+    return y + b, new_state
+
+
+def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                 cache=None):
+    """Mamba2 block → (output, cache). ``cache`` = ((conv_x, conv_b,
+    conv_c) [B, d_conv − 1, ·], ssd state [B, H, N, P] float32) for decode,
+    None for a full-sequence forward. No cache: the SSD scan from a zero
+    state; one token with a cache: the plain decode step; several tokens
+    with a cache: the scan from the cached state."""
+    s = cfg.ssm
+    b, sl, d = x.shape
+    di, nh = s.d_inner(d), s.n_heads(d)
+    g, n = s.n_groups, s.d_state
+
+    z = x @ p["wz"]
+    xs = x @ p["wx"]
+    bs = x @ p["wb"]
+    cs = x @ p["wc"]
+    dt_raw = x @ p["wdt"]
+
+    st_x = st_b = st_c = None
+    if cache is not None:
+        st_x, st_b, st_c = cache[0]
+    xs, ns_x = _causal_dwconv(xs, p["conv_x"], p["conv_xb"], st_x)
+    bs, ns_b = _causal_dwconv(bs, p["conv_bw"], p["conv_bb"], st_b)
+    cs, ns_c = _causal_dwconv(cs, p["conv_cw"], p["conv_cb"], st_c)
+    xs, bs, cs = F.silu(xs), F.silu(bs), F.silu(cs)
+
+    x_ssd = xs.reshape(b, sl, nh, s.head_dim)
+    bmat = bs.reshape(b, sl, g, n)
+    cmat = cs.reshape(b, sl, g, n)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    a = -torch.exp(p["A_log"])
+
+    if cache is None:
+        y, last_state = ops.ssd_scan(x_ssd, dt, a, bmat, cmat, chunk=s.chunk)
+    elif sl == 1:
+        hpg = nh // g
+        bh = bmat[:, 0].repeat_interleave(hpg, dim=1)
+        ch = cmat[:, 0].repeat_interleave(hpg, dim=1)
+        y_t, last_state = ssd_decode_ref(cache[1], x_ssd[:, 0].float(),
+                                         dt[:, 0], a, bh.float(), ch.float())
+        y = y_t[:, None]
+    else:
+        y, last_state = ops.ssd_scan(x_ssd, dt, a, bmat, cmat, chunk=s.chunk,
+                                     s0=cache[1])
+
+    y = y + x_ssd.float() * p["D"][None, None, :, None]
+    y = y.reshape(b, sl, di).to(x.dtype)
+    y = y * F.silu(z)
+    y = nn.rmsnorm(p["norm"], y)
+    out = y @ p["out_proj"]
+    new_cache = ((ns_x, ns_b, ns_c), last_state) if s.d_conv > 1 else None
+    return out, new_cache
+
+
+def _not_ported(what: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"{what} is not ported yet ({A14C})")
+    fn.__name__ = what
+    return fn
+
+
+mla_init = mla_apply = _not_ported("MLA (multi-head latent attention)")
+moe_init = moe_apply_local = _not_ported("the mixture-of-experts block")

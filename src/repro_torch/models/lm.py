@@ -1,0 +1,313 @@
+"""Model assembly of the LM stack for serving: embeddings, layer stacks,
+head, decode caches.
+
+The port of ``repro/models/lm.py`` for three block patterns:
+
+* ``block="attn"`` — dense decoders (qwen2.5, h2o-danube with its sliding
+  window, chatglm3 with partial RoPE, yi);
+* ``block="mamba2"`` — pure Mamba2 / SSD (mamba2-370m);
+* ``block="hybrid"`` — zamba2: groups of Mamba2 layers, each followed by
+  ONE weight-tied attention + MLP block.
+
+The parameter tree has the JAX tree's keys and its stacked leading axes
+(``blocks`` [L, ...], ``groups`` [G, per, ...]), so a tree crosses between
+the packages as a plain map over leaves (:func:`params_from_numpy`,
+:func:`params_to_numpy`); the JAX package's ``lax.scan`` over a stack is
+a Python loop over its index here. Mixture-of-experts, MLA,
+cross-attention (``cross_attn_every``) and the audio frontend raise
+``NotImplementedError`` naming ROADMAP A14c; training (``loss_fn``) is
+A14b. Every function runs on one device, as the JAX package does with no
+mesh.
+
+:func:`decode_step` updates the cache that :func:`init_cache` made IN
+PLACE (the JAX package's update is functional) and returns it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import nn
+from ..core.gnn import resolve_device
+from . import layers as L
+from .config import ArchConfig
+
+Params = Dict[str, Any]
+Device = Union[None, str, torch.device]
+#: leaves the JAX tree keeps in float32 whatever ``param_dtype`` is
+_F32_LEAVES = frozenset({"dt_bias", "A_log", "D"})
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP A14c) for a config
+    whose blocks or frontend the port does not run yet."""
+    unported = []
+    if cfg.moe is not None:
+        unported.append("mixture-of-experts blocks")
+    if cfg.mla is not None:
+        unported.append("MLA attention")
+    if cfg.cross_attn_every:
+        unported.append("cross-attention layers")
+    if cfg.frontend != "tokens":
+        unported.append(f"the {cfg.frontend!r} frontend")
+    if unported:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not "
+                                  f"ported yet ({L.A14C})")
+    if cfg.block not in ("attn", "mamba2", "hybrid"):
+        raise ValueError(f"unknown block {cfg.block!r}")
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply
+# ---------------------------------------------------------------------------
+
+def decoder_layer_init(gen: torch.Generator, cfg: ArchConfig,
+                       lead: Tuple[int, ...] = ()) -> Params:
+    dt = L.torch_dtype(cfg.param_dtype)
+    return {"ln1": nn.rmsnorm_init(cfg.d_model, dt, gen.device, lead),
+            "ln2": nn.rmsnorm_init(cfg.d_model, dt, gen.device, lead),
+            "ffn": L.mlp_init(gen, cfg, lead),
+            "attn": L.attention_init(gen, cfg, lead)}
+
+
+def decoder_layer_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                        positions: torch.Tensor, cache=None,
+                        cache_index: Optional[int] = None):
+    """→ (x, attention cache)."""
+    a, new_cache = L.attention_apply(p["attn"], cfg, nn.rmsnorm(p["ln1"], x),
+                                     positions=positions, cache=cache,
+                                     cache_index=cache_index)
+    x = x + a
+    return x + L.mlp_apply(p["ffn"], nn.rmsnorm(p["ln2"], x)), new_cache
+
+
+def mamba_layer_init(gen: torch.Generator, cfg: ArchConfig,
+                     lead: Tuple[int, ...] = ()) -> Params:
+    return {"ln": nn.rmsnorm_init(cfg.d_model, L.torch_dtype(cfg.param_dtype),
+                                  gen.device, lead),
+            "mix": L.mamba2_init(gen, cfg, lead)}
+
+
+def mamba_layer_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                      cache=None):
+    """→ (x, ((conv states), ssd state))."""
+    y, new_cache = L.mamba2_apply(p["mix"], cfg, nn.rmsnorm(p["ln"], x),
+                                  cache=cache)
+    return x + y, new_cache
+
+
+def _at(tree, *idx):
+    """Layer ``idx`` of a stacked tree: every leaf indexed (views)."""
+    if isinstance(tree, dict):
+        return {k: _at(v, *idx) for k, v in tree.items()}
+    return tree[idx]
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, *, seed: int, device: Device = None
+                ) -> Params:
+    """A random parameter tree with the JAX tree's keys, shapes and dtypes,
+    drawn on ``device`` (the card unless the caller asks for the CPU) from
+    a ``torch.Generator`` seeded with ``seed``: at full width the host
+    never holds the weights. Not the JAX package's numbers — carry a JAX
+    tree across with :func:`params_from_numpy` to compare the two."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = L.torch_dtype(cfg.param_dtype)
+    p: Params = {"embed": L.normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)}
+    if cfg.block == "attn":
+        p["blocks"] = decoder_layer_init(gen, cfg, (cfg.n_layers,))
+    elif cfg.block == "mamba2":
+        p["blocks"] = mamba_layer_init(gen, cfg, (cfg.n_layers,))
+    else:
+        per = cfg.hybrid_attn_every
+        p["groups"] = mamba_layer_init(gen, cfg, (cfg.n_layers // per, per))
+        p["shared_attn"] = decoder_layer_init(gen, cfg)
+    p["final_norm"] = nn.rmsnorm_init(cfg.d_model, dt, dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.normal(gen, (cfg.d_model, cfg.vocab), 0.02, dt)
+    return p
+
+
+def params_from_numpy(tree: Params, cfg: ArchConfig,
+                      device: Device = None) -> Params:
+    """A JAX parameter tree (numpy leaves; a bfloat16 leaf arrives as
+    float32) as the port's tree on ``device``: every float leaf cast to
+    ``cfg.param_dtype``, but those the JAX tree keeps in float32."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = L.torch_dtype(cfg.param_dtype)
+
+    def conv(key, v):
+        if isinstance(v, dict):
+            return {k: conv(k, x) for k, x in v.items()}
+        t = torch.tensor(np.asarray(v), device=dev)
+        if t.is_floating_point():
+            t = t.to(torch.float32 if key in _F32_LEAVES else dt)
+        return t.contiguous()
+
+    return conv(None, tree)
+
+
+def params_to_numpy(params: Params) -> Params:
+    """The tree as numpy, float leaves in float32 (numpy has no bfloat16)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    t = params.detach()
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _embed(p: Params, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return F.embedding(inputs["tokens"].long(), p["embed"])
+
+
+def _head(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = nn.rmsnorm(p["final_norm"], x)
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    return (x @ w).float()
+
+
+def forward(params: Params, cfg: ArchConfig,
+            inputs: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (logits [B, S, V] float32, aux loss 0)."""
+    check_supported(cfg)
+    x = _embed(params, inputs)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    if cfg.block == "attn":
+        for i in range(cfg.n_layers):
+            x, _ = decoder_layer_apply(_at(params["blocks"], i), cfg, x,
+                                       positions=positions)
+    elif cfg.block == "mamba2":
+        for i in range(cfg.n_layers):
+            x, _ = mamba_layer_apply(_at(params["blocks"], i), cfg, x)
+    else:
+        ng, per = params["groups"]["ln"]["scale"].shape[:2]
+        for g in range(ng):
+            for i in range(per):
+                x, _ = mamba_layer_apply(_at(params["groups"], g, i), cfg, x)
+            x, _ = decoder_layer_apply(params["shared_attn"], cfg, x,
+                                       positions=positions)
+    return _head(params, cfg, x), torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# decode caches + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: Device = None) -> Params:
+    """Zeroed decode caches with the JAX package's keys, shapes and dtypes
+    (attention K/V in ``resolved_kv_cache_dtype``, conv states in
+    ``param_dtype``, SSD states in float32); a sliding-window config keeps
+    a ring of ``min(max_len, window)`` positions."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    kv_dt = L.torch_dtype(cfg.resolved_kv_cache_dtype)
+    pdt = L.torch_dtype(cfg.param_dtype)
+    hd = cfg.resolved_head_dim
+
+    def mk(shape, dtype=kv_dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.block == "attn":
+        n = cfg.n_layers
+        if cfg.window > 0:
+            max_len = min(max_len, cfg.window)
+        return {"k": mk((n, batch, max_len, cfg.n_kv_heads, hd)),
+                "v": mk((n, batch, max_len, cfg.n_kv_heads, hd))}
+    s = cfg.ssm
+    di, gn = s.d_inner(cfg.d_model), s.n_groups * s.d_state
+    nh = s.n_heads(cfg.d_model)
+    lead: Tuple[int, ...] = (cfg.n_layers,) if cfg.block == "mamba2" else (
+        cfg.n_layers // cfg.hybrid_attn_every, cfg.hybrid_attn_every)
+    cache = {
+        "conv_x": mk(lead + (batch, s.d_conv - 1, di), pdt),
+        "conv_b": mk(lead + (batch, s.d_conv - 1, gn), pdt),
+        "conv_c": mk(lead + (batch, s.d_conv - 1, gn), pdt),
+        "ssd": mk(lead + (batch, nh, s.d_state, s.head_dim), torch.float32),
+    }
+    if cfg.block == "hybrid":
+        cache["k"] = mk((lead[0], batch, max_len, cfg.n_kv_heads, hd))
+        cache["v"] = mk((lead[0], batch, max_len, cfg.n_kv_heads, hd))
+    return cache
+
+
+def _store(slot: torch.Tensor, value: torch.Tensor) -> None:
+    if value.data_ptr() != slot.data_ptr():
+        slot.copy_(value)
+
+
+def _mamba_cached(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                  cache: Params, idx: tuple) -> torch.Tensor:
+    conv = tuple(cache[k][idx] for k in ("conv_x", "conv_b", "conv_c"))
+    x, ((nx, nb, nc), sd) = mamba_layer_apply(p, cfg, x,
+                                              cache=(conv, cache["ssd"][idx]))
+    for slot, new in zip(conv, (nx, nb, nc)):
+        _store(slot, new)
+    _store(cache["ssd"][idx], sd)
+    return x
+
+
+def _attn_cached(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
+                 i: int, positions: torch.Tensor, cache_index: int
+                 ) -> torch.Tensor:
+    ck, cv = cache["k"][i], cache["v"][i]
+    x, (nk, nv) = decoder_layer_apply(p, cfg, x, positions=positions,
+                                      cache=(ck, cv), cache_index=cache_index)
+    _store(ck, nk)
+    _store(cv, nv)
+    return x
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: Params,
+                inputs: Dict[str, torch.Tensor], cache_index: int,
+                logits_mode: str = "all") -> Tuple[torch.Tensor, Params]:
+    """New token(s) at positions ``cache_index, ...`` → (logits [B, S, V]
+    float32, cache). The cache is updated IN PLACE and returned.
+    ``logits_mode="last"`` applies the head to the last position only."""
+    check_supported(cfg)
+    ci = int(cache_index)
+    x = _embed(params, inputs)
+    b, s, _ = x.shape
+    positions = ci + torch.arange(s, device=x.device).expand(b, s)
+    if cfg.block == "attn":
+        for i in range(cfg.n_layers):
+            x = _attn_cached(_at(params["blocks"], i), cfg, x, cache, i,
+                             positions, ci)
+    elif cfg.block == "mamba2":
+        for i in range(cfg.n_layers):
+            x = _mamba_cached(_at(params["blocks"], i), cfg, x, cache, (i,))
+    else:
+        ng, per = cache["ssd"].shape[:2]
+        for g in range(ng):
+            for i in range(per):
+                x = _mamba_cached(_at(params["groups"], g, i), cfg, x, cache,
+                                  (g, i))
+            x = _attn_cached(params["shared_attn"], cfg, x, cache, g,
+                             positions, ci)
+    if logits_mode == "last":
+        x = x[:, -1:]
+    return _head(params, cfg, x), cache
+
+
+def prefill(params: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
+            max_len: int) -> Tuple[torch.Tensor, Params]:
+    """A prompt through :func:`decode_step` from a fresh cache of
+    ``max_len`` positions → (logits of the last position [B, 1, V], cache)."""
+    b = inputs["tokens"].shape[0]
+    cache = init_cache(cfg, b, max_len, device=params["embed"].device)
+    return decode_step(params, cfg, cache, inputs, 0, logits_mode="last")

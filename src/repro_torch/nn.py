@@ -5,7 +5,9 @@ time), as in ``repro.nn``. A weight is ``w [d_in, d_out]`` and the
 product is ``x @ w`` — the JAX layout, not ``nn.Linear``'s
 ``[out, in]`` — so one artifact loads into both packages unchanged.
 Initialization draws from an explicit ``numpy.random.Generator``, and
-dropout from an explicit ``torch.Generator``.
+dropout from an explicit ``torch.Generator``. The LM stack's leaves are
+tensors from the start (``repro_torch.models.lm.init_params`` draws them
+on the device).
 """
 from __future__ import annotations
 
@@ -80,3 +82,43 @@ def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     kept = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(kept, x / keep, 0.0)
+
+
+def rmsnorm_init(d: int, dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None,
+                 lead: Tuple[int, ...] = ()) -> Params:
+    """``repro.nn.rmsnorm_init``; ``lead`` prepends stacked layer axes."""
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``repro.nn.rmsnorm`` step for step: the square in x's dtype, the mean
+    in float32, the reciprocal root cast back to x's dtype, eps 1e-6 (the
+    JAX model never reads ``ArchConfig.norm_eps``)."""
+    ms = torch.mean(torch.square(x).float(), dim=-1, keepdim=True)
+    inv = torch.rsqrt(ms + eps).to(x.dtype)
+    return x * inv * p["scale"]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def tree_size(tree) -> int:
+    """Elements over every tensor or array leaf of a nested dict/list."""
+    return sum(int(x.numel()) if isinstance(x, torch.Tensor) else int(x.size)
+               for x in _leaves(tree) if hasattr(x, "shape"))
+
+
+def tree_bytes(tree) -> int:
+    """Bytes over every tensor or array leaf of a nested dict/list."""
+    return sum(int(x.numel()) * x.element_size()
+               if isinstance(x, torch.Tensor) else int(x.nbytes)
+               for x in _leaves(tree) if hasattr(x, "shape"))

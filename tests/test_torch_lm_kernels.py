@@ -1,0 +1,352 @@
+"""The LM stack's kernels in the PyTorch port against the JAX package.
+
+On the CPU: ``flash_attention_ref`` is held against ``flash_attention_pallas``
+in interpret mode on ``tests/test_kernels.py``'s cases plus head dim 80
+(2e-5 in float32, 2e-2 in bfloat16, that file's own bars), and against
+``blockwise_attention`` on grouped heads, offsets (a negative
+``kv_offset`` included), windows, ragged chunk lengths, one-row decode and
+a fully masked row, which must read 0; ``ssd_scan_ref`` against
+``ssd_scan_pallas`` in interpret mode on ``test_kernels.py``'s grid
+(2e-4 absolute / 2e-3 relative, its bar) and against ``_ssd_chunked``
+with and without an initial state, y and the last state (1e-5 relative,
+with 1e-6 absolute for elements near zero); prefill-then-decode
+continuity. On a card (tests marked ``cuda``): the CUDA kernels against
+their plain versions, 1e-4 absolute + 1e-4 relative in float32 (sums in
+another order), 2e-2 in bfloat16 (the output rounds to 8 mantissa bits).
+
+JAX is imported only inside the fixtures that compare with it, so the
+card's tests run where JAX is not installed:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_kernels.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # test_kernels.py's bars
+SSD_PALLAS_ATOL, SSD_PALLAS_RTOL = 2e-4, 2e-3     # test_kernels.py's bar
+SSD_RTOL, SSD_ATOL = 1e-5, 1e-6                   # vs _ssd_chunked, float32
+BLOCKWISE_RTOL, BLOCKWISE_ATOL = 1e-5, 1e-6       # vs blockwise_attention
+CARD_RTOL = CARD_ATOL = 1e-4                      # kernel vs plain, float32
+CARD_BF16 = 2e-2                                  # kernel vs plain, bfloat16
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """jax.numpy, the Pallas kernels (interpret mode) and the model code."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.flash_attention import flash_attention_pallas
+    from repro.kernels.ssd_scan import ssd_scan_pallas
+    from repro.kernels import ref as jref
+    from repro.models import layers
+    return dict(jnp=jnp, flash=flash_attention_pallas, ssd=ssd_scan_pallas,
+                layers=layers, ref=jref)
+
+
+def _qkv(rng, b, sq, skv, h, hkv, d):
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, skv, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, skv, hkv, d)).astype(np.float32))
+
+
+def _ssd_inputs(rng, bt, s, h, p, n, g):
+    return (rng.standard_normal((bt, s, h, p)).astype(np.float32) * 0.5,
+            (rng.random((bt, s, h)) * 0.1 + 0.01).astype(np.float32),
+            (-(rng.random(h) * 0.5 + 0.1)).astype(np.float32),
+            rng.standard_normal((bt, s, g, n)).astype(np.float32) * 0.3,
+            rng.standard_normal((bt, s, g, n)).astype(np.float32) * 0.3)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: plain version vs the JAX package
+# ---------------------------------------------------------------------------
+
+# test_kernels.py:272-278, then its head-dim-80 case (:294)
+PALLAS_FLASH = [
+    (128, 128, True, 0, 0, "float32", 64),
+    (96, 96, False, 0, 0, "float32", 64),
+    (128, 128, True, 32, 0, "float32", 64),
+    (1, 256, False, 0, 255, "float32", 64),
+    (128, 128, True, 0, 0, "bfloat16", 64),
+    (64, 64, True, 0, 0, "float32", 80),
+]
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,qoff,dtype,d", PALLAS_FLASH)
+def test_flash_ref_matches_pallas(jx, sq, skv, causal, window, qoff, dtype, d):
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal((1, 2, s, d)).astype(np.float32)
+               for s in (sq, skv, skv))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    blk = 32 if d == 80 else 64
+    want = jx["flash"](jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                       jnp.asarray(v, jdt), causal=causal, window=window,
+                       q_offset=qoff, bq=blk, bk=blk)
+    tdt = getattr(torch, dtype)
+    # the port's layout is the model's [B, S, H, D]
+    tq, tk, tv = (torch.as_tensor(a).to(tdt).transpose(1, 2).contiguous()
+                  for a in (q, k, v))
+    got = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window,
+                                  q_offset=qoff)
+    assert got.dtype == tdt
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().transpose(1, 2).numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+BLOCKWISE = {
+    "gqa2-causal": dict(b=2, sq=40, skv=40, h=4, hkv=2, causal=True),
+    "gqa4-window": dict(b=1, sq=50, skv=50, h=8, hkv=2, causal=True,
+                        window=7),
+    "offsets": dict(b=2, sq=9, skv=64, h=4, hkv=4, causal=True, qoff=30),
+    "ring-negative-kv-offset": dict(b=2, sq=5, skv=21, h=4, hkv=2,
+                                    causal=True, window=16, qoff=3,
+                                    kvoff=-16),
+    "ragged-chunks": dict(b=1, sq=37, skv=53, h=2, hkv=1, causal=False),
+    "decode-row": dict(b=3, sq=1, skv=70, h=4, hkv=2, causal=True, qoff=45),
+    "head-dim-80": dict(b=1, sq=20, skv=20, h=2, hkv=2, d=80, causal=True),
+}
+
+
+@pytest.mark.parametrize("case", list(BLOCKWISE), ids=list(BLOCKWISE))
+def test_flash_ref_matches_blockwise(jx, case):
+    c = {"d": 16, "window": 0, "qoff": 0, "kvoff": 0, **BLOCKWISE[case]}
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, c["b"], c["sq"], c["skv"], c["h"], c["hkv"], c["d"])
+    kw = dict(causal=c["causal"], window=c["window"], q_offset=c["qoff"],
+              kv_offset=c["kvoff"])
+    # small chunks, so the JAX twin walks several ragged q and kv chunks
+    want = jx["layers"].blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_chunk=16,
+        kv_chunk=16, **kw)
+    got = ref.flash_attention_ref(torch.as_tensor(q), torch.as_tensor(k),
+                                  torch.as_tensor(v), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=BLOCKWISE_RTOL, atol=BLOCKWISE_ATOL)
+
+
+def test_flash_ref_fully_masked_row_reads_zero(jx):
+    """Rows 0–2 sit before every key (q_offset 0, kv_offset 3, causal):
+    no kept key. They read exactly 0 in both packages, not NaN."""
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, 1, 6, 8, 2, 1, 16)
+    kw = dict(causal=True, q_offset=0, kv_offset=3)
+    got = ref.flash_attention_ref(torch.as_tensor(q), torch.as_tensor(k),
+                                  torch.as_tensor(v), **kw).numpy()
+    want = np.asarray(jx["layers"].blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    assert np.all(got[:, :3] == 0.0) and np.all(want[:, :3] == 0.0)
+    assert np.isfinite(got).all() and np.abs(got[:, 3:]).max() > 0
+    np.testing.assert_allclose(got, want, rtol=BLOCKWISE_RTOL,
+                               atol=BLOCKWISE_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan: plain version vs the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,h,p,n,chunk", [
+    (128, 2, 16, 8, 32), (96, 1, 8, 4, 32), (256, 2, 32, 16, 64)])
+def test_ssd_ref_matches_pallas(jx, s, h, p, n, chunk):
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(5)
+    x, dt, a, b, c = _ssd_inputs(rng, 2, s, h, p, n, h)
+    want = jx["ssd"](*(jnp.asarray(t) for t in (x, dt, a, b, c)),
+                     chunk=chunk)
+    got, _ = ref.ssd_scan_ref(*(torch.as_tensor(t) for t in (x, dt, a, b, c)),
+                              chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=SSD_PALLAS_ATOL, rtol=SSD_PALLAS_RTOL)
+
+
+SSD_CHUNKED = {
+    "heads": dict(bt=2, s=64, h=4, p=8, n=4, g=4, chunk=16, s0=False),
+    "groups-s0": dict(bt=2, s=64, h=4, p=8, n=4, g=2, chunk=16, s0=True),
+    "one-group-ragged": dict(bt=1, s=45, h=4, p=16, n=8, g=1, chunk=16,
+                             s0=False),
+    "ragged-s0": dict(bt=2, s=37, h=2, p=4, n=8, g=1, chunk=32, s0=True),
+    "short-prompt": dict(bt=1, s=5, h=2, p=8, n=4, g=1, chunk=32, s0=True),
+}
+
+
+@pytest.mark.parametrize("case", list(SSD_CHUNKED), ids=list(SSD_CHUNKED))
+def test_ssd_ref_matches_chunked(jx, case):
+    c = SSD_CHUNKED[case]
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(9)
+    x, dt, a, b, cm = _ssd_inputs(rng, c["bt"], c["s"], c["h"], c["p"],
+                                  c["n"], c["g"])
+    s0 = (rng.standard_normal((c["bt"], c["h"], c["n"], c["p"]))
+          .astype(np.float32) if c["s0"] else None)
+    rep = c["h"] // c["g"]
+    y_j, last_j = jx["layers"]._ssd_chunked(
+        jnp.asarray(x), jnp.asarray(dt), jnp.asarray(a),
+        jnp.repeat(jnp.asarray(b), rep, axis=2),
+        jnp.repeat(jnp.asarray(cm), rep, axis=2), c["chunk"],
+        s0=None if s0 is None else jnp.asarray(s0))
+    y, last = ref.ssd_scan_ref(
+        *(torch.as_tensor(t) for t in (x, dt, a, b, cm)), chunk=c["chunk"],
+        s0=None if s0 is None else torch.as_tensor(s0))
+    assert y.dtype == last.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=SSD_RTOL,
+                               atol=SSD_ATOL)
+    np.testing.assert_allclose(last.numpy(), np.asarray(last_j),
+                               rtol=SSD_RTOL, atol=SSD_ATOL)
+
+
+def test_ssd_prefill_then_decode_continues_scan(jx):
+    """The scan over 48 steps, then 16 plain decode steps from its state,
+    equals the scan over all 64 (test_kernels.py:322), and the decode step
+    equals the JAX package's."""
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(13)
+    bt, s, h, p, n = 1, 64, 2, 8, 4
+    x, dt, a, b, c = (torch.as_tensor(t) for t in
+                      _ssd_inputs(rng, bt, s, h, p, n, h))
+    y_full, last_full = ref.ssd_scan_ref(x, dt, a, b, c, chunk=16)
+    _, state = ref.ssd_scan_ref(x[:, :48], dt[:, :48], a, b[:, :48],
+                                c[:, :48], chunk=16)
+    ys = []
+    for t in range(48, 64):
+        y_t, new = ref.ssd_decode_ref(state, x[:, t], dt[:, t], a, b[:, t],
+                                      c[:, t])
+        y_j, new_j = jx["ref"].ssd_decode_ref(
+            *(jnp.asarray(v.numpy()) for v in (state, x[:, t], dt[:, t], a,
+                                                b[:, t], c[:, t])))
+        np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j),
+                                   rtol=SSD_RTOL, atol=SSD_ATOL)
+        np.testing.assert_allclose(new.numpy(), np.asarray(new_j),
+                                   rtol=SSD_RTOL, atol=SSD_ATOL)
+        ys.append(y_t)
+        state = new
+    np.testing.assert_allclose(torch.stack(ys, 1).numpy(),
+                               y_full[:, 48:].numpy(), atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(state.numpy(), last_full.numpy(), atol=2e-5,
+                               rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# dispatch and the wrappers' refusals (no card needed)
+# ---------------------------------------------------------------------------
+
+def test_ops_take_the_plain_versions_on_the_cpu():
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.as_tensor(t) for t in _qkv(rng, 2, 5, 9, 4, 2, 16))
+    kw = dict(causal=True, window=4, q_offset=4, kv_offset=0)
+    assert torch.equal(ops.flash_attention(q, k, v, **kw),
+                       ref.flash_attention_ref(q, k, v, **kw))
+    args = [torch.as_tensor(t) for t in _ssd_inputs(rng, 1, 20, 4, 8, 4, 2)]
+    y, st = ops.ssd_scan(*args, chunk=8)
+    y_r, st_r = ref.ssd_scan_ref(*args, chunk=8)
+    assert torch.equal(y, y_r) and torch.equal(st, st_r)
+
+
+def test_ops_refuse_inputs_that_require_grad():
+    """Inference only, on either device: an input that requires grad
+    raises rather than returning a result with no history."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.as_tensor(t) for t in _qkv(rng, 1, 4, 4, 2, 2, 8))
+    with pytest.raises(RuntimeError, match="inference only"):
+        ops.flash_attention(q.requires_grad_(), k, v, causal=True)
+    args = [torch.as_tensor(t) for t in _ssd_inputs(rng, 1, 8, 2, 4, 4, 1)]
+    args[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="inference only"):
+        ops.ssd_scan(*args, chunk=4)
+    with torch.no_grad():
+        ops.ssd_scan(*args, chunk=4)
+
+
+def test_wrappers_take_cuda_tensors_only():
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.as_tensor(t) for t in _qkv(rng, 1, 4, 4, 2, 2, 8))
+    before = (fa.flash_attention_cuda.launches, ss.ssd_scan_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(q, k, v, causal=True)
+    args = [torch.as_tensor(t) for t in _ssd_inputs(rng, 1, 8, 2, 4, 4, 1)]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ss.ssd_scan_cuda(*args, chunk=4)
+    assert (fa.flash_attention_cuda.launches,
+            ss.ssd_scan_cuda.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# on a card: the CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    from repro_torch.core.gnn import resolve_device
+    return resolve_device("cuda")
+
+
+def _card_close(got, want, dtype):
+    tol = CARD_BF16 if dtype == torch.bfloat16 else CARD_ATOL
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol,
+                               rtol=tol if dtype == torch.bfloat16
+                               else CARD_RTOL)
+
+
+CARD_FLASH = [
+    dict(b=1, sq=128, skv=128, h=2, hkv=2, d=64, causal=True),
+    dict(b=2, sq=33, skv=70, h=8, hkv=2, d=16, causal=True, window=16,
+         qoff=40, kvoff=-3),
+    dict(b=2, sq=1, skv=576, h=4, hkv=4, d=80, causal=True, qoff=500),
+    dict(b=1, sq=5, skv=20, h=2, hkv=1, d=120, causal=True, window=4,
+         kvoff=-12),
+    dict(b=1, sq=6, skv=8, h=2, hkv=1, d=128, causal=True, kvoff=3),
+    dict(b=2, sq=70, skv=70, h=4, hkv=4, d=64, causal=False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(CARD_FLASH)))
+def test_flash_kernel_matches_plain(card, case, dtype):
+    c = {"window": 0, "qoff": 0, "kvoff": 0, **CARD_FLASH[case]}
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(case)
+    q, k, v = (torch.as_tensor(t, device=card).to(dt) for t in
+               _qkv(rng, c["b"], c["sq"], c["skv"], c["h"], c["hkv"], c["d"]))
+    kw = dict(causal=c["causal"], window=c["window"], q_offset=c["qoff"],
+              kv_offset=c["kvoff"])
+    n0 = fa.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == n0 + 1
+    _card_close(got, ref.flash_attention_ref(q, k, v, **kw), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 128, 2, 16, 8, 1, 32),
+                                   (1, 77, 4, 16, 16, 2, 32),
+                                   (2, 300, 8, 64, 64, 1, 128),
+                                   (1, 130, 4, 64, 128, 1, 128)])
+def test_ssd_kernel_matches_plain(card, shape, dtype):
+    bt, s, h, p, n, g, chunk = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(s)
+    x, dtt, a, b, c = _ssd_inputs(rng, bt, s, h, p, n, g)
+    x, b, c = (torch.as_tensor(t, device=card).to(dt) for t in (x, b, c))
+    dtt, a = torch.as_tensor(dtt, device=card), torch.as_tensor(a, device=card)
+    s0 = torch.as_tensor(rng.standard_normal((bt, h, n, p))
+                         .astype(np.float32), device=card)
+    for init in (None, s0):
+        n0 = ss.ssd_scan_cuda.launches
+        y, last = ops.ssd_scan(x, dtt, a, b, c, chunk=chunk, s0=init)
+        torch.cuda.synchronize()
+        assert ss.ssd_scan_cuda.launches == n0 + 1
+        y_r, last_r = ref.ssd_scan_ref(x, dtt, a, b, c, chunk=chunk, s0=init)
+        _card_close(y, y_r, torch.float32)
+        _card_close(last, last_r, torch.float32)
