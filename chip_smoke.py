@@ -19,10 +19,17 @@ Phases, each printing one JSON line:
    ``autograd.Function``'s backward on the card against the same backward
    on the CPU. The LM stack's two kernels are swept in float32 and
    bfloat16: grouped heads, windows, the ring cache's negative key
-   offset, fully masked rows, one-row decode, head dims 16 to 128;
-   ragged chunks, sequences shorter than a chunk, an initial state, B/C
+   offset, fully masked rows, head dims 16 to 128, query tiles around
+   the tensor-core path's 64 and 128 rows, one-row decode over one and
+   several key splits and with no kept key; ragged chunks, sequences
+   shorter than a chunk, an initial state, B/C
    per group, and a d_state whose shared memory makes the scan halve its
-   chunk. Then the kernel's time (a
+   chunk. The flash entry also carries each flash kernel's ptxas
+   registers and spills, the counts of wgmma (HGMMA) and TMA (UTMALDG)
+   instructions in the built library (the run fails if either is 0), the
+   decode under its split plan and under twice the plan's CTAs, and the
+   same-function yardstick (SDPA's is_causal over the kept keys). Then
+   the kernel's time (a
    CUDA graph of 20 back-to-back wrapper calls, replayed; median over many
    replays, per call), the plain version's time, one library call's time
    where one computes the same function, the least time the card could
@@ -74,6 +81,8 @@ exits non-zero without a CUDA device. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1647,6 +1656,23 @@ FLASH_SWEEP = [
     (1, 6, 8, 2, 1, 128, True, 0, 0, 3),              # rows 0-2 fully masked
     (3, 1, 70, 4, 2, 80, True, 0, 45, 0),             # decode, GQA 2
     (2, 77, 77, 4, 4, 80, True, 0, 0, 0),             # ragged tiles
+    # the tensor-core path: query tiles around the 64-row warpgroup and the
+    # 128-row CTA, each padded head dim (16, 64, 80, 120 -> 128, 128)
+    (1, 63, 63, 2, 2, 64, True, 0, 0, 0),
+    (1, 64, 64, 2, 1, 80, True, 0, 0, 0),
+    (1, 65, 65, 2, 2, 120, True, 0, 0, 0),
+    (1, 200, 260, 4, 2, 128, True, 0, 60, 0),
+    (1, 512, 576, 2, 2, 80, True, 0, 0, 0),
+    (1, 40, 96, 4, 1, 16, True, 24, 70, -10),         # window, ring offset
+    (1, 3, 24, 2, 2, 16, False, 0, 0, 0),             # Skv under one tile
+    (4, 300, 300, 40, 8, 64, True, 0, 0, 150),        # items > SMs, empty ones
+    # split-KV decode: GQA 4 and 8 over several splits, a window over the
+    # ring's negative offset, Skv under one tile, a split with no kept key
+    (1, 1, 576, 16, 4, 64, True, 0, 575, 0),
+    (1, 1, 576, 16, 2, 128, True, 0, 575, 0),
+    (1, 1, 300, 8, 2, 120, True, 40, 250, -30),
+    (1, 1, 24, 4, 1, 64, True, 0, 23, 0),
+    (2, 1, 20, 4, 1, 80, True, 0, 5, 10),
 ]
 #: SSD sweep: (Bt, S, H, P, N, G, chunk)
 SSD_SWEEP = [
@@ -1721,6 +1747,80 @@ def sweep_ssd(torch, dev) -> dict:
     return worst
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """Registers, spills and static shared memory per kernel from a
+    ``-Xptxas -v`` build log, keyed by the kernel's demangled name
+    (``c++filt`` where it is installed)."""
+    facts, order, cur = {}, [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            order.append(cur)
+            facts[cur] = {}
+        elif cur and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes (stack frame|spill stores|"
+                              r"spill loads)", line)
+            facts[cur].update({k.replace(" ", "_"): int(v) for v, k in nums})
+        elif cur and "Used" in line and "registers" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            facts[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            facts[cur]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    names = dict(zip(order, order))
+    filt = shutil.which("c++filt")
+    if filt and order:
+        out = subprocess.run([filt], input="\n".join(order),
+                             capture_output=True, text=True).stdout
+        for mangled, plain in zip(order, out.splitlines()):
+            names[mangled] = (plain.removeprefix("void ")
+                              .replace("(anonymous namespace)::", "")
+                              .split("(")[0])
+    return {names[k]: v for k, v in facts.items()}
+
+
+def cuobjdump_path():
+    """``cuobjdump`` from PATH, beside ``nvcc``, or Triton's copy; None if
+    none is installed."""
+    from repro_torch.kernels.build import nvcc_path
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    candidates = [Path(nvcc_path()).parent / "cuobjdump"]
+    try:
+        import importlib.util
+        spec = importlib.util.find_spec("triton")
+        if spec and spec.origin:
+            candidates.append(Path(spec.origin).parent / "backends" /
+                              "nvidia" / "bin" / "cuobjdump")
+    except (ImportError, ValueError):
+        pass
+    return next((str(c) for c in candidates if c.exists()), None)
+
+
+def flash_build_facts() -> dict:
+    """What ptxas reports for each flash kernel, and the counts of wgmma
+    (``HGMMA``) and TMA load (``UTMALDG``) instructions in the built
+    library's SASS: non-zero, or the bf16 multi-row path does not run on
+    the tensor cores and TMA."""
+    from repro_torch.kernels import build
+    facts = {"ptxas": ptxas_by_kernel(build.build_log("flash_attention"))}
+    tool = cuobjdump_path()
+    if tool is None:
+        facts["sass"] = "not counted: no cuobjdump installed"
+        return facts
+    sass = subprocess.run(
+        [tool, "-sass", str(build.build_dir() / "libflash_attention.so")],
+        check=True, capture_output=True, text=True).stdout
+    counts = {op: len(re.findall(r"\b" + op + r"\b", sass))
+              for op in ("HGMMA", "UTMALDG")}
+    if not all(counts.values()):
+        raise AssertionError(f"flash_attention: SASS counts {counts}: the "
+                             f"bf16 path should run on wgmma and TMA")
+    facts["sass"] = counts
+    return facts
+
+
 def lm_kernel_entries(torch, dev) -> tuple:
     """flash_attention and ssd_scan at the shapes of lm_path's full serving
     run (prefill and decode for flash, prefill for the scan), in its
@@ -1787,20 +1887,40 @@ def lm_kernel_entries(torch, dev) -> tuple:
         "flash_decode": time_graph_ms(
             torch, lambda: F.scaled_dot_product_attention(qdt, kt, vt)),
     }
+    # the decode split plan's wave target, against twice as many CTAs a
+    # step (more splits, each adding scratch traffic, and the merge launch)
+    from repro_torch.kernels import flash_attention as fa
+    rows = -(-(h // hkv) // fa._DECODE_ROWS)
+    plans, waves = {}, fa._DECODE_WAVES
+    for label, w in (("plan", waves), ("twice_the_waves", 2 * waves)):
+        fa._DECODE_WAVES = w
+        try:
+            plans[label] = {
+                "splits": fa.decode_split_plan(
+                    t_max, ctas=b * hkv * rows,
+                    sm_count=torch.cuda.get_device_properties(
+                        dev).multi_processor_count,
+                    tile=fa._DECODE_TILE[bf16], **dec).n_splits,
+                "ms": time_graph_ms(torch, pairs["flash_decode"][0])}
+        finally:
+            fa._DECODE_WAVES = waves
     us = device_breakdown_us(torch, {kk: vv[0] for kk, vv in pairs.items()})
 
     # bounds: each input read once, each output written once (2 bytes a
     # bfloat16, 4 a float32); the products this run's mask keeps (the
-    # causal pairs; decode: every key), at the bfloat16 tensor-core peak
+    # causal pairs; decode: every key), at the bfloat16 tensor-core peak;
+    # at prefill only the K/V rows the mask keeps (S of the T_max keys:
+    # the keys after the last query row are never read)
     kept_pre = b * h * s * (s + 1) // 2
     kept_dec = b * h * t_max
     lc = min(sm.chunk, s)
     n_chunks = -(-s // lc)
     tri = lc * (lc + 1) // 2
     ssd_flops = 2.0 * b * nh * n_chunks * (tri * n + tri * p + 2 * lc * n * p)
+    kv_rows_pre = b * s * hkv * hd     # the keys the causal mask keeps
     bounds = {
         "flash_prefill": bound_ms(4.0 * hd * kept_pre,
-                                  2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                                  2.0 * (2 * q.numel() + 2 * kv_rows_pre),
                                   PEAK_BF16_FLOPS),
         "flash_decode": bound_ms(4.0 * hd * kept_dec,
                                  2.0 * (2 * qd.numel() + k.numel() + v.numel()),
@@ -1829,13 +1949,24 @@ def lm_kernel_entries(torch, dev) -> tuple:
          "library_note": "scaled_dot_product_attention on the same "
                          "inputs ([B, H, S, D] copies) with the causal "
                          "mask as a boolean attn_mask",
-         "library_causal_512_ms": library["flash_prefill_causal_512"],
+         "same_function_ms": library["flash_prefill_causal_512"],
+         "same_function_note": f"the same-function yardstick: "
+                               f"scaled_dot_product_attention with "
+                               f"is_causal over the first {s} keys, which "
+                               f"computes the same output (keys {s}.."
+                               f"{t_max - 1} lie after every query row)",
+         "prefill_at_or_below_library": times["flash_prefill"]["ms"]
+         <= library["flash_prefill"],
          "decode": {"unit": f"q [{b}, 1, {h}, {hd}] over k/v [{b}, {t_max}, "
                             f"{hkv}, {hd}] bf16",
                     **times["flash_decode"],
                     "bound_ms": bounds["flash_decode"][0],
                     "bound_by": bounds["flash_decode"][1],
-                    "library_ms": library["flash_decode"]},
+                    "library_ms": library["flash_decode"],
+                    "ratio_to_library": times["flash_decode"]["ms"]
+                    / library["flash_decode"],
+                    "split_plan": plans},
+         "build": flash_build_facts(),
          "max_abs_err_by_dtype": sweep["flash_attention"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": src_root + "ssd_scan.cu",

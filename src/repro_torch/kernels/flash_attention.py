@@ -1,4 +1,4 @@
-"""Python wrapper around the hand-written flash-attention kernel.
+"""Python wrapper around the hand-written flash-attention kernels.
 
 :func:`flash_attention_cuda` runs ``csrc/flash_attention.cu``, the port of
 ``flash_attention_pallas``: the function of ``blockwise_attention``
@@ -7,29 +7,91 @@ with grouped-query heads, causal and sliding-window masks, and the query
 and key offsets a decode step and the ring cache give. Semantics are
 those of :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
+The C entry picks one of three launch shapes by the query length and the
+dtype (the source's header says why):
+
+* ``Sq > 1`` in bfloat16: TMA loads and ``wgmma`` on the tensor cores,
+  with p rounded to bf16 before ``p @ V``;
+* ``Sq > 1`` in float32: products on the FMA pipes, so the parity dtype
+  is not computed in TF32;
+* ``Sq == 1``, either dtype: split-KV decode over the plan of
+  :func:`decode_split_plan`, then a log-sum-exp merge of the splits.
+
+The choice is by dtype and shape, not a fallback: a launch that fails
+raises, and so does a tensor map that ``cuTensorMapEncodeTiled`` refuses.
+
 The wrapper follows :mod:`repro_torch.kernels.segment_spmm`: CUDA tensors
 only, checked for device, dtype (float32 or bfloat16, q, k and v alike),
-shape, contiguity and alignment; the output allocated with
-``torch.empty``; one launch on the current stream, counted in
-``flash_attention_cuda.launches``; a non-zero ``cudaError_t`` raises, and
-so does an input that requires grad while grad mode is on (the kernel has
-no backward; LM training is ROADMAP A14b).
+shape, contiguity and alignment; the output and the decode scratch
+allocated with ``torch.empty``; the launches on the current stream, one
+call counted once in ``flash_attention_cuda.launches`` (a decode call
+with more than one split launches two kernels, the split pass and the
+merge, and still counts one); an input that requires grad while grad mode
+is on raises (the kernel has no backward; LM training is ROADMAP A14b).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from .segment_spmm import (_call, _check, _check_dims, _count, _cuda_device,
-                           _ptr, refuse_grad)
+from .segment_spmm import (_check, _check_dims, _count, _cuda_device,
+                           _entry, _ptr, refuse_grad)
 
 #: head dims the kernel takes: D % 8 == 0 and D <= _MAX_D
 _MAX_D = 128
 #: gridDim.y carries batch × heads
 _MAX_BH = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: keys a decode tile by dtype (``dec::tile_keys`` in the source)
+_DECODE_TILE = {torch.float32: 32, torch.bfloat16: 64}
+#: query rows (heads of one kv head) a decode CTA holds (``dec::kMaxRows``)
+_DECODE_ROWS = 8
+#: decode CTAs per SM the split plan aims for, at least: every CTA of a
+#: step is resident at once (45–106 KB of shared memory a CTA), so splits
+#: only help while there are fewer CTAs than SMs, and each adds scratch
+#: traffic and the merge launch (``chip_smoke.py`` times zamba2's decode,
+#: 256 CTAs, under this target and under twice it)
+_DECODE_WAVES = 1
+
+
+class SplitPlan(NamedTuple):
+    """Keys ``[key_lo, key_hi)`` of a one-row step, cut into ``n_splits``
+    runs of ``split_len`` keys (the last may be shorter)."""
+    key_lo: int
+    key_hi: int
+    split_len: int
+    n_splits: int
+
+
+def decode_split_plan(skv: int, *, causal: bool, window: int = 0,
+                      q_offset: int = 0, kv_offset: int = 0, ctas: int,
+                      sm_count: int, tile: int) -> SplitPlan:
+    """The split plan of a decode step (one query row at ``q_offset``).
+
+    The live keys are those the mask can keep: positions ``≥ 0``, not
+    after the row if ``causal``, within ``window`` of it if ``window > 0``
+    — one contiguous range ``[key_lo, key_hi)`` of key indices, empty when
+    no key is kept. ``ctas`` is the number of CTAs one split gives (batch ×
+    kv heads × row groups); the range is cut into runs of whole ``tile``s,
+    short enough that ``ctas × n_splits`` covers ``_DECODE_WAVES ×
+    sm_count`` where the keys allow (else one tile a split); no split is
+    empty, and the last may be shorter. An empty range is one
+    split of no keys, whose rows read 0.
+    """
+    lo = max(0, -kv_offset)
+    hi = skv
+    if causal:
+        hi = min(hi, q_offset - kv_offset + 1)
+    if window > 0:
+        lo = max(lo, q_offset - window + 1 - kv_offset)
+    if hi <= lo:
+        return SplitPlan(0, 0, 0, 1)
+    n_tiles = -(-(hi - lo) // tile)
+    want = -(-_DECODE_WAVES * sm_count // max(ctas, 1))
+    split_len = max(1, n_tiles // want) * tile
+    return SplitPlan(lo, hi, split_len, -(-(hi - lo) // split_len))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,8 +105,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous; ``H % Hkv == 0``; ``D % 8 == 0`` and ``D <= 128``.
     ``q_offset`` / ``kv_offset`` are the positions of the first query row
     and the first key (``kv_offset`` may be negative: the ring cache).
-    Returns [B, Sq, H, D] in q's dtype; a row with no kept key is 0. One
-    launch (none when the output is empty).
+    Returns [B, Sq, H, D] in q's dtype; a row with no kept key is 0.
+
+    ``launches`` counts calls: one per call that reaches the card, also a
+    decode call whose C entry launches the split pass and the merge.
     """
     refuse_grad("flash_attention", q, k, v)
     dev = _cuda_device(q)
@@ -76,14 +140,36 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"{type(val).__name__}")
     _check_dims(q_end=abs(q_offset) + sq, kv_end=abs(kv_offset) + skv)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    plan = SplitPlan(0, 0, 0, 1)
     with torch.cuda.device(dev):
         out = torch.empty_like(q)
         if out.numel() == 0:
             return out
+        scratch = None
+        if sq == 1:
+            plan = decode_split_plan(
+                skv, causal=bool(causal), window=window, q_offset=q_offset,
+                kv_offset=kv_offset,
+                ctas=b * hkv * -(-(h // hkv) // _DECODE_ROWS),
+                sm_count=torch.cuda.get_device_properties(
+                    dev).multi_processor_count,
+                tile=_DECODE_TILE[q.dtype])
+            if plan.n_splits > 1:
+                scratch = torch.empty(b * h * plan.n_splits * (d + 2),
+                                      dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _call("flash_attention", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-              _DTYPES[q.dtype], b, sq, skv, h, hkv, d, scale, int(causal),
-              int(window), q_offset, kv_offset, stream)
+        rc = _entry("flash_attention")(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(scratch),
+            _DTYPES[q.dtype], b, sq, skv, h, hkv, d, scale, int(causal),
+            int(window), q_offset, kv_offset, *plan, stream)
+    if rc < 0:
+        why = ("no cuTensorMapEncodeTiled entry point" if rc == -1000
+               else f"cuTensorMapEncodeTiled returned CUresult {-rc}")
+        raise RuntimeError(f"CUDA kernel flash_attention was not launched: "
+                           f"{why}")
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel flash_attention was not launched: "
+                           f"cudaError_t {rc}")
     _count(flash_attention_cuda)
     return out
 

@@ -304,6 +304,63 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, plan: Tuple[int, int, int, int], causal: bool,
+                           window: int = 0, q_offset: int = 0,
+                           kv_offset: int = 0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The split-KV decode of ``csrc/flash_attention.cu``, step by step:
+    one query row (q [B, 1, H, D]) over the keys of ``plan = (key_lo,
+    key_hi, split_len, n_splits)`` (``decode_split_plan`` in
+    :mod:`repro_torch.kernels.flash_attention`).
+
+    Split s takes keys ``[key_lo + s·split_len, min(key_hi, … + split_len))``
+    and holds ``m`` (its masked maximum, never below -1e30), ``l`` (the sum
+    of ``exp(score − m)`` over its kept keys) and ``acc`` (the same weights
+    times V, unnormalised); a split with no kept key holds (-1e30, 0, 0).
+    The merge weighs each split by ``exp(m − max m)`` and divides by
+    ``max(Σ w·l, 1e-20)``, so a row with no kept key anywhere reads 0.
+    Masks are those of :func:`flash_attention_ref`. Float32 inside; used by
+    the tests only. Returns [B, 1, H, D] in q's dtype.
+    """
+    b, sq, h, d = q.shape
+    if sq != 1:
+        raise ValueError(f"a decode step has one query row, got {sq}")
+    hkv = k.shape[2]
+    rep = h // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf = q[:, 0].float()                                   # [B, H, D]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    key_lo, key_hi, split_len, n_splits = plan
+    ms, ls, accs = [], [], []
+    for s in range(n_splits):
+        j0 = key_lo + s * split_len
+        j = torch.arange(j0, max(j0, min(key_hi, j0 + split_len)),
+                         device=q.device)
+        cols = kv_offset + j
+        mask = cols >= 0
+        if causal:
+            mask = mask & (cols <= q_offset)
+        if window > 0:
+            mask = mask & (cols >= q_offset - window + 1)
+        sc = torch.einsum("bhd,bkhd->bhk", qf, kf[:, j]) * scale
+        sc = sc.masked_fill(~mask, -math.inf)
+        m = torch.full((b, h), -1e30, device=q.device)
+        if j.numel():
+            m = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m[..., None])                   # masked: 0
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhk,bkhd->bhd", p, vf[:, j]))
+    m_all = torch.stack(ms)                                # [splits, B, H]
+    w = torch.exp(m_all - m_all.amax(dim=0))
+    l = (w * torch.stack(ls)).sum(dim=0).clamp_min(1e-20)
+    out = (w[..., None] * torch.stack(accs)).sum(dim=0) / l[..., None]
+    return out[:, None].to(q.dtype)
+
+
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, *, chunk: int,
                  s0: Optional[torch.Tensor] = None

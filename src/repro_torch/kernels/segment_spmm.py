@@ -73,8 +73,9 @@ _SIGNATURES = {
     "dense_aggregate": ("dense_aggregate",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P]),
     "ssd_scan_chunk": ("ssd_scan", [_I, _I, _I]),
     "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P]),

@@ -5,7 +5,13 @@ in interpret mode on ``tests/test_kernels.py``'s cases plus head dim 80
 (2e-5 in float32, 2e-2 in bfloat16, that file's own bars), and against
 ``blockwise_attention`` on grouped heads, offsets (a negative
 ``kv_offset`` included), windows, ragged chunk lengths, one-row decode and
-a fully masked row, which must read 0; ``ssd_scan_ref`` against
+a fully masked row, which must read 0; the decode's split plan
+(``decode_split_plan``) and its split-and-merge step
+(``flash_decode_split_ref``) against ``flash_attention_ref`` and
+``blockwise_attention`` (1e-5: float32 sums in another order), on grouped
+heads of 1, 4 and 8, splits that the causal or window bound masks wholly,
+the ring's negative ``kv_offset``, fewer keys than one split, and rows with
+no kept key, which read exactly 0; ``ssd_scan_ref`` against
 ``ssd_scan_pallas`` in interpret mode on ``test_kernels.py``'s grid
 (2e-4 absolute / 2e-3 relative, its bar) and against ``_ssd_chunked``
 with and without an initial state, y and the last state (1e-5 relative,
@@ -147,6 +153,126 @@ def test_flash_ref_fully_masked_row_reads_zero(jx):
     assert np.isfinite(got).all() and np.abs(got[:, 3:]).max() > 0
     np.testing.assert_allclose(got, want, rtol=BLOCKWISE_RTOL,
                                atol=BLOCKWISE_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# flash decode: the split plan and the split-and-merge step (no card needed)
+# ---------------------------------------------------------------------------
+
+#: one-row decode steps; "empty" names the cases with no kept key at all
+DECODE_SPLIT = {
+    "gqa1-long-cache": dict(b=2, skv=576, h=4, hkv=4, d=16, qoff=500),
+    "gqa4-mid-cache": dict(b=1, skv=300, h=8, hkv=2, d=16, qoff=250),
+    "gqa8": dict(b=2, skv=200, h=16, hkv=2, d=32, qoff=120),
+    "gqa8-whole-cache": dict(b=2, skv=200, h=16, hkv=2, d=32, qoff=199),
+    "gqa4-ring-window": dict(b=2, skv=70, h=8, hkv=2, d=16, window=16,
+                             qoff=40, kvoff=-3),
+    "gqa2-ring-early": dict(b=2, skv=21, h=4, hkv=2, d=16, window=16, qoff=3,
+                            kvoff=-16),
+    "gqa8-keys-under-one-split": dict(b=1, skv=20, h=8, hkv=1, d=16, qoff=19),
+    "window-mid-cache": dict(b=1, skv=256, h=4, hkv=1, d=16, window=40,
+                             qoff=180, kvoff=-10),
+    "empty-causal": dict(b=1, skv=20, h=4, hkv=1, d=16, qoff=5, kvoff=10),
+    "empty-window": dict(b=1, skv=50, h=4, hkv=1, d=16, window=8, qoff=60,
+                         kvoff=-20),
+}
+#: the cases whose cache holds a whole tile of keys that the causal bound
+#: (keys after the row), the window (keys before it) or negative positions
+#: mask: cut into tile-long splits, such a split has no kept key
+WHOLLY_MASKED = {"gqa1-long-cache", "gqa4-mid-cache", "gqa8",
+                 "gqa4-ring-window", "window-mid-cache", "empty-causal",
+                 "empty-window"}
+#: the SMs the plans below aim at (an H100 SXM's 132)
+PLAN_SMS = 132
+
+
+def _decode_case(name, seed):
+    c = {"window": 0, "kvoff": 0, **DECODE_SPLIT[name]}
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(t) for t in
+               _qkv(rng, c["b"], 1, c["skv"], c["h"], c["hkv"], c["d"]))
+    kw = dict(causal=True, window=c["window"], q_offset=c["qoff"],
+              kv_offset=c["kvoff"])
+    return c, q, k, v, kw
+
+
+def _plan(c, kw, tile):
+    rows = -(-(c["h"] // c["hkv"]) // fa._DECODE_ROWS)
+    return fa.decode_split_plan(c["skv"], ctas=c["b"] * c["hkv"] * rows,
+                                sm_count=PLAN_SMS, tile=tile, **kw)
+
+
+@pytest.mark.parametrize("tile", sorted(set(fa._DECODE_TILE.values())))
+@pytest.mark.parametrize("case", list(DECODE_SPLIT), ids=list(DECODE_SPLIT))
+def test_decode_split_ref_matches_flash_ref(case, tile):
+    """The split-and-merge step over the real plan, and over a plan that
+    cuts every key into splits (so the causal or window bound masks whole
+    splits), equals the one-piece softmax."""
+    c, q, k, v, kw = _decode_case(case, 17)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    uncut = fa.SplitPlan(0, c["skv"], tile, -(-c["skv"] // tile))
+    for plan in (_plan(c, kw, tile), uncut):
+        got = ref.flash_decode_split_ref(q, k, v, plan=plan, **kw)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    if case.startswith("empty"):
+        assert torch.equal(got, torch.zeros_like(got))
+    live = _plan(c, kw, tile)
+    starts = range(0, c["skv"], tile)
+    masked = [j0 for j0 in starts
+              if min(j0 + tile, live.key_hi) <= max(j0, live.key_lo)]
+    assert bool(masked) == (case in WHOLLY_MASKED), masked
+
+
+@pytest.mark.parametrize("case", list(DECODE_SPLIT), ids=list(DECODE_SPLIT))
+def test_decode_split_ref_matches_blockwise(jx, case):
+    jnp = jx["jnp"]
+    c, q, k, v, kw = _decode_case(case, 19)
+    got = ref.flash_decode_split_ref(q, k, v, plan=_plan(c, kw, 64), **kw)
+    want = np.asarray(jx["layers"].blockwise_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), q_chunk=16,
+        kv_chunk=16, **kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if case.startswith("empty"):
+        assert np.all(got.numpy() == 0.0) and np.all(want == 0.0)
+
+
+@pytest.mark.parametrize("ctas", [1, 16, 256, 1024])
+@pytest.mark.parametrize("tile", sorted(set(fa._DECODE_TILE.values())))
+def test_decode_split_plan_covers_the_kept_keys(ctas, tile):
+    """The plan's range is exactly the keys the mask keeps, its splits are
+    whole tiles that cover the range in order with none empty, and there
+    are enough of them to fill the card twice where the keys allow."""
+    grid = [(skv, causal, window, qoff, kvoff)
+            for skv in (1, 20, 64, 65, 576)
+            for causal in (True, False)
+            for window in (0, 8, 100)
+            for qoff, kvoff in ((0, 0), (skv - 1, 0), (skv // 2, 0),
+                                (40, -30), (5, 10), (700, 0))]
+    for skv, causal, window, qoff, kvoff in grid:
+        kw = dict(causal=causal, window=window, q_offset=qoff,
+                  kv_offset=kvoff)
+        plan = fa.decode_split_plan(skv, ctas=ctas, sm_count=PLAN_SMS,
+                                    tile=tile, **kw)
+        cols = kvoff + np.arange(skv)
+        keep = cols >= 0
+        if causal:
+            keep &= cols <= qoff
+        if window > 0:
+            keep &= cols >= qoff - window + 1
+        kept_j = np.flatnonzero(keep)
+        if kept_j.size == 0:
+            assert plan == fa.SplitPlan(0, 0, 0, 1), (skv, kw)
+            continue
+        assert (plan.key_lo, plan.key_hi) == (kept_j[0], kept_j[-1] + 1)
+        assert kept_j.size == plan.key_hi - plan.key_lo        # contiguous
+        assert plan.split_len % tile == 0 and plan.split_len > 0
+        starts = plan.key_lo + plan.split_len * np.arange(plan.n_splits)
+        assert starts[-1] < plan.key_hi                        # none empty
+        assert starts[-1] + plan.split_len >= plan.key_hi      # all covered
+        n_tiles = -(-(plan.key_hi - plan.key_lo) // tile)
+        assert (ctas * plan.n_splits >= fa._DECODE_WAVES * PLAN_SMS
+                or plan.n_splits == n_tiles), (skv, kw, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +432,27 @@ CARD_FLASH = [
          kvoff=-12),
     dict(b=1, sq=6, skv=8, h=2, hkv=1, d=128, causal=True, kvoff=3),
     dict(b=2, sq=70, skv=70, h=4, hkv=4, d=64, causal=False),
+    # query tiles around the 64-row warpgroup and the 128-row CTA, every
+    # padded head dim of the tensor-core path (16, 64, 80, 120 -> 128, 128)
+    dict(b=1, sq=63, skv=63, h=2, hkv=2, d=64, causal=True),
+    dict(b=1, sq=64, skv=64, h=2, hkv=1, d=80, causal=True),
+    dict(b=1, sq=65, skv=65, h=2, hkv=2, d=120, causal=True),
+    dict(b=1, sq=200, skv=260, h=4, hkv=2, d=128, causal=True, qoff=60),
+    dict(b=1, sq=512, skv=576, h=2, hkv=2, d=80, causal=True),
+    dict(b=1, sq=40, skv=96, h=4, hkv=1, d=16, causal=True, window=24,
+         qoff=70, kvoff=-10),
+    dict(b=1, sq=3, skv=24, h=2, hkv=2, d=16, causal=False),  # < one tile
+    # more work items than SMs, so each persistent CTA takes several, some
+    # with no kept key (rows 0-149 sit before every key)
+    dict(b=4, sq=300, skv=300, h=40, hkv=8, d=64, causal=True, kvoff=150),
+    # decode: grouped heads 4 and 8 over several splits, a window over the
+    # ring's negative offset, fewer keys than a tile, no kept key at all
+    dict(b=1, sq=1, skv=576, h=16, hkv=4, d=64, causal=True, qoff=575),
+    dict(b=1, sq=1, skv=576, h=16, hkv=2, d=128, causal=True, qoff=575),
+    dict(b=1, sq=1, skv=300, h=8, hkv=2, d=120, causal=True, window=40,
+         qoff=250, kvoff=-30),
+    dict(b=1, sq=1, skv=24, h=4, hkv=1, d=64, causal=True, qoff=23),
+    dict(b=2, sq=1, skv=20, h=4, hkv=1, d=80, causal=True, qoff=5, kvoff=10),
 ]
 
 
