@@ -26,9 +26,12 @@ Phases, each printing one JSON line:
    per group, and a d_state whose shared memory makes the scan halve its
    chunk. The flash entry also carries each flash kernel's ptxas
    registers and spills, the counts of wgmma (HGMMA) and TMA (UTMALDG)
-   instructions in the built library (the run fails if either is 0), the
-   decode under its split plan and under twice the plan's CTAs, and the
-   same-function yardstick (SDPA's is_causal over the kept keys). Then
+   instructions in the built library (the run fails if either is 0, or
+   if no ptxas report or no ``cuobjdump`` is found), the host µs of one
+   decode call, the decode at shapes with more and with fewer CTAs than
+   SMs under its split plan, under twice the plan's CTAs and under one
+   split, and the same-function yardstick (SDPA's is_causal over the kept
+   keys). Then
    the kernel's time (a
    CUDA graph of 20 back-to-back wrapper calls, replayed; median over many
    replays, per call), the plain version's time, one library call's time
@@ -1665,6 +1668,8 @@ FLASH_SWEEP = [
     (1, 512, 576, 2, 2, 80, True, 0, 0, 0),
     (1, 40, 96, 4, 1, 16, True, 24, 70, -10),         # window, ring offset
     (1, 3, 24, 2, 2, 16, False, 0, 0, 0),             # Skv under one tile
+    (2, 70, 90, 4, 2, 32, True, 0, 20, 0),            # D 32 and 24: padded
+    (1, 130, 130, 2, 1, 24, True, 48, 0, 0),          # to 64 on the TMA path
     (4, 300, 300, 40, 8, 64, True, 0, 0, 150),        # items > SMs, empty ones
     # split-KV decode: GQA 4 and 8 over several splits, a window over the
     # ring's negative offset, Skv under one tile, a split with no kept key
@@ -1805,10 +1810,14 @@ def flash_build_facts() -> dict:
     the tensor cores and TMA."""
     from repro_torch.kernels import build
     facts = {"ptxas": ptxas_by_kernel(build.build_log("flash_attention"))}
+    if not facts["ptxas"]:
+        raise AssertionError("flash_attention: the build log holds no ptxas "
+                             "report (-Xptxas -v)")
     tool = cuobjdump_path()
     if tool is None:
-        facts["sass"] = "not counted: no cuobjdump installed"
-        return facts
+        raise AssertionError("flash_attention: no cuobjdump found on PATH, "
+                             "beside nvcc or in Triton's package, so the "
+                             "SASS cannot be counted")
     sass = subprocess.run(
         [tool, "-sass", str(build.build_dir() / "libflash_attention.so")],
         check=True, capture_output=True, text=True).stdout
@@ -1819,6 +1828,71 @@ def flash_build_facts() -> dict:
                              f"bf16 path should run on wgmma and TMA")
     facts["sass"] = counts
     return facts
+
+
+def decode_shapes(cfg) -> list:
+    """One-row decode steps the configs serve, (label, B, Skv, H, Hkv, D):
+    lm_path's (more CTAs than SMs), lm_parity's batch of zamba2 and
+    qwen2.5-3b alone (fewer), at lm_path's max_len and a longer cache."""
+    from repro_torch.configs import get_config
+    qw = get_config("qwen2.5-3b")
+    t_max = LM_PROMPT + LM_NEW
+    z = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    w = (qw.n_heads, qw.n_kv_heads, qw.resolved_head_dim)
+    return [(f"{cfg.name}, lm_path's batch", LM_BATCH, t_max, *z),
+            (f"{cfg.name}, lm_parity's batch", LM_PARITY_BATCH, t_max, *z),
+            (f"{qw.name}, one sequence", 1, t_max, *w),
+            (f"{qw.name}, one sequence, 4096 keys", 1, 4096, *w)]
+
+
+def decode_split_timings(torch, dev, cfg) -> list:
+    """flash decode (bf16, the last row of a full cache, causal) at each of
+    ``decode_shapes`` under the split plan's wave target, under twice it and
+    under one split: each held to the plain version, then its splits and
+    time."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for i, (label, b, skv, h, hkv, d) in enumerate(decode_shapes(cfg)):
+        rng = np.random.default_rng(7200 + i)
+        q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32), device=dev).to(torch.bfloat16)
+            for shape in ((b, 1, h, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+        kw = dict(causal=True, q_offset=skv - 1)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        ctas = b * hkv * -(-(h // hkv) // fa._DECODE_ROWS)
+        row = {"shape": label, "q": [b, 1, h, d], "kv": [b, skv, hkv, d],
+               "ctas_a_split": ctas, "sms": sms}
+        for name, w in (("plan", fa._DECODE_WAVES),
+                        ("twice_the_waves", 2 * fa._DECODE_WAVES),
+                        ("one_split", 0)):
+            fn = lambda w=w: fa.flash_attention_cuda(  # noqa: E731
+                q, k, v, decode_waves=w, **kw)
+            check_close(f"flash decode {label}, {name}", fn().float(),
+                        want.float(), KERNEL_BF16_TOL, KERNEL_BF16_TOL)
+            row[name] = {"splits": fa.decode_split_plan(
+                skv, ctas=ctas, sm_count=sms, tile=fa._DECODE_TILE[q.dtype],
+                waves=w, **kw).n_splits, "ms": time_graph_ms(torch, fn)}
+        out.append(row)
+    return out
+
+
+def host_us_per_call(torch, fn, calls: int = 200, reps: int = 7) -> float:
+    """Host microseconds per ``fn()`` call: ``calls`` calls back to back
+    from the host, without waiting for the card in between (the card keeps
+    up or queues), the median over ``reps`` runs."""
+    for _ in range(10):
+        fn()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append(1e6 * (time.perf_counter() - t) / calls)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
 
 
 def lm_kernel_entries(torch, dev) -> tuple:
@@ -1887,23 +1961,8 @@ def lm_kernel_entries(torch, dev) -> tuple:
         "flash_decode": time_graph_ms(
             torch, lambda: F.scaled_dot_product_attention(qdt, kt, vt)),
     }
-    # the decode split plan's wave target, against twice as many CTAs a
-    # step (more splits, each adding scratch traffic, and the merge launch)
-    from repro_torch.kernels import flash_attention as fa
-    rows = -(-(h // hkv) // fa._DECODE_ROWS)
-    plans, waves = {}, fa._DECODE_WAVES
-    for label, w in (("plan", waves), ("twice_the_waves", 2 * waves)):
-        fa._DECODE_WAVES = w
-        try:
-            plans[label] = {
-                "splits": fa.decode_split_plan(
-                    t_max, ctas=b * hkv * rows,
-                    sm_count=torch.cuda.get_device_properties(
-                        dev).multi_processor_count,
-                    tile=fa._DECODE_TILE[bf16], **dec).n_splits,
-                "ms": time_graph_ms(torch, pairs["flash_decode"][0])}
-        finally:
-            fa._DECODE_WAVES = waves
+    plans = decode_split_timings(torch, dev, cfg)
+    host_us = host_us_per_call(torch, pairs["flash_decode"][0])
     us = device_breakdown_us(torch, {kk: vv[0] for kk, vv in pairs.items()})
 
     # bounds: each input read once, each output written once (2 bytes a
@@ -1965,6 +2024,7 @@ def lm_kernel_entries(torch, dev) -> tuple:
                     "library_ms": library["flash_decode"],
                     "ratio_to_library": times["flash_decode"]["ms"]
                     / library["flash_decode"],
+                    "host_us_per_call": host_us,
                     "split_plan": plans},
          "build": flash_build_facts(),
          "max_abs_err_by_dtype": sweep["flash_attention"]},
@@ -2042,19 +2102,13 @@ def lm_launch_rule(cfg, new_tokens: int) -> dict:
     return {"flash_attention": n_attn * new_tokens, "ssd_scan": n_mamba}
 
 
-def phase_lm(torch, dev, name_limit: str) -> dict:
-    """Serve zamba2 on the card through the LM stack's serve steps: the
-    parity run against the CPU, then the full serving run at full width
-    and depth in bfloat16 with its launch counts held to their rule."""
-    from repro_torch import nn as tnn
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+def lm_serving_batch(torch, dev) -> tuple:
+    """lm_path's serving batch: ``lm_config`` in bf16 with random weights
+    from ``LM_SEED``, ``LM_BATCH`` × ``LM_PROMPT`` seeded prompt tokens on
+    ``dev``, and the prefill and serve steps for ``max_len`` = LM_PROMPT +
+    LM_NEW. Returns (cfg, params, prompts, prefill, serve)."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.lm import init_params
-    t0 = time.perf_counter()
-    parity = lm_parity(torch, dev)
-    torch.cuda.empty_cache()
-
     cfg = lm_config(param_dtype="bfloat16")
     params = init_params(cfg, seed=LM_SEED)
     rng = np.random.default_rng(LM_SEED + 2)
@@ -2062,7 +2116,23 @@ def phase_lm(torch, dev, name_limit: str) -> dict:
                                                           LM_PROMPT)),
                               dtype=torch.int32, device=dev)
     max_len = LM_PROMPT + LM_NEW
-    prefill, serve = make_prefill_step(cfg, max_len), make_serve_step(cfg)
+    return (cfg, params, prompts, make_prefill_step(cfg, max_len),
+            make_serve_step(cfg))
+
+
+def phase_lm(torch, dev, name_limit: str) -> dict:
+    """Serve zamba2 on the card through the LM stack's serve steps: the
+    parity run against the CPU, then the full serving run at full width
+    and depth in bfloat16 with its launch counts held to their rule."""
+    from repro_torch import nn as tnn
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    t0 = time.perf_counter()
+    parity = lm_parity(torch, dev)
+    torch.cuda.empty_cache()
+
+    cfg, params, prompts, prefill, serve = lm_serving_batch(torch, dev)
+    max_len = LM_PROMPT + LM_NEW
     _, cache = prefill(params, {"tokens": prompts})          # warm up
     serve(params, cache, {"tokens": prompts[:, :1]}, LM_PROMPT)
     del cache

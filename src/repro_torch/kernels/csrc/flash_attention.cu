@@ -53,10 +53,11 @@
 //    - the epilogue divides by max(l, 1e-20) and writes bf16.
 //    Head dims that are not a multiple of 64: the TMA box is 64 columns
 //    (one 128-byte swizzled row) and fills the columns past D with zeros
-//    without reading memory, so Q K^T runs ceil(D / 16) k-steps over zero
-//    padding and P V runs N = D rounded up to 16, 32, 64, 80 or 128 (the
-//    configs' D = 16, 64, 80, 120, 128), as n64 + n16 or n64 + n64 pieces
-//    per 64-column chunk of V.
+//    without reading memory, so both products run over D padded to DP =
+//    16 (D = 16), 64 (D <= 64), 80 or 128 (the configs' D = 16, 64, 80,
+//    120, 128): Q K^T in DP / 16 k-steps, the last ones over the zeros, and
+//    P V as N = DP in n16, n64, n64 + n16 or n64 + n64 pieces, each inside
+//    one 64-column chunk of V.
 // 2. Sq > 1, float32: the FMA kernel (`fp32::flash_fma_kernel`). Float32
 //    is the parity dtype (lm_parity holds 12 float32 layers against the
 //    CPU), and
@@ -74,8 +75,11 @@
 //      kv head rather than once per query head;
 //    - the live key range is cut into splits by the wrapper's
 //      `decode_split_plan` only as far as B * Hkv * splits covers every SM
-//      once (more splits measured slower: each adds scratch traffic and
-//      the merge), and streams through shared memory in its own dtype in
+//      once: with fewer CTAs than SMs (qwen2.5-3b at B = 1 has 2) the
+//      splits put the bytes in flight that one CTA per kv head cannot;
+//      with more, each further split only adds scratch traffic and the
+//      merge (chip_smoke.py times both sides), and streams through shared
+//      memory in its own dtype in
 //      a two-stage cp.async ring (the next tile loads while this one is
 //      used);
 //    - each split writes its (m, l, unnormalised acc) to float32 scratch,
@@ -472,23 +476,6 @@ __device__ __forceinline__ void mma_rs_n16(float* d, const uint32_t (&a)[4],
         "r"(accumulate));
 }
 
-__device__ __forceinline__ void mma_rs_n32(float* d, const uint32_t (&a)[4],
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
 __device__ __forceinline__ void mma_rs_n64(float* d, const uint32_t (&a)[4],
                                            uint64_t db, int accumulate) {
   asm volatile(
@@ -519,12 +506,10 @@ template <int DP>
 __device__ __forceinline__ void pv_step(float* o, const uint32_t (&p)[4],
                                         uint32_t v_rows) {
   constexpr uint32_t kChunk = BK * kRowBytes;
-  static_assert(DP == 16 || DP == 32 || DP == 64 || DP == 80 || DP == 128,
+  static_assert(DP == 16 || DP == 64 || DP == 80 || DP == 128,
                 "padded head dim");
   if constexpr (DP == 16) {
     mma_rs_n16(o, p, desc(v_rows, kChunk, 1024), 1);
-  } else if constexpr (DP == 32) {
-    mma_rs_n32(o, p, desc(v_rows, kChunk, 1024), 1);
   } else {
     mma_rs_n64(o, p, desc(v_rows, kChunk, 1024), 1);
     if constexpr (DP == 80)
@@ -1148,7 +1133,6 @@ int launch_hopper(const FlashArgs& a, cudaStream_t stream) {
 
 int dispatch_hopper(const FlashArgs& a, cudaStream_t stream) {
   if (a.d <= 16) return launch_hopper<16>(a, stream);
-  if (a.d <= 32) return launch_hopper<32>(a, stream);
   if (a.d <= 64) return launch_hopper<64>(a, stream);
   if (a.d <= 80) return launch_hopper<80>(a, stream);
   return launch_hopper<128>(a, stream);

@@ -31,6 +31,7 @@ is on raises (the kernel has no backward; LM training is ROADMAP A14b).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -51,9 +52,16 @@ _DECODE_ROWS = 8
 #: decode CTAs per SM the split plan aims for, at least: every CTA of a
 #: step is resident at once (45–106 KB of shared memory a CTA), so splits
 #: only help while there are fewer CTAs than SMs, and each adds scratch
-#: traffic and the merge launch (``chip_smoke.py`` times zamba2's decode,
-#: 256 CTAs, under this target and under twice it)
+#: traffic and the merge launch (``chip_smoke.py`` times decode shapes
+#: with fewer and with more CTAs than SMs under this target, under twice
+#: it and under one split)
 _DECODE_WAVES = 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, asked once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 class SplitPlan(NamedTuple):
@@ -67,7 +75,8 @@ class SplitPlan(NamedTuple):
 
 def decode_split_plan(skv: int, *, causal: bool, window: int = 0,
                       q_offset: int = 0, kv_offset: int = 0, ctas: int,
-                      sm_count: int, tile: int) -> SplitPlan:
+                      sm_count: int, tile: int,
+                      waves: int = _DECODE_WAVES) -> SplitPlan:
     """The split plan of a decode step (one query row at ``q_offset``).
 
     The live keys are those the mask can keep: positions ``≥ 0``, not
@@ -75,10 +84,10 @@ def decode_split_plan(skv: int, *, causal: bool, window: int = 0,
     — one contiguous range ``[key_lo, key_hi)`` of key indices, empty when
     no key is kept. ``ctas`` is the number of CTAs one split gives (batch ×
     kv heads × row groups); the range is cut into runs of whole ``tile``s,
-    short enough that ``ctas × n_splits`` covers ``_DECODE_WAVES ×
-    sm_count`` where the keys allow (else one tile a split); no split is
-    empty, and the last may be shorter. An empty range is one
-    split of no keys, whose rows read 0.
+    short enough that ``ctas × n_splits`` covers ``waves × sm_count``
+    where the keys allow (else one tile a split); ``waves=0`` asks for one
+    split. No split is empty, and the last may be shorter. An empty range
+    is one split of no keys, whose rows read 0.
     """
     lo = max(0, -kv_offset)
     hi = skv
@@ -89,7 +98,7 @@ def decode_split_plan(skv: int, *, causal: bool, window: int = 0,
     if hi <= lo:
         return SplitPlan(0, 0, 0, 1)
     n_tiles = -(-(hi - lo) // tile)
-    want = -(-_DECODE_WAVES * sm_count // max(ctas, 1))
+    want = max(1, -(-waves * sm_count // max(ctas, 1)))
     split_len = max(1, n_tiles // want) * tile
     return SplitPlan(lo, hi, split_len, -(-(hi - lo) // split_len))
 
@@ -97,7 +106,8 @@ def decode_split_plan(skv: int, *, causal: bool, window: int = 0,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int = 0, q_offset: int = 0,
                          kv_offset: int = 0,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         decode_waves: int = _DECODE_WAVES) -> torch.Tensor:
     """Masked streaming-softmax attention on the card
     (``csrc/flash_attention.cu``).
 
@@ -106,6 +116,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset`` / ``kv_offset`` are the positions of the first query row
     and the first key (``kv_offset`` may be negative: the ring cache).
     Returns [B, Sq, H, D] in q's dtype; a row with no kept key is 0.
+    ``decode_waves`` is the split plan's target at ``Sq == 1``
+    (:func:`decode_split_plan`'s ``waves``; 0 runs one split).
 
     ``launches`` counts calls: one per call that reaches the card, also a
     decode call whose C entry launches the split pass and the merge.
@@ -151,9 +163,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 skv, causal=bool(causal), window=window, q_offset=q_offset,
                 kv_offset=kv_offset,
                 ctas=b * hkv * -(-(h // hkv) // _DECODE_ROWS),
-                sm_count=torch.cuda.get_device_properties(
-                    dev).multi_processor_count,
-                tile=_DECODE_TILE[q.dtype])
+                sm_count=_sm_count(dev.index),
+                tile=_DECODE_TILE[q.dtype], waves=decode_waves)
             if plan.n_splits > 1:
                 scratch = torch.empty(b * h * plan.n_splits * (d + 2),
                                       dtype=torch.float32, device=dev)

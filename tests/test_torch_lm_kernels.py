@@ -242,7 +242,8 @@ def test_decode_split_ref_matches_blockwise(jx, case):
 def test_decode_split_plan_covers_the_kept_keys(ctas, tile):
     """The plan's range is exactly the keys the mask keeps, its splits are
     whole tiles that cover the range in order with none empty, and there
-    are enough of them to fill the card twice where the keys allow."""
+    are enough of them that the CTAs cover the plan's waves of the card
+    (``_DECODE_WAVES`` CTAs an SM) where the keys allow."""
     grid = [(skv, causal, window, qoff, kvoff)
             for skv in (1, 20, 64, 65, 576)
             for causal in (True, False)
@@ -273,6 +274,37 @@ def test_decode_split_plan_covers_the_kept_keys(ctas, tile):
         n_tiles = -(-(plan.key_hi - plan.key_lo) // tile)
         assert (ctas * plan.n_splits >= fa._DECODE_WAVES * PLAN_SMS
                 or plan.n_splits == n_tiles), (skv, kw, plan)
+
+
+@pytest.mark.parametrize("waves", [0, 1, 2, 4])
+@pytest.mark.parametrize("ctas", [1, 16, 256])
+def test_decode_split_plan_waves(ctas, waves):
+    """``waves`` sets the CTAs the plan aims for: 0 is one split over the
+    whole live range; more waves never give fewer splits, and each target
+    is met where the keys allow. The plan under any target is still the
+    one-piece softmax."""
+    tile = 64
+    for skv, qoff, window in ((576, 575, 0), (4096, 4095, 0), (300, 250, 40),
+                              (20, 19, 0)):
+        kw = dict(causal=True, window=window, q_offset=qoff)
+        plan = fa.decode_split_plan(skv, ctas=ctas, sm_count=PLAN_SMS,
+                                    tile=tile, waves=waves, **kw)
+        fewer = fa.decode_split_plan(skv, ctas=ctas, sm_count=PLAN_SMS,
+                                     tile=tile, waves=max(waves - 1, 0), **kw)
+        assert plan.n_splits >= fewer.n_splits
+        n_tiles = -(-(plan.key_hi - plan.key_lo) // tile)
+        if waves == 0:
+            assert plan.n_splits == 1
+            assert plan.split_len >= plan.key_hi - plan.key_lo
+        else:
+            assert (ctas * plan.n_splits >= waves * PLAN_SMS
+                    or plan.n_splits == n_tiles), (skv, plan)
+    c, q, k, v, kw = _decode_case("gqa8", 23)
+    plan = fa.decode_split_plan(c["skv"], ctas=ctas, sm_count=PLAN_SMS,
+                                tile=32, waves=waves, **kw)
+    np.testing.assert_allclose(
+        ref.flash_decode_split_ref(q, k, v, plan=plan, **kw).numpy(),
+        ref.flash_attention_ref(q, k, v, **kw).numpy(), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +474,9 @@ CARD_FLASH = [
     dict(b=1, sq=40, skv=96, h=4, hkv=1, d=16, causal=True, window=24,
          qoff=70, kvoff=-10),
     dict(b=1, sq=3, skv=24, h=2, hkv=2, d=16, causal=False),  # < one tile
+    # head dims 24 and 32, padded to 64 like every D <= 64 but 16
+    dict(b=2, sq=70, skv=90, h=4, hkv=2, d=32, causal=True, qoff=20),
+    dict(b=1, sq=130, skv=130, h=2, hkv=1, d=24, causal=True, window=48),
     # more work items than SMs, so each persistent CTA takes several, some
     # with no kept key (rows 0-149 sit before every key)
     dict(b=4, sq=300, skv=300, h=40, hkv=8, d=64, causal=True, kvoff=150),
