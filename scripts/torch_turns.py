@@ -22,6 +22,10 @@ one BODY:
   and decode ms per step, and their medians; then one more batch whose
   decode steps are timed one by one, each ending in
   ``torch.cuda.synchronize()``: the median and quartiles of its steps.
+* ``lm_host`` — ``lm``'s batch warmed, then 16 decode steps under
+  ``torch.profiler`` (host and card): wall ms per step, and per step the
+  host's self ms and call count of every operator and CUDA runtime call,
+  the ten largest by self time listed, and the card's busy ms.
 * ``flash_host`` — the host µs of one ``flash_attention_cuda`` decode call
   at lm_path's last decode step (``chip_smoke.host_us_per_call``), and the
   card's time of the same call (``chip_smoke.time_graph_ms``).
@@ -105,6 +109,42 @@ def body_lm(torch, _variants: str) -> dict:
             "synced_step_ms": {"q1": q1, "median": q2, "q3": q3}}
 
 
+def body_lm_host(torch, _variants: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    _, params, prompts, prefill, serve = cs.lm_serving_batch(torch, "cuda")
+    steps = 16
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    idx = cs.LM_PROMPT
+    for _ in range(8):                                    # warm up
+        tok, cache, idx = serve(params, cache, {"tokens": tok[:, None]}, idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            tok, cache, idx = serve(params, cache, {"tokens": tok[:, None]},
+                                    idx)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t) / steps
+    host, calls, card = {}, 0, 0.0
+    for evt in prof.key_averages():
+        card += getattr(evt, "self_device_time_total", 0.0)
+        if evt.self_cpu_time_total > 0:
+            host[evt.key] = (evt.self_cpu_time_total / 1e3 / steps,
+                             evt.count / steps)
+            calls += evt.count
+    top = sorted(host.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms_per_step_profiled": wall,
+            "host_self_ms_per_step": sum(v[0] for v in host.values()),
+            "host_calls_per_step": calls / steps,
+            "card_busy_ms_per_step": card / 1e3 / steps,
+            "top_host_self_ms_per_step": {k: {"ms": v[0], "calls": v[1]}
+                                          for k, v in top}}
+
+
 def body_flash_host(torch, _variants: str) -> dict:
     import numpy as np
 
@@ -128,7 +168,8 @@ def body_flash_host(torch, _variants: str) -> dict:
             "device_ms": cs.time_graph_ms(torch, call)}
 
 
-BODIES = {"bulk": body_bulk, "lm": body_lm, "flash_host": body_flash_host}
+BODIES = {"bulk": body_bulk, "lm": body_lm, "lm_host": body_lm_host,
+          "flash_host": body_flash_host}
 
 
 def turn(body: str, tree: str, variants: str) -> dict:
