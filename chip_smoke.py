@@ -37,7 +37,12 @@ Phases, each printing one JSON line:
    replays, per call), the plain version's time, one library call's time
    where one computes the same function, the least time the card could
    take (``bound_ms``) and the device µs of each CUDA kernel it launches
-   (``torch.profiler``).
+   (``torch.profiler``). Those times are warm: the replays find their
+   buffers in L2. The gather, ``dense_aggregate`` and their library calls
+   are also timed cold (``time_cold_ms``: a graph over copies of the
+   inputs and outputs, 150 MB or more), the times the bytes bound
+   applies to; ``dense_aggregate`` also on a random 10 % and an all-ones
+   adjacency beside ``torch.bmm``.
 4. ``main_path`` — ``DIPPM.from_params`` at the paper's width (GraphSAGE,
    packed, hidden 512, 3 + 3 blocks, random weights from a seed):
    ``warmup(rungs="all")``, seeded ``repro.opgraph.v1`` documents through
@@ -138,6 +143,10 @@ TRAIN_NOISE_FLOOR, TRAIN_NOISE_ATOL = 1e-4, 5e-4
 #: one step's gradients, card vs CPU, relative to each leaf's largest:
 #: float32 sums in another order through 3 layers, the readout and the head
 TRAIN_GRAD_RTOL = 1e-5
+#: the cold timings (``time_cold_ms``) cycle through copies of a call's
+#: inputs and outputs until they hold at least this many bytes, three times
+#: the H100's 50 MB L2, so that every call reads and writes device memory
+COLD_BYTES = 150e6
 #: a bfloat16 kernel against its plain version on the same bfloat16 inputs:
 #: both sum in float32, then the output rounds to 8 mantissa bits
 KERNEL_BF16_TOL = 2e-2
@@ -214,6 +223,45 @@ def time_graph_ms(torch, fn, replays: int = 50, calls: int = 20) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events) / calls
+
+
+def cold_copies(nbytes: float) -> int:
+    """Copies of a call's inputs and outputs (``nbytes`` a call) that
+    together hold ``COLD_BYTES``."""
+    return max(2, int(np.ceil(COLD_BYTES / nbytes)))
+
+
+def time_cold_ms(torch, fns: list, replays: int = 20) -> float:
+    """Device time of one call whose inputs and output are not in L2:
+    each of ``fns`` reads its own copy of the inputs and writes its own
+    output (``cold_copies`` of them), one CUDA graph calls each once in
+    turn, and the median per-replay time is divided by ``len(fns)``. The
+    bytes bound (device memory at 3.35 TB/s) applies to this time, not to
+    ``time_graph_ms``'s, whose 20 calls replay the same buffers from L2."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            outs = [fn() for fn in fns]   # alive together: one output each
+    torch.cuda.current_stream().wait_stream(stream)
+    del outs
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events) / len(fns)
 
 
 def device_breakdown_us(torch, calls: dict, reps: int = 20) -> dict:
@@ -650,12 +698,13 @@ def sweep_dense(torch, dev) -> float:
     adj = (rng.random((2, 64, 64)) < 0.1).astype(np.float32)
     h = rng.standard_normal((2, 64, 16)).astype(np.float32)
     h[1, 7, 3] = np.nan
+    h[0, 60, 11] = np.inf
     for mode in ("sum", "mean"):
         got = dense_aggregate_cuda(t(adj), t(h), mode)
         want = ref.dense_aggregate_ref(t(adj), t(h), mode)
         torch.cuda.synchronize()
-        check_close_nan(f"dense_aggregate {mode} NaN in h", got, want,
-                        KERNEL_ATOL, KERNEL_RTOL)
+        check_close_nan(f"dense_aggregate {mode} NaN and inf in h", got,
+                        want, KERNEL_ATOL, KERNEL_RTOL)
     return worst
 
 
@@ -959,12 +1008,50 @@ def train_steps(layout: str) -> dict:
     return {k: v[0] for k, v in seg.items()}
 
 
+COLD_NOTE = ("ms, plain_ms and library_ms are warm: time_graph_ms replays "
+             "20 calls on the same buffers, which stay in the 50 MB L2. "
+             "cold_ms and library_cold_ms are time_cold_ms's: each call "
+             "reads its own copy of the inputs and writes its own output, "
+             "more than 150 MB in all, so every call moves its bytes to and "
+             "from device memory. bound_ms (3.35 TB/s) applies to the cold "
+             "times only.")
+
+
+def dense_strip_timings(torch, dev, b, n, f) -> dict:
+    """B7 in sum form where every strip is dense (a random 10 % adjacency,
+    as tests/test_torch_segment.py draws its dense cases, and all ones),
+    held against its plain version and timed warm beside ``torch.bmm``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sage_spmm import dense_aggregate_cuda
+    rng = np.random.default_rng(4100)
+    hd = torch.as_tensor(rng.standard_normal((b, n, f)).astype(np.float32),
+                         device=dev)
+    cases = {"random_10pct": (rng.random((b, n, n)) < 0.1).astype(np.float32),
+             "all_ones": np.ones((b, n, n), np.float32)}
+    out = {}
+    for name, a in cases.items():
+        adj = torch.as_tensor(a, device=dev)
+        got = dense_aggregate_cuda(adj, hd, "sum")
+        want = ref.dense_aggregate_ref(adj, hd, "sum")
+        torch.cuda.synchronize()
+        err = check_close(f"dense_aggregate sum, {name}", got, want,
+                          KERNEL_ATOL, KERNEL_RTOL)
+        out[name] = {
+            "ms": time_graph_ms(torch, lambda: dense_aggregate_cuda(
+                adj, hd, "sum")),
+            "library_ms": time_graph_ms(torch, lambda: torch.bmm(adj, hd)),
+            "max_abs_err": err, "shape": f"B={b} N={n} F={f}"}
+    return out
+
+
 def train_kernel_entries(torch, dev) -> tuple:
     """segment_aggregate, segment_scatter, segment_gather and
     dense_aggregate at the full-width training shapes of ``train_path``
     (hidden 512), held against their plain versions and timed beside
-    their bound, plain version and library call; the sweeps of all three
-    sources and of every autograd.Function's backward."""
+    their bound, plain version and library call; the gather, B7's three
+    forms and their library calls timed cold as well (``time_cold_ms``),
+    and B7 on dense strips (``dense_strip_timings``); the sweeps of all
+    three sources and of every autograd.Function's backward."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.sage_spmm import dense_aggregate_cuda
     from repro_torch.kernels.segment_spmm import (segment_aggregate_cuda,
@@ -1040,6 +1127,35 @@ def train_kernel_entries(torch, dev) -> tuple:
     }
     us = device_breakdown_us(torch, {k: v[0] for k, v in pairs.items()})
 
+    # the gather, B7 and their library calls again from device memory: each
+    # call on its own copy of the inputs and its own output
+    hs = [h] + [h.clone() for _ in range(cold_copies(
+        4.0 * (p_nodes * hid + q * hid)) - 1)]
+    k = cold_copies(4.0 * (b * n * n + 2 * b * n * hid))
+    dense_in = [(adj, hd, inv)] + [(adj.clone(), hd.clone(), inv.clone())
+                                   for _ in range(k - 1)]
+    cold = {
+        "segment_gather": time_cold_ms(
+            torch, [lambda x=x: segment_gather_cuda(x, src) for x in hs]),
+        "index_select": time_cold_ms(
+            torch, [lambda x=x: torch.index_select(x[0], 0, src_flat)
+                    for x in hs]),
+        "dense_aggregate": time_cold_ms(
+            torch, [lambda a=a, x=x: dense_aggregate_cuda(a, x, "mean")
+                    for a, x, _ in dense_in]),
+        "dense_aggregate_sum": time_cold_ms(
+            torch, [lambda a=a, x=x: dense_aggregate_cuda(a, x, "sum")
+                    for a, x, _ in dense_in]),
+        "dense_aggregate_backward": time_cold_ms(
+            torch, [lambda a=a, x=x, s=s: dense_aggregate_cuda(
+                a, x, "sum", scale=s, transpose=True)
+                for a, x, s in dense_in]),
+        "bmm": time_cold_ms(
+            torch, [lambda a=a, x=x: torch.bmm(a, x) for a, x, _ in dense_in]),
+    }
+    del hs, dense_in
+    dense_strips = dense_strip_timings(torch, dev, b, n, hid)
+
     # bounds: each input read once, each output written once; the
     # operations this run's data needs (real edges; the adjacency's
     # nonzeros, which the dense product does not skip)
@@ -1094,8 +1210,11 @@ def train_kernel_entries(torch, dev) -> tuple:
          "bound_ms": bounds["segment_gather"][0],
          "bound_by": bounds["segment_gather"][1],
          "library_ms": library["segment_gather"],
+         "cold_ms": cold["segment_gather"],
+         "library_cold_ms": cold["index_select"],
          "unit": f"one packed GAT layer's z[src] gather: {shapes_p}",
-         "library_note": "index_select of the flat rows"},
+         "library_note": "index_select of the flat rows",
+         "timing_note": COLD_NOTE},
         {"name": "dense_aggregate", "route": "cuda",
          "source": src_root + "dense_aggregate.cu",
          "replaces": "src/repro/kernels/sage_spmm.py:42",
@@ -1104,7 +1223,9 @@ def train_kernel_entries(torch, dev) -> tuple:
                             err["dense_aggregate_backward"],
                             err["dense_aggregate_sum"],
                             sweep["dense_aggregate"],
-                            back.get("dense_aggregate", 0.0)),
+                            back.get("dense_aggregate", 0.0),
+                            *(c["max_abs_err"] for c in
+                              dense_strips.values())),
          **times["dense_aggregate"],
          "bound_ms": bounds["dense_aggregate"][0],
          "bound_by": bounds["dense_aggregate"][1],
@@ -1113,9 +1234,15 @@ def train_kernel_entries(torch, dev) -> tuple:
                  f"({nnz} nonzeros of {b * n * n})",
          "sum_ms": times["dense_aggregate_sum"]["ms"],
          "backward_ms": times["dense_aggregate_backward"]["ms"],
+         "cold_ms": cold["dense_aggregate"],
+         "sum_cold_ms": cold["dense_aggregate_sum"],
+         "backward_cold_ms": cold["dense_aggregate_backward"],
+         "library_cold_ms": cold["bmm"],
+         "dense_strips": dense_strips,
          "dense_product_flops": 2.0 * b * n * n * hid,
          "library_note": "torch.bmm(adj, h): the sum form; compare with "
-                         "sum_ms"},
+                         "sum_ms (warm) and sum_cold_ms (cold)",
+         "timing_note": COLD_NOTE},
     ]
     info = {"train_shapes": {"packed": shapes_p,
                              "dense": f"B={b} N={n} F={hid}"},

@@ -134,6 +134,14 @@ def dense_aggregate(adj: torch.Tensor, h: torch.Tensor,
     return _ag.DenseAggregate.apply(adj, h, mode)
 
 
+def sage_aggregate(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Batched GraphSAGE mean aggregation, ``mean_{j∈N(i)} h_j`` —
+    :func:`dense_aggregate` in mean form (B7 on the card), see
+    :func:`repro_torch.kernels.ref.sage_aggregate_ref`. Differentiable in
+    ``h``."""
+    return dense_aggregate(adj, h, "mean")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0, q_offset: int = 0,
                     kv_offset: int = 0,

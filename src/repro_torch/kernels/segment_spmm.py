@@ -71,7 +71,8 @@ _SIGNATURES = {
     "segment_gather": ("segment_aggregate",
                        [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dense_aggregate": ("dense_aggregate",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "dense_aggregate_scratch_ints": ("dense_aggregate", [_I, _I]),
     "flash_attention": ("flash_attention",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -81,6 +81,40 @@ def _dense_inputs(b, n, f, weighted, seed=0):
     return adj, h
 
 
+def _dag_adj(b, n, seed, real=0.7):
+    """``[B, N, N]`` graph-like adjacencies (``adj[b, dst, src]``): on the
+    first ``real`` share of the slots, a chain plus half as many random
+    edges, as ``synthetic_samples`` draws its graphs; the rest padding."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((b, n, n), np.float32)
+    for i in range(b):
+        m = max(1, int(n * real))
+        src = np.concatenate([np.arange(m - 1), rng.integers(0, m, m // 2)])
+        dst = np.concatenate([np.arange(1, m), rng.integers(0, m, m // 2)])
+        adj[i, dst, src] = 1.0
+    return adj
+
+
+def _sample_adj(b, seed=0):
+    """The dense layout's own ``[B, 256, 256]`` batch of ``b`` synthetic
+    graphs of 140–200 nodes (``collate``), and how many slots each uses."""
+    from repro_torch.core.batching import collate
+    from repro_torch.dataset.builder import synthetic_samples
+    samples = synthetic_samples(b, seed=seed, n_min=140, n_max=200)
+    batch = collate(samples)
+    return batch["adj"], batch["mask"].sum(-1).astype(int)
+
+
+def _gcn_weights(adj):
+    """``D^-1/2 (A + I) D^-1/2`` on the slots an edge touches: the
+    normalized adjacency GCN passes."""
+    used = (adj.sum(-1) + adj.sum(-2)) > 0
+    a = adj + np.eye(adj.shape[-1], dtype=np.float32) * used[:, None, :]
+    d = a.sum(-1)
+    inv = np.where(d > 0, 1.0 / np.sqrt(np.maximum(d, 1e-30)), 0.0)
+    return (a * inv[:, :, None] * inv[:, None, :]).astype(np.float32)
+
+
 def _t(arrays, device="cpu", dtype=None):
     out = []
     for a in arrays:
@@ -183,6 +217,73 @@ def test_gather_is_the_weighted_take():
     want = np.take_along_axis(h, edges[..., 0:1].astype(np.int64), axis=1) \
         * em[..., None]
     _close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_dense_plain_version_spreads_nan_and_inf_as_pallas(mode):
+    """The dense product multiplies the zeros too: NaN or inf in a padded
+    row of h that no edge reads makes its column NaN in every output row
+    (0·NaN, 0·inf), in the Pallas kernel and in the port's plain version
+    alike. The CUDA kernel's sparse path has to keep this."""
+    import jax.numpy as jnp
+    from repro.kernels.sage_spmm import dense_aggregate_pallas
+    adj = _dag_adj(2, 40, seed=21)                    # slots 28..39 padding
+    h = np.random.default_rng(22).standard_normal((2, 40, 12)).astype(
+        np.float32)
+    h[0, 35, 4] = np.nan
+    h[1, 30, 7] = np.inf
+    h[1, 31, 7] = -np.inf
+    want = np.asarray(dense_aggregate_pallas(jnp.asarray(adj), jnp.asarray(h),
+                                             mode=mode, interpret=True))
+    got = ref.dense_aggregate_ref(*_t((adj, h)), mode).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[0, :, 4]).all() and np.isnan(got[1, :, 7]).all()
+    assert np.isfinite(np.delete(got[0], 4, axis=-1)).all()
+    fin = np.isfinite(want)
+    _close(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+def test_sage_aggregate_matches_jax(impl):
+    """``ops.sage_aggregate`` (mean-form B7; the plain version on the CPU)
+    against the JAX package's, forward and gradient; no kernel launches."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    adj = _dag_adj(3, 37, seed=31)
+    adj[2] = _gcn_weights(adj[2:3])[0]
+    h = np.random.default_rng(32).standard_normal((3, 37, 10)).astype(
+        np.float32)
+    g = np.random.default_rng(33).standard_normal(h.shape).astype(np.float32)
+    launches = sage_spmm.dense_aggregate_cuda.launches
+    a, x = _t((adj, h))
+    x.requires_grad_(True)
+    y = ops.sage_aggregate(a, x)
+    y.backward(torch.as_tensor(g))
+    want = jops.sage_aggregate(jnp.asarray(adj), jnp.asarray(h), impl=impl)
+    _close(y.detach(), want)
+    torch.testing.assert_close(y.detach(), ref.sage_aggregate_ref(a, x.detach()))
+    want_g = jax.grad(lambda v: jnp.sum(jops.sage_aggregate(
+        jnp.asarray(adj), v, impl="ref") * g))(jnp.asarray(h))
+    _close(x.grad, want_g, GRAD_RTOL, GRAD_ATOL)
+    assert sage_spmm.dense_aggregate_cuda.launches == launches
+
+
+@pytest.mark.parametrize("f", [4, 24, 512, 1000])
+def test_gather_plain_version_is_the_take(f):
+    """The gather's plain version, weighted and not, over a strided column
+    of an edge array and a contiguous index, against ``jnp.take_along_axis``
+    (the row the Pallas kernel's one-hot product picks)."""
+    import jax.numpy as jnp
+    edges, em = _edges(3, 50, 70, True, seed=f)
+    h = np.random.default_rng(f + 1).standard_normal((3, 50, f)).astype(
+        np.float32)
+    x, e, m = _t((h, edges, em))
+    for idx in (e[..., 0], e[..., 1].contiguous()):
+        take = np.asarray(jnp.take_along_axis(
+            jnp.asarray(h), jnp.asarray(idx.numpy())[..., None], axis=1))
+        _close(ref.segment_gather_ref(x, idx), take)
+        _close(ref.segment_gather_ref(x, idx, m), take * em[..., None])
 
 
 # ---------------------------------------------------------------------------
@@ -471,3 +572,154 @@ def test_backward_on_card_matches_cpu(name, cuda_dev):
         y.backward(torch.as_tensor(g.astype(np.float32), device=dev))
         grads.append(ts[k].grad)
     _card_close(grads[0], grads[1])
+
+
+def _dense_on_card(adj, h, dev, scale=None):
+    """Every form the autograd Functions launch and the raw ones between:
+    sum and mean, untransposed, transposed, and transposed with a row
+    scale, with the degree out, against the plain version on the card
+    (NaN and inf where the plain version has them)."""
+    a, x = _t((adj, h), dev)
+    if scale is None:
+        scale = np.random.default_rng(7).uniform(
+            0.2, 1.0, adj.shape[:2]).astype(np.float32)
+    s = torch.as_tensor(scale, device=dev)
+    for mode in ("sum", "mean"):
+        for kw in (dict(), dict(transpose=True), dict(transpose=True,
+                                                      scale=s)):
+            got = sage_spmm.dense_aggregate_cuda(a, x, mode,
+                                                 return_degree=True, **kw)
+            want = ref.dense_aggregate_ref(a, x, mode, return_degree=True,
+                                           **kw)
+            for gt, wt in zip(got, want):
+                torch.testing.assert_close(gt.cpu(), wt.cpu(),
+                                           rtol=CARD_RTOL, atol=CARD_ATOL,
+                                           equal_nan=True)
+    return a, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["01", "gcn"])
+def test_dense_kernel_on_the_dense_layout_on_card(weights, cuda_dev):
+    """The dense layout's own batch (N=256, 140–200 slots used): every
+    strip's lists hold its rows, so every block takes the sparse path."""
+    adj, _ = _sample_adj(4, seed=41)
+    if weights == "gcn":
+        adj = _gcn_weights(adj)
+    h = np.random.default_rng(42).standard_normal((4, 256, 512)).astype(
+        np.float32)
+    _dense_on_card(adj, h, cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(5, 7), (37, 6), (130, 70), (257, 33)])
+def test_dense_kernel_ragged_on_card(n, f, cuda_dev):
+    """N and F off multiples of 4 (scalar loads), strips and slabs cut by
+    the edge."""
+    adj = _dag_adj(3, n, seed=n + f)
+    h = np.random.default_rng(f).standard_normal((3, n, f)).astype(
+        np.float32)
+    _dense_on_card(adj, h, cuda_dev)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_list_overflow_on_card(cuda_dev):
+    """A hub row with N nonzeros, a hub column (the transposed form's
+    row), and rows of exactly 16 and 17 nonzeros, the list's length and
+    one past: their strips take the dense path, the others stay sparse."""
+    adj, _ = _sample_adj(4, seed=43)
+    adj[0, 3, :] = 1.0
+    adj[1, :, 200] = 1.0
+    adj[2, 10, :] = 0.0
+    adj[2, 10, :16] = 1.0
+    adj[3, 140, :] = 0.0
+    adj[3, 140, 100:117] = 1.0
+    adj[3, :17, 20] = 1.0
+    h = np.random.default_rng(44).standard_normal((4, 256, 96)).astype(
+        np.float32)
+    _dense_on_card(adj, h, cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", ["all-ones", "random-10%"])
+def test_dense_kernel_dense_adjacency_on_card(density, cuda_dev):
+    b, n, f = 2, 256, 512
+    if density == "all-ones":
+        adj = np.ones((b, n, n), np.float32)
+    else:
+        adj, _ = _dense_inputs(b, n, f, True, seed=45)
+    h = np.random.default_rng(46).standard_normal((b, n, f)).astype(
+        np.float32)
+    _dense_on_card(adj, h, cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["h", "scale"])
+def test_dense_kernel_nonfinite_spreads_on_card(where, cuda_dev):
+    """NaN and inf in padded rows of h (or of the row scale) that no edge
+    reads: the kernel spreads them down their columns as the dense
+    product does, though its lists skip the zeros; a block whose slab of
+    h is finite stays on the sparse path."""
+    adj, used = _sample_adj(3, seed=47)
+    h = np.random.default_rng(48).standard_normal((3, 256, 160)).astype(
+        np.float32)
+    scale = np.random.default_rng(49).uniform(0.2, 1.0, (3, 256)).astype(
+        np.float32)
+    if where == "h":
+        h[0, used[0] + 3, 5] = np.nan
+        h[1, used[1] + 1, 70] = np.inf
+        h[2, 0, 140] = -np.inf                       # a row edges do read
+    else:
+        scale[1, used[1] + 2] = np.inf
+    _, x = _dense_on_card(adj, h, cuda_dev, scale)
+    if where == "h":
+        out = sage_spmm.dense_aggregate_cuda(_t((adj,), cuda_dev)[0], x,
+                                             "sum").cpu()
+        assert torch.isnan(out[0, :, 5]).all()
+        assert torch.isnan(out[1, :, 70]).all()
+        assert torch.isfinite(out[0, :, 64:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("f", [4, 24, 512, 1000, 1027])
+def test_gather_kernel_on_card(f, b, cuda_dev):
+    """The gather at F = 4 and 24 (a float4 a lane at most), 512 and 1000
+    (four and eight float4s a lane) and 1027 (floats, past the unrolled
+    widths); a strided column of an edge array and a contiguous index;
+    weighted and not; indices outside [0, N) gather 0 (the plain version's
+    rows, zeroed where the index is out)."""
+    n, e = 300, 777
+    edges, em = _edges(b, n, e, True, seed=f + b)
+    edges[:, 5, 0] = -1
+    edges[:, 9, 0] = n
+    edges[:, 11, 1] = n + 7
+    h = np.random.default_rng(f).standard_normal((b, n, f)).astype(
+        np.float32)
+    x, ed, m = _t((h, edges, em), cuda_dev)
+    for idx in (ed[..., 0], ed[..., 1].contiguous()):
+        ok = (idx >= 0) & (idx < n)
+        for w in (None, m):
+            got = segment_spmm.segment_gather_cuda(x, idx, w)
+            want = ref.segment_gather_ref(x, torch.where(ok, idx, 0), w)
+            want = torch.where(ok[..., None], want, 0.0)
+            _card_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,e,f", [(2, 40000, 4), (1, 9000, 1027)])
+def test_gather_kernel_grid_stride_on_card(b, e, f, cuda_dev):
+    """More rows than the grid's warps take in one step (the grid stops at
+    eight blocks an SM): each warp loops, loading its next step before it
+    stores this one."""
+    n = 97
+    edges, em = _edges(b, n, e, True, seed=e + f)
+    edges[:, 3, 0] = n
+    h = np.random.default_rng(f).standard_normal((b, n, f)).astype(
+        np.float32)
+    x, ed, m = _t((h, edges, em), cuda_dev)
+    idx = ed[..., 0]
+    ok = (idx >= 0) & (idx < n)
+    want = ref.segment_gather_ref(x, torch.where(ok, idx, 0), m)
+    _card_close(segment_spmm.segment_gather_cuda(x, idx, m),
+                torch.where(ok[..., None], want, 0.0))
