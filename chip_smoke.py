@@ -22,16 +22,25 @@ Phases, each printing one JSON line:
    offset, fully masked rows, head dims 16 to 128, query tiles around
    the tensor-core path's 64 and 128 rows, one-row decode over one and
    several key splits and with no kept key; ragged chunks, sequences
-   shorter than a chunk, an initial state, B/C
-   per group, and a d_state whose shared memory makes the scan halve its
-   chunk. The flash entry also carries each flash kernel's ptxas
-   registers and spills, the counts of wgmma (HGMMA) and TMA (UTMALDG)
-   instructions in the built library (the run fails if either is 0, or
-   if no ptxas report or no ``cuobjdump`` is found), the host µs of one
-   decode call, the decode at shapes with more and with fewer CTAs than
-   SMs under its split plan, under twice the plan's CTAs and under one
-   split, and the same-function yardstick (SDPA's is_causal over the kept
-   keys). Then
+   shorter than a chunk, an initial state, B/C per group, a d_state whose
+   shared memory makes the float32 scan halve its chunk, and the edges of
+   the scan's bf16 tensor-core kernel (S < 16, a last chunk that is not a
+   multiple of 16, N = 128 at chunk 128, G = 2 with 4 heads, an initial
+   state at 100x, steps with dt = 0, N and P not multiples of 8), every
+   scan case at the float32 bar in both dtypes. The flash entry also
+   carries each flash kernel's ptxas registers and spills, the counts of
+   wgmma (HGMMA) and TMA (UTMALDG) instructions in the built library (the
+   run fails if either is 0, or if no ptxas report or no ``cuobjdump`` is
+   found), the host µs of one decode call, the decode at shapes with more
+   and with fewer CTAs than SMs under its split plan, under twice the
+   plan's CTAs and under one split, and the same-function yardstick (SDPA's
+   is_causal over the kept keys). The scan's entry carries each SSD
+   kernel's ptxas registers and spills and the count of ``HMMA`` in its
+   library (the run fails at 0), its dynamic shared memory a block and
+   blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the run
+   fails below two at N = P = 64), its device µs by kernel, the float32
+   FMA kernel timed on the same values, and, for the record, zamba2 at one
+   sequence and mamba2-370m's N = 128 at lm_path's batch. Then
    the kernel's time (a
    CUDA graph of 20 back-to-back wrapper calls, replayed; median over many
    replays, per call), the plain version's time, one library call's time
@@ -1806,12 +1815,27 @@ FLASH_SWEEP = [
     (1, 1, 24, 4, 1, 64, True, 0, 23, 0),
     (2, 1, 20, 4, 1, 80, True, 0, 5, 10),
 ]
-#: SSD sweep: (Bt, S, H, P, N, G, chunk)
+#: SSD sweep: (Bt, S, H, P, N, G, chunk, kind); kind "s0x100" scales the
+#: initial state by 100 (the bf16 kernel splits it into three bf16 terms),
+#: "dt0" sets dt to 0 on rows 10-39 and 130 (steps that neither decay nor add)
 SSD_SWEEP = [
-    (2, 128, 2, 16, 8, 1, 32), (2, 96, 1, 8, 4, 1, 32),
-    (2, 256, 2, 32, 16, 2, 64), (1, 77, 4, 16, 16, 2, 32),   # ragged chunk
-    (1, 5, 4, 64, 64, 1, 128),                                # S < chunk
-    (1, 300, 4, 64, 128, 1, 128),      # N = 128: the kernel halves its chunk
+    (2, 128, 2, 16, 8, 1, 32, ""), (2, 96, 1, 8, 4, 1, 32, ""),
+    (2, 256, 2, 32, 16, 2, 64, ""),
+    (1, 77, 4, 16, 16, 2, 32, ""),     # ragged chunk of 13 rows
+    (1, 5, 4, 64, 64, 1, 128, ""),     # S < chunk
+    (1, 300, 4, 64, 128, 1, 128, ""),  # N = 128: float32 halves its chunk
+    # the tensor-core kernel's edges: S < 16; a last chunk of 72 rows (not
+    # a multiple of 16); N = 128 at chunk 128; G = 2 with 4 heads; the
+    # state at 100x (at N = 128 the float32 reference's own sums come near
+    # the bar); steps with dt = 0; N and P that are not multiples of 8
+    (2, 9, 4, 64, 64, 1, 128, ""),
+    (1, 200, 4, 64, 64, 1, 128, ""),
+    (2, 256, 4, 64, 128, 1, 128, ""),
+    (2, 160, 4, 64, 64, 2, 128, ""),
+    (1, 256, 4, 64, 64, 1, 128, "s0x100"),
+    (1, 300, 4, 64, 128, 1, 128, "s0x100"),
+    (2, 256, 4, 64, 64, 1, 128, "dt0"),
+    (1, 40, 2, 12, 20, 1, 128, ""),
 ]
 
 
@@ -1841,17 +1865,22 @@ def sweep_flash(torch, dev) -> dict:
     return worst
 
 
-def ssd_inputs(torch, dev, bt, s, h, p, n, g, dtype, seed):
-    """x, dt, A, B, C (x, B, C in ``dtype``) and an initial state."""
+def ssd_inputs(torch, dev, bt, s, h, p, n, g, dtype, seed, kind=""):
+    """x, dt, A, B, C (x, B, C in ``dtype``) and an initial state;
+    ``kind`` as in SSD_SWEEP."""
     rng = np.random.default_rng(seed)
     t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
         a.astype(np.float32), device=dev).to(dt)
-    return (t(rng.standard_normal((bt, s, h, p)) * 0.5, dtype),
-            t(rng.random((bt, s, h)) * 0.1 + 0.01),
+    dt = rng.random((bt, s, h)) * 0.1 + 0.01
+    if kind == "dt0":
+        dt[:, 10:40] = 0.0
+        dt[:, 130:131] = 0.0
+    return (t(rng.standard_normal((bt, s, h, p)) * 0.5, dtype), t(dt),
             t(-(rng.random(h) * 0.5 + 0.1)),
             t(rng.standard_normal((bt, s, g, n)) * 0.3, dtype),
             t(rng.standard_normal((bt, s, g, n)) * 0.3, dtype),
-            t(rng.standard_normal((bt, h, n, p))))
+            t(rng.standard_normal((bt, h, n, p))
+              * (100.0 if kind == "s0x100" else 1.0)))
 
 
 def sweep_ssd(torch, dev) -> dict:
@@ -1861,10 +1890,11 @@ def sweep_ssd(torch, dev) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for i, (bt, s, h, p, n, g, chunk) in enumerate(SSD_SWEEP):
+    for i, (bt, s, h, p, n, g, chunk, kind) in enumerate(SSD_SWEEP):
         for name in worst:
             x, dt, a, b, c, s0 = ssd_inputs(torch, dev, bt, s, h, p, n, g,
-                                            getattr(torch, name), 6000 + i)
+                                            getattr(torch, name), 6000 + i,
+                                            kind)
             for init in (None, s0):
                 y, last = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, s0=init)
                 y_r, last_r = ref.ssd_scan_ref(x, dt, a, b, c, chunk=chunk,
@@ -1930,31 +1960,92 @@ def cuobjdump_path():
     return next((str(c) for c in candidates if c.exists()), None)
 
 
-def flash_build_facts() -> dict:
-    """What ptxas reports for each flash kernel, and the counts of wgmma
-    (``HGMMA``) and TMA load (``UTMALDG``) instructions in the built
-    library's SASS: non-zero, or the bf16 multi-row path does not run on
-    the tensor cores and TMA."""
+def build_facts(source: str, opcodes: tuple) -> dict:
+    """What ptxas reports for each kernel of ``csrc/<source>.cu``, and the
+    count of each SASS opcode of ``opcodes`` in its built library; the run
+    fails if there is no ptxas report, no ``cuobjdump`` or a count of 0
+    (flash: ``HGMMA`` and ``UTMALDG``, or its bf16 prefill is not on wgmma
+    and TMA; the SSD scan: ``HMMA``, or its bf16 path is not on the tensor
+    cores)."""
     from repro_torch.kernels import build
-    facts = {"ptxas": ptxas_by_kernel(build.build_log("flash_attention"))}
+    facts = {"ptxas": ptxas_by_kernel(build.build_log(source))}
     if not facts["ptxas"]:
-        raise AssertionError("flash_attention: the build log holds no ptxas "
-                             "report (-Xptxas -v)")
+        raise AssertionError(f"{source}: the build log holds no ptxas "
+                             f"report (-Xptxas -v)")
     tool = cuobjdump_path()
     if tool is None:
-        raise AssertionError("flash_attention: no cuobjdump found on PATH, "
-                             "beside nvcc or in Triton's package, so the "
-                             "SASS cannot be counted")
+        raise AssertionError(f"{source}: no cuobjdump found on PATH, beside "
+                             f"nvcc or in Triton's package, so the SASS "
+                             f"cannot be counted")
     sass = subprocess.run(
-        [tool, "-sass", str(build.build_dir() / "libflash_attention.so")],
+        [tool, "-sass", str(build.build_dir() / f"lib{source}.so")],
         check=True, capture_output=True, text=True).stdout
     counts = {op: len(re.findall(r"\b" + op + r"\b", sass))
-              for op in ("HGMMA", "UTMALDG")}
+              for op in opcodes}
     if not all(counts.values()):
-        raise AssertionError(f"flash_attention: SASS counts {counts}: the "
-                             f"bf16 path should run on wgmma and TMA")
+        raise AssertionError(f"{source}: SASS counts {counts}: its bf16 "
+                             f"path is not on the instructions it was "
+                             f"built for")
     facts["sass"] = counts
     return facts
+
+
+def ssd_occupancy(torch, dtype, n: int, p: int, chunk: int, s: int) -> dict:
+    """The SSD kernel's chunk, its dynamic shared memory a block (from
+    ``ssd_plan`` and from the library, which must agree) and the blocks an
+    SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+    from repro_torch.kernels.segment_spmm import _entry
+    from repro_torch.kernels.ssd_scan import _DTYPES, ssd_plan
+    plan = ssd_plan(n, p, chunk, s, dtype)
+    code = _DTYPES[dtype]
+    smem = _entry("ssd_scan_smem")(code, n, p, plan.lc)
+    if smem != plan.smem_bytes:
+        raise AssertionError(f"ssd_scan: ssd_plan says {plan.smem_bytes} "
+                             f"bytes of shared memory, the kernel {smem}")
+    blocks = ctypes.c_int(0)
+    rc = _entry("ssd_scan_occupancy")(code, n, p, plan.lc,
+                                      ctypes.addressof(blocks))
+    if rc != 0:
+        raise AssertionError(f"ssd_scan occupancy: cudaError_t {rc}")
+    return {"chunk": plan.lc, "smem_bytes_a_block": smem,
+            "blocks_an_sm": blocks.value}
+
+
+def ssd_record_shapes(torch, dev) -> list:
+    """The bf16 scan at two shapes beside lm_path's, for the record (no
+    pass mark on time): zamba2 at one sequence (80 blocks, fewer than the
+    SMs) and mamba2-370m's N = 128 at lm_path's batch and chunk 128, each
+    held to its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    out = []
+    for i, (arch, b) in enumerate((("zamba2-2.7b", 1),
+                                   ("mamba2-370m", LM_BATCH))):
+        cfg = get_config(arch)
+        sm = cfg.ssm
+        nh, p, n, g = (sm.n_heads(cfg.d_model), sm.head_dim, sm.d_state,
+                       sm.n_groups)
+        x, dt, a, bm, cm, _ = ssd_inputs(torch, dev, b, LM_PROMPT, nh, p, n,
+                                         g, torch.bfloat16, 7300 + i)
+        fn = lambda: ssd_scan_cuda(x, dt, a, bm, cm,  # noqa: E731
+                                   chunk=sm.chunk)
+        (y, last), (y_r, last_r) = fn(), ref.ssd_scan_ref(
+            x, dt, a, bm, cm, chunk=sm.chunk)
+        torch.cuda.synchronize()
+        err = max(check_close(f"ssd_scan {arch} B={b} y", y, y_r,
+                              KERNEL_ATOL, KERNEL_RTOL),
+                  check_close(f"ssd_scan {arch} B={b} state", last, last_r,
+                              KERNEL_ATOL, KERNEL_RTOL))
+        out.append({"shape": f"{arch}, x [{b}, {LM_PROMPT}, {nh}, {p}] bf16, "
+                             f"B/C [{b}, {LM_PROMPT}, {g}, {n}], chunk "
+                             f"{sm.chunk}",
+                    "blocks": b * nh, "max_abs_err": err,
+                    "ms": time_graph_ms(torch, fn),
+                    **ssd_occupancy(torch, torch.bfloat16, n, p, sm.chunk,
+                                    LM_PROMPT)})
+    return out
 
 
 def decode_shapes(cfg) -> list:
@@ -2091,6 +2182,23 @@ def lm_kernel_entries(torch, dev) -> tuple:
     plans = decode_split_timings(torch, dev, cfg)
     host_us = host_us_per_call(torch, pairs["flash_decode"][0])
     us = device_breakdown_us(torch, {kk: vv[0] for kk, vv in pairs.items()})
+    # the scan's float32 kernel (the FMA pipes) on the same values
+    x32, b32, c32 = (z.float() for z in (x, bm, cm))
+    fma = lambda: ssd_scan_cuda(x32, dt, a, b32, c32,  # noqa: E731
+                                chunk=sm.chunk)
+    got, want = fma(), ref.ssd_scan_ref(x32, dt, a, b32, c32, chunk=sm.chunk)
+    torch.cuda.synchronize()
+    fma_err = max(check_close("ssd_scan float32 y at full width", got[0],
+                              want[0], KERNEL_ATOL, KERNEL_RTOL),
+                  check_close("ssd_scan float32 state at full width", got[1],
+                              want[1], KERNEL_ATOL, KERNEL_RTOL))
+    fma_entry = {"ms": time_graph_ms(torch, fma), "max_abs_err": fma_err,
+                 **ssd_occupancy(torch, torch.float32, n, p, sm.chunk, s)}
+    del x32, b32, c32, got, want
+    ssd_occ = ssd_occupancy(torch, bf16, n, p, sm.chunk, s)
+    if n == p == 64 and ssd_occ["blocks_an_sm"] < 2:
+        raise AssertionError(f"ssd_scan: {ssd_occ['blocks_an_sm']} block an "
+                             f"SM at N = P = 64; the design holds two")
 
     # bounds: each input read once, each output written once (2 bytes a
     # bfloat16, 4 a float32); the products this run's mask keeps (the
@@ -2153,7 +2261,7 @@ def lm_kernel_entries(torch, dev) -> tuple:
                     / library["flash_decode"],
                     "host_us_per_call": host_us,
                     "split_plan": plans},
-         "build": flash_build_facts(),
+         "build": build_facts("flash_attention", ("HGMMA", "UTMALDG")),
          "max_abs_err_by_dtype": sweep["flash_attention"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": src_root + "ssd_scan.cu",
@@ -2169,7 +2277,13 @@ def lm_kernel_entries(torch, dev) -> tuple:
                  f"state [{b}, {nh}, {n}, {p}] f32",
          "library_note": "none: no single call does a chunked SSD scan",
          "chunked_flops": ssd_flops,
-         "max_abs_err_by_dtype": sweep["ssd_scan"]},
+         "max_abs_err_by_dtype": sweep["ssd_scan"],
+         "occupancy": ssd_occ,
+         "device_us_by_kernel": us["ssd_scan"],
+         "float32": {"unit": "the same values with x, B, C in float32 (the "
+                             "FMA kernel)", **fma_entry},
+         "record": ssd_record_shapes(torch, dev),
+         "build": build_facts("ssd_scan", ("HMMA",))},
     ]
     info = {"device_us_per_call": us, "sweep_max_abs_err": sweep}
     return entries, info

@@ -77,7 +77,8 @@ _SIGNATURES = {
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P]),
-    "ssd_scan_chunk": ("ssd_scan", [_I, _I, _I]),
+    "ssd_scan_smem": ("ssd_scan", [_I, _I, _I, _I]),
+    "ssd_scan_occupancy": ("ssd_scan", [_I, _I, _I, _I, _P]),
     "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P]),
 }

@@ -4,7 +4,10 @@
 ``ssd_scan_pallas``: the function of ``_ssd_chunked``
 (``repro/models/layers.py``) — y and the last state from an optional
 initial state — with B and C read per group. Semantics are those of
-:func:`repro_torch.kernels.ref.ssd_scan_ref`.
+:func:`repro_torch.kernels.ref.ssd_scan_ref`. x, B and C in bfloat16 run
+on the tensor cores (``mma.sync`` with float32 operands split into bf16
+hi + lo); in float32 on the FMA pipes. :func:`ssd_plan` picks the chunk
+the kernel runs and its shared memory.
 
 The wrapper follows :mod:`repro_torch.kernels.segment_spmm`: CUDA tensors
 only, checked for device, dtype, shape, contiguity and alignment; outputs
@@ -15,16 +18,75 @@ backward; LM training is ROADMAP A14b).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .segment_spmm import (_call, _check, _check_dims, _count, _cuda_device,
-                           _entry, _ptr, refuse_grad)
+                           _ptr, refuse_grad)
 
 #: gridDim.y carries the batch row
 _MAX_BATCH = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: dynamic shared memory a block may take (227 KB)
+MAX_SMEM = 232448
+#: the tensor-core kernel: chunk rows (two 16-row tiles for each of four
+#: warps), and the widest N and P its registers hold
+_TC_MAX_CHUNK, _TC_MAX_N, _TC_MAX_P = 128, 128, 64
+
+
+class SsdPlan(NamedTuple):
+    """How ``csrc/ssd_scan.cu`` blocks one call."""
+    lc: int           #: the chunk the kernel runs (the same function)
+    n_pad: int        #: N as the kernel's tiles hold it
+    p_pad: int        #: P as the kernel's tiles hold it
+    smem_bytes: int   #: dynamic shared memory a block
+
+
+def _pad_width(v: int) -> int:
+    """A width padded to a power of two ≥ 16 (the ``mma`` tiles)."""
+    return max(16, 1 << (v - 1).bit_length())
+
+
+def ssd_plan(n: int, p: int, chunk: int, s: int,
+             dtype: torch.dtype) -> SsdPlan:
+    """The kernel's chunk and shared memory for N, P, the model's chunk and
+    the sequence length S.
+
+    The chunk is the model's, cut to S. float32 (the FMA kernel): rounded
+    up to a multiple of 4, then halved while its block's shared memory
+    ``4 (2 N Lc + Lc P + Lc² + N P + 3 Lc)`` exceeds 227 KB. bfloat16 (the
+    tensor-core kernel): N and P padded to a power of two ≥ 16, the chunk
+    rounded up to a multiple of 16 and cut to 128 rows, then halved while
+    its block's shared memory exceeds 227 KB: two ring slots, each the
+    larger of a chunk's x, B and C tiles (``2 Lc (2 N' + P')`` bytes) and
+    the state's three-term split (``6 N' P'``), and 2 KB of per-row decay
+    terms. Only the rounding moves with the chunk. Raises ``ValueError``
+    where no chunk fits, or for bfloat16 N > 128 or P > 64.
+    """
+    if dtype == torch.float32:
+        n_pad, p_pad, step, cap = n, p, 4, math.inf
+
+        def smem(c):
+            return 4 * (2 * n * c + c * p + c * c + n * p + 3 * c)
+    else:
+        if n > _TC_MAX_N or p > _TC_MAX_P:
+            raise ValueError(f"N={n}, P={p}: the bfloat16 kernel takes N ≤ "
+                             f"{_TC_MAX_N} and P ≤ {_TC_MAX_P}")
+        n_pad, p_pad, step, cap = (_pad_width(n), _pad_width(p), 16,
+                                   _TC_MAX_CHUNK)
+
+        def smem(c):          # two ring slots, then cum, dt, w, gd
+            return 2 * max(2 * c * (2 * n_pad + p_pad),
+                           6 * n_pad * p_pad) + 2048
+    lc = min(-(-max(1, min(chunk, s)) // step) * step, cap)
+    while lc > step and smem(lc) > MAX_SMEM:
+        lc = -(-(lc // 2) // step) * step
+    if smem(lc) > MAX_SMEM:
+        raise ValueError(f"N={n}, P={p}: no chunk fits the kernel's shared "
+                         f"memory")
+    return SsdPlan(lc, n_pad, p_pad, smem(lc))
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -35,10 +97,10 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x: [Bt, S, H, P] and B, C: [Bt, S, G, N], all float32 or all bfloat16;
     dt: [Bt, S, H], A: [H] and s0: [Bt, H, N, P] (or None: zeros) float32;
-    ``H % G == 0``, ``P % 4 == 0``, ``N % 4 == 0``. Returns (y [Bt, S, H, P],
-    last state [Bt, H, N, P]), float32. The kernel's chunk is ``chunk`` (cut
-    to S), halved while its shared memory exceeds the card's: the same
-    function, blocked otherwise. One launch (none when Bt·H = 0).
+    ``H % G == 0``, ``P % 4 == 0``, ``N % 4 == 0`` (bfloat16: N ≤ 128,
+    P ≤ 64). Returns (y [Bt, S, H, P], last state [Bt, H, N, P]), float32.
+    The kernel's chunk is :func:`ssd_plan`'s: the same function, blocked
+    otherwise. One launch (none when Bt·H = 0).
     """
     refuse_grad("ssd_scan", x, dt, A, B, C, s0)
     dev = _cuda_device(x)
@@ -70,10 +132,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (x, B, C) + ((s0,) if s0 is not None
                                                      else ())):
         raise ValueError("x, B, C and s0 must be 16-byte aligned")
-    lc = _entry("ssd_scan_chunk")(n, p, max(1, min(chunk, s)))
-    if lc == 0:
-        raise ValueError(f"N={n}, P={p}: no chunk fits the kernel's shared "
-                         f"memory")
+    lc = ssd_plan(n, p, chunk, s, x.dtype).lc
     with torch.cuda.device(dev):
         y = torch.empty((bt, s, h, p), dtype=f32, device=dev)
         state = torch.empty((bt, h, n, p), dtype=f32, device=dev)

@@ -392,6 +392,161 @@ def test_ssd_prefill_then_decode_continues_scan(jx):
 
 
 # ---------------------------------------------------------------------------
+# the SSD kernel's plan and its bf16 arithmetic (no card needed)
+# ---------------------------------------------------------------------------
+
+#: a block's shared memory on the H100: an SM's 228 KB, 1 KB reserved a block
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+
+
+@pytest.mark.parametrize("n,p", [(64, 64), (128, 64)])
+def test_ssd_plan_runs_the_models_chunk_in_bf16(n, p):
+    """zamba2-2.7b (N = P = 64) and mamba2-370m (N = 128) keep their chunk
+    of 128 on the tensor cores; at N = P = 64 two blocks fit an SM."""
+    plan = ss.ssd_plan(n, p, 128, 512, torch.bfloat16)
+    assert (plan.lc, plan.n_pad, plan.p_pad) == (128, n, p)
+    assert plan.smem_bytes <= ss.MAX_SMEM
+    blocks = SM_SMEM // (plan.smem_bytes + BLOCK_RESERVED)
+    assert blocks == (2 if n == 64 else 1)
+
+
+@pytest.mark.parametrize("n,p,chunk,s,want", [
+    (64, 64, 128, 512, 128), (128, 64, 128, 300, 64), (16, 16, 32, 77, 32),
+    (64, 64, 5, 512, 8), (64, 64, 128, 5, 8)])
+def test_ssd_plan_float32_keeps_the_fma_kernels_chunk(n, p, chunk, s, want):
+    """float32: the chunk cut to S, rounded up to a multiple of 4 and halved
+    while the FMA kernel's block exceeds 227 KB (N = 128 halves)."""
+    plan = ss.ssd_plan(n, p, chunk, s, torch.float32)
+    assert plan.lc == want
+    assert plan.smem_bytes == 4 * (2 * n * want + want * p + want * want
+                                   + n * p + 3 * want) <= ss.MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,p,chunk,s", [
+    (4, 8, 32, 96), (8, 16, 32, 128), (16, 32, 64, 256), (20, 12, 128, 40),
+    (64, 64, 128, 9), (64, 64, 256, 1024), (128, 64, 128, 5), (100, 60, 64, 1),
+    (128, 64, 512, 2048), (64, 64, 1, 7)])
+def test_ssd_plan_blocks_the_same_function(n, p, chunk, s, dtype):
+    """Any plan is a blocking the kernel takes: a chunk of the kernel's
+    step (4; bf16: 16, at most 128), no longer than needed, halved only
+    while the block does not fit; bf16 pads N and P to a power of two."""
+    dt = getattr(torch, dtype)
+    plan = ss.ssd_plan(n, p, chunk, s, dt)
+    step = 16 if dt == torch.bfloat16 else 4
+    want = max(1, min(chunk, s))
+    assert plan.lc % step == 0 and plan.lc < want + step
+    assert plan.smem_bytes <= ss.MAX_SMEM
+    if dt == torch.bfloat16:
+        assert plan.lc <= 128
+        for v, pad in ((n, plan.n_pad), (p, plan.p_pad)):
+            assert max(v, 16) <= pad < 2 * max(v, 16)
+            assert pad & (pad - 1) == 0
+        assert plan.smem_bytes == 2 * max(
+            2 * plan.lc * (2 * plan.n_pad + plan.p_pad),
+            6 * plan.n_pad * plan.p_pad) + 2048
+    if plan.lc < -(-want // step) * step:        # halved: twice would not fit
+        assert ss.ssd_plan(n, p, 2 * plan.lc, 2 * plan.lc, dt).lc < 2 * plan.lc
+
+
+@pytest.mark.parametrize("n,p", [(256, 64), (64, 128)])
+def test_ssd_plan_refuses_bf16_beyond_its_tiles(n, p):
+    with pytest.raises(ValueError, match="bfloat16 kernel takes"):
+        ss.ssd_plan(n, p, 128, 512, torch.bfloat16)
+    assert ss.ssd_plan(n, p, 128, 512, torch.float32).lc >= 4
+
+
+def _bf16_terms(t, terms):
+    """``t`` (float32) as the sum of ``terms`` bf16 values: hi, then the
+    rest's hi, ... — in float64."""
+    out, rest = torch.zeros_like(t, dtype=torch.float64), t.float()
+    for _ in range(terms):
+        hi = rest.to(torch.bfloat16).float()
+        out, rest = out + hi.double(), rest - hi
+    return out
+
+
+def _ssd_bf16_emulation(x, dt, a, b, c, chunk, s0, terms):
+    """The bf16 kernel's arithmetic around its roundings, in float64
+    elsewhere: the prefix sums and decays in float32 (powers of 2 of
+    dt A log2 e), M, w B and the state as ``terms`` = (M, w B, S) bf16
+    terms each, x, B and C exact."""
+    bt, s, h, p = x.shape
+    rep = h // b.shape[2]
+    bh, ch, xd = (t.double() for t in (b.repeat_interleave(rep, 2),
+                                       c.repeat_interleave(rep, 2), x))
+    state = s0.double()
+    y = torch.empty((bt, s, h, p), dtype=torch.float64)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(c0 + chunk, s))
+        dtc = dt[:, sl].float()
+        cum = torch.cumsum(dtc * (a.float() * 1.4426950408889634), 1)
+        total = cum[:, -1]
+        li = torch.arange(cum.shape[1])
+        keep = (li[:, None] >= li[None, :])[None, :, :, None]
+        diff = (cum[:, :, None] - cum[:, None, :]).masked_fill(~keep, 0.0)
+        decay = torch.exp2(diff).masked_fill(~keep, 0.0)
+        g = torch.einsum("bihn,bjhn->bijh", ch[:, sl], bh[:, sl]).float()
+        m = _bf16_terms(g * decay * dtc[:, None], terms[0])
+        y_intra = torch.einsum("bijh,bjhp->bihp", m, xd[:, sl])
+        y_inter = torch.einsum("bihn,bhnp->bihp", ch[:, sl],
+                               _bf16_terms(state.float(), terms[2]))
+        y[:, sl] = y_intra + y_inter * torch.exp2(cum).double()[..., None]
+        w = torch.exp2(total[:, None] - cum) * dtc
+        wb = _bf16_terms(bh[:, sl].float() * w[..., None], terms[1])
+        state = state * torch.exp2(total).double()[..., None, None] \
+            + torch.einsum("bjhn,bjhp->bhnp", wb, xd[:, sl])
+    return y, state
+
+
+SSD_SPLIT = {
+    "from-zero": dict(s=256, n=64, kind=""),
+    "s0": dict(s=256, n=64, kind="s0"),
+    "s0x100": dict(s=256, n=64, kind="s0x100"),
+    "s0x100-n128": dict(s=256, n=128, kind="s0x100"),
+    "dt0-ragged": dict(s=200, n=64, kind="dt0"),
+}
+
+
+def _split_case(case):
+    c = SSD_SPLIT[case]
+    rng = np.random.default_rng(21)
+    x, dt, a, b, cm = _ssd_inputs(rng, 1, c["s"], 2, 64, c["n"], 1)
+    s0 = rng.standard_normal((1, 2, c["n"], 64)).astype(np.float32)
+    s0 = _ssd_kind(c["kind"], dt, s0) if c["kind"] else np.zeros_like(s0)
+    x, b, cm = (torch.as_tensor(t).to(torch.bfloat16) for t in (x, b, cm))
+    return (x, torch.as_tensor(dt), torch.as_tensor(a), b, cm,
+            torch.as_tensor(s0))
+
+
+@pytest.mark.parametrize("case", list(SSD_SPLIT), ids=list(SSD_SPLIT))
+def test_ssd_bf16_split_holds_the_float32_bar(case):
+    """M and w B in two bf16 terms and the state in three keep the bf16
+    kernel's arithmetic within 1e-4 + 1e-4 of the plain version (the bar
+    the card holds the kernel to) at zamba2's per-head widths, the state at
+    100x included."""
+    x, dt, a, b, c, s0 = _split_case(case)
+    y, last = _ssd_bf16_emulation(x, dt, a, b, c, 128, s0, terms=(2, 2, 3))
+    y_r, last_r = ref.ssd_scan_ref(x, dt, a, b, c, chunk=128, s0=s0)
+    np.testing.assert_allclose(y.numpy(), y_r.double().numpy(),
+                               atol=CARD_ATOL, rtol=CARD_RTOL)
+    np.testing.assert_allclose(last.numpy(), last_r.double().numpy(),
+                               atol=CARD_ATOL, rtol=CARD_RTOL)
+
+
+@pytest.mark.parametrize("terms", [(1, 1, 1), (2, 2, 2)],
+                         ids=["one-rounding", "state-in-two"])
+def test_ssd_bf16_fewer_terms_miss_the_bar(terms):
+    """Why the split: one bf16 rounding of each float operand misses the
+    bar from a unit state, and a two-term state misses it at 100x."""
+    x, dt, a, b, c, s0 = _split_case("s0" if terms[0] == 1 else "s0x100")
+    y, _ = _ssd_bf16_emulation(x, dt, a, b, c, 128, s0, terms=terms)
+    y_r, _ = ref.ssd_scan_ref(x, dt, a, b, c, chunk=128, s0=s0)
+    excess = (y - y_r.double()).abs() - CARD_RTOL * y_r.double().abs()
+    assert float(excess.max()) > CARD_ATOL
+
+
+# ---------------------------------------------------------------------------
 # dispatch and the wrappers' refusals (no card needed)
 # ---------------------------------------------------------------------------
 
@@ -509,21 +664,45 @@ def test_flash_kernel_matches_plain(card, case, dtype):
     _card_close(got, ref.flash_attention_ref(q, k, v, **kw), dt)
 
 
+#: (Bt, S, H, P, N, G, chunk, kind): kind "s0x100" scales the initial
+#: state by 100, "dt0" sets dt to 0 on rows 10-39 and 130
+CARD_SSD = [
+    (2, 128, 2, 16, 8, 1, 32, ""), (1, 77, 4, 16, 16, 2, 32, ""),
+    (2, 300, 8, 64, 64, 1, 128, ""), (1, 130, 4, 64, 128, 1, 128, ""),
+    # the bf16 tensor-core kernel's edges: S < 16; a last chunk of 72 rows
+    # (not a multiple of 16); N = 128 at chunk 128; G = 2 with 4 heads; the
+    # state at 100x (its three-term split); steps with dt = 0; N and P not
+    # multiples of 8
+    (2, 9, 4, 64, 64, 1, 128, ""), (1, 200, 4, 64, 64, 1, 128, ""),
+    (2, 256, 4, 64, 128, 1, 128, ""), (2, 160, 4, 64, 64, 2, 128, ""),
+    (1, 256, 4, 64, 64, 1, 128, "s0x100"), (2, 256, 4, 64, 64, 1, 128, "dt0"),
+    (1, 40, 2, 12, 20, 1, 128, ""),
+]
+
+
+def _ssd_kind(kind, dt, s0):
+    """dt and s0 as SSD case ``kind`` asks (numpy, in place for dt)."""
+    if kind == "dt0":
+        dt[:, 10:40] = 0.0
+        dt[:, 130:131] = 0.0
+    return s0 * 100.0 if kind == "s0x100" else s0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 128, 2, 16, 8, 1, 32),
-                                   (1, 77, 4, 16, 16, 2, 32),
-                                   (2, 300, 8, 64, 64, 1, 128),
-                                   (1, 130, 4, 64, 128, 1, 128)])
+@pytest.mark.parametrize("shape", CARD_SSD)
 def test_ssd_kernel_matches_plain(card, shape, dtype):
-    bt, s, h, p, n, g, chunk = shape
+    """Both dtypes at the float32 bar: the bf16 kernel splits its float
+    operands into bf16 terms (csrc/ssd_scan.cu)."""
+    bt, s, h, p, n, g, chunk, kind = shape
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(s)
     x, dtt, a, b, c = _ssd_inputs(rng, bt, s, h, p, n, g)
+    s0 = _ssd_kind(kind, dtt, rng.standard_normal((bt, h, n, p))
+                   .astype(np.float32))
     x, b, c = (torch.as_tensor(t, device=card).to(dt) for t in (x, b, c))
     dtt, a = torch.as_tensor(dtt, device=card), torch.as_tensor(a, device=card)
-    s0 = torch.as_tensor(rng.standard_normal((bt, h, n, p))
-                         .astype(np.float32), device=card)
+    s0 = torch.as_tensor(s0, device=card)
     for init in (None, s0):
         n0 = ss.ssd_scan_cuda.launches
         y, last = ops.ssd_scan(x, dtt, a, b, c, chunk=chunk, s0=init)
