@@ -40,7 +40,14 @@ Phases, each printing one JSON line:
    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the run
    fails below two at N = P = 64), its device µs by kernel, the float32
    FMA kernel timed on the same values, and, for the record, zamba2 at one
-   sequence and mamba2-370m's N = 128 at lm_path's batch. Then
+   sequence and mamba2-370m's N = 128 at lm_path's batch. The
+   fused_mp_layer entry sweeps both node-phase routes (the tensor-core
+   kernel's tile edges, the FMA kernel's odd widths and unaligned view,
+   inf and NaN in x, in agg and in the weights), holds the full bin's ``split`` (GraphSAGE) and ``pre``
+   (GCN, a [P] self scale) layers, and carries the route taken there, the
+   node and edge phases' device µs, its bound at the TF32 and at the FMA
+   peak, the ``HGMMA`` count of its library (the run fails at 0) and one
+   float32 ``torch.mm`` of the node phase's product as its yardstick. Then
    the kernel's time (a
    CUDA graph of 20 back-to-back wrapper calls, replayed; median over many
    replays, per call), the plain version's time, one library call's time
@@ -58,7 +65,8 @@ Phases, each printing one JSON line:
    ``predict_json`` / ``predict_many`` (the default ``PredictionService``),
    and a bulk of synthetic samples through ``engine().predict_samples``.
    The kernels' launch counts are zeroed before and read after, and must
-   equal bins × layers. The card's predictions are held against the same
+   equal bins × layers; every fused_mp_layer launch must take the
+   tensor-core route. The card's predictions are held against the same
    ``DIPPM`` on ``device="cpu"``, which runs the plain versions.
 5. ``gat_path`` — the same for GAT at the paper's width: every layer
    launches ``edge_softmax`` and ``fused_gat_aggregate`` once per bin.
@@ -113,6 +121,7 @@ ROOT = Path(__file__).resolve().parent
 
 #: NVIDIA H100 SXM data sheet, dense, at the 700 W power limit.
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12    # TF32 on the tensor cores
 PEAK_BF16_FLOPS = 989e12    # bfloat16 on the tensor cores
 PEAK_BYTES = 3.35e12        # HBM3
 #: kernel vs plain version on the card: the atomics and the product sum in
@@ -304,8 +313,14 @@ def kernel_name(key: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1]
 
 
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """The least time for the work, in ms, and what bounds it: ``flops``
+    operations at ``peak`` (or a list of ``(flops, peak)`` parts done on
+    different units, one after the other) against ``nbytes`` at
+    ``PEAK_BYTES``."""
+    parts = flops if isinstance(flops, list) else [(flops, peak)]
+    t_ops = sum(n / pk for n, pk in parts)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -393,8 +408,16 @@ def phase_build() -> None:
 
 
 def sweep_fused(torch, dev) -> float:
+    """fused_mp_layer against its plain version over edge cases on both
+    node-phase routes: the tensor-core kernel's tile edges (P not a
+    multiple of 128, H below and above one tile, F a multiple of 8 or only
+    of 4, depth over several turns of its ring), the FMA kernel's odd
+    widths and unaligned view, and inf, -inf and NaN in x, in agg (through
+    an edge) and in the weights. Each case's route must be the one
+    ``fused_mp_plan`` names."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_spmm import fused_mp_layer_cuda
+    from repro_torch.kernels.segment_spmm import (fused_mp_layer_cuda,
+                                                  fused_mp_plan)
     worst = 0.0
     cases = []
     for p, q in [(128, 128), (128, 129), (100, 50), (257, 300), (64, 0)]:
@@ -419,10 +442,47 @@ def sweep_fused(torch, dev) -> float:
                       act="relu", nm=True, weighted=False, f=13, h=7))
     cases.append(dict(p=128, q=129, mode="mean", combine="split", scale=None,
                       act="relu", nm=True, weighted=False, unaligned=True))
+    # the tensor-core kernel's edges: its 128 x 128 tile, depth stages of
+    # 32 (F = 8k, F = 4 mod 8, a depth that turns its ring of three)
+    for p, q, f, h, combine in [(200, 300, 40, 24, "split"),
+                                (300, 500, 12, 100, "pre"),
+                                (129, 200, 20, 128, "split"),
+                                (257, 400, 64, 200, "pre"),
+                                (384, 700, 36, 260, "split"),
+                                (130, 260, 256, 132, "pre"),
+                                (100, 150, 4, 4, "split")]:
+        cases.append(dict(p=p, q=q, mode="mean", combine=combine,
+                          scale="vector", act="relu", nm=True, weighted=True,
+                          f=f, h=h))
+    # inf, -inf and NaN in x (rows that send no edge), in agg (through the
+    # edges of the rows that carry them) and in the weights, on both routes
+    for where in ("x", "agg", "w"):
+        for combine in ("split", "pre"):
+            for unaligned in (False, True):
+                cases.append(dict(p=200, q=300, mode="mean", combine=combine,
+                                  scale="vector", act="relu", nm=True,
+                                  weighted=False, f=24, h=160,
+                                  unaligned=unaligned, bad=where))
+    routes = dict.fromkeys(fused_mp_layer_cuda.route_launches, 0)
     for i, c in enumerate(cases):
         f, h = c.get("f", 16), c.get("h", 24)
         x, edges, emask, nmask = packed_graph(torch, dev, c["p"], c["q"], f=f,
                                               seed=i)
+        wn, ws, b = weights(torch, dev, f, h, seed=i)
+        bad = {5: float("inf"), 150: float("nan"), 170: float("-inf")}
+        if c.get("bad") == "x":
+            keep = ~torch.isin(edges[:, 0], torch.tensor(list(bad),
+                                                         device=dev))
+            edges, emask = edges[keep].contiguous(), emask[keep].contiguous()
+        elif c.get("bad") == "agg":
+            edges[:3, 0] = torch.tensor(list(bad), device=dev)
+            emask[:3] = 1.0
+        for r, v in bad.items() if c.get("bad") else ():
+            if c["bad"] == "w":
+                w = ws if c["combine"] == "split" and r == 5 else wn
+                w[r % f, (r * 7) % h] = v
+            else:
+                x[r, 7] = v
         if c.get("unaligned"):
             shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
             x = shifted.copy_(x)
@@ -430,7 +490,6 @@ def sweep_fused(torch, dev) -> float:
             emask = emask * torch.rand(c["q"], device=dev,
                                        generator=torch.Generator(dev)
                                        .manual_seed(i))
-        wn, ws, b = weights(torch, dev, f, h, seed=i)
         ss = {"vector": torch.rand(c["p"], device=dev,
                                    generator=torch.Generator(dev)
                                    .manual_seed(i)),
@@ -440,11 +499,27 @@ def sweep_fused(torch, dev) -> float:
         kw = dict(w_neigh=wn, w_self=ws, bias=b, mode=c["mode"],
                   combine=c["combine"], self_scale=ss, act=c["act"])
         nm = nmask if c["nm"] else None
+        before = dict(fused_mp_layer_cuda.route_launches)
         got = fused_mp_layer_cuda(x, edges, emask, nm, **kw)
         want = ref.fused_mp_layer_ref(x, edges, emask, nm, **kw)
         torch.cuda.synchronize()
-        worst = max(worst, check_close(f"fused_mp_layer case {c}", got, want,
-                                       KERNEL_ATOL, KERNEL_RTOL))
+        route = fused_mp_plan(f, h, not c.get("unaligned"))
+        if fused_mp_layer_cuda.route_launches[route] != before[route] + 1:
+            raise AssertionError(f"fused_mp_layer case {c}: did not run the "
+                                 f"{route} route")
+        routes[route] += 1
+        if c.get("bad"):
+            if torch.isfinite(want).all():
+                raise AssertionError(f"fused_mp_layer case {c}: no "
+                                     f"non-finite value reached the output")
+            err = check_close_nan(f"fused_mp_layer case {c}", got, want,
+                                  KERNEL_ATOL, KERNEL_RTOL)
+        else:
+            err = check_close(f"fused_mp_layer case {c}", got, want,
+                              KERNEL_ATOL, KERNEL_RTOL)
+        worst = max(worst, err)
+    if min(routes.values()) == 0:
+        raise AssertionError(f"fused_mp_layer sweep: routes {routes}")
     return worst
 
 
@@ -495,7 +570,12 @@ def check_close_nan(what: str, got, want, atol: float, rtol: float) -> float:
     if not np.array_equal(np.isnan(got), nan):
         raise AssertionError(f"{what}: NaN pattern differs from the plain "
                              f"version")
-    return check_close(what, got[~nan], want[~nan], atol, rtol)
+    inf = np.isinf(want)
+    if not np.array_equal(got[inf], want[inf]):
+        raise AssertionError(f"{what}: infinities differ from the plain "
+                             f"version")
+    fin = ~nan & ~inf
+    return check_close(what, got[fin], want[fin], atol, rtol)
 
 
 def sweep_edge_softmax(torch, dev) -> float:
@@ -809,7 +889,9 @@ def full_bin(torch, dev, cfg):
 
 
 def sage_kernel_entries(torch, dev, cfg) -> tuple:
-    """fused_mp_layer and segment_readout at the GraphSAGE full bin."""
+    """fused_mp_layer and segment_readout at the GraphSAGE full bin, and
+    fused_mp_layer's ``pre`` combine there, GCN-style (sum, edge weights,
+    a [P] self scale)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_spmm import (fused_mp_layer_cuda,
                                                   segment_readout_cuda)
@@ -834,19 +916,60 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
         return fn(h, edges, em, nm, w_neigh=w[f"wn{i}"], w_self=w[f"ws{i}"],
                   bias=w[f"b{i}"], mode="mean", combine="split", act="relu")
 
+    # GCN's layer (core/gnn.py _fused_mp_stack): normalised edge weights,
+    # the d^-1 d^-1 self scale, sum, pre
+    deg = torch.zeros((P,), device=dev).index_add_(
+        0, edges[:, 1].long(), em) + nm
+    dinv = torch.rsqrt(deg.clamp_min(1.0))
+    gcn_w = (em * dinv[edges[:, 1].long()] * dinv[edges[:, 0].long()]
+             ).contiguous()
+    gcn_ss = (dinv * dinv * nm).contiguous()
+
+    def pre_layer(fn, h):
+        return fn(h, edges, gcn_w, nm, w_neigh=w["wn1"], bias=w["b1"],
+                  mode="sum", combine="pre", self_scale=gcn_ss, act="relu")
+
+    routes0 = dict(fused_mp_layer_cuda.route_launches)
     h0_k = layer(fused_mp_layer_cuda, x, 0)
     h0_r = layer(ref.fused_mp_layer_ref, x, 0)
     h1_k = layer(fused_mp_layer_cuda, h0_r, 1)
     h1_r = layer(ref.fused_mp_layer_ref, h0_r, 1)
+    g1_k = pre_layer(fused_mp_layer_cuda, h0_r)
+    g1_r = pre_layer(ref.fused_mp_layer_ref, h0_r)
+    routes = {k: v - routes0[k]
+              for k, v in fused_mp_layer_cuda.route_launches.items()}
+    if routes.get("tf32x3") != 3:
+        raise AssertionError(f"fused_mp_layer at the full bin ran the routes "
+                             f"{routes}, not the tensor-core one")
     z_k = segment_readout_cuda(h1_r, gid, nm, FULL_G, kind=cfg.readout)
     z_r = ref.segment_readout_ref(h1_r, gid, nm, FULL_G, kind=cfg.readout)
     torch.cuda.synchronize()
-    err_mp = max(check_close("fused_mp_layer full width F=32", h0_k, h0_r,
-                             KERNEL_ATOL, KERNEL_RTOL),
-                 check_close("fused_mp_layer full width F=512", h1_k, h1_r,
-                             KERNEL_ATOL, KERNEL_RTOL))
+    err_full = {
+        "split F=32": check_close("fused_mp_layer full width F=32", h0_k,
+                                  h0_r, KERNEL_ATOL, KERNEL_RTOL),
+        "split F=512": check_close("fused_mp_layer full width F=512", h1_k,
+                                   h1_r, KERNEL_ATOL, KERNEL_RTOL),
+        "pre F=512": check_close("fused_mp_layer full width pre F=512 (GCN)",
+                                 g1_k, g1_r, KERNEL_ATOL, KERNEL_RTOL)}
+    err_mp = max(err_full.values())
     err_ro = check_close("segment_readout full width", z_k, z_r,
                          KERNEL_ATOL, KERNEL_RTOL)
+
+    def product_ms(h, i):
+        """torch.mm on layer i's node-phase product alone, [x | agg/d] @
+        [Ws; Wn] ([P, 2F] x [2F, H]) in float32 with TF32 off: the
+        yardstick, never called by the port"""
+        src, dst = edges[:, 0].long(), edges[:, 1].long()
+        agg = torch.zeros_like(h).index_add_(0, dst, h[src] * em[:, None])
+        d = torch.zeros((P,), device=dev).index_add_(0, dst, em)
+        a = torch.cat([h, agg / d.clamp_min(1.0)[:, None]], 1)
+        bm = torch.cat([w[f"ws{i}"], w[f"wn{i}"]], 0)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return time_graph_ms(torch, lambda: torch.mm(a, bm))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
 
     t_mp = {}
     for label, i, h in (("f32", 0, x), ("f512", 1, h0_r)):
@@ -854,46 +977,85 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
             "ms": time_graph_ms(torch, lambda: layer(fused_mp_layer_cuda, h, i)),
             "plain_ms": time_graph_ms(
                 torch, lambda: layer(ref.fused_mp_layer_ref, h, i)),
+            "product_torch_mm_ms": product_ms(h, i),
         }
+    t_mp["pre f512"] = {
+        "ms": time_graph_ms(torch, lambda: pre_layer(fused_mp_layer_cuda,
+                                                     h0_r)),
+        "plain_ms": time_graph_ms(torch, lambda: pre_layer(
+            ref.fused_mp_layer_ref, h0_r))}
     t_ro = time_graph_ms(torch, lambda: segment_readout_cuda(
         h1_r, gid, nm, FULL_G, kind=cfg.readout))
     breakdown = device_breakdown_us(torch, {
         "fused_mp_layer F=32": lambda: layer(fused_mp_layer_cuda, x, 0),
         "fused_mp_layer F=512": lambda: layer(fused_mp_layer_cuda, h0_r, 1),
+        "fused_mp_layer pre F=512": lambda: pre_layer(fused_mp_layer_cuda,
+                                                      h0_r),
         "segment_readout": lambda: segment_readout_cuda(
             h1_r, gid, nm, FULL_G, kind=cfg.readout)})
     t_ro_plain = time_graph_ms(torch, lambda: ref.segment_readout_ref(
         h1_r, gid, nm, FULL_G, kind=cfg.readout))
+    phases_us = {}
+    for label in ("F=32", "F=512", "pre F=512"):
+        rows = breakdown[f"fused_mp_layer {label}"]
+        node = sum(v for k, v in rows.items()
+                   if k in ("split_transpose_kernel", "tf32x3_node_kernel",
+                            "node_gemm_kernel"))
+        edge = rows.get("scatter_kernel", 0.0)
+        phases_us[label] = {"node_phase_us": node, "edge_phase_us": edge,
+                            "zero_fills_us": sum(rows.values()) - node - edge}
 
     # least time for one bin's three layers: each input read once, the
-    # output written once; the product's FLOPs plus the real edges' scatter
-    def layer_bound(f):
-        flops = 2.0 * P * (2 * f) * H + 2.0 * q_real * f + q_real
+    # output written once; the real edges' scatter on the FMA pipes, and the
+    # product as three TF32 products on the tensor cores (the split) or, for
+    # the record, as one float32 product on the FMA pipes
+    def layer_bound(f, products, peak):
+        ops = [(2.0 * q_real * f + q_real, PEAK_F32_FLOPS),
+               (products * 2.0 * P * (2 * f) * H, peak)]
         nbytes = 4.0 * (P * f + 2 * Q + Q + P + 2 * f * H + H + P * H)
-        return flops, nbytes
-    fl0, by0 = layer_bound(F0)
-    fl1, by1 = layer_bound(H)
-    mp_bound, mp_by = bound_ms(fl0 + 2 * fl1, by0 + 2 * by1)
+        return ops, nbytes
+    bounds = []
+    for products, peak in ((3, PEAK_TF32_FLOPS), (1, PEAK_F32_FLOPS)):
+        (op0, by0) = layer_bound(F0, products, peak)
+        (op1, by1) = layer_bound(H, products, peak)
+        bounds.append((bound_ms(op0 + op1 + op1, by0 + 2 * by1),
+                       {"f32": bound_ms(op0, by0)[0],
+                        "f512": bound_ms(op1, by1)[0]}))
+    ((mp_bound, mp_by), bound_layer), ((fma_bound, _), fma_layer) = bounds
     ro_flops = 3.0 * p_real * H + 2.0 * FULL_G * H
     ro_bytes = 4.0 * (P * H + 2 * P + FULL_G * 2 * H)
     ro_bound, ro_by = bound_ms(ro_flops, ro_bytes)
     blocks = cfg.n_gnn_blocks
-    mp_ms = t_mp["f32"]["ms"] + (blocks - 1) * t_mp["f512"]["ms"]
-    mp_plain = t_mp["f32"]["plain_ms"] + (blocks - 1) * t_mp["f512"]["plain_ms"]
+
+    def per_bin(key):
+        return t_mp["f32"][key] + (blocks - 1) * t_mp["f512"][key]
     entries = [
         {"name": "fused_mp_layer", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_mp.cu",
          "replaces": "src/repro/kernels/segment_spmm.py:370",
          "launches": None, "max_abs_err": max(err_mp, sweep_mp),
-         "ms": mp_ms, "plain_ms": mp_plain, "bound_ms": mp_bound,
-         "bound_by": mp_by, "library_ms": None,
+         "ms": per_bin("ms"), "plain_ms": per_bin("plain_ms"),
+         "bound_ms": mp_bound, "bound_by": mp_by,
+         "bound_fma_ms": fma_bound,
+         "library_ms": per_bin("product_torch_mm_ms"),
          "unit": f"one full bin: {blocks} GraphSAGE layers at P={P} Q={Q} "
                  f"F={F0}->{H}, then {H}->{H}",
-         "per_layer": t_mp,
-         "bound_per_layer_ms": {"f32": bound_ms(fl0, by0)[0],
-                                "f512": bound_ms(fl1, by1)[0]},
-         "library_note": "no single PyTorch call computes the gather, "
-                         "scatter-mean, combine product and epilogue"},
+         "per_layer": t_mp, "device_us_by_phase": phases_us,
+         "full_bin_route": routes, "full_bin_max_abs_err": err_full,
+         "bound_per_layer_ms": bound_layer,
+         "bound_fma_per_layer_ms": fma_layer,
+         "bound_note": "bound_ms: the product as three TF32 products at "
+                       "495 TFLOP/s (the split), the edge scatter at the "
+                       "FMA peak, or the bytes at 3.35 TB/s, whichever is "
+                       "larger; bound_fma_ms: the product once at the "
+                       "67 TFLOP/s FMA peak",
+         "library_note": "the node phase's product alone: torch.mm on "
+                         "[P, 2F] x [2F, H] float32 with allow_tf32=False, "
+                         "summed over the bin's layers; no single PyTorch "
+                         "call computes the gather, scatter-mean, combine "
+                         "product and epilogue, and the port never calls "
+                         "torch.mm here",
+         "build": build_facts("fused_mp", ("HGMMA",))},
         {"name": "segment_readout", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_readout.cu",
          "replaces": "src/repro/kernels/segment_spmm.py:241",
@@ -1319,6 +1481,9 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
 
     for fn, _ in kernels.values():
         fn.launches = 0
+    fused = kernels.get("fused_mp_layer", (None,))[0]
+    if fused is not None:
+        fused.route_launches = dict.fromkeys(fused.route_launches, 0)
     t0 = time.perf_counter()
     warmed = engine.warmup(rungs="all")
     torch.cuda.synchronize()
@@ -1335,6 +1500,7 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
         bulk_s.append(time.perf_counter() - t1)
     t_bulk = statistics.median(bulk_s)
     launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    routes = dict(fused.route_launches) if fused is not None else None
     stats = engine.stats.snapshot()
     bulk_bins = (stats.batches_run - bins_before) // BULK_REPEATS
 
@@ -1345,6 +1511,10 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
         raise AssertionError(f"{phase}: launch counts {launches} != bins x "
                              f"layers {want} ({stats.batches_run} bins + "
                              f"{warmed} warmup shapes)")
+    if routes is not None and routes != {
+            "tf32x3": launches["fused_mp_layer"], "fma": 0}:
+        raise AssertionError(f"{phase}: fused_mp_layer ran the routes "
+                             f"{routes}, not the tensor-core one throughout")
     card = np.concatenate([
         np.asarray([[p.latency_ms, p.energy_j, p.memory_mb]
                     for p in [one] + many]), ys])
@@ -1374,7 +1544,7 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
            "bulk_graphs": len(samples), "bulk_bins": bulk_bins,
            "bulk_s": bulk_s, "bulk_predictions_per_s": len(samples) / t_bulk,
            "bulk_ms_per_bin": 1e3 * t_bulk / max(bulk_bins, 1),
-           "launches": launches,
+           "launches": launches, "fused_mp_routes": routes,
            "engine_stats": {**{k: getattr(stats, k) for k in (
                "graphs_predicted", "batches_run", "cache_hits",
                "cache_misses", "cache_entries", "recompiles",
@@ -1966,7 +2136,7 @@ def build_facts(source: str, opcodes: tuple) -> dict:
     fails if there is no ptxas report, no ``cuobjdump`` or a count of 0
     (flash: ``HGMMA`` and ``UTMALDG``, or its bf16 prefill is not on wgmma
     and TMA; the SSD scan: ``HMMA``, or its bf16 path is not on the tensor
-    cores)."""
+    cores; fused_mp: ``HGMMA``, or its node phase is not on wgmma)."""
     from repro_torch.kernels import build
     facts = {"ptxas": ptxas_by_kernel(build.build_log(source))}
     if not facts["ptxas"]:
@@ -1983,9 +2153,9 @@ def build_facts(source: str, opcodes: tuple) -> dict:
     counts = {op: len(re.findall(r"\b" + op + r"\b", sass))
               for op in opcodes}
     if not all(counts.values()):
-        raise AssertionError(f"{source}: SASS counts {counts}: its bf16 "
-                             f"path is not on the instructions it was "
-                             f"built for")
+        raise AssertionError(f"{source}: SASS counts {counts}: its "
+                             f"tensor-core path is not on the instructions "
+                             f"it was built for")
     facts["sass"] = counts
     return facts
 

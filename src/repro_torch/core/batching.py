@@ -76,6 +76,11 @@ class GraphSample:
     static: np.ndarray      # [5] or [8]
     y: Optional[np.ndarray]  # [3] (latency_ms, energy_j, memory_mb) or None
     meta: Dict = dataclasses.field(default_factory=dict)
+    #: Memoized dense adjacency — filled by the first :attr:`adj` access.
+    #: Samples are frozen after :func:`pad_sample`, so no invalidation is
+    #: needed; treat the returned buffer as read-only.
+    _adj: Optional[np.ndarray] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def n_nodes(self) -> int:
@@ -84,6 +89,25 @@ class GraphSample:
     @property
     def n_edges(self) -> int:
         return int(self.edges.shape[0])
+
+    @property
+    def adj(self) -> np.ndarray:
+        """Dense ``[N, N]`` adjacency, memoized per sample (read-only)."""
+        if self._adj is None:
+            self._adj = dense_adj(self.edges, self.x.shape[0])
+        return self._adj
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes held by this sample: no dense N² term unless
+        :attr:`adj` has been touched, which batch assembly never does."""
+        n = self.x.nbytes + self.edges.nbytes + self.mask.nbytes
+        n += self.static.nbytes
+        if self.y is not None:
+            n += self.y.nbytes
+        if self._adj is not None:
+            n += self._adj.nbytes
+        return n
 
 
 def bucket_for(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:

@@ -27,6 +27,8 @@ import hashlib
 import json
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 # ---------------------------------------------------------------------------
 # Operator vocabulary
 # ---------------------------------------------------------------------------
@@ -163,6 +165,20 @@ class OpGraph:
     @property
     def num_edges(self) -> int:
         return len(self.edges)
+
+    def adjacency(self) -> np.ndarray:
+        """Dense adjacency matrix A[dst, src] = 1 (message flows src→dst)."""
+        n = self.num_nodes
+        a = np.zeros((n, n), dtype=np.float32)
+        for s, d in self.edges:
+            a[d, s] = 1.0
+        return a
+
+    def in_degrees(self) -> np.ndarray:
+        deg = np.zeros((self.num_nodes,), dtype=np.int32)
+        for _, d in self.edges:
+            deg[d] += 1
+        return deg
 
     def topo_order(self) -> List[int]:
         """Kahn topological order (graphs from tracing are DAGs)."""

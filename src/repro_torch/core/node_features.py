@@ -16,14 +16,25 @@ magnitude across the dataset.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
-from .ir import OP_INDEX, OP_VOCAB, OpGraph, dtype_bytes
+from .ir import OP_INDEX, OP_VOCAB, OpGraph, OpNode, dtype_bytes
 
 N_OP = len(OP_VOCAB)            # 16
 N_ATTR = 8
 N_SHAPE = 8
 NODE_FEATURE_DIM = N_OP + N_ATTR + N_SHAPE   # 32 — matches the paper
+
+
+def node_feature(nd: OpNode) -> np.ndarray:
+    """One node's 32-dim feature row.
+
+    Delegates to :func:`node_feature_matrix` on a single-node graph so
+    there is exactly one implementation of the feature layout.
+    """
+    return node_feature_matrix(OpGraph(nodes=[nd], edges=[]))[0]
 
 
 def node_feature_matrix(g: OpGraph) -> np.ndarray:
@@ -77,3 +88,13 @@ def node_feature_matrix(g: OpGraph) -> np.ndarray:
     raw[:, log_cols] = np.log1p(np.maximum(raw[:, log_cols], 0.0))
     f[:, N_OP:] = raw
     return f.astype(np.float32)
+
+
+def adjacency_matrix(g: OpGraph) -> np.ndarray:
+    """A[dst, src] — row i holds the in-neighbourhood of node i."""
+    return g.adjacency()
+
+
+def graph_tensors(g: OpGraph) -> Tuple[np.ndarray, np.ndarray]:
+    """The (A, X) pair of Algorithm 1."""
+    return adjacency_matrix(g), node_feature_matrix(g)

@@ -18,41 +18,76 @@
 //     segment_aggregate.cu runs too: one warp per edge, its lanes along the
 //     features, so the read of x[src] and the atomicAdd into agg[dst] are
 //     both coalesced. It is bound by the L2 atomics: at the packed bin of
-//     P=4096, Q=6656, F=512 it issues 3.4M of them, a few microseconds of
-//     work.
-//   * Node phase: the shared-memory tiled SGEMM of sgemm_tile.cuh (a 128x64
-//     output tile per block of 256 threads, two shared-memory stages,
-//     float4 operand reads). Its prologue builds the A tile on the fly: for
+//     P=4096, Q=6656, F=512 it issues 3.4M of them.
+//   * Node phase: the product, A against B, with A built on the fly: for
 //     `split`, A = [x | agg/d] against B = [Ws; Wn], one product of depth
-//     2F; for `pre`, A = s*x + agg/d against Wn, with d = max(deg, 1). Each
-//     thread loads the same two A rows at every stage, so it reads their
-//     1/d and s once. The epilogue adds the bias, applies relu and the node
-//     mask.
+//     2F; for `pre`, A = s*x + agg/d against Wn, with d = max(deg, 1) and
+//     agg/d taken as agg * (1/d). The epilogue adds the bias, applies relu
+//     and the node mask.
 //
-// What bounds it on the H100: the node phase. At F=H=512 it does 4.3 GFLOP
-// per layer against 19 MB of traffic, so it is compute-bound (64 us at the
-// 67 TFLOP/s float32 peak outside the tensor cores). TF32 would be other
-// arithmetic, not a faster version of this one, so the product stays on the
-// float32 FMA pipes. A destination-sorted CSR without atomics, and the
-// product on wgmma with TMA loads, are later work.
+// What bounds it on the H100: the node phase's product. At F=H=512 it is
+// 4.3 GFLOP per layer against 19 MB of traffic: 64 us at the 67 TFLOP/s
+// float32 FMA peak, 26 us for the three TF32 products below at 495 TFLOP/s.
+// So the node phase runs on the tensor cores, in tf32x3_tile.cuh's 3xTF32
+// split: each float32 operand becomes hi = tf32(v) and lo = v - hi, and the
+// product sums A_lo B_hi + A_hi B_lo (their own accumulator) and A_hi B_hi.
+// One TF32 product keeps 11 bits an operand and misses the float32 bar
+// below by an order of magnitude at depth 1024; the split keeps about 22,
+// and the dropped A_lo B_lo is about 2^-22 of the result
+// (tests/test_torch_kernels.py emulates both, summing in float32 per depth
+// step as the kernel does). After it, the layer's next cost is the edge
+// phase's atomics (ROADMAP B6: a destination-sorted CSR).
+//
+// The tensor-core route is two launches. split_transpose_kernel writes the
+// weights split and transposed ([Ws; Wn] or Wn, K-major, hi and lo) into the
+// wrapper's scratch, since wgmma's tf32 form reads B K-major only. Then
+// tf32x3_node_kernel: a 128x128 output tile per block of two warpgroups, so
+// the full bin's 4096 x 512 output is 128 blocks, one wave on the 132 SMs;
+// with 128 accumulators a thread there is room for one block an SM, and a
+// 128x64 tile would double the reads of A. The raw x and agg tiles of depth
+// 32 and B's rows are staged by cp.async into a ring of three stages, two in
+// flight while one is multiplied; each warp builds its A fragments from the
+// raw tiles in registers (agg * 1/d, and s*x added for `pre`, as the FMA
+// kernel does), splits them there and feeds wgmma m64n128k8 with A from
+// registers. Depth past F within a stage is copied as zeros, so F need only
+// be a multiple of 4.
+//
+// Non-finite values. The split does not keep them: inf - inf makes lo NaN,
+// and inf * 0 in a cross term makes NaN where float32 gives +-inf. A
+// non-finite operand makes every split output of its row (in A) or column
+// (in B) NaN, since its lo is NaN; so a block whose split tile holds any
+// non-finite value has staged a non-finite operand (or overflowed), and it
+// computes its tile again on the FMA pipes (fma_tile, sgemm_tile.cuh),
+// which gives the plain version's inf and NaN. This is a branch on the data
+// inside the kernel, taken by the blocks that hold such a value only.
+//
+// Route. The copies move 16 bytes, so the tensor-core kernel takes F and H
+// multiples of 4 and x, agg and the weights 16-byte aligned; other shapes
+// and views run node_gemm_kernel, the float32 SGEMM of sgemm_tile.cuh (a
+// 128x64 tile, scalar loads). The wrapper picks the route from the shapes
+// and the pointers alone (`fused_mp_plan`, repro_torch/kernels/
+// segment_spmm.py).
 //
 // Tolerance: the atomics add in an order that changes from run to run, the
 // product sums in another order than the CPU, and agg/d is taken as
-// agg * (1/d). Against the plain PyTorch version the layer agrees to about
-// 1e-6 relative at depth 64 and about 1e-5 at depth 1024; the tests and
-// chip_smoke.py hold it to 1e-4 absolute + 1e-4 relative.
+// agg * (1/d). The tests and chip_smoke.py hold the layer to 1e-4 absolute
+// + 1e-4 relative against the plain PyTorch version on either route.
 //
 // Edges whose endpoints fall outside [0, P) are skipped, so a bad index can
 // never write outside agg; the packed layout never produces one.
 
+#include <cfloat>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "edge_rows.cuh"
 #include "sgemm_tile.cuh"
+#include "tf32x3_tile.cuh"
 
 namespace {
+
+namespace tc = tf32x3;
 
 struct NodeArgs {
   const float* x;        // [P, F]
@@ -67,7 +102,18 @@ struct NodeArgs {
   float* out;            // [P, H]
   int p, f, h;
   int split, relu;
+  // the tensor-core route's B, split and transposed (tf32x3::SplitB)
+  const uint32_t* b_hi;
+  const uint32_t* b_lo;
 };
+
+// bias, relu (which keeps a NaN, as relu does) and the node mask
+__device__ __forceinline__ float epilogue(const NodeArgs& p, float acc,
+                                          int col, float nm) {
+  float y = acc + (p.bias != nullptr ? p.bias[col] : 0.0f);
+  if (p.relu) y = y < 0.0f ? 0.0f : y;
+  return y * nm;
+}
 
 // The A rows one thread loads at every stage, and their constants. Thread t
 // loads depth 4*(t%4) .. 4*(t%4)+3 of tile rows t/4 and 64 + t/4, so it reads
@@ -162,14 +208,14 @@ struct Stage {
   }
 };
 
+// The float32 FMA product and epilogue of the 128x64 output tile at
+// (row0, col0), by the block's 256 threads.
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 2) node_gemm_kernel(NodeArgs p) {
-  __shared__ __align__(16) Tiles tiles;
+__device__ __forceinline__ void fma_tile(const NodeArgs& p, Tiles& tiles,
+                                         int row0, int col0) {
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
 
   Rows rows;
 #pragma unroll
@@ -205,11 +251,160 @@ __global__ void __launch_bounds__(kThreads, 2) node_gemm_kernel(NodeArgs p) {
     for (int j = 0; j < 4; ++j) {
       const int col = col0 + 4 * tx + j;
       if (col >= p.h) continue;
-      float y = acc[i][j] + (p.bias != nullptr ? p.bias[col] : 0.0f);
-      if (p.relu) y = y < 0.0f ? 0.0f : y;  // keeps a NaN, as relu does
-      p.out[static_cast<long long>(r) * p.h + col] = y * nm;
+      p.out[static_cast<long long>(r) * p.h + col] =
+          epilogue(p, acc[i][j], col, nm);
     }
   }
+}
+
+// The FMA route: F or H not a multiple of 4, or an operand not 16-byte
+// aligned, so every load is a scalar one.
+__global__ void __launch_bounds__(kThreads, 2) node_gemm_kernel(NodeArgs p) {
+  __shared__ __align__(16) Tiles tiles;
+  fma_tile<false>(p, tiles, blockIdx.x * kBM, blockIdx.y * kBN);
+}
+
+// The stage's copies of A for the tensor-core route: depth tile kt of A's
+// raw tiles (split: x for the first F depths, agg for the next F; pre: x
+// and agg), zeros past P and F, each 16-byte chunk at its swizzled place.
+template <bool kSplit>
+__device__ __forceinline__ void issue_stage(const NodeArgs& p, int kt,
+                                            int per_seg, int row0,
+                                            tc::Stage<kSplit ? 1 : 2>& st) {
+  const int tid = threadIdx.x;
+  const int seg = kSplit ? kt / per_seg : 1;
+  const int k0 = (kt % per_seg) * tc::kBK;
+  const float* a0 = (kSplit && seg == 1) ? p.agg : p.x;
+#pragma unroll
+  for (int u = 0; u < (tc::kBM * tc::kBK / 4) / tc::kThreads; ++u) {
+    const int c = tid + u * tc::kThreads;
+    const int r = c / (tc::kBK / 4), k = 4 * (c % (tc::kBK / 4));
+    const bool ok = row0 + r < p.p && k0 + k < p.f;
+    const long long off =
+        ok ? static_cast<long long>(row0 + r) * p.f + k0 + k : 0;
+    const int dst = tc::swizzled(r, k) / 4;
+    tc::cp_async16(&st.a[0][dst], a0 + off, ok);
+    if constexpr (!kSplit) tc::cp_async16(&st.a[1][dst], p.agg + off, ok);
+  }
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    tf32x3_node_kernel(NodeArgs p) {
+  constexpr int kRawA = kSplit ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  tc::Stage<kRawA>* ring = tc::carve<kRawA>(smem);
+  const int row0 = blockIdx.x * tc::kBM;
+  const int col0 = blockIdx.y * tc::kBN;
+
+  // 1/max(deg, 1) and the self scale of this thread's two fragment rows
+  float inv[2], s[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + tc::frag_row(h);
+    const bool live = r < p.p;
+    inv[h] = (live && p.deg != nullptr) ? __frcp_rn(fmaxf(p.deg[r], 1.0f))
+                                        : 1.0f;
+    s[h] = (live && !kSplit)
+               ? p.ss[static_cast<long long>(r) * p.ss_stride] : 0.0f;
+  }
+
+  const int per_seg = (p.f + tc::kBK - 1) / tc::kBK;
+  const int ktiles = (kSplit ? 2 : 1) * per_seg;
+  const tc::SplitB b{p.b_hi, p.b_lo, static_cast<long long>(ktiles) * tc::kBK,
+                     col0, p.h};
+  tc::Acc big, small;
+  tc::mainloop(
+      ring, b, ktiles, big, small,
+      [&](int kt, tc::Stage<kRawA>& st) {
+        issue_stage<kSplit>(p, kt, per_seg, row0, st);
+      },
+      [&](int kt, const tc::Stage<kRawA>& st, int k8, float (&v)[4]) {
+        // the same arithmetic as Stage<kVec>::load above; v[u] is in row
+        // g (u even) or g + 8 (u odd)
+        tc::load_frag(v, st.a[0], k8);
+        if constexpr (kSplit) {
+          if (kt >= per_seg) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) v[u] *= inv[u & 1];
+          }
+        } else {
+          float xv[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) xv[u] = v[u];
+          tc::load_frag(v, st.a[1], k8);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            v[u] = fmaf(s[u & 1], xv[u], v[u] * inv[u & 1]);
+        }
+      });
+
+  bool bad = false;
+#pragma unroll
+  for (int i = 0; i < tc::kBN / 2; ++i) {
+    const float y = big[i] + small[i];
+    bad |= !(fabsf(y) <= FLT_MAX);
+    big[i] = y;
+  }
+  if (__syncthreads_or(bad)) {
+    // a non-finite operand (or an overflow) in this tile: the plain
+    // float32 product, in the shared memory the mainloop left free
+    Tiles& tiles = *reinterpret_cast<Tiles*>(smem);
+    fma_tile<true>(p, tiles, row0, col0);
+    if (col0 + kBN < p.h) fma_tile<true>(p, tiles, row0, col0 + kBN);
+    return;
+  }
+
+  const int col_t = col0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + tc::frag_row(h);
+    if (r >= p.p) continue;
+    const float nm = p.node_mask != nullptr ? p.node_mask[r] : 1.0f;
+    float* out = p.out + static_cast<long long>(r) * p.h;
+#pragma unroll
+    for (int j = 0; j < tc::kBN / 8; ++j) {
+      const int col = col_t + 8 * j;
+      if (col >= p.h) continue;  // H % 4 == 0, so col + 1 < H too
+      *reinterpret_cast<float2*>(out + col) =
+          make_float2(epilogue(p, big[4 * j + 2 * h], col, nm),
+                      epilogue(p, big[4 * j + 2 * h + 1], col + 1, nm));
+    }
+  }
+}
+
+// Depths of one segment of the split B: F rounded up to whole stages
+int seg_depth(int f) { return (f + tc::kBK - 1) / tc::kBK * tc::kBK; }
+
+// B split and transposed into `scratch` (split_transpose_kernel), then the
+// product
+template <bool kSplit>
+cudaError_t launch_tf32x3(NodeArgs a, uint32_t* scratch, cudaStream_t s) {
+  static bool configured = false;   // the opt-in above 48 KB, once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tf32x3_node_kernel<kSplit>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tc::smem_bytes<kSplit ? 1 : 2>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int kp = seg_depth(a.f), nseg = kSplit ? 2 : 1;
+  a.b_hi = scratch;
+  a.b_lo = scratch + static_cast<long long>(a.h) * nseg * kp;
+  if (kp > 0) {
+    const dim3 tgrid((a.h + 31) / 32, kp / 32, nseg);
+    tc::split_transpose_kernel<<<tgrid, dim3(32, 8), 0, s>>>(
+        kSplit ? a.w_self : a.w_neigh, a.w_neigh, a.f, a.h, kp,
+        const_cast<uint32_t*>(a.b_hi), const_cast<uint32_t*>(a.b_lo));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((a.p + tc::kBM - 1) / tc::kBM,
+                  (a.h + tc::kBN - 1) / tc::kBN);
+  tf32x3_node_kernel<kSplit>
+      <<<grid, tc::kThreads, tc::smem_bytes<kSplit ? 1 : 2>(), s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -232,25 +427,35 @@ int fused_mp_edge_phase(const float* x, const int* edges, const float* em,
       launch_scatter(a, vec, static_cast<cudaStream_t>(stream)));
 }
 
+// The 32-bit words of scratch the tensor-core route takes for a layer of F
+// inputs and H outputs: the weights split and transposed, hi and lo.
+int fused_mp_scratch_words(int f, int h, int split) {
+  return 2 * h * (split ? 2 : 1) * seg_depth(f);
+}
+
 // out[P, H] = act(A @ B + bias) * node_mask with A, B built as described at
-// the top of this file. vec != 0 selects float4 loads: F and H multiples of
-// 4 and x, agg, the weights 16-byte aligned. Returns the cudaError_t of the
-// launch.
+// the top of this file. route 1 runs the tensor-core kernel (F and H
+// multiples of 4; x, agg and the weights 16-byte aligned: the wrapper's
+// `fused_mp_plan` checks it) with `scratch` of fused_mp_scratch_words
+// words, 16-byte aligned; route 0 the FMA kernel with scalar loads, and
+// scratch may be null. Returns the cudaError_t of the launches.
 int fused_mp_node_phase(const float* x, const float* agg, const float* deg,
                         const float* ss, int ss_stride, const float* w_self,
                         const float* w_neigh, const float* bias,
                         const float* node_mask, float* out, int p, int f,
-                        int h, int split, int relu, int vec, void* stream) {
+                        int h, int split, int relu, int route, void* scratch,
+                        void* stream) {
   if (p <= 0 || h <= 0) return 0;
   NodeArgs a{x, agg, deg, ss, ss_stride, w_self, w_neigh, bias, node_mask,
-             out, p, f, h, split, relu};
-  dim3 grid((p + kBM - 1) / kBM, (h + kBN - 1) / kBN);
+             out, p, f, h, split, relu, nullptr, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    node_gemm_kernel<true><<<grid, kThreads, 0, s>>>(a);
-  } else {
-    node_gemm_kernel<false><<<grid, kThreads, 0, s>>>(a);
+  if (route == 1) {
+    uint32_t* words = static_cast<uint32_t*>(scratch);
+    return static_cast<int>(split ? launch_tf32x3<true>(a, words, s)
+                                  : launch_tf32x3<false>(a, words, s));
   }
+  dim3 grid((p + kBM - 1) / kBM, (h + kBN - 1) / kBN);
+  node_gemm_kernel<<<grid, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

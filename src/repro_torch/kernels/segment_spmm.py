@@ -56,7 +56,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_mp_edge_phase": ("fused_mp", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "fused_mp_node_phase": ("fused_mp", [_P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                         _P, _I, _I, _I, _I, _I, _I, _P]),
+                                         _P, _I, _I, _I, _I, _I, _I, _P,
+                                         _P]),
+    "fused_mp_scratch_words": ("fused_mp", [_I, _I, _I]),
     "segment_readout_accumulate": ("segment_readout",
                                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "segment_readout_finalize": ("segment_readout",
@@ -172,6 +174,23 @@ def _check_dims(**dims: int) -> None:
             raise ValueError(f"{name}={v} exceeds the kernel's int32 range")
 
 
+#: the node phase's two kernels (``csrc/fused_mp.cu``): the float32 product
+#: on the tensor cores in a 3×TF32 split, and the float32 SGEMM on the FMA
+#: pipes with scalar loads; their C route numbers
+FUSED_MP_ROUTES = {"tf32x3": 1, "fma": 0}
+
+
+def fused_mp_plan(f: int, h: int, aligned: bool) -> str:
+    """The node-phase kernel of a layer of ``f`` inputs and ``h`` outputs.
+
+    ``"tf32x3"`` where its 16-byte asynchronous copies stage whole rows:
+    ``f`` and ``h`` multiples of 4, and ``aligned`` (x, agg and the
+    weights start on 16-byte boundaries). Otherwise ``"fma"``. Shapes and
+    alignment decide alone; a launch that is refused raises.
+    """
+    return "tf32x3" if f % 4 == 0 and h % 4 == 0 and aligned else "fma"
+
+
 def fused_mp_layer_cuda(x: torch.Tensor, edges: torch.Tensor,
                         edge_mask: torch.Tensor,
                         node_mask: Optional[torch.Tensor] = None, *,
@@ -187,8 +206,11 @@ def fused_mp_layer_cuda(x: torch.Tensor, edges: torch.Tensor,
     edge_mask: [Q] float32 (may carry GCN weights); node_mask: [P] or
     None; w_neigh / w_self: [F, H]; bias: [H] or None; self_scale for
     ``combine="pre"``: None (1), a Python number, a 0-d tensor, or a [P]
-    tensor. Returns [P, H]. Two launches: the edge scatter (skipped when
-    Q = 0) and the node-phase product with its epilogue.
+    tensor. Returns [P, H]. The edge scatter (skipped when Q = 0), then
+    the node-phase product with its epilogue on the kernel that
+    :func:`fused_mp_plan` picks (the tensor-core route first splits and
+    transposes the weights into scratch, a launch of its own);
+    ``route_launches`` counts the calls of each route beside ``launches``.
     """
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
@@ -208,7 +230,8 @@ def fused_mp_layer_cuda(x: torch.Tensor, edges: torch.Tensor,
     if w_neigh.dim() != 2:
         raise ValueError(f"w_neigh must be [F, H], got {tuple(w_neigh.shape)}")
     h = w_neigh.shape[1]
-    _check_dims(P=p, Q=q, F=2 * f, H=h)
+    # the tensor-core route's scratch: the weights split, 2 x 2F x H words
+    _check_dims(P=p, Q=q, F=2 * f, H=h, W=4 * (f + 32) * h)
     f32 = torch.float32
     _check(x, "x", f32, (p, f), dev)
     _check(edges, "edges", torch.int32, (q, 2), dev)
@@ -243,20 +266,26 @@ def fused_mp_layer_cuda(x: torch.Tensor, edges: torch.Tensor,
             _call("fused_mp_edge_phase", _ptr(x), _ptr(edges), _ptr(edge_mask),
                   _ptr(agg), _ptr(deg), p, f, q, stream)
         w_self = w_self if split else None
-        # float4 loads need rows of whole float4s on 16-byte aligned bases
-        vec = f % 4 == 0 and h % 4 == 0 and all(
+        route = fused_mp_plan(f, h, all(
             t.data_ptr() % 16 == 0 for t in (x, agg, w_neigh, w_self)
-            if t is not None)
+            if t is not None))
+        # the tensor-core route's weights, split and transposed
+        scratch = None if route == "fma" else torch.empty(
+            (_entry("fused_mp_scratch_words")(f, h, int(split)),),
+            dtype=torch.int32, device=dev)
         _call("fused_mp_node_phase", _ptr(x), _ptr(agg), _ptr(deg), _ptr(ss),
               ss_stride, _ptr(w_self), _ptr(w_neigh), _ptr(bias),
               _ptr(node_mask), _ptr(out), p, f, h, int(split),
-              int(act == "relu"), int(vec), stream)
+              int(act == "relu"), FUSED_MP_ROUTES[route], _ptr(scratch),
+              stream)
     with _count_lock:
         fused_mp_layer_cuda.launches += 1
+        fused_mp_layer_cuda.route_launches[route] += 1
     return out
 
 
 fused_mp_layer_cuda.launches = 0
+fused_mp_layer_cuda.route_launches = dict.fromkeys(FUSED_MP_ROUTES, 0)
 
 
 def segment_readout_cuda(h: torch.Tensor, graph_ids: torch.Tensor,

@@ -35,6 +35,16 @@ def normal_init(rng: np.random.Generator,
     return (rng.standard_normal(shape) * 0.02).astype(np.float32)
 
 
+def zeros(shape: Tuple[int, ...], dtype: torch.dtype = torch.float32,
+          device: Optional[torch.device] = None) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones(shape: Tuple[int, ...], dtype: torch.dtype = torch.float32,
+         device: Optional[torch.device] = None) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
 def linear_init(rng: np.random.Generator, d_in: int, d_out: int,
                 bias: bool = True) -> Params:
     p = {"w": glorot(rng, (d_in, d_out))}
@@ -122,3 +132,15 @@ def tree_bytes(tree) -> int:
     return sum(int(x.numel()) * x.element_size()
                if isinstance(x, torch.Tensor) else int(x.nbytes)
                for x in _leaves(tree) if hasattr(x, "shape"))
+
+
+def tree_cast(tree, dtype: torch.dtype):
+    """The same nested dict/list with every floating tensor leaf cast to
+    ``dtype``; integer tensors and other leaves are left as they are."""
+    if isinstance(tree, dict):
+        return {k: tree_cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_cast(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree

@@ -7,8 +7,8 @@ dict of tensors, flattened in sorted-key order as ``jax.tree_util`` does,
 so the global norm sums its leaves in the same order. ``torch.optim`` is
 not used: its Adam puts ``eps`` inside its own bias correction and
 differs in the last bits. The state is ``{"m": tree, "v": tree}``, as in
-the JAX package, so one checkpoint format serves both. ``sgd`` and
-``adafactor`` come with the LM stack (ROADMAP A14).
+the JAX package, so one checkpoint format serves both; ``sgd``'s is
+``{"mu": tree}``. ``adafactor`` comes with the LM stack (ROADMAP A14b).
 
 ``update`` returns new trees and never writes into its inputs; call it
 under ``torch.no_grad()``.
@@ -100,3 +100,29 @@ def adamw(lr: Union[Callable, float], b1: float = 0.9, b2: float = 0.999,
 
 def adam(lr, **kw) -> Optimizer:
     return adamw(lr, weight_decay=0.0, **kw)
+
+
+def sgd(lr: Union[Callable, float], momentum: float = 0.9,
+        state_dtype: Optional[torch.dtype] = None) -> Optimizer:
+    """SGD with heavy-ball momentum, float32 update math; the momentum is
+    kept in ``state_dtype`` (default: each parameter's own)."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        return {"mu": tree_map(
+            lambda p: torch.zeros_like(p, dtype=state_dtype or p.dtype),
+            params)}
+
+    def update(step, state, params, grads):
+        lr_t = lr_fn(step)
+
+        def upd(p, g, mu):
+            muf = mu.to(torch.float32) * momentum + g.to(torch.float32)
+            newp = (p.to(torch.float32) - lr_t * muf).to(p.dtype)
+            return newp, muf.to(state_dtype or mu.dtype)
+
+        out = tree_map(upd, params, grads, state["mu"])
+        return (tree_map(lambda o: o[0], out),
+                {"mu": tree_map(lambda o: o[1], out)})
+
+    return Optimizer(init=init, update=update)

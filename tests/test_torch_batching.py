@@ -37,6 +37,20 @@ def test_samples_are_the_same_data():
             np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
 
 
+def test_sample_adj_is_memoised_and_counted_as_jax_counts_it():
+    for a, b in zip(synthetic_samples(6, seed=5, n_min=4, n_max=80),
+                    _jax_samples(6, seed=5, n_min=4, n_max=80)):
+        assert a.nbytes == b.nbytes           # no dense N² term yet
+        adj = a.adj
+        assert adj is a.adj                   # one buffer, memoised
+        np.testing.assert_array_equal(adj, b.adj)
+        np.testing.assert_array_equal(adj, tb.dense_adj(a.edges,
+                                                        a.x.shape[0]))
+        assert a.nbytes == b.nbytes == (a.x.nbytes + a.edges.nbytes +
+                                        a.mask.nbytes + a.static.nbytes +
+                                        a.y.nbytes + adj.nbytes)
+
+
 @pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
 def test_collate_matches_jax(sparse):
     from repro.core import batching as jb

@@ -78,6 +78,22 @@ def test_parsed_graph_and_fingerprint_equal(i):
 
 
 @pytest.mark.parametrize("i", range(len(DOCS)))
+def test_adjacency_degrees_and_graph_tensors_equal(i):
+    gj, gt = jf.from_json(DOCS[i]), tf.from_json(DOCS[i])
+    np.testing.assert_array_equal(gt.adjacency(), gj.adjacency())
+    np.testing.assert_array_equal(gt.in_degrees(), gj.in_degrees())
+    assert gt.in_degrees().dtype == gj.in_degrees().dtype
+    np.testing.assert_array_equal(tnf.adjacency_matrix(gt),
+                                  jnf.adjacency_matrix(gj))
+    for got, want in zip(tnf.graph_tensors(gt), jnf.graph_tensors(gj)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    for nt, nj in zip(gt.nodes[:20], gj.nodes[:20]):
+        np.testing.assert_array_equal(tnf.node_feature(nt),
+                                      jnf.node_feature(nj))
+
+
+@pytest.mark.parametrize("i", range(len(DOCS)))
 def test_features_and_samples_equal(i):
     gj, gt = jf.from_json(DOCS[i]), tf.from_json(DOCS[i])
     np.testing.assert_array_equal(tnf.node_feature_matrix(gt),

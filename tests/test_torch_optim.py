@@ -9,8 +9,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import nn as tnn  # noqa: E402
 from repro_torch.optim import (adam, adamw, clip_by_global_norm,  # noqa: E402
-                               constant, cosine_warmup, linear_warmup)
+                               constant, cosine_warmup, linear_warmup, sgd)
 
 TOL = 1e-6
 
@@ -68,6 +69,55 @@ def test_adamw_matches_jax_over_five_steps(kw):
         _assert_trees_close(tp, jp)
         _assert_trees_close(ts["m"], js["m"])
         _assert_trees_close(ts["v"], js["v"])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(momentum=0.5),
+                                dict(state_dtype="bfloat16")],
+                         ids=["sgd", "momentum", "bf16_state"])
+def test_sgd_matches_jax_over_five_steps(kw):
+    import jax.numpy as jnp
+    from repro.optim import constant as jconstant
+    from repro.optim.optimizers import sgd as jsgd
+    dtype = kw.pop("state_dtype", None)
+    params = _f32(_tree(3))
+    jopt = jsgd(jconstant(3e-2), state_dtype=dtype and jnp.bfloat16, **kw)
+    topt = sgd(constant(3e-2), state_dtype=dtype and torch.bfloat16, **kw)
+    jp = _to(params, jnp.asarray)
+    tp = _to(params, torch.as_tensor)
+    js, ts = jopt.init(jp), topt.init(tp)
+    for step in range(5):
+        grads = _f32(_tree(20 + step))
+        jp, js = jopt.update(jnp.asarray(step, jnp.int32), js, jp,
+                             _to(grads, jnp.asarray))
+        tp, ts = topt.update(torch.tensor(step, dtype=torch.int32), ts, tp,
+                             _to(grads, torch.as_tensor))
+        _assert_trees_close(tp, jp)
+        _assert_trees_close(_to(ts["mu"], lambda t: t.float().numpy()),
+                            _to(js["mu"], lambda a: np.asarray(
+                                a.astype(jnp.float32))))
+
+
+def test_nn_tree_cast_zeros_ones_match_jax():
+    import jax.numpy as jnp
+    from repro import nn as jnn
+    tree = {"a": np.arange(6, dtype=np.float32).reshape(2, 3) / 7,
+            "b": {"i": np.arange(4, dtype=np.int32),
+                  "c": np.float32(1.25) * np.ones((3,), np.float32)}}
+    got = tnn.tree_cast(_to(tree, torch.as_tensor), torch.bfloat16)
+    want = jnn.tree_cast(_to(tree, jnp.asarray), jnp.bfloat16)
+    assert got["a"].dtype == torch.bfloat16
+    assert got["b"]["i"].dtype == torch.int32
+    assert str(want["a"].dtype) == "bfloat16"
+    assert str(want["b"]["i"].dtype) == "int32"
+    _assert_trees_close(_to(got, lambda t: t.float().numpy()),
+                        _to(want, lambda a: np.asarray(a, np.float32)), 0)
+    for shape in [(3,), (2, 4)]:
+        np.testing.assert_array_equal(tnn.zeros(shape).numpy(),
+                                      np.asarray(jnn.zeros(shape)))
+        np.testing.assert_array_equal(tnn.ones(shape).numpy(),
+                                      np.asarray(jnn.ones(shape)))
+        assert tnn.zeros(shape).dtype == torch.float32
+        assert tnn.ones(shape, torch.int32).dtype == torch.int32
 
 
 def test_adam_is_adamw_without_decay():
