@@ -677,11 +677,12 @@ def edge_list(rng, b, n, e, weighted, pad=0.25):
     return edges, em
 
 
-def sweep_segment(torch, dev) -> dict:
+def sweep_segment(torch, dev) -> tuple:
     """segment_aggregate_cuda, segment_scatter_cuda and segment_gather_cuda
     against their plain versions: B in {1, 3}, E in {0, 1, 129, 300}, N
     and F off the tile sizes, sum and mean, weighted masks, self-loops,
-    duplicates, padded and isolated rows, then NaN in a masked row."""
+    duplicates, padded and isolated rows, then NaN in a masked row, then
+    ``sweep_segment_routes``; the worst errors and the routes' cases."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_spmm import (segment_aggregate_cuda,
                                                   segment_gather_cuda,
@@ -750,7 +751,86 @@ def sweep_segment(torch, dev) -> dict:
     torch.cuda.synchronize()
     check_close_nan("segment_scatter NaN in a masked row", got, want,
                     KERNEL_ATOL, KERNEL_RTOL)
-    return worst
+    routes = sweep_segment_routes(torch, dev)
+    for name in ("segment_aggregate", "segment_scatter"):
+        worst[name] = max(worst[name], routes["max_abs_err"][name])
+    return worst, routes["cases"]
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def sweep_segment_routes(torch, dev) -> dict:
+    """The segmented sums' routes (``segment_plan``) where they are
+    stressed, each call against its plain version and run twice, which
+    must give the same bits: the padded edges of a packed step piled on
+    node 0 (2,048 of weight 0), a destination of in-degree 1,200, both at
+    F = 512 and F = 4 and through the aggregate (sum and mean with the
+    degree) and the scatter, with NaN in one piled message at F = 4; and
+    the packed readout's backward, [P, 1 + F] and [P, 1] rows of weight 1
+    into its 256 graph slots (its padded nodes all sit in graph 0)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import (segment_aggregate_cuda,
+                                                  segment_plan,
+                                                  segment_scatter_cuda)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    rng = np.random.default_rng(5000)
+    worst = {"segment_aggregate": 0.0, "segment_scatter": 0.0}
+    cases = {}
+
+    def hold(name, kernel, call, plain, f, e):
+        first, again = call(), call()
+        want = plain()
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        again = again if isinstance(again, tuple) else (again,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for x, y, w in zip(first, again, want):
+            if not same_bits(torch, x, y):
+                raise AssertionError(f"{name}: two runs differ in their "
+                                     f"bits")
+            err = max(err, check_close_nan(name, x, w, KERNEL_ATOL,
+                                           KERNEL_RTOL))
+        worst[kernel] = max(worst[kernel], err)
+        cases[name] = {"route": segment_plan(f, e, True).route,
+                       "max_abs_err": err, "bitwise_repeat": True}
+
+    n, e = 4096, 8192
+    for label, hub in (("padding pile", None), ("in-degree 1200", 1200)):
+        edges, em = edge_list(rng, 1, n, e, True)     # 2,048 padded edges
+        if hub:
+            edges[0, 100:100 + hub, 1] = 7
+        te, tm = t(edges), t(em)
+        for f in (512, 4):
+            h = t(rng.standard_normal((1, n, f)).astype(np.float32))
+            msgs = rng.standard_normal((1, e, f)).astype(np.float32)
+            if f == 4 and hub is None:
+                msgs[0, -1, 0] = np.nan                # a piled message
+            msgs = t(msgs)
+            for mode in ("sum", "mean"):
+                hold(f"segment_aggregate {mode} {label} F={f}",
+                     "segment_aggregate",
+                     lambda m=mode: segment_aggregate_cuda(
+                         te, tm, h, m, return_degree=True),
+                     lambda m=mode: ref.segment_aggregate_ref(
+                         te, tm, h, m, return_degree=True), f, e)
+            hold(f"segment_scatter {label} F={f}", "segment_scatter",
+                 lambda: segment_scatter_cuda(te[..., 1], tm, msgs, n),
+                 lambda: ref.segment_scatter_ref(te[..., 1], tm, msgs, n),
+                 f, e)
+    pk = train_steps("packed")
+    gid = t(pk["graph_ids"][None].astype(np.int32))
+    p, g = pk["graph_ids"].shape[0], pk["static"].shape[0]
+    ones = torch.ones((1, p), device=dev)
+    for f in (1 + TRAIN_HIDDEN, 1):
+        rows = t(rng.integers(0, 2, (1, p, f)).astype(np.float32))
+        hold(f"segment_scatter readout backward F={f}", "segment_scatter",
+             lambda: segment_scatter_cuda(gid, ones, rows, g),
+             lambda: ref.segment_scatter_ref(gid, ones, rows, g), f, p)
+    return {"max_abs_err": worst, "cases": cases}
 
 
 def sweep_dense(torch, dev) -> float:
@@ -1035,7 +1115,7 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
          "replaces": "src/repro/kernels/segment_spmm.py:370",
          "launches": None, "max_abs_err": max(err_mp, sweep_mp),
          "ms": per_bin("ms"), "plain_ms": per_bin("plain_ms"),
-         "bound_ms": mp_bound, "bound_by": mp_by,
+         "bound_ms": mp_bound, "bound_by": mp_by, "launches_per_unit": blocks,
          "bound_fma_ms": fma_bound,
          "library_ms": per_bin("product_torch_mm_ms"),
          "unit": f"one full bin: {blocks} GraphSAGE layers at P={P} Q={Q} "
@@ -1137,6 +1217,7 @@ def gat_kernel_entries(torch, dev, cfg) -> tuple:
          "replaces": "src/repro/kernels/segment_spmm.py:622",
          "launches": None, "max_abs_err": max(err_sm, sweep_sm),
          "ms": times["edge_softmax"]["ms"] * blocks,
+         "launches_per_unit": blocks,
          "plain_ms": times["edge_softmax"]["plain_ms"] * blocks,
          "bound_ms": sm_bound * blocks, "bound_by": sm_by,
          "library_ms": None,
@@ -1150,6 +1231,7 @@ def gat_kernel_entries(torch, dev, cfg) -> tuple:
          "replaces": "src/repro/kernels/segment_spmm.py:503",
          "launches": None, "max_abs_err": max(err_ga, sweep_ga),
          "ms": times["fused_gat_aggregate"]["ms"] * blocks,
+         "launches_per_unit": blocks,
          "plain_ms": times["fused_gat_aggregate"]["plain_ms"] * blocks,
          "bound_ms": ga_bound * blocks, "bound_by": ga_by,
          "library_ms": None,
@@ -1225,10 +1307,12 @@ def train_kernel_entries(torch, dev) -> tuple:
     three sources and of every autograd.Function's backward."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.sage_spmm import dense_aggregate_cuda
-    from repro_torch.kernels.segment_spmm import (segment_aggregate_cuda,
+    from repro_torch.kernels.segment_spmm import (dst_csr_cuda,
+                                                  segment_aggregate_cuda,
                                                   segment_gather_cuda,
+                                                  segment_plan,
                                                   segment_scatter_cuda)
-    sweep = sweep_segment(torch, dev)
+    sweep, route_cases = sweep_segment(torch, dev)
     sweep["dense_aggregate"] = sweep_dense(torch, dev)
     back = sweep_backward(torch, dev)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
@@ -1243,6 +1327,8 @@ def train_kernel_entries(torch, dev) -> tuple:
     q_real = int(pk["edge_mask"].sum())
     h = t(rng.standard_normal((1, p_nodes, hid)).astype(np.float32))
     msgs = t(rng.standard_normal((1, q, hid)).astype(np.float32))
+    # B6 at GAT's per-head width too: 3 of its 5 launches a layer step
+    msgs4 = t(rng.standard_normal((1, q, 4)).astype(np.float32))
     dst, src = edges[..., 1], edges[..., 0]
     # dense step: the largest bucket
     dn = train_steps("dense")
@@ -1257,9 +1343,15 @@ def train_kernel_entries(torch, dev) -> tuple:
         "segment_aggregate": (
             lambda: segment_aggregate_cuda(edges, em, h, "mean"),
             lambda: ref.segment_aggregate_ref(edges, em, h, "mean")),
+        "segment_aggregate_sum": (
+            lambda: segment_aggregate_cuda(edges, em, h, "sum"),
+            lambda: ref.segment_aggregate_ref(edges, em, h, "sum")),
         "segment_scatter": (
             lambda: segment_scatter_cuda(dst, em, msgs, p_nodes),
             lambda: ref.segment_scatter_ref(dst, em, msgs, p_nodes)),
+        "segment_scatter_f4": (
+            lambda: segment_scatter_cuda(dst, em, msgs4, p_nodes),
+            lambda: ref.segment_scatter_ref(dst, em, msgs4, p_nodes)),
         "segment_gather": (
             lambda: segment_gather_cuda(h, src),
             lambda: ref.segment_gather_ref(h, src)),
@@ -1286,17 +1378,29 @@ def train_kernel_entries(torch, dev) -> tuple:
     # one PyTorch call each that computes the same function
     flat_dst = (dst.long() + 0).reshape(-1)
     weighted = (msgs * em[..., None]).reshape(-1, hid).contiguous()
+    weighted4 = (msgs4 * em[..., None]).reshape(-1, 4).contiguous()
     h2 = h[0]
     src_flat = src.reshape(-1).long()
+
+    def index_add(x, w):
+        return torch.zeros((p_nodes, w.shape[1]), device=dev).index_add_(
+            0, x, w)
     library = {
-        "segment_scatter": time_graph_ms(torch, lambda: torch.zeros(
-            (p_nodes, hid), device=dev).index_add_(0, flat_dst, weighted)),
+        "segment_scatter": time_graph_ms(
+            torch, lambda: index_add(flat_dst, weighted)),
+        "segment_scatter_f4": time_graph_ms(
+            torch, lambda: index_add(flat_dst, weighted4)),
         "segment_gather": time_graph_ms(
             torch, lambda: torch.index_select(h2, 0, src_flat)),
         "dense_aggregate_sum": time_graph_ms(torch,
                                              lambda: torch.bmm(adj, hd)),
     }
     us = device_breakdown_us(torch, {k: v[0] for k, v in pairs.items()})
+    # the CSR build alone, as the scatter (dst) and the aggregate (dst and
+    # src) build it
+    csr_ms = {"dst": time_graph_ms(torch, lambda: dst_csr_cuda(dst, p_nodes)),
+              "dst_src": time_graph_ms(torch, lambda: dst_csr_cuda(
+                  dst, p_nodes, src))}
 
     # the gather, B7 and their library calls again from device memory: each
     # call on its own copy of the inputs and its own output
@@ -1325,6 +1429,32 @@ def train_kernel_entries(torch, dev) -> tuple:
             torch, [lambda a=a, x=x: torch.bmm(a, x) for a, x, _ in dense_in]),
     }
     del hs, dense_in
+
+    def copies(nbytes, *ts):
+        return [ts] + [tuple(x.clone() for x in ts)
+                       for _ in range(cold_copies(nbytes) - 1)]
+    sc = copies(4.0 * (q * hid + 3 * q + p_nodes * hid), edges, em, msgs)
+    sc4 = copies(4.0 * (q * 4 + 3 * q + p_nodes * 4), edges, em, msgs4)
+    ag = copies(4.0 * (2 * p_nodes * hid + 3 * q + p_nodes), edges, em, h)
+    ia = copies(4.0 * (q * hid + q + p_nodes * hid), flat_dst, weighted)
+    ia4 = copies(4.0 * (q * 4 + q + p_nodes * 4), flat_dst, weighted4)
+    cold.update({
+        "segment_scatter": time_cold_ms(torch, [
+            lambda x=x: segment_scatter_cuda(x[0][..., 1], x[1], x[2],
+                                             p_nodes) for x in sc]),
+        "segment_scatter_f4": time_cold_ms(torch, [
+            lambda x=x: segment_scatter_cuda(x[0][..., 1], x[1], x[2],
+                                             p_nodes) for x in sc4]),
+        "segment_aggregate": time_cold_ms(torch, [
+            lambda x=x: segment_aggregate_cuda(*x, "mean") for x in ag]),
+        "segment_aggregate_sum": time_cold_ms(torch, [
+            lambda x=x: segment_aggregate_cuda(*x, "sum") for x in ag]),
+        "index_add": time_cold_ms(torch, [lambda x=x: index_add(*x)
+                                          for x in ia]),
+        "index_add_f4": time_cold_ms(torch, [lambda x=x: index_add(*x)
+                                             for x in ia4]),
+    })
+    del sc, sc4, ag, ia, ia4
     dense_strips = dense_strip_timings(torch, dev, b, n, hid)
 
     # bounds: each input read once, each output written once; the
@@ -1334,8 +1464,12 @@ def train_kernel_entries(torch, dev) -> tuple:
         "segment_aggregate": bound_ms(
             2.0 * q_real * hid + p_nodes * hid,
             4.0 * (2 * p_nodes * hid + 3 * q + p_nodes)),
+        "segment_aggregate_sum": bound_ms(
+            2.0 * q_real * hid, 4.0 * (2 * p_nodes * hid + 3 * q)),
         "segment_scatter": bound_ms(
             2.0 * q_real * hid, 4.0 * (q * hid + 2 * q + p_nodes * hid)),
+        "segment_scatter_f4": bound_ms(
+            2.0 * q_real * 4, 4.0 * (q * 4 + 2 * q + p_nodes * 4)),
         "segment_gather": bound_ms(0.0, 4.0 * (p_nodes * hid + q
                                               + q * hid)),
         "dense_aggregate": bound_ms(
@@ -1344,33 +1478,62 @@ def train_kernel_entries(torch, dev) -> tuple:
     }
     src_root = "src/repro_torch/kernels/csrc/"
     shapes_p = f"B=1 N={p_nodes} E={q} ({q_real} real) F={hid}"
+    seg_build = segment_build_facts()
+    routes = {f: segment_plan(f, q, True).route for f in (hid, 4)}
     entries = [
         {"name": "segment_aggregate", "route": "cuda",
          "source": src_root + "segment_aggregate.cu",
          "replaces": "src/repro/kernels/segment_spmm.py:125",
          "launches": None,
          "max_abs_err": max(err["segment_aggregate"],
+                            err["segment_aggregate_sum"],
                             sweep["segment_aggregate"],
                             back.get("segment_aggregate", 0.0)),
          **times["segment_aggregate"],
          "bound_ms": bounds["segment_aggregate"][0],
          "bound_by": bounds["segment_aggregate"][1], "library_ms": None,
          "unit": f"one packed training layer, mean: {shapes_p}",
+         "route": routes[hid], "cold_ms": cold["segment_aggregate"],
+         "sum": {**times["segment_aggregate_sum"],
+                 "cold_ms": cold["segment_aggregate_sum"],
+                 "bound_ms": bounds["segment_aggregate_sum"][0],
+                 "bound_by": bounds["segment_aggregate_sum"][1]},
+         "csr_build_ms": csr_ms["dst_src"],
+         "device_us_by_kernel": {k: us[k] for k in (
+             "segment_aggregate", "segment_aggregate_sum")},
+         "build": seg_build,
          "library_note": "no single PyTorch call gathers, weights, "
-                         "scatters and divides by the weighted degree"},
+                         "scatters and divides by the weighted degree",
+         "timing_note": COLD_NOTE},
         {"name": "segment_scatter", "route": "cuda",
          "source": src_root + "segment_aggregate.cu",
          "replaces": "src/repro/kernels/segment_spmm.py:177",
          "launches": None,
-         "max_abs_err": max(err["segment_scatter"], sweep["segment_scatter"],
+         "max_abs_err": max(err["segment_scatter"], err["segment_scatter_f4"],
+                            sweep["segment_scatter"],
                             back.get("segment_scatter", 0.0)),
          **times["segment_scatter"],
          "bound_ms": bounds["segment_scatter"][0],
          "bound_by": bounds["segment_scatter"][1],
          "library_ms": library["segment_scatter"],
          "unit": f"one packed GAT layer's scatter: {shapes_p}",
+         "route": routes[hid], "cold_ms": cold["segment_scatter"],
+         "library_cold_ms": cold["index_add"],
+         "f4": {"unit": "the same edges at GAT's per-head width, F=4",
+                "route": routes[4], **times["segment_scatter_f4"],
+                "cold_ms": cold["segment_scatter_f4"],
+                "bound_ms": bounds["segment_scatter_f4"][0],
+                "bound_by": bounds["segment_scatter_f4"][1],
+                "library_ms": library["segment_scatter_f4"],
+                "library_cold_ms": cold["index_add_f4"]},
+         "csr_build_ms": csr_ms["dst"],
+         "device_us_by_kernel": {k: us[k] for k in (
+             "segment_scatter", "segment_scatter_f4")},
+         "routes_sweep": route_cases,
+         "build": seg_build,
          "library_note": "index_add_ of the pre-weighted messages into a "
-                         "fresh zero tensor, flattened"},
+                         "fresh zero tensor, flattened",
+         "timing_note": COLD_NOTE},
         {"name": "segment_gather", "route": "cuda",
          "source": src_root + "segment_aggregate.cu",
          "replaces": "src/repro/kernels/segment_spmm.py:53",
@@ -1665,6 +1828,10 @@ TRAIN_WRAPPERS = ("segment_aggregate", "segment_scatter", "segment_gather",
                   "fused_mp_layer", "fused_gat_aggregate")
 
 
+#: the wrappers that count their launches per route of the segmented sum
+SEGMENT_SUMS = ("segment_aggregate", "segment_scatter")
+
+
 def wrapper(name: str):
     from repro_torch.kernels import sage_spmm, segment_spmm
     mod = sage_spmm if name == "dense_aggregate" else segment_spmm
@@ -1740,12 +1907,21 @@ def train_run(torch, cfg, samples, epochs: int, phase: str,
                        seed=0)
     for name in TRAIN_WRAPPERS:
         wrapper(name).launches = 0
+    for name in SEGMENT_SUMS:
+        wrapper(name).route_launches = dict.fromkeys(
+            wrapper(name).route_launches, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params, hist = train_pmgns(cfg, samples, (), tcfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: wrapper(n).launches for n in TRAIN_WRAPPERS}
+    routes = {n: dict(wrapper(n).route_launches) for n in SEGMENT_SUMS}
+    for name, per_route in routes.items():
+        if sum(per_route.values()) != launches[name]:
+            raise AssertionError(f"{phase}: {name}'s routes {per_route} do "
+                                 f"not add up to its {launches[name]} "
+                                 f"launches")
     steps = sum(r["steps"] for r in hist)
     want = train_launch_rule(cfg, steps)
     if launches != want:
@@ -1763,7 +1939,7 @@ def train_run(torch, cfg, samples, epochs: int, phase: str,
                       "fc_blocks": cfg.n_fc_blocks, "readout": cfg.readout,
                       "dropout": cfg.dropout},
            "epochs": epochs, "steps": steps, "losses": losses,
-           "wall_s": wall, "launches": launches,
+           "wall_s": wall, "launches": launches, "route_launches": routes,
            "ms_per_step": 1e3 * last["seconds"] / last["steps"],
            "steps_per_s": last["steps"] / last["seconds"]}
     if compare_cpu:
@@ -2130,13 +2306,10 @@ def cuobjdump_path():
     return next((str(c) for c in candidates if c.exists()), None)
 
 
-def build_facts(source: str, opcodes: tuple) -> dict:
+def built_sass(source: str) -> tuple:
     """What ptxas reports for each kernel of ``csrc/<source>.cu``, and the
-    count of each SASS opcode of ``opcodes`` in its built library; the run
-    fails if there is no ptxas report, no ``cuobjdump`` or a count of 0
-    (flash: ``HGMMA`` and ``UTMALDG``, or its bf16 prefill is not on wgmma
-    and TMA; the SSD scan: ``HMMA``, or its bf16 path is not on the tensor
-    cores; fused_mp: ``HGMMA``, or its node phase is not on wgmma)."""
+    SASS of its built library; the run fails if there is no ptxas report
+    or no ``cuobjdump``."""
     from repro_torch.kernels import build
     facts = {"ptxas": ptxas_by_kernel(build.build_log(source))}
     if not facts["ptxas"]:
@@ -2146,10 +2319,21 @@ def build_facts(source: str, opcodes: tuple) -> dict:
     if tool is None:
         raise AssertionError(f"{source}: no cuobjdump found on PATH, beside "
                              f"nvcc or in Triton's package, so the SASS "
-                             f"cannot be counted")
+                             f"cannot be read")
     sass = subprocess.run(
         [tool, "-sass", str(build.build_dir() / f"lib{source}.so")],
         check=True, capture_output=True, text=True).stdout
+    return facts, sass
+
+
+def build_facts(source: str, opcodes: tuple) -> dict:
+    """What ptxas reports for each kernel of ``csrc/<source>.cu``, and the
+    count of each SASS opcode of ``opcodes`` in its built library; the run
+    fails if there is no ptxas report, no ``cuobjdump`` or a count of 0
+    (flash: ``HGMMA`` and ``UTMALDG``, or its bf16 prefill is not on wgmma
+    and TMA; the SSD scan: ``HMMA``, or its bf16 path is not on the tensor
+    cores; fused_mp: ``HGMMA``, or its node phase is not on wgmma)."""
+    facts, sass = built_sass(source)
     counts = {op: len(re.findall(r"\b" + op + r"\b", sass))
               for op in opcodes}
     if not all(counts.values()):
@@ -2157,6 +2341,22 @@ def build_facts(source: str, opcodes: tuple) -> dict:
                              f"tensor-core path is not on the instructions "
                              f"it was built for")
     facts["sass"] = counts
+    return facts
+
+
+def segment_build_facts() -> dict:
+    """What ptxas reports for the segmented sums' and the CSR build's
+    kernels (``csrc/segment_aggregate.cu``) and the atomics in the built
+    library's SASS; the run fails if any of them adds a float (a ``RED``
+    or ``ATOM`` on an F16, F32 or F64): the sums take no float atomic."""
+    facts, sass = built_sass("segment_aggregate")
+    ops = re.findall(r"\b(?:RED|ATOMG|ATOMS|ATOM)\b[\w.]*", sass)
+    floats = [op for op in ops if re.search(r"\.(?:BF16|F16|F32|F64)", op)]
+    facts["sass_atomics"] = len(ops)
+    facts["sass_float_atomics"] = len(floats)
+    if floats:
+        raise AssertionError(f"segment_aggregate: float atomics in the "
+                             f"SASS: {sorted(set(floats))}")
     return facts
 
 
@@ -2421,6 +2621,8 @@ def lm_kernel_entries(torch, dev) -> tuple:
                                f"{t_max - 1} lie after every query row)",
          "prefill_at_or_below_library": times["flash_prefill"]["ms"]
          <= library["flash_prefill"],
+         # a served batch's prefill calls: one step of lm_launch_rule
+         "prefill_launches": lm_launch_rule(cfg, 1)["flash_attention"],
          "decode": {"unit": f"q [{b}, 1, {h}, {hd}] over k/v [{b}, {t_max}, "
                             f"{hkv}, {hd}] bf16",
                     **times["flash_decode"],
@@ -2613,6 +2815,23 @@ def phase_lm(torch, dev, name_limit: str) -> dict:
     return out
 
 
+def per_launch(e: dict) -> None:
+    """``ms_per_launch`` and ``bound_per_launch_ms``: one wrapper call's
+    time and bound on the entry's path, so that launches × (time − bound)
+    reads straight from the line. A per-bin entry divides by its layers;
+    flash weighs its prefill and decode calls by their launches."""
+    if "prefill_launches" in e:
+        pre, n = e["prefill_launches"], max(e["launches"], 1)
+        dec = e["decode"]
+        e["ms_per_launch"] = (pre * e["ms"] + (n - pre) * dec["ms"]) / n
+        e["bound_per_launch_ms"] = (pre * e["bound_ms"]
+                                    + (n - pre) * dec["bound_ms"]) / n
+    else:
+        k = e.get("launches_per_unit", 1)
+        e["ms_per_launch"] = e["ms"] / k
+        e["bound_per_launch_ms"] = e["bound_ms"] / k
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2658,6 +2877,10 @@ def main() -> int:
             e["launches"] = path_launches[name][name]
         else:
             e["launches"] = launches.get(name, gat_launches.get(name))
+        if name in SEGMENT_SUMS:
+            run = "packed" if name == "segment_aggregate" else "gat_packed"
+            e["route_launches"] = train["runs"][run]["route_launches"][name]
+        per_launch(e)
     emit({"kernels": entries})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,6 +26,12 @@ one BODY:
   ``torch.profiler`` (host and card): wall ms per step, and per step the
   host's self ms and call count of every operator and CUDA runtime call,
   the ten largest by self time listed, and the card's busy ms.
+* ``train`` — ``train_pmgns`` per variant on the packed layout at
+  ``chip_smoke.py``'s train_path settings (hidden 512, batch 32, 400
+  seeded synthetic graphs): one warm-up epoch, one timed epoch (wall ms
+  per step from the trainer's own clock) and one epoch under
+  ``torch.profiler``: the card's busy ms per step and every kernel's
+  device ms per step above 0.005.
 * ``flash_host`` — the host µs of one ``flash_attention_cuda`` decode call
   at lm_path's last decode step (``chip_smoke.host_us_per_call``), and the
   card's time of the same call (``chip_smoke.time_graph_ms``).
@@ -168,8 +174,44 @@ def body_flash_host(torch, _variants: str) -> dict:
             "device_ms": cs.time_graph_ms(torch, call)}
 
 
+def body_train(torch, variants: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from repro_torch.core.gnn import PMGNSConfig
+    from repro_torch.dataset.builder import synthetic_samples
+    from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
+    samples = synthetic_samples(cs.TRAIN_SAMPLES, seed=1, n_min=16,
+                                n_max=200)
+    one = TrainConfig(epochs=1, batch_size=cs.TRAIN_BATCH, lr=cs.TRAIN_LR)
+    out = {}
+    for variant in variants.split(","):
+        cfg = PMGNSConfig(variant=variant, hidden=cs.TRAIN_HIDDEN,
+                          layout="packed", dropout=0.0)
+        train_pmgns(cfg, samples, (), one)               # warm-up
+        _, hist = train_pmgns(cfg, samples, (), one)
+        steps = hist[-1]["steps"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            train_pmgns(cfg, samples, (), one)
+            torch.cuda.synchronize()
+        rows = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0.0)
+            if t > 0 and not e.key.startswith("cuda"):
+                name = cs.kernel_name(e.key)
+                rows[name] = rows.get(name, 0.0) + t / 1e3 / steps
+        out[variant] = {
+            "steps": steps,
+            "ms_per_step": 1e3 * hist[-1]["seconds"] / steps,
+            "card_busy_ms_per_step": sum(rows.values()),
+            "kernel_ms_per_step": {k: v for k, v in sorted(
+                rows.items(), key=lambda kv: -kv[1]) if v > 0.005}}
+    return out
+
+
 BODIES = {"bulk": body_bulk, "lm": body_lm, "lm_host": body_lm_host,
-          "flash_host": body_flash_host}
+          "flash_host": body_flash_host, "train": body_train}
 
 
 def turn(body: str, tree: str, variants: str) -> dict:

@@ -1,4 +1,5 @@
-// Edge-list segment aggregation for Hopper (sm_90a), float32 throughout.
+// Segmented sums over a destination-sorted CSR, and a weighted row gather,
+// for Hopper (sm_90a), float32 throughout.
 //
 // Replaces the TPU kernels `segment_aggregate_pallas` (`_seg_gather_kernel`,
 // then `_seg_scatter_kernel` through `_scatter_with_degree`) and
@@ -17,17 +18,57 @@
 //
 // The TPU kernel gathers every edge's message into a [B, E, F] array with a
 // one-hot matmul, then scatters it with a second one-hot matmul into node
-// tiles it revisits in order. Here the aggregate is one pass, the weighted
-// edge scatter of edge_rows.cuh that fused_mp.cu's edge phase also runs: a
-// warp reads h[src] and adds it straight into out[dst] with an atomic, so
-// the [B, E, F] messages never reach device memory (half the bytes of
-// gather-then-scatter). Blocks run in no order, so the mean needs every
-// edge's weight in deg before it can divide: a second, short launch
-// divides. Both passes are one C call.
+// tiles it revisits in order. Hopper's blocks run in no order, so here the
+// edges are first sorted by destination (dst_csr.cuh, one launch), and then
+// one warp (or thread) owns each output row (a second launch): it reads the
+// row's messages in ascending edge order, h[src] straight from h for an
+// aggregate, so the [B, E, F] messages never reach device memory, and
+// writes the row, its degree and its mean once. No float atomic, no
+// zero-fill of the output, no launch for the mean, and the sums are the
+// same bits from run to run.
 //
-// What bounds the aggregate on the H100: the atomics in L2. At a packed
-// training step (B=1, E=8192, F=512) it issues about 4M of them against
-// 34 MB of traffic. A destination-sorted CSR without atomics is later work.
+// The sum's three routes, which segment_spmm.segment_plan picks from the
+// shapes (F, its alignment):
+//   wide_vec, wide_scalar (F > 8): a warp a destination's column tile,
+//     lanes along the features, V float4s (wide_vec: F a multiple of 4 on
+//     16-byte aligned rows) or V floats a lane, V in {1, 2, 4, 8}; each
+//     lane's loads of kWideWords 32-bit words are issued before the first
+//     of them is added.
+//   narrow (F <= 8: GAT's per-head scores, degrees, the readout's counts):
+//     a thread a destination, its row in registers, kInFlight edges' loads
+//     in flight. A warp of lanes along 4 features would leave most lanes
+//     idle; a thread a row writes a warp's 32 rows as one run.
+// Every route adds a row's edges in ascending edge order, each term w * v
+// rounded and then added (__fmul_rn, __fadd_rn: no FMA contraction), from
+// +0: a row's sum is the plain version's sequential sum, bit for bit.
+// A segment longer than the route's chunk (kWideChunk or kNarrowChunk
+// edges: a high in-degree node, the padded edges of a batch row, which all
+// sit at (0, 0), or a graph of the packed readout's backward) is summed in
+// pieces: the batch row's entries are cut into windows of `chunk`, and a
+// warp takes a window's pieces of such segments (at most two). On the wide
+// routes it does so per 32-unit column slice, one unit a lane and
+// kChunkInFlight edges in flight; on the narrow route its lanes take the
+// piece's entries, one each, and meet in a fixed shuffle tree (lane i adds
+// lane i + 16, then i + 8, 4, 2, 1). Each warp writes its piece's partial
+// sum and degree to scratch and counts its arrival on an integer counter:
+// the last of each group of kGroup chunks adds the group's partials in
+// window order, ((0 + p0) + p1) + ..., and the last group adds the groups'
+// sums in order and writes the row. The order is fixed whatever order the
+// warps run in, and no warp reads more than kGroup partials of a level.
+//
+// Masking and NaN: every edge with both endpoints in [0, N) is in its
+// segment whatever its weight, so NaN * 0 of a masked edge reaches its
+// destination exactly as in the plain versions (adding w * v = +-0 of a
+// finite message changes no sum). The division takes max(deg, 1) as
+// `deg < 1 ? 1 : deg` so that a NaN degree stays NaN, as clamp_min keeps it.
+// Edges whose endpoints fall outside [0, N) are in no segment (the gather
+// reads 0 for them); the batch layouts never produce one.
+//
+// What bounds the sum on the H100: bytes, each message row read once and
+// each output row written once; at the packed training step (B=1, E=8192,
+// F=512) 33.6 MB, 10.0 us at 3.35 TB/s. The build is latency-bound and
+// about half of a call there; a long segment adds its chunks' and its
+// combine's latency.
 //
 // The gather (the TPU's `_seg_gather_kernel`, a one-hot matmul per edge
 // tile) is bound by bytes: it reads B*E rows of h and writes them once,
@@ -42,45 +83,26 @@
 // next step's loads are issued before this step's stores. Offsets are
 // 32-bit unless B*N*F, B*E*F or the index view's extent need 64.
 //
-// Masking and NaN are edge_rows.cuh's (NaN * 0 reaches the destination).
-// The division takes max(deg, 1) as `deg < 1 ? 1 : deg` so that a NaN
-// degree stays NaN, as clamp_min keeps it.
-//
-// Tolerance: the atomics add in an order that changes from run to run, so
-// sums agree with the plain version to about 1e-6 relative; the tests and
-// chip_smoke.py hold them to 1e-4 absolute + 1e-4 relative.
-//
-// Edges whose endpoints fall outside [0, N) are skipped by the scatter and
-// gather 0; the batch layouts never produce one.
+// Tolerance: a row of at most one chunk is the plain version's sum on the
+// CPU bit for bit; a chunked segment's combine adds in another order, a
+// float32 rounding apart. The tests and chip_smoke.py hold every route to
+// 1e-4 absolute + 1e-4 relative against the plain version on the card
+// (whose index_add_ adds with atomics), and two runs to the same bits.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <atomic>
 
-#include "edge_rows.cuh"
+#include "dst_csr.cuh"
 
 namespace {
 
-template <bool kVec>
-__global__ void __launch_bounds__(kRowThreads)
-mean_kernel(float* __restrict__ out, const float* __restrict__ deg,
-            long long rows, int f) {
-  FOR_EACH_ROW(r, rows) {
-    float d = deg[r];
-    d = d < 1.0f ? 1.0f : d;   // max(deg, 1), keeping a NaN
-    float* o = out + r * f;
-    if (kVec) {
-      for (int c = 4 * threadIdx.x; c < f; c += 4 * kWarp) {
-        float4 v = *reinterpret_cast<float4*>(o + c);
-        v.x /= d; v.y /= d; v.z /= d; v.w /= d;
-        *reinterpret_cast<float4*>(o + c) = v;
-      }
-    } else {
-      for (int c = threadIdx.x; c < f; c += kWarp) o[c] = o[c] / d;
-    }
-  }
-}
+constexpr int kWarp = 32;
+constexpr int kRowThreads = 256;    // eight warps a block
+constexpr unsigned kFull = 0xffffffffu;
+
+dim3 row_block() { return dim3(kWarp, kRowThreads / kWarp); }
 
 template <class Unit>
 __device__ __forceinline__ Unit zero_unit();
@@ -265,37 +287,647 @@ void dispatch_gather(const float* h, const int* idx, int idx_stride,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// segmented sums over the CSR
+// ---------------------------------------------------------------------------
+
+// the sum's routes, numbered as segment_spmm.SEGMENT_ROUTES numbers them
+constexpr int kNarrow = 0, kWideScalar = 1, kWideVec = 2;
+constexpr int kWideChunk = 32;     // edges a warp sums on the wide routes
+constexpr int kNarrowChunk = 16;   // edges a thread sums on the narrow route
+constexpr int kNarrowF = 8;        // the narrow route's widest row
+constexpr int kInFlight = 8;       // rows a narrow thread loads before it
+                                   // adds
+constexpr int kWideWords = 32;     // 32-bit words a wide lane does
+constexpr int kChunkInFlight = 16; // rows in flight on a chunk's slice
+constexpr int kGroup = 16;         // chunks a first-level combine adds
+
+struct SumArgs {
+  const float* m;          // message rows: h [B*N, F] or msgs [B*E, F]
+  const int* rowptr;       // [B, N + 1] (dst_csr.cuh)
+  const int* csr_row;      // [B*E]
+  const float* csr_w;      // [B*E]
+  const int* csr_dst;      // [B*E]
+  int* counters;           // [B*N, slices]: groups arrived, long segments
+  int* group_counters;     // [B, cells, 2, slices]: chunks arrived, a
+                           // group's first chunk's slot
+  float* part;             // [B, cells, 2, F]: chunk sums
+  float* dpart;            // [B, cells, 2, slices]: chunk degrees
+  float* out;              // [B, N, F]
+  float* deg;              // [B, N] or null
+  int mean;
+  int b, n, e, f, units;   // units: F / 4 float4s (wide_vec) or F floats
+  int chunk, cells, slices;   // cells: ceil(E / chunk) windows a row
+  int tiles;               // wide: column tiles a row, a warp each
+  long long chunk_workers; // the grid's first warps (wide: B * cells *
+                           // slices) or threads (narrow: 32 B * cells)
+};
+
+__device__ __forceinline__ float term_add(float acc, float w, float v) {
+  return __fadd_rn(acc, __fmul_rn(w, v));   // rounded apart: no FMA
+}
+__device__ __forceinline__ float4 term_add(float4 acc, float w, float4 v) {
+  return make_float4(term_add(acc.x, w, v.x), term_add(acc.y, w, v.y),
+                     term_add(acc.z, w, v.z), term_add(acc.w, w, v.w));
+}
+__device__ __forceinline__ float plus(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float4 plus(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+__device__ __forceinline__ float quot(float v, float d) {
+  return __fdiv_rn(v, d);
+}
+__device__ __forceinline__ float4 quot(float4 v, float d) {
+  return make_float4(__fdiv_rn(v.x, d), __fdiv_rn(v.y, d), __fdiv_rn(v.z, d),
+                     __fdiv_rn(v.w, d));
+}
+// max(deg, 1), keeping a NaN as clamp_min does
+__device__ __forceinline__ float divisor(float deg) {
+  return deg < 1.0f ? 1.0f : deg;
+}
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float4 ldg(const float4* p) { return __ldg(p); }
+// scratch another warp of this launch wrote: from L2, past this SM's L1
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float4 ldcg(const float4* p) { return __ldcg(p); }
+
+// The sum over j < cnt, ascending, of the weights lane j holds.
+__device__ __forceinline__ float weight_sum(float w, int cnt) {
+  float d = 0.0f;
+  for (int j = 0; j < cnt; ++j) d = __fadd_rn(d, __shfl_sync(kFull, w, j));
+  return d;
+}
+
+// acc[u] += w_j * m[row_j, c0 + lane + 32 u] over the cnt <= 32 edges whose
+// message row and weight lane j holds, in ascending j; the loads of kDepth
+// edges are issued before the first of them is added.
+template <class Unit, int V, int kDepth>
+__device__ __forceinline__ void sum_rows(const Unit* __restrict__ m,
+                                         int units, int c0, int cnt, int row,
+                                         float w, Unit (&acc)[V]) {
+  const int lane = threadIdx.x;
+  for (int j0 = 0; j0 < cnt; j0 += kDepth) {
+    Unit v[kDepth][V];
+#pragma unroll
+    for (int t = 0; t < kDepth; ++t) {
+      const int j = j0 + t;
+      const long long r =
+          static_cast<long long>(__shfl_sync(kFull, row, j & 31)) * units;
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const int c = c0 + lane + kWarp * u;
+        v[t][u] = j < cnt && c < units ? ldg(m + r + c) : zero_unit<Unit>();
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kDepth; ++t) {
+      const int j = j0 + t;
+      const float wj = __shfl_sync(kFull, w, j & 31);
+      if (j < cnt) {
+#pragma unroll
+        for (int u = 0; u < V; ++u) acc[u] = term_add(acc[u], wj, v[t][u]);
+      }
+    }
+  }
+}
+
+// Publish this warp's partial and count its arrival on `counter`; true in
+// the warp that arrives last of `arrivals`, which may then read them all.
+__device__ __forceinline__ bool last_arrival(int* counter, int arrivals) {
+  __threadfence();
+  __syncwarp();
+  int prev = 0;
+  if (threadIdx.x == 0) prev = atomicAdd(counter, 1);
+  prev = __shfl_sync(kFull, prev, 0);
+  if (prev != arrivals - 1) return false;
+  __threadfence();
+  return true;
+}
+
+// A chunked segment's piece in one window of its batch row's entries: the
+// windows are the row's entries cut every `chunk`, and a segment longer
+// than `chunk` is summed a window at a time. A window holds pieces of at
+// most two such segments: the one that covers its first entry (slot 0) and
+// one that starts inside it (slot 1).
+struct Piece {
+  int d, c, nch, slot;     // destination, chunk (window) index, chunks, slot
+  int cnt;                 // entries
+  long long at;            // the first entry in the [B*E] CSR arrays
+};
+
+// The pieces of window j of row bi (0, 1 or 2).
+__device__ __forceinline__ int pieces_of(const SumArgs& a, int bi, int j,
+                                         Piece (&p)[2]) {
+  const int* rp = a.rowptr + static_cast<long long>(bi) * (a.n + 1);
+  const int k0 = j * a.chunk;
+  const int k1 = min(k0 + a.chunk, __ldg(rp + a.n));
+  if (k0 >= k1) return 0;
+  const int* dd = a.csr_dst + static_cast<long long>(bi) * a.e;
+  const int first = __ldg(dd + k0), last = __ldg(dd + k1 - 1);
+  int np = 0;
+  for (int q = 0; q < 2; ++q) {
+    const int d = q ? last : first;
+    if (q && last == first) break;
+    const int s = __ldg(rp + d), t = __ldg(rp + d + 1);
+    if (t - s <= a.chunk) continue;
+    Piece& x = p[np++];
+    x.d = d;
+    x.c = j - s / a.chunk;
+    x.nch = (t - 1) / a.chunk - s / a.chunk + 1;
+    x.slot = x.c == 0 && s % a.chunk != 0;
+    const int lo = max(s, k0);
+    x.cnt = min(t, k1) - lo;
+    x.at = static_cast<long long>(bi) * a.e + lo;
+  }
+  return np;
+}
+
+// Where chunk c of a segment starting at entry s keeps its partials: its
+// window's slot, as pieces_of assigned it.
+__device__ __forceinline__ long long part_row(const SumArgs& a, int bi, int s,
+                                              int c) {
+  const int slot = c == 0 && s % a.chunk != 0;
+  return (static_cast<long long>(bi) * a.cells + s / a.chunk + c) * 2 + slot;
+}
+
+// Output row r = b * N + d's entries; false when its segment is chunked.
+__device__ __forceinline__ bool row_of(const SumArgs& a, long long r,
+                                       long long& at, int& cnt) {
+  const int bi = static_cast<int>(r / a.n);
+  const int* rp = a.rowptr + r + bi;     // rowptr[b, d]: N + 1 a row
+  const int k0 = __ldg(rp);
+  cnt = __ldg(rp + 1) - k0;
+  at = static_cast<long long>(bi) * a.e + k0;
+  return cnt <= a.chunk;
+}
+
+// The row and weight of entry at + lane (lane < cnt), else row 0, weight 0.
+__device__ __forceinline__ void entry(const SumArgs& a, long long at, int cnt,
+                                      int& row, float& w) {
+  const int lane = threadIdx.x;
+  row = 0;
+  w = 0.0f;
+  if (lane < cnt) {
+    row = __ldg(a.csr_row + at + lane);
+    w = __ldg(a.csr_w + at + lane);
+  }
+}
+
+// wide routes: one column tile (32 V units) of output row r; each lane's
+// loads of kWideWords 32-bit words are issued before they are added
+template <class Unit, int V>
+__device__ void wide_row(const SumArgs& a, long long r, int tile) {
+  constexpr int kWords = V * static_cast<int>(sizeof(Unit) / 4);
+  constexpr int kDepth = kWords >= kWideWords ? 1 : kWideWords / kWords;
+  long long at;
+  int cnt;
+  if (!row_of(a, r, at, cnt)) return;   // the chunk warps write it
+  int row;
+  float w;
+  entry(a, at, cnt, row, w);
+  const float deg = a.mean || a.deg != nullptr ? weight_sum(w, cnt) : 0.0f;
+  const float div = divisor(deg);
+  const int c0 = tile * kWarp * V;
+  Unit acc[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) acc[u] = zero_unit<Unit>();
+  sum_rows<Unit, V, kDepth>(reinterpret_cast<const Unit*>(a.m), a.units, c0,
+                            cnt, row, w, acc);
+  Unit* o = reinterpret_cast<Unit*>(a.out) + r * a.units;
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int c = c0 + threadIdx.x + kWarp * u;
+    if (c < a.units) o[c] = a.mean && div != 1.0f ? quot(acc[u], div) : acc[u];
+  }
+  if (a.deg != nullptr && tile == 0 && threadIdx.x == 0) a.deg[r] = deg;
+}
+
+// The sum, in order, of `count` partials of a segment starting at entry s
+// (its chunks first, first + step, ...), column col of one slice, and of
+// their degrees: ((0 + p0) + p1) + ...
+template <class Unit>
+__device__ __forceinline__ void add_partials(const SumArgs& a, int bi, int s,
+                                             int first, int step, int count,
+                                             int col, int slice, Unit& tot,
+                                             float& dtot) {
+  const Unit* part = reinterpret_cast<const Unit*>(a.part);
+  tot = zero_unit<Unit>();
+  dtot = 0.0f;
+  for (int c0 = 0; c0 < count; c0 += kChunkInFlight) {
+    Unit v[kChunkInFlight];
+    float dv[kChunkInFlight];
+#pragma unroll
+    for (int c = 0; c < kChunkInFlight; ++c) {
+      const bool ok = c0 + c < count;
+      const long long p = ok ? part_row(a, bi, s, first + (c0 + c) * step)
+                             : 0;
+      v[c] = ok && col < a.units ? ldcg(part + p * a.units + col)
+                                 : zero_unit<Unit>();
+      dv[c] = ok ? ldcg(a.dpart + p * a.slices + slice) : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < kChunkInFlight; ++c) {
+      if (c0 + c < count) {
+        tot = plus(tot, v[c]);
+        dtot = __fadd_rn(dtot, dv[c]);
+      }
+    }
+  }
+}
+
+// wide routes: one 32-unit column slice of one window's pieces; the chunk
+// that arrives last of its group of kGroup adds the group, the group that
+// arrives last adds the groups and writes the slice of the row
+template <class Unit>
+__device__ void wide_chunk(const SumArgs& a, long long g) {
+  const int slice = static_cast<int>(g % a.slices);
+  const long long cell = g / a.slices;
+  const int bi = static_cast<int>(cell / a.cells);
+  const int j = static_cast<int>(cell % a.cells);
+  Piece pieces[2];
+  const int np = pieces_of(a, bi, j, pieces);
+  const int col = slice * kWarp + threadIdx.x;
+  Unit* part = reinterpret_cast<Unit*>(a.part);
+  for (int q = 0; q < np; ++q) {
+    const Piece& k = pieces[q];
+    int row;
+    float w;
+    entry(a, k.at, k.cnt, row, w);
+    Unit acc[1] = {zero_unit<Unit>()};
+    sum_rows<Unit, 1, kChunkInFlight>(reinterpret_cast<const Unit*>(a.m),
+                                      a.units, slice * kWarp, k.cnt, row, w,
+                                      acc);
+    const float dsum = weight_sum(w, k.cnt);
+    const long long mine = (cell * 2 + k.slot);
+    if (col < a.units) part[mine * a.units + col] = acc[0];
+    if (threadIdx.x == 0) a.dpart[mine * a.slices + slice] = dsum;
+    const long long r = static_cast<long long>(bi) * a.n + k.d;
+    const int s = __ldg(a.rowptr + r + bi);
+    // first level: the last of the chunk's group adds the group's partials
+    // into its first chunk's slot; second: the last group adds the groups
+    const int c0 = k.c / kGroup * kGroup;
+    const long long head = part_row(a, bi, s, c0);
+    if (!last_arrival(a.group_counters + head * a.slices + slice,
+                      min(kGroup, k.nch - c0)))
+      continue;
+    Unit tot;
+    float dtot;
+    add_partials<Unit>(a, bi, s, c0, 1, min(kGroup, k.nch - c0), col, slice,
+                       tot, dtot);
+    if (col < a.units) part[head * a.units + col] = tot;
+    if (threadIdx.x == 0) a.dpart[head * a.slices + slice] = dtot;
+    const int groups = (k.nch + kGroup - 1) / kGroup;
+    if (!last_arrival(a.counters + r * a.slices + slice, groups)) continue;
+    add_partials<Unit>(a, bi, s, 0, kGroup, groups, col, slice, tot, dtot);
+    const float div = divisor(dtot);
+    if (col < a.units)
+      reinterpret_cast<Unit*>(a.out)[r * a.units + col] =
+          a.mean && div != 1.0f ? quot(tot, div) : tot;
+    if (a.deg != nullptr && slice == 0 && threadIdx.x == 0) a.deg[r] = dtot;
+  }
+}
+
+// The chunk warps first, so that the long segments start early; then a
+// warp an output row's column tile.
+template <class Unit, int V>
+__global__ void __launch_bounds__(kRowThreads) wide_sum_kernel(SumArgs a) {
+  const long long g =
+      static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (g < a.chunk_workers) {
+    wide_chunk<Unit>(a, g);
+  } else if (g - a.chunk_workers <
+             static_cast<long long>(a.b) * a.n * a.tiles) {
+    const long long x = g - a.chunk_workers;
+    wide_row<Unit, V>(a, x / a.tiles, static_cast<int>(x % a.tiles));
+  }
+}
+
+// narrow route: one thread adds entries at .. at + cnt - 1 (rows of
+// f <= kNarrowF floats) in ascending order, as the wide routes do, with the
+// loads of kInFlight entries issued before the first of them is added.
+__device__ __forceinline__ void narrow_sum(const SumArgs& a, long long at,
+                                           int cnt, float (&acc)[kNarrowF],
+                                           float& deg) {
+#pragma unroll
+  for (int c = 0; c < kNarrowF; ++c) acc[c] = 0.0f;
+  deg = 0.0f;
+  for (int j0 = 0; j0 < cnt; j0 += kInFlight) {
+    int row[kInFlight];
+    float w[kInFlight], v[kInFlight][kNarrowF];
+#pragma unroll
+    for (int t = 0; t < kInFlight; ++t) {
+      const bool live = j0 + t < cnt;
+      row[t] = live ? __ldg(a.csr_row + at + j0 + t) : 0;
+      w[t] = live ? __ldg(a.csr_w + at + j0 + t) : 0.0f;
+    }
+#pragma unroll
+    for (int t = 0; t < kInFlight; ++t) {
+      const float* mr = a.m + static_cast<long long>(row[t]) * a.f;
+#pragma unroll
+      for (int c = 0; c < kNarrowF; ++c)
+        v[t][c] = j0 + t < cnt && c < a.f ? __ldg(mr + c) : 0.0f;
+    }
+#pragma unroll
+    for (int t = 0; t < kInFlight; ++t) {
+      if (j0 + t < cnt) {
+#pragma unroll
+        for (int c = 0; c < kNarrowF; ++c)
+          acc[c] = term_add(acc[c], w[t], v[t][c]);
+        deg = __fadd_rn(deg, w[t]);
+      }
+    }
+  }
+}
+
+// The row r = b * N + d of f <= kNarrowF floats, and its degree.
+__device__ __forceinline__ void narrow_store(const SumArgs& a, long long r,
+                                             const float (&acc)[kNarrowF],
+                                             float deg) {
+  const float div = divisor(deg);
+  float* o = a.out + r * a.f;
+#pragma unroll
+  for (int c = 0; c < kNarrowF; ++c)
+    if (c < a.f) o[c] = a.mean && div != 1.0f ? __fdiv_rn(acc[c], div)
+                                              : acc[c];
+  if (a.deg != nullptr) a.deg[r] = deg;
+}
+
+__device__ void narrow_row(const SumArgs& a, long long r) {
+  long long at;
+  int cnt;
+  if (!row_of(a, r, at, cnt)) return;   // the chunk warps write it
+  float acc[kNarrowF], deg;
+  narrow_sum(a, at, cnt, acc, deg);
+  narrow_store(a, r, acc, deg);
+}
+
+// The sum, in order, of `count` partials of a segment starting at entry s
+// (its chunks first, first + step, ...) and of their degrees, in every
+// lane: the lanes load 32 at a time, lane 0's first, and all add them in
+// lane order.
+__device__ __forceinline__ void narrow_add(const SumArgs& a, int bi, int s,
+                                           int first, int step, int count,
+                                           float (&acc)[kNarrowF],
+                                           float& deg) {
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int c = 0; c < kNarrowF; ++c) acc[c] = 0.0f;
+  deg = 0.0f;
+  for (int c0 = 0; c0 < count; c0 += kWarp) {
+    float v[kNarrowF], dv = 0.0f;
+    const bool ok = c0 + lane < count;
+    const long long p = ok ? part_row(a, bi, s, first + (c0 + lane) * step)
+                           : 0;
+#pragma unroll
+    for (int c = 0; c < kNarrowF; ++c)
+      v[c] = ok && c < a.f ? ldcg(a.part + p * a.f + c) : 0.0f;
+    if (ok) dv = ldcg(a.dpart + p);
+    const int here = min(kWarp, count - c0);
+    for (int t = 0; t < here; ++t) {
+#pragma unroll
+      for (int c = 0; c < kNarrowF; ++c)
+        acc[c] = __fadd_rn(acc[c], __shfl_sync(kFull, v[c], t));
+      deg = __fadd_rn(deg, __shfl_sync(kFull, dv, t));
+    }
+  }
+}
+
+// narrow route: one window's pieces, a warp each, its lanes along the
+// piece's entries (lane j entry j) meeting in a fixed tree (lane i adds
+// lane i + 16, then i + 8, 4, 2, 1); the partials meet in two levels as
+// on the wide routes
+__device__ void narrow_chunk(const SumArgs& a, long long cell) {
+  const int lane = threadIdx.x;
+  const int bi = static_cast<int>(cell / a.cells);
+  Piece pieces[2];
+  const int np = pieces_of(a, bi, static_cast<int>(cell % a.cells), pieces);
+  for (int q = 0; q < np; ++q) {
+    const Piece& k = pieces[q];
+    int row;
+    float w;
+    entry(a, k.at, k.cnt, row, w);
+    float acc[kNarrowF];
+    const float* mr = a.m + static_cast<long long>(row) * a.f;
+#pragma unroll
+    for (int c = 0; c < kNarrowF; ++c)
+      acc[c] = lane < k.cnt && c < a.f ? term_add(0.0f, w, __ldg(mr + c))
+                                       : 0.0f;
+    float deg = w;
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int c = 0; c < kNarrowF; ++c)
+        acc[c] = __fadd_rn(acc[c], __shfl_down_sync(kFull, acc[c], off));
+      deg = __fadd_rn(deg, __shfl_down_sync(kFull, deg, off));
+    }
+    const long long mine = cell * 2 + k.slot;
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < kNarrowF; ++c)
+        if (c < a.f) a.part[mine * a.f + c] = acc[c];
+      a.dpart[mine] = deg;
+    }
+    const long long r = static_cast<long long>(bi) * a.n + k.d;
+    const int s = __ldg(a.rowptr + r + bi);
+    // two levels, as on the wide routes
+    const int c0 = k.c / kGroup * kGroup;
+    const long long head = part_row(a, bi, s, c0);
+    if (!last_arrival(a.group_counters + head, min(kGroup, k.nch - c0)))
+      continue;
+    narrow_add(a, bi, s, c0, 1, min(kGroup, k.nch - c0), acc, deg);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < kNarrowF; ++c)
+        if (c < a.f) a.part[head * a.f + c] = acc[c];
+      a.dpart[head] = deg;
+    }
+    const int groups = (k.nch + kGroup - 1) / kGroup;
+    if (!last_arrival(a.counters + r, groups)) continue;
+    narrow_add(a, bi, s, 0, kGroup, groups, acc, deg);
+    if (lane == 0) narrow_store(a, r, acc, deg);
+  }
+}
+
+// The chunk warps first, then a thread an output row.
+__global__ void __launch_bounds__(kRowThreads) narrow_sum_kernel(SumArgs a) {
+  const long long g = static_cast<long long>(blockIdx.x) * kRowThreads +
+                      threadIdx.y * kWarp + threadIdx.x;
+  if (g < a.chunk_workers) {
+    narrow_chunk(a, g / kWarp);   // a warp a window
+  } else if (g - a.chunk_workers < static_cast<long long>(a.b) * a.n) {
+    narrow_row(a, g - a.chunk_workers);
+  }
+}
+
+// Where each array of a segment_scatter call lies in its scratch, in
+// 32-bit words, each array on a 16-byte boundary.
+struct Layout {
+  int chunk, cells, slices, units;
+  long long rowptr, csr_row, csr_w, csr_dst, counters, group_counters, dpart,
+      part, words;
+};
+
+Layout layout(int b, int n, int e, int f, int route) {
+  Layout l;
+  l.chunk = route == kNarrow ? kNarrowChunk : kWideChunk;
+  l.units = route == kWideVec ? f / 4 : f;
+  l.slices = route == kNarrow ? 1 : (l.units + kWarp - 1) / kWarp;
+  l.cells = (e + l.chunk - 1) / l.chunk;
+  const long long rows = b, slots = rows * l.cells * 2;
+  long long at = 0;
+  auto take = [&at](long long words) {
+    const long long here = at;
+    at += (words + 3) / 4 * 4;
+    return here;
+  };
+  l.rowptr = take(rows * (n + 1));
+  l.csr_row = take(rows * e);
+  l.csr_w = take(rows * e);
+  l.csr_dst = take(rows * e);
+  l.counters = take(rows * n * l.slices);
+  l.group_counters = take(slots * l.slices);
+  l.dpart = take(slots * l.slices);
+  l.part = take(slots * f);
+  l.words = at;
+  return l;
+}
+
+template <class Unit>
+cudaError_t launch_wide(const SumArgs& a, int v, unsigned blocks,
+                        cudaStream_t s) {
+  switch (v) {
+    case 1: wide_sum_kernel<Unit, 1><<<blocks, row_block(), 0, s>>>(a); break;
+    case 2: wide_sum_kernel<Unit, 2><<<blocks, row_block(), 0, s>>>(a); break;
+    case 4: wide_sum_kernel<Unit, 4><<<blocks, row_block(), 0, s>>>(a); break;
+    case 8: wide_sum_kernel<Unit, 8><<<blocks, row_block(), 0, s>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
 }  // namespace
 
 extern "C" {
 
-// Weighted scatter with degree, two launches at most. With src not null the
-// message of edge e is h[b, src_e] (segment aggregate); with src null it is
-// msgs[b, e] (segment scatter). out [B, N, F] and deg [B, N] (null allowed
-// unless mean != 0) must be zeroed by the caller. src and dst are read at
-// element strides src_stride and dst_stride, so the two columns of an
-// [B, E, 2] edge array are passed without a copy. vec != 0 selects float4
-// loads: F a multiple of 4, h / msgs / out 16-byte aligned. Returns the
-// cudaError_t of the launches.
+// 32-bit words of device scratch a segment_scatter call of these shapes on
+// `route` needs (the CSR, the chunk plan and partials, and the build's
+// table where it does not fit shared memory).
+long long segment_scatter_scratch_words(int b, int n, int e, int f,
+                                        int route) {
+  return layout(b, n, e, f, route).words;
+}
+
+// Weighted segmented sum with degree over a destination-sorted CSR, two
+// launches: the CSR build (dst_csr.cuh) and the sum on `route` (kNarrow,
+// kWideScalar, kWideVec) with v units a lane (wide routes: 1, 2, 4 or 8).
+// With src not null the message of edge e is h[b, src_e] (segment
+// aggregate); with src null it is msgs[b, e] (segment scatter). src and dst
+// are read at element strides src_stride and dst_stride, so the two columns
+// of an [B, E, 2] edge array are passed without a copy. Every element of out
+// [B, N, F] is written, and of deg [B, N] when it is not null (the mean
+// does not need it). scratch holds segment_scatter_scratch_words words,
+// 16-byte aligned.
+// Returns the cudaError_t of the launches.
 int segment_scatter(const float* h, const float* msgs, const int* src,
                     int src_stride, const int* dst, int dst_stride,
                     const float* em, float* out, float* deg, int mean, int b,
-                    int n, int e, int f, int vec, void* stream) {
-  if (b <= 0 || n <= 0 || f <= 0) return 0;
+                    int n, int e, int f, int route, int v, void* scratch,
+                    void* stream) {
+  if (b <= 0 || n <= 0 || e <= 0 || f <= 0) return 0;
+  if (route < kNarrow || route > kWideVec ||
+      (route == kNarrow && f > kNarrowF) || (route == kWideVec && f % 4) ||
+      (route != kNarrow && v != 1 && v != 2 && v != 4 && v != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ScatterArgs a{h, msgs, src, dst, src_stride, dst_stride, em, out, deg,
-                b, n, e, f};
-  const cudaError_t err = launch_scatter(a, vec != 0, s);
+  const Layout l = layout(b, n, e, f, route);
+  int* w = static_cast<int*>(scratch);
+  csr::BuildArgs ba{};
+  ba.dst = dst;
+  ba.dst_stride = dst_stride;
+  ba.src = src;
+  ba.src_stride = src_stride;
+  ba.em = em;
+  ba.b = b;
+  ba.n = n;
+  ba.e = e;
+  ba.rowptr = w + l.rowptr;
+  ba.csr_row = w + l.csr_row;
+  ba.csr_w = reinterpret_cast<float*>(w + l.csr_w);
+  ba.csr_dst = w + l.csr_dst;
+  ba.chunk = l.chunk;
+  ba.group = kGroup;
+  ba.cells = l.cells;
+  ba.slices = l.slices;
+  ba.counters = w + l.counters;
+  ba.group_counters = w + l.group_counters;
+  cudaError_t err = csr::launch_build(ba, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (mean) {
-    const long long nodes = static_cast<long long>(b) * n;
-    if (vec) {
-      mean_kernel<true><<<row_grid(nodes), row_block(), 0, s>>>(out, deg, nodes, f);
-    } else {
-      mean_kernel<false><<<row_grid(nodes), row_block(), 0, s>>>(out, deg, nodes, f);
-    }
+
+  SumArgs a{};
+  a.m = src != nullptr ? h : msgs;
+  a.rowptr = ba.rowptr;
+  a.csr_row = ba.csr_row;
+  a.csr_w = ba.csr_w;
+  a.csr_dst = ba.csr_dst;
+  a.counters = ba.counters;
+  a.group_counters = ba.group_counters;
+  a.part = reinterpret_cast<float*>(w + l.part);
+  a.dpart = reinterpret_cast<float*>(w + l.dpart);
+  a.out = out;
+  a.deg = deg;
+  a.mean = mean;
+  a.b = b;
+  a.n = n;
+  a.e = e;
+  a.f = f;
+  a.units = l.units;
+  a.chunk = l.chunk;
+  a.cells = l.cells;
+  a.slices = l.slices;
+  a.tiles = route == kNarrow ? 1 : (l.units + kWarp * v - 1) / (kWarp * v);
+  // a warp a window's slice, then a warp an output row's column tile
+  // (wide) or a thread an output row (narrow); chunk_workers counts threads
+  // on the narrow route
+  const long long cells = static_cast<long long>(b) * l.cells * l.slices;
+  a.chunk_workers = route == kNarrow ? cells * kWarp : cells;
+  const long long workers =
+      a.chunk_workers + static_cast<long long>(b) * n * a.tiles;
+  const long long per_block =
+      route == kNarrow ? kRowThreads : kRowThreads / kWarp;
+  const unsigned blocks =
+      static_cast<unsigned>((workers + per_block - 1) / per_block);
+  if (route == kNarrow) {
+    narrow_sum_kernel<<<blocks, row_block(), 0, s>>>(a);
+    err = cudaGetLastError();
+  } else if (route == kWideVec) {
+    err = launch_wide<float4>(a, v, blocks, s);
+  } else {
+    err = launch_wide<float>(a, v, blocks, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
+}
+
+// The destination-sorted CSR alone, one launch (dst_csr.cuh): rowptr
+// [B, N + 1] and perm [B, E] (-1 past each row's rowptr[b, N]). src may be
+// null (then only dst decides which edges are in a segment). Returns the
+// cudaError_t of the launch.
+int dst_csr(const int* dst, int dst_stride, const int* src, int src_stride,
+            int* rowptr, int* perm, int b, int n, int e, void* stream) {
+  csr::BuildArgs ba{};
+  ba.dst = dst;
+  ba.dst_stride = dst_stride;
+  ba.src = src;
+  ba.src_stride = src_stride;
+  ba.b = b;
+  ba.n = n;
+  ba.e = e;
+  ba.rowptr = rowptr;
+  ba.perm = perm;
+  return static_cast<int>(
+      csr::launch_build(ba, static_cast<cudaStream_t>(stream)));
 }
 
 // out[b, e] = w[b, e] * h[b, idx_e] (w null: weight 1), one launch; idx is

@@ -69,6 +69,37 @@ def segment_scatter_ref(dst: torch.Tensor, edge_mask: torch.Tensor,
     return out.reshape(b, n_nodes, f)
 
 
+def dst_csr_ref(dst: torch.Tensor, n_nodes: int,
+                src: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Destination-sorted CSR of a batched edge list: for each batch row a
+    stable sort of the edge indices by destination.
+
+    dst: [B, E] int32; src: [B, E] int32 or None. Returns ``rowptr``
+    [B, N + 1] and ``perm`` [B, E] (int32): row b's edges into d are
+    ``perm[b, rowptr[b, d]:rowptr[b, d + 1]]`` in ascending order, and
+    ``perm[b, k] = -1`` for ``k ≥ rowptr[b, N]``. An edge whose
+    destination, or source where ``src`` is given, falls outside [0, N) is
+    in no segment; every other edge is, whatever its weight. The order the
+    segmented sums of ``csrc/segment_aggregate.cu`` add in.
+    """
+    b, e = dst.shape
+    n = int(n_nodes)
+    d = dst.long()
+    live = (d >= 0) & (d < n)
+    if src is not None:
+        live &= (src >= 0) & (src < n)
+    key = torch.where(live, d, n)             # out of every segment: last
+    perm = torch.argsort(key, dim=1, stable=True)
+    rows = torch.arange(b, device=dst.device)[:, None] * (n + 1)
+    counts = torch.bincount((rows + key).reshape(-1),
+                            minlength=b * (n + 1)).reshape(b, n + 1)
+    rowptr = torch.zeros((b, n + 1), dtype=torch.long, device=dst.device)
+    rowptr[:, 1:] = torch.cumsum(counts[:, :n], dim=1)
+    tail = torch.arange(e, device=dst.device)[None] >= rowptr[:, n:]
+    return rowptr.int(), torch.where(tail, -1, perm).int()
+
+
 def segment_aggregate_ref(edges: torch.Tensor, edge_mask: torch.Tensor,
                           h: torch.Tensor, mode: str = "mean", *,
                           return_degree: bool = False):

@@ -12,7 +12,10 @@
   aggregation over ``[B, E]`` edges (``csrc/segment_aggregate.cu``), the
   port of ``segment_aggregate_pallas``.
 * :func:`segment_scatter_cuda` — masked scatter of per-edge messages
-  (same source), the port of ``segment_scatter_pallas``.
+  (same source), the port of ``segment_scatter_pallas``. Both sum over a
+  destination-sorted CSR that the call builds on the card
+  (``csrc/dst_csr.cuh``; :func:`dst_csr_cuda` builds it alone), on the
+  route :func:`segment_plan` picks.
 * :func:`segment_gather_cuda` — weighted row gather (same source), the
   port of the gather half ``_seg_gather_kernel``; the backward passes of
   :mod:`repro_torch.kernels.autograd` run on it.
@@ -45,14 +48,14 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from . import build
 
 _INT32_MAX = 2**31 - 1
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "fused_mp_edge_phase": ("fused_mp", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "fused_mp_node_phase": ("fused_mp", [_P, _P, _P, _P, _I, _P, _P, _P, _P,
@@ -69,7 +72,10 @@ _SIGNATURES = {
                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "segment_scatter": ("segment_aggregate",
                         [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _P]),
+                         _I, _I, _I, _P, _P]),
+    "segment_scatter_scratch_words": ("segment_aggregate", [_I] * 5, _L),
+    "dst_csr": ("segment_aggregate",
+                [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P]),
     "segment_gather": ("segment_aggregate",
                        [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dense_aggregate": ("dense_aggregate",
@@ -114,10 +120,12 @@ def _entry(name: str):
         with _bind_lock:
             fn = _bound.get(name)
             if fn is None:
-                lib_name, argtypes = _SIGNATURES[name]
+                # a third item: the return type, where it is not a
+                # cudaError_t
+                lib_name, argtypes, *restype = _SIGNATURES[name]
                 fn = getattr(build.load(lib_name), name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype[0] if restype else ctypes.c_int
                 _bound[name] = fn
     return fn
 
@@ -457,23 +465,75 @@ def _vec(f: int, *rows) -> bool:
                               if t is not None)
 
 
+#: the segmented sum's routes (``csrc/segment_aggregate.cu``) and their C
+#: numbers: a thread a row of at most 8 floats, or a warp a row with lanes
+#: along the features in floats or in float4s
+SEGMENT_ROUTES = {"narrow": 0, "wide_scalar": 1, "wide_vec": 2}
+#: edges one worker sums on each route; a longer segment is cut into chunks
+#: of this many, summed by workers of their own and added in chunk order
+SEGMENT_CHUNK = {"narrow": 16, "wide_scalar": 32, "wide_vec": 32}
+
+
+class SegmentPlan(NamedTuple):
+    """The segmented sum's route, its units (floats or float4s) a lane a
+    column tile on the wide routes (1, 2, 4 or 8; 0 on ``narrow``), its
+    chunk, and whether a segment of the largest degree is cut into chunks."""
+    route: str
+    units_per_lane: int
+    chunk: int
+    split: bool
+
+
+def segment_plan(f: int, max_degree: int, aligned: bool) -> SegmentPlan:
+    """The segmented sum's plan for rows of ``f`` floats whose largest
+    segment holds at most ``max_degree`` edges (``E`` where nothing better
+    is known).
+
+    ``"narrow"`` for ``f ≤ 8``; else ``"wide_vec"`` where float4 loads
+    stage whole rows (``f`` a multiple of 4 and ``aligned``: the message
+    rows start on 16-byte boundaries), or ``"wide_scalar"``. Shapes and
+    alignment decide alone; a launch that is refused raises.
+    """
+    if f <= 8:
+        route, units = "narrow", 0
+    else:
+        route = "wide_vec" if f % 4 == 0 and aligned else "wide_scalar"
+        per_lane = -(-(f // 4 if route == "wide_vec" else f) // 32)
+        units = next((v for v in (1, 2, 4) if per_lane <= v), 8)
+    chunk = SEGMENT_CHUNK[route]
+    return SegmentPlan(route, units, chunk, max_degree > chunk)
+
+
 def _scatter(fn, dev, h, msgs, src, dst, em, b: int, e: int, n: int,
              f: int, mean: bool, want_deg: bool):
-    """Zeroed outputs, then the ``segment_scatter`` C call, counted on
-    ``fn``; nothing is launched (or counted) when there is no edge, since
-    the sums are then zero and a mean divides them by 1."""
+    """The ``segment_scatter`` C call (the CSR build, then the sum, each
+    output element written once) into fresh outputs, counted on ``fn`` and
+    on its route; nothing is launched (or counted) when there is no edge,
+    since the sums are then zero and a mean divides them by 1."""
     s_stride = 1 if src is None else _check_index(src, "src", b, e, dev)
     d_stride = _check_index(dst, "dst", b, e, dev)
     with torch.cuda.device(dev):
-        out = torch.zeros((b, n, f), dtype=torch.float32, device=dev)
-        deg = (torch.zeros((b, n), dtype=torch.float32, device=dev)
-               if mean or want_deg else None)
-        if b * e * f and n:
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            _call("segment_scatter", _ptr(h), _ptr(msgs), _ptr(src), s_stride,
-                  _ptr(dst), d_stride, _ptr(em), _ptr(out), _ptr(deg),
-                  int(mean), b, n, e, f, int(_vec(f, h, msgs)), stream)
-            _count(fn)
+        if not (b * e * f and n):
+            out = torch.zeros((b, n, f), dtype=torch.float32, device=dev)
+            deg = (torch.zeros((b, n), dtype=torch.float32, device=dev)
+                   if want_deg else None)
+            return out, deg
+        out = torch.empty((b, n, f), dtype=torch.float32, device=dev)
+        deg = (torch.empty((b, n), dtype=torch.float32, device=dev)
+               if want_deg else None)
+        plan = segment_plan(f, e, _vec(f, h, msgs))
+        code = SEGMENT_ROUTES[plan.route]
+        scratch = torch.empty(
+            (_entry("segment_scatter_scratch_words")(b, n, e, f, code),),
+            dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _call("segment_scatter", _ptr(h), _ptr(msgs), _ptr(src), s_stride,
+              _ptr(dst), d_stride, _ptr(em), _ptr(out), _ptr(deg),
+              int(mean), b, n, e, f, code, plan.units_per_lane,
+              _ptr(scratch), stream)
+    with _count_lock:
+        fn.launches += 1
+        fn.route_launches[plan.route] += 1
     return out, deg
 
 
@@ -486,9 +546,12 @@ def segment_aggregate_cuda(edges: torch.Tensor, edge_mask: torch.Tensor,
     edges: [B, E, 2] int32 (src, dst); edge_mask: [B, E] float32 (may
     carry weights); h: [B, N, F] float32. ``mode="mean"`` divides by the
     weighted in-degree ``max(Σ edge_mask, 1)``. Returns [B, N, F], or
-    ``(out, deg [B, N])`` with ``return_degree``. One fused
-    gather-scatter launch, plus the division in mean mode; ``E = 0``
-    gives zeros (and a zero degree) without a launch.
+    ``(out, deg [B, N])`` with ``return_degree``. Two launches: the
+    destination-sorted CSR, then the sum on :func:`segment_plan`'s route,
+    which reads ``h[src]`` rows, divides in registers and writes each row
+    once; ``route_launches`` counts the calls of each route beside
+    ``launches``. ``E = 0`` gives zeros (and a zero degree) without a
+    launch.
     """
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
@@ -511,6 +574,7 @@ def segment_aggregate_cuda(edges: torch.Tensor, edge_mask: torch.Tensor,
 
 
 segment_aggregate_cuda.launches = 0
+segment_aggregate_cuda.route_launches = dict.fromkeys(SEGMENT_ROUTES, 0)
 
 
 def segment_scatter_cuda(dst: torch.Tensor, edge_mask: torch.Tensor,
@@ -520,8 +584,9 @@ def segment_scatter_cuda(dst: torch.Tensor, edge_mask: torch.Tensor,
 
     dst: [B, E] int32 (a column view of ``[B, E, 2]`` edges is taken
     without a copy); edge_mask: [B, E] float32; msgs: [B, E, F] float32.
-    Returns [B, N, F]. One launch into a zeroed output; ``E = 0`` gives
-    zeros without a launch.
+    Returns [B, N, F]. Two launches, as :func:`segment_aggregate_cuda`'s,
+    counted per route in ``route_launches``; ``E = 0`` gives zeros without
+    a launch.
     """
     refuse_grad("segment_scatter", msgs, edge_mask)
     dev = _cuda_device(msgs)
@@ -541,6 +606,41 @@ def segment_scatter_cuda(dst: torch.Tensor, edge_mask: torch.Tensor,
 
 
 segment_scatter_cuda.launches = 0
+segment_scatter_cuda.route_launches = dict.fromkeys(SEGMENT_ROUTES, 0)
+
+
+def dst_csr_cuda(dst: torch.Tensor, n_nodes: int,
+                 src: Optional[torch.Tensor] = None):
+    """The destination-sorted CSR that the segmented sums build, alone, on
+    the card (``csrc/dst_csr.cuh``, one launch): for each batch row a stable
+    counting sort of the edge indices by destination.
+
+    dst: [B, E] int32 (a column view of ``[B, E, 2]`` edges is taken
+    without a copy); src: [B, E] int32 or None. Returns ``rowptr`` [B,
+    N + 1] and ``perm`` [B, E] int32: row b's edges into d are ``perm[b,
+    rowptr[b, d]:rowptr[b, d + 1]]``, ascending, and ``perm[b, k] = -1``
+    for ``k ≥ rowptr[b, N]``. An edge with an endpoint outside [0, N) is
+    in no segment. See :func:`repro_torch.kernels.ref.dst_csr_ref`.
+    """
+    dev = _cuda_device(dst)
+    if dst.dim() != 2:
+        raise ValueError(f"dst must be [B, E], got shape {tuple(dst.shape)}")
+    b, e = dst.shape
+    n = int(n_nodes)
+    if n < 0:
+        raise ValueError(f"n_nodes must be ≥ 0, got {n}")
+    _check_dims(B=b, N=n, E=e, BN=b * (n + 1), BE=b * e)
+    d_stride = _check_index(dst, "dst", b, e, dev)
+    s_stride = 1 if src is None else _check_index(src, "src", b, e, dev)
+    with torch.cuda.device(dev):
+        rowptr = torch.empty((b, n + 1), dtype=torch.int32, device=dev)
+        perm = torch.empty((b, e), dtype=torch.int32, device=dev)
+        if b == 0:
+            return rowptr, perm
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _call("dst_csr", _ptr(dst), d_stride, _ptr(src), s_stride,
+              _ptr(rowptr), _ptr(perm), b, n, e, stream)
+    return rowptr, perm
 
 
 def segment_gather_cuda(h: torch.Tensor, idx: torch.Tensor,
