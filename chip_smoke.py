@@ -34,11 +34,21 @@ Phases, each printing one JSON line:
    found), the host µs of one decode call, the decode at shapes with more
    and with fewer CTAs than SMs under its split plan, under twice the
    plan's CTAs and under one split, and the same-function yardstick (SDPA's
-   is_causal over the kept keys). The scan's entry carries each SSD
-   kernel's ptxas registers and spills and the count of ``HMMA`` in its
-   library (the run fails at 0), its dynamic shared memory a block and
-   blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the run
-   fails below two at N = P = 64), its device µs by kernel, the float32
+   is_causal over the kept keys). The GAT kernels (``edge_softmax``,
+   ``fused_gat_aggregate``) and their CSR build (``dst_csr``) are swept
+   with the padding pile of a packed bin (562 and 2,048 masked edges at
+   (0, 0)), a 1,200-edge hub, NaN in a padded source and on the pile, and
+   B = 3; every case runs twice on a shared CSR and once on its own, the
+   same bits required; their entries carry each kernel's time on the
+   bin's shared CSR and building its own, the build alone, one bin's GAT
+   kernels (the build and three layers of both) as one graph beside PR
+   19's 0.0946 ms, and the atomics of each library's SASS (the run fails
+   on a float one, as for ``segment_aggregate.cu``). The scan's entry
+   carries each SSD kernel's ptxas registers and spills and the count of
+   ``HMMA`` in its library (the run fails at 0), its dynamic shared
+   memory a block and blocks an SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the run fails below
+   two at N = P = 64), its device µs by kernel, the float32
    FMA kernel timed on the same values, and, for the record, zamba2 at one
    sequence and mamba2-370m's N = 128 at lm_path's batch. The
    fused_mp_layer entry sweeps both node-phase routes (the tensor-core
@@ -68,13 +78,17 @@ Phases, each printing one JSON line:
    equal bins × layers; every fused_mp_layer launch must take the
    tensor-core route. The card's predictions are held against the same
    ``DIPPM`` on ``device="cpu"``, which runs the plain versions.
-5. ``gat_path`` — the same for GAT at the paper's width: every layer
-   launches ``edge_softmax`` and ``fused_gat_aggregate`` once per bin.
+5. ``gat_path`` — the same for GAT at the paper's width: each bin builds
+   one destination-sorted CSR (``dst_csr``, once a bin) and every layer
+   launches ``edge_softmax`` and ``fused_gat_aggregate`` once on it; the
+   run fails unless every one of those launches used the bin's shared
+   CSR.
 6. ``serving`` — ``dippm.serve()`` on the GAT model answers a burst of
    ``submit_json`` requests from 8 threads, unique and repeated documents
    mixed: every future resolves, the counters conserve, cache hits are
    bit-equal to the cold prediction and every answer matches the direct
-   engine's; p50/p99 latency and the hit rate are printed.
+   engine's; p50/p99 latency and the hit rate are printed; every GAT
+   kernel launch must have used its bin's shared CSR.
 7. ``train_path`` — ``train_pmgns`` on the card at the paper's Table 3
    settings over 400 synthetic graphs: GraphSAGE on the dense layout and
    on the packed one for 2 epochs each, each against the same run on the
@@ -241,6 +255,26 @@ def time_graph_ms(torch, fn, replays: int = 50, calls: int = 20) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events) / calls
+
+
+def time_eager_ms(torch, fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one ``fn()`` call for a function that synchronizes
+    with the host and so cannot be captured in a graph: CUDA events
+    around ``calls`` eager calls, the median of ``reps`` runs per call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / calls)
+    return statistics.median(runs)
 
 
 def cold_copies(nbytes: float) -> int:
@@ -578,14 +612,76 @@ def check_close_nan(what: str, got, want, atol: float, rtol: float) -> float:
     return check_close(what, got[fin], want[fin], atol, rtol)
 
 
+def twice_on_csr(torch, name: str, call, plain) -> tuple:
+    """``call(c)`` twice with ``c`` true (the caller's shared CSR) and once
+    with ``c`` None (the call builds its own): the three must be the same
+    bits; then the result and the plain version's."""
+    shared, again, own = call("shared"), call("shared"), call(None)
+    want = plain()
+    torch.cuda.synchronize()
+    if not (same_bits(torch, shared, again) and same_bits(torch, shared, own)):
+        raise AssertionError(f"{name}: two runs, or the shared and the own "
+                             f"CSR, differ in their bits")
+    return shared, want
+
+
+def softmax_pile_cases() -> dict:
+    """edge_softmax where a segment is split over a block: the padding
+    pile of a packed bin (2,048 masked edges at (0, 0) and one live edge
+    into 0), a 1,200-edge hub, a NaN score on the pile's live edge, and
+    B = 3 rows each with its own pile."""
+    rng = np.random.default_rng(4600)
+    e, n = 8192, 4096
+    s = (rng.standard_normal((1, e, 4)) * 3).astype(np.float32)
+    dst = rng.integers(1, n, (1, e)).astype(np.int32)
+    em = (rng.random((1, e)) < 0.9).astype(np.float32)
+    dst[0, -2048:], em[0, -2048:] = 0, 0.0
+    dst[0, 0], em[0, 0] = 0, 1.0
+    hub = dst.copy()
+    hub[0, 100:1300] = 7
+    nan = s.copy()
+    nan[0, 0, 2] = np.nan
+    s3 = (rng.standard_normal((3, 700, 4)) * 3).astype(np.float32)
+    d3 = rng.integers(0, 60, (3, 700)).astype(np.int32)
+    m3 = (rng.random((3, 700)) < 0.85).astype(np.float32)
+    d3[0, -300:], m3[0, -300:] = 0, 0.0
+    d3[2, -500:], m3[2, -500:] = 0, 0.0
+    return {"padding pile 2048": (s, dst, em, n),
+            "in-degree 1200": (s, hub, em, n),
+            "NaN score on the pile": (nan, dst, em, n),
+            "B=3 piles": (s3, d3, m3, 60)}
+
+
 def sweep_edge_softmax(torch, dev) -> float:
     """edge_softmax_cuda against its plain version: E in {129, 256, 0},
     H in {1, 4, 8}, B in {1, 2}, then an all-masked bin, a fully masked
-    destination, a padded edge scoring 1e30 and a NaN score."""
+    destination, a padded edge scoring 1e30, a NaN score and the split
+    segments of ``softmax_pile_cases``; every case with a shared CSR twice
+    and with its own, the same bits required."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_spmm import edge_softmax_cuda
+    from repro_torch.kernels.segment_spmm import (dst_csr_cuda,
+                                                  edge_softmax_cuda)
     worst = 0.0
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+
+    def run(name, s, dst, em, nodes, nan=False):
+        ts, td, tm = t(s), t(dst), t(em)
+        csr = dst_csr_cuda(td, nodes)
+        got, want = twice_on_csr(
+            torch, f"edge_softmax {name}",
+            lambda c: edge_softmax_cuda(ts, td, tm, nodes,
+                                        csr=csr if c else None),
+            lambda: ref.edge_softmax_ref(ts, td, tm, nodes))
+        if nan:
+            return got, check_close_nan(f"edge_softmax {name}", got, want,
+                                        KERNEL_ATOL, KERNEL_RTOL)
+        err = check_close(f"edge_softmax {name}", got, want, KERNEL_ATOL,
+                          KERNEL_RTOL)
+        if not bool((got[tm == 0] == 0).all()):
+            raise AssertionError(f"edge_softmax {name}: a masked edge is not "
+                                 f"exactly 0")
+        return got, err
+
     n = 40
     for i, (b, e, h) in enumerate((b, e, h) for b in (1, 2)
                                   for e in (129, 256, 0) for h in (1, 4, 8)):
@@ -593,11 +689,7 @@ def sweep_edge_softmax(torch, dev) -> float:
         s = rng.standard_normal((b, e, h)).astype(np.float32) * 3
         dst = rng.integers(0, n, (b, e)).astype(np.int32)
         em = (rng.random((b, e)) < 0.8).astype(np.float32)
-        got = edge_softmax_cuda(t(s), t(dst), t(em), n)
-        want = ref.edge_softmax_ref(t(s), t(dst), t(em), n)
-        torch.cuda.synchronize()
-        worst = max(worst, check_close(f"edge_softmax b={b} e={e} h={h}",
-                                       got, want, KERNEL_ATOL, KERNEL_RTOL))
+        worst = max(worst, run(f"b={b} e={e} h={h}", s, dst, em, n)[1])
     rng = np.random.default_rng(99)
     s = rng.standard_normal((1, 192, 4)).astype(np.float32)
     dst = rng.integers(0, 24, (1, 192)).astype(np.int32)
@@ -611,52 +703,92 @@ def sweep_edge_softmax(torch, dev) -> float:
             np.zeros((1, 3), np.int32),
             np.array([[1.0, 1.0, 0.0]], np.float32), 4),
     }
-    for name, (s, dst, em, nodes) in fixed.items():
-        got = edge_softmax_cuda(t(s), t(dst), t(em), nodes)
-        want = ref.edge_softmax_ref(t(s), t(dst), t(em), nodes)
-        torch.cuda.synchronize()
-        worst = max(worst, check_close(f"edge_softmax {name}", got, want,
-                                       KERNEL_ATOL, KERNEL_RTOL))
-        if not bool((got[t(em) == 0] == 0).all()):
-            raise AssertionError(f"edge_softmax {name}: a masked edge is "
-                                 f"not exactly 0")
+    for name, case in fixed.items():
+        worst = max(worst, run(name, *case)[1])
     s, dst, em, nodes = fixed["fully masked destination"]
     s = s.copy()
     s[0, 1, 0] = np.nan
-    got = edge_softmax_cuda(t(s), t(dst), t(em), nodes)
-    want = ref.edge_softmax_ref(t(s), t(dst), t(em), nodes)
-    torch.cuda.synchronize()
-    worst = max(worst, check_close_nan("edge_softmax NaN score", got, want,
-                                       KERNEL_ATOL, KERNEL_RTOL))
+    got, err = run("NaN score", s, dst, em, nodes, nan=True)
+    worst = max(worst, err)
     if np.isfinite(got[0, :4, 0].cpu().numpy()).any():
         raise AssertionError("edge_softmax: a NaN score left its "
                              "destination finite")
+    for name, (s, dst, em, nodes) in softmax_pile_cases().items():
+        nan = bool(np.isnan(s).any())
+        got, err = run(name, s, dst, em, nodes, nan=nan)
+        worst = max(worst, err)
+        if nan and not bool(torch.isnan(got[0, t(dst)[0] == 0, 2]).all()):
+            raise AssertionError("edge_softmax: a NaN score on the pile left "
+                                 "a weight of its destination finite")
     return worst
+
+
+def gat_pile_cases() -> dict:
+    """fused_gat_aggregate where a segment is split into chunks, at the
+    full bin's widths (P = 4096, D = 512, 4 heads): the full bin's padding
+    pile (562 masked edges at (0, 0)), a 2,048-edge pile with a 1,200-edge
+    hub, and NaN in the padded source row z[0]."""
+    rng = np.random.default_rng(4700)
+    p, d, h = FULL_P, 512, 4
+    out = {}
+    for name, q, pile, hub in (("padding pile 562", FULL_Q, 562, 0),
+                               ("pile 2048 and in-degree 1200", 8192, 2048,
+                                1200),
+                               ("NaN in a padded source", FULL_Q, 562, 0)):
+        z = rng.standard_normal((p, d)).astype(np.float32)
+        edges = rng.integers(1, 3500, (q, 2)).astype(np.int32)
+        em = np.ones(q, np.float32)
+        edges[-pile:], em[-pile:] = 0, 0.0
+        if hub:
+            edges[100:100 + hub, 1] = 7
+        if name.startswith("NaN"):
+            z[0, 9] = np.nan
+        out[name] = (z, edges, em, rng.random((q, h)).astype(np.float32),
+                     (np.arange(p) < 3500).astype(np.float32))
+    return out
 
 
 def sweep_gat_aggregate(torch, dev) -> float:
     """fused_gat_aggregate_cuda against its plain version at (P, Q, H) in
-    {(64, 96, 4), (130, 257, 2), (4096, 6656, 4), (64, 0, 4)}."""
+    {(64, 96, 4), (130, 257, 2), (4096, 6656, 4), (64, 0, 4)}, an odd head
+    width (the scalar route), an unaligned z, and ``gat_pile_cases``; every
+    case with a shared CSR twice and with its own, the same bits
+    required."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_spmm import fused_gat_aggregate_cuda
+    from repro_torch.kernels.segment_spmm import (dst_csr_cuda,
+                                                  fused_gat_aggregate_cuda)
     worst = 0.0
-    for p, q, h in ((64, 96, 4), (130, 257, 2), (FULL_P, FULL_Q, 4),
-                    (64, 0, 4)):
+    cases = {}
+    for p, q, h, d in ((64, 96, 4, 16), (130, 257, 2, 16),
+                       (FULL_P, FULL_Q, 4, 512), (64, 0, 4, 16),
+                       (90, 500, 3, 30)):
         rng = np.random.default_rng(p + q)
-        d = 512 if p == FULL_P else 16
-        arrays = (rng.standard_normal((p, d)).astype(np.float32),
-                  (rng.integers(0, p, (q, 2)).astype(np.int32) if q
-                   else np.zeros((0, 2), np.int32)),
-                  (rng.random(q) < 0.8).astype(np.float32),
-                  rng.random((q, h)).astype(np.float32),
-                  (rng.random(p) < 0.9).astype(np.float32))
+        cases[f"p={p} q={q} h={h} d={d}"] = (
+            rng.standard_normal((p, d)).astype(np.float32),
+            (rng.integers(0, p, (q, 2)).astype(np.int32) if q
+             else np.zeros((0, 2), np.int32)),
+            (rng.random(q) < 0.8).astype(np.float32),
+            rng.random((q, h)).astype(np.float32),
+            (rng.random(p) < 0.9).astype(np.float32))
+    cases.update(gat_pile_cases())
+    for name, arrays in cases.items():
         t = [torch.as_tensor(a, device=dev) for a in arrays]
-        got = fused_gat_aggregate_cuda(*t)
-        want = ref.fused_gat_aggregate_ref(*t)
-        torch.cuda.synchronize()
-        worst = max(worst, check_close(f"fused_gat_aggregate p={p} q={q} "
-                                       f"h={h}", got, want, KERNEL_ATOL,
-                                       KERNEL_RTOL))
+        if name == "p=130 q=257 h=2 d=16":
+            # a view one float into its storage: the scalar route
+            t[0] = torch.empty(t[0].numel() + 1, device=dev)[1:].view(
+                t[0].shape).copy_(t[0])
+        p = t[0].shape[0]
+        csr = dst_csr_cuda(t[1][:, 1][None], p)
+        got, want = twice_on_csr(
+            torch, f"fused_gat_aggregate {name}",
+            lambda c: fused_gat_aggregate_cuda(*t, csr=csr if c else None),
+            lambda: ref.fused_gat_aggregate_ref(*t))
+        worst = max(worst, check_close_nan(f"fused_gat_aggregate {name}",
+                                           got, want, KERNEL_ATOL,
+                                           KERNEL_RTOL))
+        if name.startswith("NaN") and not bool(torch.isnan(got[0, 9])):
+            raise AssertionError("fused_gat_aggregate: NaN * 0 of the padded "
+                                 "edges did not reach node 0")
     return worst
 
 
@@ -1153,13 +1285,22 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
     return entries, breakdown, info
 
 
+#: PR 19's reading of a full bin's GAT kernels, 3 x (edge_softmax +
+#: fused_gat_aggregate) at 6.83 + 24.7 us, before they shared a CSR
+GAT_BIN_PR19_MS = 0.0946
+
+
 def gat_kernel_entries(torch, dev, cfg) -> tuple:
-    """edge_softmax and fused_gat_aggregate at the GAT full bin: the first
-    layer's projection, scores and attention, as ``_fused_mp_stack``
-    computes them."""
+    """edge_softmax, fused_gat_aggregate and the CSR build they share at
+    the GAT full bin: the first layer's projection, scores and attention,
+    as ``_fused_mp_stack`` computes them. Each kernel is timed on the
+    bin's shared CSR (its ``ms``) and building its own; the bin's GAT
+    kernels, one build and three layers of both, as one graph."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_spmm import (edge_softmax_cuda,
-                                                  fused_gat_aggregate_cuda)
+    from repro_torch.kernels.segment_spmm import (dst_csr_cuda,
+                                                  edge_softmax_cuda,
+                                                  fused_gat_aggregate_cuda,
+                                                  gat_plan)
     sweep_sm = sweep_edge_softmax(torch, dev)
     sweep_ga = sweep_gat_aggregate(torch, dev)
     batch, tree, _ = full_bin(torch, dev, cfg)
@@ -1180,29 +1321,61 @@ def gat_kernel_entries(torch, dev, cfg) -> tuple:
     s = torch.nn.functional.leaky_relu(ed[dst] + es[src], 0.2)[None]
     d32, em1 = edges[:, 1].contiguous()[None], em[None]
     q_real = int((em != 0).sum())
+    pile = int((dst == 0).sum())
 
-    att_k = edge_softmax_cuda(s, d32, em1, P)
-    att_r = ref.edge_softmax_ref(s, d32, em1, P)
-    out_k = fused_gat_aggregate_cuda(z, edges, em, att_r[0], nm)
-    out_r = ref.fused_gat_aggregate_ref(z, edges, em, att_r[0], nm)
-    torch.cuda.synchronize()
+    csr = dst_csr_cuda(d32, P)
+    csr_want = ref.dst_csr_ref(d32, P)
+    att_k, att_r = twice_on_csr(
+        torch, "edge_softmax full bin",
+        lambda c: edge_softmax_cuda(s, d32, em1, P, csr=csr if c else None),
+        lambda: ref.edge_softmax_ref(s, d32, em1, P))
+    att = att_r[0].contiguous()
+    out_k, out_r = twice_on_csr(
+        torch, "fused_gat_aggregate full bin",
+        lambda c: fused_gat_aggregate_cuda(z, edges, em, att, nm,
+                                           csr=csr if c else None),
+        lambda: ref.fused_gat_aggregate_ref(z, edges, em, att, nm))
+    if not all(torch.equal(a, b) for a, b in zip(csr, csr_want)):
+        raise AssertionError("dst_csr at the full bin differs from its "
+                             "plain version")
     err_sm = check_close("edge_softmax full bin", att_k, att_r,
                          KERNEL_ATOL, KERNEL_RTOL)
     err_ga = check_close("fused_gat_aggregate full bin", out_k, out_r,
                          KERNEL_ATOL, KERNEL_RTOL)
-    att = att_r[0].contiguous()
+
+    def layers(c):
+        """the bin's three layers of both kernels on one CSR"""
+        for _ in range(cfg.n_gnn_blocks):
+            edge_softmax_cuda(s, d32, em1, P, csr=c)
+            fused_gat_aggregate_cuda(z, edges, em, att, nm, csr=c)
+
     calls = {
-        "edge_softmax": (lambda: edge_softmax_cuda(s, d32, em1, P),
-                         lambda: ref.edge_softmax_ref(s, d32, em1, P)),
+        "edge_softmax": (
+            lambda: edge_softmax_cuda(s, d32, em1, P, csr=csr),
+            lambda: edge_softmax_cuda(s, d32, em1, P),
+            lambda: ref.edge_softmax_ref(s, d32, em1, P)),
         "fused_gat_aggregate": (
+            lambda: fused_gat_aggregate_cuda(z, edges, em, att, nm, csr=csr),
             lambda: fused_gat_aggregate_cuda(z, edges, em, att, nm),
             lambda: ref.fused_gat_aggregate_ref(z, edges, em, att, nm)),
+        "dst_csr": (lambda: dst_csr_cuda(d32, P), None, None),
     }
-    times = {k: {"ms": time_graph_ms(torch, kern),
-                 "plain_ms": time_graph_ms(torch, plain)}
-             for k, (kern, plain) in calls.items()}
-    breakdown = device_breakdown_us(torch, {k: kern for k, (kern, _)
-                                            in calls.items()})
+    times = {k: {"ms": time_graph_ms(torch, shared),
+                 "standalone_ms": (time_graph_ms(torch, own)
+                                   if own is not None else None),
+                 "plain_ms": (time_graph_ms(torch, plain)
+                              if plain is not None else None)}
+             for k, (shared, own, plain) in calls.items()}
+    # the plain CSR's bincount reads its input's max on the host, so it
+    # cannot be captured in a graph: CUDA events around 20 eager calls
+    times["dst_csr"]["plain_ms"] = time_eager_ms(
+        torch, lambda: ref.dst_csr_ref(d32, P))
+    bin_ms = time_graph_ms(torch, lambda: layers(dst_csr_cuda(d32, P)),
+                           calls=5)
+    breakdown = device_breakdown_us(torch, {
+        **{k: shared for k, (shared, _, _) in calls.items()},
+        **{f"{k} standalone": own for k, (_, own, _) in calls.items()
+           if own is not None}})
     # each input read once, each output written once; the operations this
     # run's real edges need: max, subtract, exp, scale, add and divide per
     # (edge, head); a product, two scalings and an add per (edge, feature)
@@ -1210,39 +1383,69 @@ def gat_kernel_entries(torch, dev, cfg) -> tuple:
                                4.0 * (2 * Q * heads + 2 * Q))
     ga_bound, ga_by = bound_ms(4.0 * q_real * D,
                                4.0 * (2 * P * D + 3 * Q + Q * heads + P))
+    # the build reads dst and writes rowptr and perm; its work is integer
+    csr_bound, csr_by = bound_ms(0.0, 4.0 * (Q + (P + 1) + Q))
     blocks = cfg.n_gnn_blocks
+    route = gat_plan(D, heads, z.data_ptr() % 16 == 0).route
+
+    def per_bin(name, key):
+        v = times[name][key]
+        return None if v is None else v * blocks
     entries = [
         {"name": "edge_softmax", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/edge_softmax.cu",
          "replaces": "src/repro/kernels/segment_spmm.py:622",
          "launches": None, "max_abs_err": max(err_sm, sweep_sm),
-         "ms": times["edge_softmax"]["ms"] * blocks,
-         "launches_per_unit": blocks,
-         "plain_ms": times["edge_softmax"]["plain_ms"] * blocks,
+         "ms": per_bin("edge_softmax", "ms"), "launches_per_unit": blocks,
+         "standalone_ms": per_bin("edge_softmax", "standalone_ms"),
+         "plain_ms": per_bin("edge_softmax", "plain_ms"),
          "bound_ms": sm_bound * blocks, "bound_by": sm_by,
-         "library_ms": None,
+         "library_ms": None, "build": segment_build_facts("edge_softmax"),
          "unit": f"one full bin: {blocks} GAT layers, each B=1 E={Q} "
-                 f"H={heads} N={P}",
+                 f"H={heads} N={P} on the bin's shared CSR",
          "per_layer": times["edge_softmax"], "bound_per_layer_ms": sm_bound,
+         "standalone_note": "standalone_ms: each call builds its own CSR "
+                            "(a dst_csr launch, then the softmax)",
          "library_note": "no single PyTorch call computes a segment "
                          "softmax over a destination index"},
         {"name": "fused_gat_aggregate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gat_aggregate.cu",
          "replaces": "src/repro/kernels/segment_spmm.py:503",
          "launches": None, "max_abs_err": max(err_ga, sweep_ga),
-         "ms": times["fused_gat_aggregate"]["ms"] * blocks,
+         "ms": per_bin("fused_gat_aggregate", "ms"),
          "launches_per_unit": blocks,
-         "plain_ms": times["fused_gat_aggregate"]["plain_ms"] * blocks,
+         "standalone_ms": per_bin("fused_gat_aggregate", "standalone_ms"),
+         "plain_ms": per_bin("fused_gat_aggregate", "plain_ms"),
          "bound_ms": ga_bound * blocks, "bound_by": ga_by,
-         "library_ms": None,
+         "library_ms": None, "full_bin_route": route,
+         "build": segment_build_facts("gat_aggregate"),
          "unit": f"one full bin: {blocks} GAT layers, each P={P} Q={Q} "
-                 f"D={D} H={heads}",
+                 f"D={D} H={heads} on the bin's shared CSR",
          "per_layer": times["fused_gat_aggregate"],
          "bound_per_layer_ms": ga_bound,
+         "standalone_note": "standalone_ms: each call builds its own CSR "
+                            "(a dst_csr launch, then the aggregate)",
          "library_note": "no single PyTorch call computes the per-head "
                          "gather ⊙ attention → masked scatter"},
+        {"name": "dst_csr", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dst_csr.cuh",
+         "replaces": "src/repro/kernels/segment_spmm.py:503",
+         "replaces_note": "no TPU kernel of its own: the edge order that "
+                          "_fused_gat_kernel's and _softmax_stats_kernel's "
+                          "sequential grids walk (:455, :558), built once a "
+                          "bin for both GAT kernels",
+         "launches": None, "max_abs_err": 0.0,
+         "ms": times["dst_csr"]["ms"], "launches_per_unit": 1,
+         "plain_ms": times["dst_csr"]["plain_ms"],
+         "bound_ms": csr_bound, "bound_by": csr_by, "library_ms": None,
+         "unit": f"one full bin: B=1 E={Q} N={P}, once a bin",
+         "library_note": "no single PyTorch call builds rowptr and a stable "
+                         "destination order (a stable argsort gives the "
+                         "order alone)"},
     ]
-    info = {"gat_real_edges": q_real,
+    info = {"gat_real_edges": q_real, "gat_node0_segment": pile,
+            "gat_bin_kernels_ms": bin_ms,
+            "gat_bin_kernels_ms_pr19": GAT_BIN_PR19_MS,
             "sweep_max_abs_err": {"edge_softmax": sweep_sm,
                                   "fused_gat_aggregate": sweep_ga}}
     return entries, breakdown, info
@@ -1597,7 +1800,8 @@ def phase_kernels(torch, dev, sage_cfg, gat_cfg) -> list:
         e["max_abs_err"] = max(e["max_abs_err"], back.get(e["name"], 0.0))
     entries = sage + gat + train + lm_entries
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
-          **sage_info, "gat_real_edges": gat_info["gat_real_edges"],
+          **sage_info, **{k: v for k, v in gat_info.items()
+                          if k != "sweep_max_abs_err"},
           "sweep_max_abs_err": {**sage_info["sweep_max_abs_err"],
                                 **gat_info["sweep_max_abs_err"],
                                 **train_info["sweep_max_abs_err"],
@@ -1615,13 +1819,45 @@ def phase_kernels(torch, dev, sage_cfg, gat_cfg) -> list:
 
 def path_kernels(variant: str) -> dict:
     """The wrappers a variant's forward launches, each with its launches
-    per bin (per layer, or once)."""
+    per bin (per layer, or once): GAT builds one CSR a bin, which its
+    layers' edge softmax and aggregate share."""
     from repro_torch.kernels import segment_spmm as k
     per_layer = {"graphsage": ["fused_mp_layer_cuda"],
                  "gat": ["edge_softmax_cuda", "fused_gat_aggregate_cuda"]}
     out = {name.removesuffix("_cuda"): (getattr(k, name), "layer")
            for name in per_layer[variant]}
+    if variant == "gat":
+        out["dst_csr"] = (k.dst_csr_cuda, "bin")
     out["segment_readout"] = (k.segment_readout_cuda, "bin")
+    return out
+
+
+#: the wrappers that count their calls on a shared CSR and on their own
+CSR_SHARERS = ("edge_softmax", "fused_gat_aggregate")
+
+
+def zero_counts(kernels: dict) -> None:
+    """Every launch count of ``kernels`` (``path_kernels``) to 0, its
+    routes' and CSR counts too."""
+    for fn, _ in kernels.values():
+        fn.launches = 0
+        for key in ("route_launches", "csr_launches"):
+            if hasattr(fn, key):
+                setattr(fn, key, dict.fromkeys(getattr(fn, key), 0))
+
+
+def check_shared_csr(kernels: dict, launches: dict, phase: str) -> dict:
+    """Each CSR sharer's calls on the path, by CSR: all must have used the
+    bin's shared CSR."""
+    out = {}
+    for name in CSR_SHARERS:
+        if name not in kernels:
+            continue
+        got = dict(kernels[name][0].csr_launches)
+        if got != {"shared": launches[name], "own": 0}:
+            raise AssertionError(f"{phase}: {name} ran {got}, not every "
+                                 f"launch on the bin's shared CSR")
+        out[name] = got
     return out
 
 
@@ -1642,11 +1878,8 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
     engine = dippm.engine()
     kernels = path_kernels(cfg.variant)
 
-    for fn, _ in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     fused = kernels.get("fused_mp_layer", (None,))[0]
-    if fused is not None:
-        fused.route_launches = dict.fromkeys(fused.route_launches, 0)
     t0 = time.perf_counter()
     warmed = engine.warmup(rungs="all")
     torch.cuda.synchronize()
@@ -1664,6 +1897,9 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
     t_bulk = statistics.median(bulk_s)
     launches = {name: fn.launches for name, (fn, _) in kernels.items()}
     routes = dict(fused.route_launches) if fused is not None else None
+    gat_routes = (dict(kernels["fused_gat_aggregate"][0].route_launches)
+                  if "fused_gat_aggregate" in kernels else None)
+    csr_use = check_shared_csr(kernels, launches, phase)
     stats = engine.stats.snapshot()
     bulk_bins = (stats.batches_run - bins_before) // BULK_REPEATS
 
@@ -1708,6 +1944,7 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
            "bulk_s": bulk_s, "bulk_predictions_per_s": len(samples) / t_bulk,
            "bulk_ms_per_bin": 1e3 * t_bulk / max(bulk_bins, 1),
            "launches": launches, "fused_mp_routes": routes,
+           "gat_aggregate_routes": gat_routes, "csr_launches": csr_use,
            "engine_stats": {**{k: getattr(stats, k) for k in (
                "graphs_predicted", "batches_run", "cache_hits",
                "cache_misses", "cache_entries", "recompiles",
@@ -1745,8 +1982,7 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
     with dippm.serve(max_wait_ms=2.0) as svc:
         svc.warmup()
         torch.cuda.synchronize()
-        for fn, _ in kernels.values():
-            fn.launches = 0
+        zero_counts(kernels)
         start = threading.Barrier(SERVE_THREADS)
 
         def client(t):
@@ -1778,6 +2014,7 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
                                  f"{[th.is_alive() for th in threads]}")
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+        csr_use = check_shared_csr(kernels, launches, "serving")
         st = svc.stats
     answers = [kp for rs in results for kp in rs]
     n_req = SERVE_THREADS * SERVE_PER_THREAD
@@ -1815,7 +2052,7 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
            "counters": {k: getattr(st, k) for k in (
                "submitted", "completed", "failed", "deadline_expired",
                "shed_count", "rejected")},
-           "launches": launches,
+           "launches": launches, "csr_launches": csr_use,
            "vs_direct_engine": {"max_abs_err": err,
                                 "atol": E2E_ATOL, "rtol": E2E_RTOL}}
     emit(out)
@@ -1825,7 +2062,7 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
 #: every wrapper, so a training run can show it launched none it should not
 TRAIN_WRAPPERS = ("segment_aggregate", "segment_scatter", "segment_gather",
                   "dense_aggregate", "segment_readout", "edge_softmax",
-                  "fused_mp_layer", "fused_gat_aggregate")
+                  "fused_mp_layer", "fused_gat_aggregate", "dst_csr")
 
 
 #: the wrappers that count their launches per route of the segmented sum
@@ -1851,7 +2088,9 @@ def train_launch_rule(cfg, steps: int) -> dict:
       ``es[src]``, ``z[src]``), one edge softmax and one scatter; per layer
       backward a scatter for each gather, a scatter and a gather for the
       softmax, and a gather for the scatter: ``5L`` gathers, ``5L``
-      scatters and ``L`` softmaxes a step.
+      scatters and ``L`` softmaxes a step, each softmax on a CSR it builds
+      itself (``L`` ``dst_csr`` launches; the forward's CSR is not shared
+      across a training step).
     * The packed readout: once forward; backward one gather of the max
       (mean⊕max), one scatter of the counts and ties, one gather of the
       per-graph gradient.
@@ -1867,6 +2106,7 @@ def train_launch_rule(cfg, steps: int) -> dict:
         want["segment_gather"] = steps * 5 * n_layers
         want["segment_scatter"] = steps * 5 * n_layers
         want["edge_softmax"] = steps * n_layers
+        want["dst_csr"] = steps * n_layers
     else:
         raise ValueError(f"no launch rule for {cfg.variant} on {layout}")
     if layout == "packed":
@@ -2344,19 +2584,21 @@ def build_facts(source: str, opcodes: tuple) -> dict:
     return facts
 
 
-def segment_build_facts() -> dict:
-    """What ptxas reports for the segmented sums' and the CSR build's
-    kernels (``csrc/segment_aggregate.cu``) and the atomics in the built
-    library's SASS; the run fails if any of them adds a float (a ``RED``
-    or ``ATOM`` on an F16, F32 or F64): the sums take no float atomic."""
-    facts, sass = built_sass("segment_aggregate")
+def segment_build_facts(source: str = "segment_aggregate") -> dict:
+    """What ptxas reports for the kernels of a library that sums over a
+    destination-sorted CSR (``csrc/segment_aggregate.cu``: the segmented
+    sums and the CSR build; ``gat_aggregate.cu``; ``edge_softmax.cu``) and
+    the atomics in its SASS; the run fails if any of them adds a float (a
+    ``RED`` or ``ATOM`` on an F16, F32 or F64): the sums take no float
+    atomic."""
+    facts, sass = built_sass(source)
     ops = re.findall(r"\b(?:RED|ATOMG|ATOMS|ATOM)\b[\w.]*", sass)
     floats = [op for op in ops if re.search(r"\.(?:BF16|F16|F32|F64)", op)]
     facts["sass_atomics"] = len(ops)
     facts["sass_float_atomics"] = len(floats)
     if floats:
-        raise AssertionError(f"segment_aggregate: float atomics in the "
-                             f"SASS: {sorted(set(floats))}")
+        raise AssertionError(f"{source}: float atomics in the SASS: "
+                             f"{sorted(set(floats))}")
     return facts
 
 

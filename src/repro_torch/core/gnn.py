@@ -443,7 +443,8 @@ def _fused_mp_stack(p: Params, cfg: PMGNSConfig, x: torch.Tensor,
     outside, because its bias comes before the node mask. GAT projects
     and scores with plain products and gathers (as XLA ran them), then
     runs the edge softmax and the fused gather ⊙ attention → scatter as
-    kernels; it has no self term. The MLP baseline has no message
+    kernels over one destination-sorted CSR that the bin's layers share
+    (their edges are the same); it has no self term. The MLP baseline has no message
     passing.
     """
     h = x
@@ -478,6 +479,7 @@ def _fused_mp_stack(p: Params, cfg: PMGNSConfig, x: torch.Tensor,
         n = x.shape[0]
         src, dst = edges[:, 0].long(), edges[:, 1].long()
         dst32 = edges[:, 1].contiguous()[None]
+        csr = ops.dst_csr(dst32, n)                  # once a bin
         for lp in blocks:
             heads = lp["att_src"].shape[0]
             z = nn.linear(lp["proj"], h)                 # [P, D]
@@ -485,9 +487,10 @@ def _fused_mp_stack(p: Params, cfg: PMGNSConfig, x: torch.Tensor,
             es = torch.einsum("phd,hd->ph", zh, lp["att_src"])
             ed = torch.einsum("phd,hd->ph", zh, lp["att_dst"])
             s = torch.nn.functional.leaky_relu(ed[dst] + es[src], 0.2)
-            att = ops.edge_softmax(s[None], dst32, edge_mask[None], n)[0]
+            att = ops.edge_softmax(s[None], dst32, edge_mask[None], n,
+                                   csr=csr)[0]
             h = torch.relu(ops.fused_gat_aggregate(z, edges, edge_mask, att,
-                                                   mask))
+                                                   mask, csr=csr))
     elif cfg.variant == "mlp":
         for lp in blocks:
             h = torch.relu(nn.linear(lp["lin"], h) * mask[:, None])

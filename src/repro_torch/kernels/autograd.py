@@ -189,10 +189,10 @@ class EdgeSoftmax(torch.autograd.Function):
     """Per-destination softmax of ``[B, E, H]`` edge scores."""
 
     @staticmethod
-    def forward(ctx, scores, dst, edge_mask, n_nodes):
+    def forward(ctx, scores, dst, edge_mask, n_nodes, csr=None):
         _refuse(ctx, {2: "edge_mask"})
         att = ops.kernel("edge_softmax", scores)(scores, dst, edge_mask,
-                                                 n_nodes)
+                                                 n_nodes, csr=csr)
         ctx.n = n_nodes
         ctx.save_for_backward(att, dst, edge_mask)
         return att
@@ -200,11 +200,11 @@ class EdgeSoftmax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
+            return None, None, None, None, None
         att, dst, em = ctx.saved_tensors
         live = (em > 0).to(att.dtype)
         ag = _c(att * g)
         per_dst = ops.kernel("segment_scatter", ag)(dst, live, ag, ctx.n)
         back = ops.kernel("segment_gather", ag)(per_dst, dst, live)
         ds = torch.where(live[..., None] > 0, att * (g - back), 0.0)
-        return ds, None, None, None
+        return ds, None, None, None, None

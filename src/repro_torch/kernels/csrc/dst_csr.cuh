@@ -1,5 +1,7 @@
 // Destination-sorted CSR of a batched edge list, built on the device, for
-// Hopper (sm_90a). The segmented sums of segment_aggregate.cu run over it.
+// Hopper (sm_90a). The segmented sums of segment_aggregate.cu run over it,
+// built each call; the GAT kernels (edge_softmax.cu, gat_aggregate.cu) over
+// one built alone (the dst_csr entry) once a bin.
 //
 // For each batch row b of a [B, E] edge list, a stable counting sort of the
 // edge indices by destination:
@@ -17,7 +19,7 @@
 // outside [0, N) is in no segment; every other edge is, whatever its weight.
 // So a weight-0 edge's NaN * 0 reaches its destination as the plain versions
 // add it, and the padded edges of a batch row, all at (0, 0), form one long
-// segment at node 0, which the sums cut into chunks (segment_aggregate.cu).
+// segment at node 0, which the sums cut into chunks (seg_chunks.cuh).
 // dst and src are read at element strides, so the columns of a [B, E, 2]
 // edge array are passed without a copy.
 //
@@ -75,7 +77,7 @@ struct BuildArgs {
   float* csr_w;          // [B * E]
   int* csr_dst;          // [B * E]: entry k's destination
   // a segment longer than `chunk` is summed in chunks of the row's windows
-  // (see segment_aggregate.cu), in groups of `group`: its arrival counters
+  // (seg_chunks.cuh), in groups of `group`: its arrival counters
   // are zeroed here, one per slice for the segment and one per slice for
   // each group, at the group's first chunk's slot of [B, cells, 2]
   int chunk, group, cells, slices;

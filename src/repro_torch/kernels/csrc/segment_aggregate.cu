@@ -44,9 +44,10 @@
 // A segment longer than the route's chunk (kWideChunk or kNarrowChunk
 // edges: a high in-degree node, the padded edges of a batch row, which all
 // sit at (0, 0), or a graph of the packed readout's backward) is summed in
-// pieces: the batch row's entries are cut into windows of `chunk`, and a
-// warp takes a window's pieces of such segments (at most two). On the wide
-// routes it does so per 32-unit column slice, one unit a lane and
+// pieces (seg_chunks.cuh, shared with gat_aggregate.cu): the batch row's
+// entries are cut into windows of `chunk`, and a warp takes a window's
+// pieces of such segments (at most two). On the wide routes it does so per
+// 32-unit column slice, one unit a lane and
 // kChunkInFlight edges in flight; on the narrow route its lanes take the
 // piece's entries, one each, and meet in a fixed shuffle tree (lane i adds
 // lane i + 16, then i + 8, 4, 2, 1). Each warp writes its piece's partial
@@ -95,6 +96,7 @@
 #include <atomic>
 
 #include "dst_csr.cuh"
+#include "seg_chunks.cuh"
 
 namespace {
 
@@ -104,14 +106,12 @@ constexpr unsigned kFull = 0xffffffffu;
 
 dim3 row_block() { return dim3(kWarp, kRowThreads / kWarp); }
 
-template <class Unit>
-__device__ __forceinline__ Unit zero_unit();
-template <>
-__device__ __forceinline__ float zero_unit<float>() { return 0.0f; }
-template <>
-__device__ __forceinline__ float4 zero_unit<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
+using chunks::kGroup;
+using chunks::ldcg;
+using chunks::ldg;
+using chunks::plus;
+using chunks::term_add;
+using chunks::zero_unit;
 __device__ __forceinline__ float scaled(float v, float w) { return v * w; }
 __device__ __forceinline__ float4 scaled(float4 v, float w) {
   return make_float4(v.x * w, v.y * w, v.z * w, v.w * w);
@@ -301,7 +301,6 @@ constexpr int kInFlight = 8;       // rows a narrow thread loads before it
                                    // adds
 constexpr int kWideWords = 32;     // 32-bit words a wide lane does
 constexpr int kChunkInFlight = 16; // rows in flight on a chunk's slice
-constexpr int kGroup = 16;         // chunks a first-level combine adds
 
 struct SumArgs {
   const float* m;          // message rows: h [B*N, F] or msgs [B*E, F]
@@ -322,22 +321,10 @@ struct SumArgs {
   int tiles;               // wide: column tiles a row, a warp each
   long long chunk_workers; // the grid's first warps (wide: B * cells *
                            // slices) or threads (narrow: 32 B * cells)
+  // the destination of flat entry k (seg_chunks.cuh)
+  __device__ int entry_dst(long long k) const { return __ldg(csr_dst + k); }
 };
 
-__device__ __forceinline__ float term_add(float acc, float w, float v) {
-  return __fadd_rn(acc, __fmul_rn(w, v));   // rounded apart: no FMA
-}
-__device__ __forceinline__ float4 term_add(float4 acc, float w, float4 v) {
-  return make_float4(term_add(acc.x, w, v.x), term_add(acc.y, w, v.y),
-                     term_add(acc.z, w, v.z), term_add(acc.w, w, v.w));
-}
-__device__ __forceinline__ float plus(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float4 plus(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
-                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
-}
 __device__ __forceinline__ float quot(float v, float d) {
   return __fdiv_rn(v, d);
 }
@@ -349,12 +336,6 @@ __device__ __forceinline__ float4 quot(float4 v, float d) {
 __device__ __forceinline__ float divisor(float deg) {
   return deg < 1.0f ? 1.0f : deg;
 }
-__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float4 ldg(const float4* p) { return __ldg(p); }
-// scratch another warp of this launch wrote: from L2, past this SM's L1
-__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float4 ldcg(const float4* p) { return __ldcg(p); }
-
 // The sum over j < cnt, ascending, of the weights lane j holds.
 __device__ __forceinline__ float weight_sum(float w, int cnt) {
   float d = 0.0f;
@@ -395,64 +376,11 @@ __device__ __forceinline__ void sum_rows(const Unit* __restrict__ m,
   }
 }
 
-// Publish this warp's partial and count its arrival on `counter`; true in
-// the warp that arrives last of `arrivals`, which may then read them all.
-__device__ __forceinline__ bool last_arrival(int* counter, int arrivals) {
-  __threadfence();
-  __syncwarp();
-  int prev = 0;
-  if (threadIdx.x == 0) prev = atomicAdd(counter, 1);
-  prev = __shfl_sync(kFull, prev, 0);
-  if (prev != arrivals - 1) return false;
-  __threadfence();
-  return true;
-}
-
-// A chunked segment's piece in one window of its batch row's entries: the
-// windows are the row's entries cut every `chunk`, and a segment longer
-// than `chunk` is summed a window at a time. A window holds pieces of at
-// most two such segments: the one that covers its first entry (slot 0) and
-// one that starts inside it (slot 1).
-struct Piece {
-  int d, c, nch, slot;     // destination, chunk (window) index, chunks, slot
-  int cnt;                 // entries
-  long long at;            // the first entry in the [B*E] CSR arrays
-};
-
-// The pieces of window j of row bi (0, 1 or 2).
-__device__ __forceinline__ int pieces_of(const SumArgs& a, int bi, int j,
-                                         Piece (&p)[2]) {
-  const int* rp = a.rowptr + static_cast<long long>(bi) * (a.n + 1);
-  const int k0 = j * a.chunk;
-  const int k1 = min(k0 + a.chunk, __ldg(rp + a.n));
-  if (k0 >= k1) return 0;
-  const int* dd = a.csr_dst + static_cast<long long>(bi) * a.e;
-  const int first = __ldg(dd + k0), last = __ldg(dd + k1 - 1);
-  int np = 0;
-  for (int q = 0; q < 2; ++q) {
-    const int d = q ? last : first;
-    if (q && last == first) break;
-    const int s = __ldg(rp + d), t = __ldg(rp + d + 1);
-    if (t - s <= a.chunk) continue;
-    Piece& x = p[np++];
-    x.d = d;
-    x.c = j - s / a.chunk;
-    x.nch = (t - 1) / a.chunk - s / a.chunk + 1;
-    x.slot = x.c == 0 && s % a.chunk != 0;
-    const int lo = max(s, k0);
-    x.cnt = min(t, k1) - lo;
-    x.at = static_cast<long long>(bi) * a.e + lo;
-  }
-  return np;
-}
-
-// Where chunk c of a segment starting at entry s keeps its partials: its
-// window's slot, as pieces_of assigned it.
-__device__ __forceinline__ long long part_row(const SumArgs& a, int bi, int s,
-                                              int c) {
-  const int slot = c == 0 && s % a.chunk != 0;
-  return (static_cast<long long>(bi) * a.cells + s / a.chunk + c) * 2 + slot;
-}
+// the window pieces of long segments and the order their partials meet in
+using chunks::last_arrival;
+using chunks::part_row;
+using chunks::Piece;
+using chunks::pieces_of;
 
 // Output row r = b * N + d's entries; false when its segment is chunked.
 __device__ __forceinline__ bool row_of(const SumArgs& a, long long r,
@@ -910,12 +838,21 @@ int segment_scatter(const float* h, const float* msgs, const int* src,
   return static_cast<int>(err);
 }
 
+// 32-bit words of the arrival counters that dst_csr zeroes.
+long long dst_csr_counter_words(int b, int n, int e) {
+  return chunks::counter_words(b, n, e);
+}
+
 // The destination-sorted CSR alone, one launch (dst_csr.cuh): rowptr
 // [B, N + 1] and perm [B, E] (-1 past each row's rowptr[b, N]). src may be
-// null (then only dst decides which edges are in a segment). Returns the
+// null (then only dst decides which edges are in a segment). counters, when
+// not null, holds dst_csr_counter_words words: the build zeroes those of
+// the segments longer than chunks::kCsrChunk, which the GAT aggregate
+// (gat_aggregate.cu) counts its window pieces' arrivals on. Returns the
 // cudaError_t of the launch.
 int dst_csr(const int* dst, int dst_stride, const int* src, int src_stride,
-            int* rowptr, int* perm, int b, int n, int e, void* stream) {
+            int* rowptr, int* perm, int* counters, int b, int n, int e,
+            void* stream) {
   csr::BuildArgs ba{};
   ba.dst = dst;
   ba.dst_stride = dst_stride;
@@ -926,6 +863,15 @@ int dst_csr(const int* dst, int dst_stride, const int* src, int src_stride,
   ba.e = e;
   ba.rowptr = rowptr;
   ba.perm = perm;
+  if (counters != nullptr) {
+    ba.chunk = chunks::kCsrChunk;
+    ba.group = chunks::kGroup;
+    ba.cells = (e + chunks::kCsrChunk - 1) / chunks::kCsrChunk;
+    ba.slices = chunks::kCsrSlots;
+    ba.counters = counters;
+    ba.group_counters =
+        counters + static_cast<long long>(b) * n * chunks::kCsrSlots;
+  }
   return static_cast<int>(
       csr::launch_build(ba, static_cast<cudaStream_t>(stream)));
 }

@@ -38,6 +38,7 @@ _KERNELS = {
     "segment_aggregate": (_cuda, _ref),
     "segment_scatter": (_cuda, _ref),
     "segment_gather": (_cuda, _ref),
+    "dst_csr": (_cuda, _ref),
     "dense_aggregate": (_dense, _ref),
     "flash_attention": (_flash, _ref),
     "ssd_scan": (_ssd, _ref),
@@ -78,12 +79,23 @@ def fused_mp_layer(x: torch.Tensor, edges: torch.Tensor,
 
 def fused_gat_aggregate(z: torch.Tensor, edges: torch.Tensor,
                         edge_mask: torch.Tensor, att: torch.Tensor,
-                        node_mask: torch.Tensor) -> torch.Tensor:
+                        node_mask: torch.Tensor, csr=None) -> torch.Tensor:
     """GAT's gather ⊙ per-head attention → scatter over the packed flat
     node axis — see :func:`repro_torch.kernels.ref.fused_gat_aggregate_ref`.
-    Inference only."""
+    ``csr``: :func:`dst_csr` of ``edges[:, 1][None]``, or None (the kernel
+    builds its own). Inference only."""
     return kernel("fused_gat_aggregate", z)(z, edges, edge_mask, att,
-                                            node_mask)
+                                            node_mask, csr=csr)
+
+
+def dst_csr(dst: torch.Tensor, n_nodes: int,
+            src: Optional[torch.Tensor] = None):
+    """The destination-sorted CSR of ``[B, E]`` edges — see
+    :func:`repro_torch.kernels.ref.dst_csr_ref`. On the card it also
+    carries the arrival counters the GAT aggregate needs; built once, it
+    serves every :func:`edge_softmax` and :func:`fused_gat_aggregate` call
+    over the same edges (of ``dst`` alone: no ``src``)."""
+    return kernel("dst_csr", dst)(dst, n_nodes, src)
 
 
 def segment_readout(h: torch.Tensor, graph_ids: torch.Tensor,
@@ -96,11 +108,13 @@ def segment_readout(h: torch.Tensor, graph_ids: torch.Tensor,
 
 
 def edge_softmax(scores: torch.Tensor, dst: torch.Tensor,
-                 edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+                 edge_mask: torch.Tensor, n_nodes: int,
+                 csr=None) -> torch.Tensor:
     """Per-destination softmax over incoming edges (GAT attention) — see
-    :func:`repro_torch.kernels.ref.edge_softmax_ref`. Differentiable in
-    ``scores``."""
-    return _ag.EdgeSoftmax.apply(scores, dst, edge_mask, n_nodes)
+    :func:`repro_torch.kernels.ref.edge_softmax_ref`. ``csr``:
+    :func:`dst_csr` of ``dst``, or None (the kernel builds its own).
+    Differentiable in ``scores``."""
+    return _ag.EdgeSoftmax.apply(scores, dst, edge_mask, n_nodes, csr)
 
 
 def segment_aggregate(edges: torch.Tensor, edge_mask: torch.Tensor,

@@ -188,8 +188,21 @@ def segment_readout_ref(h: torch.Tensor, graph_ids: torch.Tensor,
     return torch.cat([mean, mx], dim=-1)
 
 
+def _check_csr(csr, b: int, n: int, e: int) -> None:
+    """The shapes of a CSR handed to a plain version, which computes as
+    without it: rowptr [B, N + 1] and perm [B, E] (:func:`dst_csr_ref`)."""
+    if csr is None:
+        return
+    rowptr, perm = csr[0], csr[1]
+    if tuple(rowptr.shape) != (b, n + 1) or tuple(perm.shape) != (b, e):
+        raise ValueError(f"csr has rowptr {tuple(rowptr.shape)} and perm "
+                         f"{tuple(perm.shape)}, expected {(b, n + 1)} and "
+                         f"{(b, e)}")
+
+
 def edge_softmax_ref(scores: torch.Tensor, dst: torch.Tensor,
-                     edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+                     edge_mask: torch.Tensor, n_nodes: int,
+                     csr=None) -> torch.Tensor:
     """Per-destination softmax over incoming edges, NaN-safe.
 
     scores: [B, E, H] per-edge (multi-head) attention logits; dst: [B, E]
@@ -197,9 +210,11 @@ def edge_softmax_ref(scores: torch.Tensor, dst: torch.Tensor,
     each destination's real incoming edges. Padded edges' scores are
     masked to ``finfo.min`` before the exp, an empty destination's max is
     zeroed and the denominator floored at ``finfo.tiny``, so a destination
-    with no real incoming edge gives exact zeros, never NaN.
+    with no real incoming edge gives exact zeros, never NaN. ``csr`` (the
+    kernel's CSR of ``dst``) is checked for its shapes and not used.
     """
     b, e, h = scores.shape
+    _check_csr(csr, b, n_nodes, e)
     neg = torch.finfo(scores.dtype).min
     live = (edge_mask > 0)[..., None]
     s = torch.where(live, scores, neg)
@@ -219,19 +234,23 @@ def edge_softmax_ref(scores: torch.Tensor, dst: torch.Tensor,
 
 def fused_gat_aggregate_ref(z: torch.Tensor, edges: torch.Tensor,
                             edge_mask: torch.Tensor, att: torch.Tensor,
-                            node_mask: torch.Tensor) -> torch.Tensor:
+                            node_mask: torch.Tensor,
+                            csr=None) -> torch.Tensor:
     """Fused GAT post-softmax stage: gather ⊙ per-head attention → scatter.
 
     z: [P, D] projected node features (D = H·dh, heads concatenated);
     edges: [Q, 2] int32; edge_mask: [Q]; att: [Q, H] per-edge attention
     (softmax-normalized per destination); node_mask: [P]. Returns [P, D],
     ``out[i] = Σ_{e: dst_e=i} m_e · α_e[h] ⊙ z[src_e]`` with each head's
-    weight broadcast over its dh slice, times ``node_mask``.
+    weight broadcast over its dh slice, times ``node_mask``. ``csr`` (the
+    kernel's CSR of the destinations) is checked for its shapes and not
+    used.
     """
     p, d = z.shape
     h = att.shape[1]
     if d % h:
         raise ValueError(f"head count {h} must divide feature dim {d}")
+    _check_csr(csr, 1, p, edges.shape[0])
     src, dst = edges[:, 0].long(), edges[:, 1].long()
     zs = z.index_select(0, src)
     msgs = (zs.reshape(-1, h, d // h) * att[:, :, None]).reshape(-1, d)

@@ -8,6 +8,9 @@
   scores (``csrc/edge_softmax.cu``), the port of ``edge_softmax_pallas``.
 * :func:`fused_gat_aggregate_cuda` — GAT's gather ⊙ attention → scatter
   (``csrc/gat_aggregate.cu``), the port of ``fused_gat_aggregate_pallas``.
+  Both run over a destination-sorted CSR of the edges that
+  :func:`dst_csr_cuda` builds: the caller's, shared by a bin's layers, or
+  one the call builds itself.
 * :func:`segment_aggregate_cuda` — weighted edge-list sum/mean
   aggregation over ``[B, E]`` edges (``csrc/segment_aggregate.cu``), the
   port of ``segment_aggregate_pallas``.
@@ -69,13 +72,16 @@ _SIGNATURES = {
     "edge_softmax": ("edge_softmax",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "fused_gat_aggregate": ("gat_aggregate",
-                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _P]),
+    "fused_gat_aggregate_scratch_words": ("gat_aggregate", [_I, _I], _L),
     "segment_scatter": ("segment_aggregate",
                         [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _P, _P]),
     "segment_scatter_scratch_words": ("segment_aggregate", [_I] * 5, _L),
     "dst_csr": ("segment_aggregate",
-                [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P]),
+                [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P]),
+    "dst_csr_counter_words": ("segment_aggregate", [_I] * 3, _L),
     "segment_gather": ("segment_aggregate",
                        [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dense_aggregate": ("dense_aggregate",
@@ -342,15 +348,19 @@ segment_readout_cuda.launches = 0
 
 
 def edge_softmax_cuda(scores: torch.Tensor, dst: torch.Tensor,
-                      edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+                      edge_mask: torch.Tensor, n_nodes: int,
+                      csr=None) -> torch.Tensor:
     """Per-destination softmax over incoming edges on the card
     (``csrc/edge_softmax.cu``).
 
     scores: [B, E, H] float32; dst: [B, E] int32; edge_mask: [B, E]
-    float32. Returns [B, E, H] weights summing to 1 over each
-    destination's real incoming edges; a destination with none gives
-    exact zeros. ``E = 0`` returns zeros without a launch. One C call of
-    four launches (scratch init, max, exp, normalize).
+    float32; csr: the :class:`DstCsr` of ``dst`` alone
+    (``dst_csr_cuda(dst, n_nodes)``), or None to build it here. Returns
+    [B, E, H] weights summing to 1 over each destination's real incoming
+    edges; a destination with none gives exact zeros. ``E = 0`` returns
+    zeros without a launch. One launch over the CSR (two C calls when the
+    call builds its own); ``csr_launches`` counts the calls on a shared
+    CSR and on their own beside ``launches``.
     """
     refuse_grad("edge_softmax", scores, edge_mask)
     dev = _cuda_device(scores)
@@ -361,38 +371,82 @@ def edge_softmax_cuda(scores: torch.Tensor, dst: torch.Tensor,
     n = int(n_nodes)
     if n < 0:
         raise ValueError(f"n_nodes must be ≥ 0, got {n}")
-    _check_dims(B=b, E=e, H=h, N=n)
+    _check_dims(B=b, E=e, H=h, N=n, BEH=b * e * h, BN=b * (n + 1))
     f32 = torch.float32
     _check(scores, "scores", f32, (b, e, h), dev)
     _check(dst, "dst", torch.int32, (b, e), dev)
     _check(edge_mask, "edge_mask", f32, (b, e), dev)
+    if csr is not None:
+        _check_csr(csr, b, n, e, dev, counters=False)
     if e == 0:
         return torch.zeros_like(scores)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        own = csr is None
+        if own:
+            csr = dst_csr_cuda(dst, n)
         out = torch.empty((b, e, h), dtype=f32, device=dev)
-        mx = torch.empty((b * n * h,), dtype=torch.int32, device=dev)
-        den = torch.empty((b * n * h,), dtype=f32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         _call("edge_softmax", _ptr(scores), _ptr(dst), _ptr(edge_mask),
-              _ptr(out), _ptr(mx), _ptr(den), b, e, h, n, stream)
+              _ptr(csr[0]), _ptr(csr[1]), _ptr(out), b, e, h, n, stream)
     with _count_lock:
         edge_softmax_cuda.launches += 1
+        edge_softmax_cuda.csr_launches["own" if own else "shared"] += 1
     return out
 
 
 edge_softmax_cuda.launches = 0
+edge_softmax_cuda.csr_launches = {"shared": 0, "own": 0}
+
+
+#: the GAT aggregate's routes (``csrc/gat_aggregate.cu``) and their C
+#: numbers: a warp a row, lanes along the features in floats or in float4s
+GAT_ROUTES = {"wide_scalar": 1, "wide_vec": 2}
+#: the orders the GAT kernels add in, as their sources fix them: a row of
+#: at most GAT_CHUNK entries is one warp's sum; a longer one is cut into
+#: chunks of that many (``csrc/seg_chunks.cuh``), added in groups of
+#: GAT_GROUP. An edge-softmax segment of at most SOFTMAX_SHORT entries is
+#: one thread's sum; a longer one is SOFTMAX_BLOCK threads' tree
+#: (``csrc/edge_softmax.cu``).
+GAT_CHUNK, GAT_GROUP = 32, 16
+SOFTMAX_SHORT, SOFTMAX_BLOCK = 8, 256
+
+
+class GatPlan(NamedTuple):
+    """The GAT aggregate's route and its units (floats or float4s) a lane
+    a column tile (1, 2, 4 or 8)."""
+    route: str
+    units_per_lane: int
+
+
+def gat_plan(d: int, h: int, aligned: bool) -> GatPlan:
+    """The GAT aggregate's plan for ``d = h · dh`` features.
+
+    ``"wide_vec"`` where a lane's float4 lies in one head and loads whole:
+    ``dh`` a multiple of 4 and ``aligned`` (z starts on a 16-byte
+    boundary); else ``"wide_scalar"``. Shapes and alignment decide alone;
+    a launch that is refused raises.
+    """
+    route = "wide_vec" if (d // h) % 4 == 0 and aligned else "wide_scalar"
+    per_lane = -(-(d // 4 if route == "wide_vec" else d) // 32)
+    return GatPlan(route, next((v for v in (1, 2, 4) if per_lane <= v), 8))
 
 
 def fused_gat_aggregate_cuda(z: torch.Tensor, edges: torch.Tensor,
                              edge_mask: torch.Tensor, att: torch.Tensor,
-                             node_mask: torch.Tensor) -> torch.Tensor:
+                             node_mask: torch.Tensor,
+                             csr=None) -> torch.Tensor:
     """GAT's post-softmax gather ⊙ attention → scatter on the card
     (``csrc/gat_aggregate.cu``).
 
     z: [P, D] float32 (D = H·dh); edges: [Q, 2] int32 globally offset
-    (src, dst); edge_mask: [Q]; att: [Q, H]; node_mask: [P]. Returns
-    [P, D]. ``Q = 0`` returns zeros without a launch; ``D % H != 0``
-    raises. One launch into a zeroed output.
+    (src, dst); edge_mask: [Q]; att: [Q, H]; node_mask: [P]; csr: the
+    :class:`DstCsr` of the edges' destinations
+    (``dst_csr_cuda(edges[:, 1][None], P)``), or None to build it here.
+    Returns [P, D]. ``Q = 0`` returns zeros without a launch; ``D % H !=
+    0`` raises. One launch on :func:`gat_plan`'s route that writes each
+    output row once (two C calls when the call builds its own CSR);
+    ``route_launches`` and ``csr_launches`` count the calls of each route
+    and on a shared CSR or their own beside ``launches``.
     """
     refuse_grad("fused_gat_aggregate", z, edge_mask, att, node_mask)
     dev = _cuda_device(z)
@@ -404,26 +458,42 @@ def fused_gat_aggregate_cuda(z: torch.Tensor, edges: torch.Tensor,
     q, h = att.shape
     if h <= 0 or d % h:
         raise ValueError(f"head count {h} must divide feature dim {d}")
-    _check_dims(P=p, D=d, Q=q, H=h)
+    cells = -(-q // GAT_CHUNK)
+    _check_dims(P=p, D=d, Q=q, H=h, PD=p * d, QH=q * h, W=2 * cells * d)
     f32 = torch.float32
     _check(z, "z", f32, (p, d), dev)
     _check(edges, "edges", torch.int32, (q, 2), dev)
     _check(edge_mask, "edge_mask", f32, (q,), dev)
     _check(att, "att", f32, (q, h), dev)
     _check(node_mask, "node_mask", f32, (p,), dev)
+    if csr is not None:
+        _check_csr(csr, 1, p, q, dev, counters=True)
     with torch.cuda.device(dev):
-        out = torch.zeros((p, d), dtype=f32, device=dev)
-        if q == 0:
-            return out
+        if q == 0 or p == 0:
+            return torch.zeros((p, d), dtype=f32, device=dev)
+        own = csr is None
+        if own:
+            csr = dst_csr_cuda(edges[:, 1][None], p)
+        plan = gat_plan(d, h, z.data_ptr() % 16 == 0)
+        out = torch.empty((p, d), dtype=f32, device=dev)
+        part = torch.empty(
+            (_entry("fused_gat_aggregate_scratch_words")(q, d),),
+            dtype=f32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _call("fused_gat_aggregate", _ptr(z), _ptr(edges), _ptr(edge_mask),
-              _ptr(att), _ptr(node_mask), _ptr(out), p, d, q, h, stream)
+              _ptr(att), _ptr(node_mask), _ptr(csr.rowptr), _ptr(csr.perm),
+              _ptr(csr.counters), _ptr(part), _ptr(out), p, d, q, h,
+              GAT_ROUTES[plan.route], plan.units_per_lane, stream)
     with _count_lock:
         fused_gat_aggregate_cuda.launches += 1
+        fused_gat_aggregate_cuda.route_launches[plan.route] += 1
+        fused_gat_aggregate_cuda.csr_launches["own" if own else "shared"] += 1
     return out
 
 
 fused_gat_aggregate_cuda.launches = 0
+fused_gat_aggregate_cuda.route_launches = dict.fromkeys(GAT_ROUTES, 0)
+fused_gat_aggregate_cuda.csr_launches = {"shared": 0, "own": 0}
 
 
 def _count(fn) -> None:
@@ -609,18 +679,49 @@ segment_scatter_cuda.launches = 0
 segment_scatter_cuda.route_launches = dict.fromkeys(SEGMENT_ROUTES, 0)
 
 
+class DstCsr(NamedTuple):
+    """A destination-sorted CSR built on the card (:func:`dst_csr_cuda`):
+    ``rowptr`` [B, N + 1] and ``perm`` [B, E] as
+    :func:`repro_torch.kernels.ref.dst_csr_ref` returns them, and
+    ``counters``, the zeroed arrival counters of its segments longer than
+    ``GAT_CHUNK`` entries, which the GAT aggregate counts its window pieces
+    on and leaves at 0. The calls that share one CSR run in stream
+    order."""
+    rowptr: torch.Tensor
+    perm: torch.Tensor
+    counters: torch.Tensor
+
+
+def _check_csr(csr, b: int, n: int, e: int, dev: torch.device,
+               counters: bool) -> None:
+    """Check a CSR passed to a kernel: rowptr [B, N + 1] and perm [B, E]
+    int32 on the card, and (``counters``) a :class:`DstCsr`'s counters."""
+    if not isinstance(csr, (tuple, list)) or len(csr) < 2:
+        raise TypeError(f"csr must be the DstCsr of dst_csr_cuda, got "
+                        f"{type(csr).__name__}")
+    _check(csr[0], "csr rowptr", torch.int32, (b, n + 1), dev)
+    _check(csr[1], "csr perm", torch.int32, (b, e), dev)
+    if counters:
+        if not isinstance(csr, DstCsr):
+            raise TypeError("csr must be the DstCsr of dst_csr_cuda: the "
+                            "GAT aggregate counts on its zeroed counters")
+        words = _entry("dst_csr_counter_words")(b, n, e)
+        _check(csr.counters, "csr counters", torch.int32, (words,), dev)
+
+
 def dst_csr_cuda(dst: torch.Tensor, n_nodes: int,
-                 src: Optional[torch.Tensor] = None):
+                 src: Optional[torch.Tensor] = None) -> DstCsr:
     """The destination-sorted CSR that the segmented sums build, alone, on
     the card (``csrc/dst_csr.cuh``, one launch): for each batch row a stable
     counting sort of the edge indices by destination.
 
     dst: [B, E] int32 (a column view of ``[B, E, 2]`` edges is taken
-    without a copy); src: [B, E] int32 or None. Returns ``rowptr`` [B,
-    N + 1] and ``perm`` [B, E] int32: row b's edges into d are ``perm[b,
-    rowptr[b, d]:rowptr[b, d + 1]]``, ascending, and ``perm[b, k] = -1``
-    for ``k ≥ rowptr[b, N]``. An edge with an endpoint outside [0, N) is
-    in no segment. See :func:`repro_torch.kernels.ref.dst_csr_ref`.
+    without a copy); src: [B, E] int32 or None. Returns a :class:`DstCsr`:
+    row b's edges into d are ``perm[b, rowptr[b, d]:rowptr[b, d + 1]]``,
+    ascending, and ``perm[b, k] = -1`` for ``k ≥ rowptr[b, N]``. An edge
+    with an endpoint outside [0, N) is in no segment. See
+    :func:`repro_torch.kernels.ref.dst_csr_ref`. The GAT kernels take it
+    built from ``dst`` alone.
     """
     dev = _cuda_device(dst)
     if dst.dim() != 2:
@@ -635,12 +736,19 @@ def dst_csr_cuda(dst: torch.Tensor, n_nodes: int,
     with torch.cuda.device(dev):
         rowptr = torch.empty((b, n + 1), dtype=torch.int32, device=dev)
         perm = torch.empty((b, e), dtype=torch.int32, device=dev)
+        counters = torch.empty(
+            (_entry("dst_csr_counter_words")(b, n, e),), dtype=torch.int32,
+            device=dev)
         if b == 0:
-            return rowptr, perm
+            return DstCsr(rowptr, perm, counters)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _call("dst_csr", _ptr(dst), d_stride, _ptr(src), s_stride,
-              _ptr(rowptr), _ptr(perm), b, n, e, stream)
-    return rowptr, perm
+              _ptr(rowptr), _ptr(perm), _ptr(counters), b, n, e, stream)
+    _count(dst_csr_cuda)
+    return DstCsr(rowptr, perm, counters)
+
+
+dst_csr_cuda.launches = 0
 
 
 def segment_gather_cuda(h: torch.Tensor, idx: torch.Tensor,
