@@ -57,8 +57,19 @@ Phases, each printing one JSON line:
    (GCN, a [P] self scale) layers, and carries the route taken there, the
    node and edge phases' device µs, its bound at the TF32 and at the FMA
    peak, the ``HGMMA`` count of its library (the run fails at 0) and one
-   float32 ``torch.mm`` of the node phase's product as its yardstick. Then
-   the kernel's time (a
+   float32 ``torch.mm`` of the node phase's product as its yardstick. The
+   readout (``segment_readout``) and its gradient
+   (``segment_readout_backward``) are swept over ``readout_cases`` (NaN in
+   a real row, a column of NaN, ±inf, fractional masks, graphs of 800 and
+   1,500 rows, ids in no order, a masked row inside the real ones, 40,000
+   rows), every call twice with the same bits, NaN where the plain version
+   puts it, and the route the kernel counted equal to ``readout_plan``'s;
+   the readout's entry carries its bound over the real rows beside the
+   bound over all rows, ``torch.segment_reduce`` mean plus max as a
+   two-call yardstick, and its library's SASS atomics (the run fails on a
+   float one); the gradient's entry carries the composition it replaced
+   (two gathers and a scatter), timed in this run at the packed training
+   step and at P=1024. Then the kernel's time (a
    CUDA graph of 20 back-to-back wrapper calls, replayed; median over many
    replays, per call), the plain version's time, one library call's time
    where one computes the same function, the least time the card could
@@ -76,13 +87,14 @@ Phases, each printing one JSON line:
    and a bulk of synthetic samples through ``engine().predict_samples``.
    The kernels' launch counts are zeroed before and read after, and must
    equal bins × layers; every fused_mp_layer launch must take the
-   tensor-core route. The card's predictions are held against the same
+   tensor-core route and every readout the runs route (the kernel's
+   route counters). The card's predictions are held against the same
    ``DIPPM`` on ``device="cpu"``, which runs the plain versions.
 5. ``gat_path`` — the same for GAT at the paper's width: each bin builds
    one destination-sorted CSR (``dst_csr``, once a bin) and every layer
    launches ``edge_softmax`` and ``fused_gat_aggregate`` once on it; the
    run fails unless every one of those launches used the bin's shared
-   CSR.
+   CSR, and unless the bulk's predictions repeat bit for bit.
 6. ``serving`` — ``dippm.serve()`` on the GAT model answers a burst of
    ``submit_json`` requests from 8 threads, unique and repeated documents
    mixed: every future resolves, the counters conserve, cache hits are
@@ -95,7 +107,8 @@ Phases, each printing one JSON line:
    CPU's plain versions (per-epoch loss, the first step's gradients, the
    final parameters); one dense epoch with dropout 0.05; one packed GAT
    epoch; one sparse GraphSAGE epoch at depth 2. Every run's launch
-   counts are zeroed before and must equal ``train_launch_rule`` after.
+   counts are zeroed before and must equal ``train_launch_rule`` after
+   (a packed step: one readout and one readout gradient launch).
    It prints ms per step, steps/s and the host share of a step, and
    reloads the trained model through ``save_artifact`` / ``DIPPM.load``
    to hold one served bin against the trainer's own evaluation.
@@ -557,43 +570,117 @@ def sweep_fused(torch, dev) -> float:
     return worst
 
 
-def sweep_readout(torch, dev) -> float:
+def readout_runs(rng, p, sizes, f, frac=False):
+    """A packed bin's readout inputs: graph k's ``sizes[k]`` real rows in a
+    run from row 0, in graph order, then padded rows (id 0, mask 0, h 1e6
+    that must not leak); ``frac`` gives real rows mask values in
+    (0.05, 1]."""
+    n_real = int(sum(sizes))
+    h = rng.standard_normal((p, f)).astype(np.float32)
+    h[n_real:] = 1e6
+    ids = np.zeros(p, np.int32)
+    ids[:n_real] = np.repeat(np.arange(len(sizes)), sizes)
+    nm = np.zeros(p, np.float32)
+    nm[:n_real] = rng.uniform(0.05, 1.0, n_real) if frac else 1.0
+    return h, ids, nm
+
+
+def readout_cases(rng) -> dict:
+    """name -> (h, ids, nm, G) for ``sweep_readout``: the packed layout
+    (runs, a padded tail, trailing empty graphs), ids in no order, an
+    all-masked bin, a NaN in a real row (fault C1), a column whose every
+    real value is NaN, ±inf on both routes, fractional masks, graphs of
+    800 and 1,500 rows, a masked row inside the real ones, and 40,000 rows
+    (more than the kernel stages in shared memory) on both routes."""
+    out = {}
+    for p, f, g in ((300, 16, 12), (130, 130, 8)):
+        n_real = p * 3 // 4
+        sizes = np.bincount(np.sort(rng.integers(0, g - 3, n_real)),
+                            minlength=g - 3)
+        out[f"runs p={p} f={f}"] = (*readout_runs(rng, p, sizes, f), g)
+    out["random p=257 f=40"] = (
+        rng.standard_normal((257, 40)).astype(np.float32),
+        rng.integers(0, 9, 257).astype(np.int32),
+        (rng.random(257) < 0.8).astype(np.float32), 9)
+    out["all masked"] = (rng.standard_normal((64, 8)).astype(np.float32),
+                         np.zeros(64, np.int32), np.zeros(64, np.float32), 4)
+    h, ids, nm = readout_runs(rng, 160, [12, 40, 5, 70], 16)
+    h[20, 3] = np.nan
+    out["NaN in a real row"] = (h, ids, nm, 6)
+    h = h.copy()
+    h[:127, 5] = np.nan
+    out["column of NaN"] = (h, ids, nm, 6)
+    h, ids, nm = readout_runs(rng, 160, [12, 40, 5, 70], 16)
+    h[3, 1], h[30, 2], h[31, 2], h[100, 7] = (np.inf, -np.inf, np.inf,
+                                              -np.inf)
+    out["inf runs"] = (h, ids, nm, 6)
+    hr = rng.standard_normal((100, 10)).astype(np.float32)
+    hr[7, 0], hr[50, 4], hr[51, 9] = np.nan, np.inf, -np.inf
+    out["inf random"] = (hr, rng.integers(0, 4, 100).astype(np.int32),
+                         np.ones(100, np.float32), 4)
+    out["fractional"] = (*readout_runs(rng, 300, [5, 40, 17, 0, 190], 20,
+                                       frac=True), 6)
+    out["long 800 and 1500"] = (*readout_runs(rng, 4096, [800, 7, 1500, 30],
+                                              512), 8)
+    h, ids, nm = readout_runs(rng, 80, [3, 50, 8], 9)
+    nm[20] = 0.0
+    out["masked inside the runs"] = (h, ids, nm, 4)
+    sizes = rng.integers(1000, 4000, 10)
+    out["P=40000 runs"] = (*readout_runs(rng, 40000, sizes, 8), 12)
+    out["P=40000 random"] = (
+        rng.standard_normal((40000, 8)).astype(np.float32),
+        rng.integers(0, 12, 40000).astype(np.int32),
+        (rng.random(40000) < 0.8).astype(np.float32), 12)
+    return out
+
+
+def sweep_readout(torch, dev) -> dict:
+    """segment_readout and its gradient against their plain versions over
+    ``readout_cases``, both kinds: every call runs twice, the same bits
+    required, NaN and inf where the plain version puts them, and the route
+    the kernel counted must be the one ``readout_plan`` names."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_spmm import segment_readout_cuda
-    worst = 0.0
+    from repro_torch.kernels.segment_spmm import (
+        readout_plan, readout_route_counts, segment_readout_backward_cuda,
+        segment_readout_cuda)
+    worst = {"segment_readout": 0.0, "segment_readout_backward": 0.0}
+    cases = {}
     rng = np.random.default_rng(7)
-    cases = []
-    for kind in ("mean", "mean_max"):
-        # contiguous runs, padded tail with id 0, trailing empty graphs
-        cases.append((kind, 300, 16, 12, "runs"))
-        cases.append((kind, 130, 130, 8, "runs"))
-        # ids in no order, some rows masked
-        cases.append((kind, 257, 40, 9, "random"))
-        # a bin with every row masked
-        cases.append((kind, 64, 8, 4, "empty"))
-    for kind, p, f, g, layout in cases:
-        h = rng.standard_normal((p, f)).astype(np.float32)
-        if layout == "runs":
-            n_real = p * 3 // 4
-            ids = np.zeros(p, np.int32)
-            ids[:n_real] = np.sort(rng.integers(0, g - 3, n_real))
-            nm = np.zeros(p, np.float32)
-            nm[:n_real] = 1.0
-            h[n_real:] = 1e6            # padding garbage must not leak
-        elif layout == "random":
-            ids = rng.integers(0, g, p).astype(np.int32)
-            nm = (rng.random(p) < 0.8).astype(np.float32)
-        else:
-            ids = np.zeros(p, np.int32)
-            nm = np.zeros(p, np.float32)
-        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        got = segment_readout_cuda(t(h), t(ids), t(nm), g, kind=kind)
-        want = ref.segment_readout_ref(t(h), t(ids), t(nm), g, kind=kind)
-        torch.cuda.synchronize()
-        worst = max(worst, check_close(
-            f"segment_readout {kind} p={p} f={f} g={g} {layout}", got, want,
-            KERNEL_ATOL, KERNEL_RTOL))
-    return worst
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    for name, (h, ids, nm, g) in readout_cases(rng).items():
+        th, ti, tm = t(h), t(ids), t(nm)
+        route = readout_plan(ids, nm)
+        for kind in ("mean", "mean_max"):
+            what = f"segment_readout {kind} {name}"
+            before = readout_route_counts(dev)
+            z, again = (segment_readout_cuda(th, ti, tm, g, kind=kind)
+                        for _ in range(2))
+            want = ref.segment_readout_ref(th, ti, tm, g, kind=kind)
+            gz = t(rng.standard_normal(tuple(want.shape)).astype(np.float32))
+            dh, dh2 = (segment_readout_backward_cuda(th, ti, tm, want, gz,
+                                                     kind=kind)
+                       for _ in range(2))
+            dwant = ref.segment_readout_backward_ref(th, ti, tm, want, gz,
+                                                     kind=kind)
+            after = readout_route_counts(dev)
+            if not (same_bits(torch, z, again) and same_bits(torch, dh, dh2)):
+                raise AssertionError(f"{what}: two runs differ in their bits")
+            counted = {way: {r: after[way][r] - before[way][r]
+                             for r in after[way]} for way in after}
+            expect = {r: 2 * (r == route) for r in counted["forward"]}
+            if counted != {"forward": expect, "backward": expect}:
+                raise AssertionError(f"{what}: routes {counted}, but "
+                                     f"readout_plan says {route}")
+            err = check_close_nan(what, z, want, KERNEL_ATOL, KERNEL_RTOL)
+            berr = check_close_nan(f"{what} backward", dh, dwant,
+                                   KERNEL_ATOL, KERNEL_RTOL)
+            worst["segment_readout"] = max(worst["segment_readout"], err)
+            worst["segment_readout_backward"] = max(
+                worst["segment_readout_backward"], berr)
+            cases[f"{kind} {name}"] = {"route": route, "max_abs_err": err,
+                                       "backward_max_abs_err": berr,
+                                       "bitwise_repeat": True}
+    return {"max_abs_err": worst, "cases": cases}
 
 
 def check_close_nan(what: str, got, want, atol: float, rtol: float) -> float:
@@ -901,8 +988,9 @@ def sweep_segment_routes(torch, dev) -> dict:
     node 0 (2,048 of weight 0), a destination of in-degree 1,200, both at
     F = 512 and F = 4 and through the aggregate (sum and mean with the
     degree) and the scatter, with NaN in one piled message at F = 4; and
-    the packed readout's backward, [P, 1 + F] and [P, 1] rows of weight 1
-    into its 256 graph slots (its padded nodes all sit in graph 0)."""
+    the shapes the packed readout's backward once gave it, [P, 1 + F]
+    and [P, 1] rows of weight 1 into its graph slots (its padded nodes all
+    sit in graph 0)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_spmm import (segment_aggregate_cuda,
                                                   segment_plan,
@@ -1100,6 +1188,17 @@ def full_bin(torch, dev, cfg):
     return batch, pmgns_init(0, cfg), len(chunk)
 
 
+def readout_library_ms(torch, h, gid, p_real: int, g: int) -> float:
+    """The two-call yardstick of the readout: ``torch.segment_reduce`` of
+    the real rows (a prefix, in runs of their graph ids) in ``"mean"``,
+    then in ``"max"``, timed as one function; never called by the port."""
+    lengths = torch.bincount(gid[:p_real].long(), minlength=g)
+    rows = h[:p_real]
+    return time_graph_ms(torch, lambda: (
+        torch.segment_reduce(rows, "mean", lengths=lengths, unsafe=True),
+        torch.segment_reduce(rows, "max", lengths=lengths, unsafe=True)))
+
+
 def sage_kernel_entries(torch, dev, cfg) -> tuple:
     """fused_mp_layer and segment_readout at the GraphSAGE full bin, and
     fused_mp_layer's ``pre`` combine there, GCN-style (sum, edge weights,
@@ -1108,7 +1207,8 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
     from repro_torch.kernels.segment_spmm import (fused_mp_layer_cuda,
                                                   segment_readout_cuda)
     sweep_mp = sweep_fused(torch, dev)
-    sweep_ro = sweep_readout(torch, dev)
+    ro_sweep = sweep_readout(torch, dev)
+    sweep_ro = ro_sweep["max_abs_err"]["segment_readout"]
     batch, tree, n_graphs = full_bin(torch, dev, cfg)
     w = {f"{k}{i}": torch.as_tensor(tree["gnn"][f"b{i}"][blk][leaf],
                                     device=dev)
@@ -1154,8 +1254,12 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
         raise AssertionError(f"fused_mp_layer at the full bin ran the routes "
                              f"{routes}, not the tensor-core one")
     z_k = segment_readout_cuda(h1_r, gid, nm, FULL_G, kind=cfg.readout)
+    z_again = segment_readout_cuda(h1_r, gid, nm, FULL_G, kind=cfg.readout)
     z_r = ref.segment_readout_ref(h1_r, gid, nm, FULL_G, kind=cfg.readout)
     torch.cuda.synchronize()
+    if not same_bits(torch, z_k, z_again):
+        raise AssertionError("segment_readout at the full bin: two runs "
+                             "differ in their bits")
     err_full = {
         "split F=32": check_close("fused_mp_layer full width F=32", h0_k,
                                   h0_r, KERNEL_ATOL, KERNEL_RTOL),
@@ -1198,6 +1302,13 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
             ref.fused_mp_layer_ref, h0_r))}
     t_ro = time_graph_ms(torch, lambda: segment_readout_cuda(
         h1_r, gid, nm, FULL_G, kind=cfg.readout))
+    ro_in = [(h1_r, gid, nm)] + [
+        (h1_r.clone(), gid.clone(), nm.clone()) for _ in range(cold_copies(
+            4.0 * (P * H + 2 * P + FULL_G * 2 * H)) - 1)]
+    t_ro_cold = time_cold_ms(torch, [
+        lambda x=x: segment_readout_cuda(*x, FULL_G, kind=cfg.readout)
+        for x in ro_in])
+    del ro_in
     breakdown = device_breakdown_us(torch, {
         "fused_mp_layer F=32": lambda: layer(fused_mp_layer_cuda, x, 0),
         "fused_mp_layer F=512": lambda: layer(fused_mp_layer_cuda, h0_r, 1),
@@ -1207,6 +1318,7 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
             h1_r, gid, nm, FULL_G, kind=cfg.readout)})
     t_ro_plain = time_graph_ms(torch, lambda: ref.segment_readout_ref(
         h1_r, gid, nm, FULL_G, kind=cfg.readout))
+    t_ro_library = readout_library_ms(torch, h1_r, gid, p_real, FULL_G)
     phases_us = {}
     for label in ("F=32", "F=512", "pre F=512"):
         rows = breakdown[f"fused_mp_layer {label}"]
@@ -1234,9 +1346,13 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
                        {"f32": bound_ms(op0, by0)[0],
                         "f512": bound_ms(op1, by1)[0]}))
     ((mp_bound, mp_by), bound_layer), ((fma_bound, _), fma_layer) = bounds
+    # the readout reads the real rows of h only, and the ids and mask of
+    # every row; ro_bound_all counts all P rows of h, the earlier figure
     ro_flops = 3.0 * p_real * H + 2.0 * FULL_G * H
-    ro_bytes = 4.0 * (P * H + 2 * P + FULL_G * 2 * H)
-    ro_bound, ro_by = bound_ms(ro_flops, ro_bytes)
+    ro_bound, ro_by = bound_ms(ro_flops, 4.0 * (p_real * H + 2 * P
+                                                + FULL_G * 2 * H))
+    ro_bound_all, _ = bound_ms(ro_flops, 4.0 * (P * H + 2 * P
+                                                + FULL_G * 2 * H))
     blocks = cfg.n_gnn_blocks
 
     def per_bin(key):
@@ -1272,16 +1388,31 @@ def sage_kernel_entries(torch, dev, cfg) -> tuple:
          "source": "src/repro_torch/kernels/csrc/segment_readout.cu",
          "replaces": "src/repro/kernels/segment_spmm.py:241",
          "launches": None, "max_abs_err": max(err_ro, sweep_ro),
-         "ms": t_ro, "plain_ms": t_ro_plain, "bound_ms": ro_bound,
-         "bound_by": ro_by, "library_ms": None,
-         "unit": f"one full bin: P={P} F={H} G={FULL_G} {cfg.readout}",
-         "library_note": "no single PyTorch call computes the masked "
-                         "segment mean and max with empty graphs at 0"},
+         "ms": t_ro, "cold_ms": t_ro_cold, "plain_ms": t_ro_plain,
+         "bound_ms": ro_bound,
+         "bound_by": ro_by, "bound_all_rows_ms": ro_bound_all,
+         "library_ms": t_ro_library,
+         "unit": f"one full bin: P={P} ({p_real} real) F={H} G={FULL_G} "
+                 f"{cfg.readout}",
+         "bound_note": "bound_ms: the real rows of h, the ids and mask of "
+                       "all P rows and the output at 3.35 TB/s; "
+                       "bound_all_rows_ms: all P rows of h, the bound "
+                       "this entry carried before the real rows were "
+                       "counted",
+         "library_note": "two calls, not one: no single PyTorch call "
+                         "computes the masked segment mean and max with "
+                         "empty graphs at 0; library_ms is "
+                         "torch.segment_reduce(h[:p_real], 'mean', "
+                         "lengths=...) plus the same with 'max' on the "
+                         "runs layout, timed as one function",
+         "bitwise_repeat": True, "routes_sweep": ro_sweep["cases"],
+         "timing_note": COLD_NOTE,
+         "build": segment_build_facts("segment_readout")},
     ]
     info = {"graphs_in_full_bin": n_graphs, "real_nodes": p_real,
             "real_edges": q_real,
             "sweep_max_abs_err": {"fused_mp_layer": sweep_mp,
-                                  "segment_readout": sweep_ro}}
+                                  **ro_sweep["max_abs_err"]}}
     return entries, breakdown, info
 
 
@@ -1788,11 +1919,125 @@ def train_kernel_entries(torch, dev) -> tuple:
     return entries, info
 
 
+def readout_backward_composition(torch, h, gid, w, z, g,
+                                 kind: str = "mean_max"):
+    """The readout's gradient as the port composed it before it had a
+    kernel of its own: a gather of the max, a scatter of the counts and
+    ties, a gather of the per-graph gradient back, through the
+    ``segment_gather`` / ``segment_scatter`` wrappers, then elementwise
+    ops. Timed beside the kernel that replaced it; the port no longer
+    calls it."""
+    from repro_torch.kernels.segment_spmm import (segment_gather_cuda,
+                                                  segment_scatter_cuda)
+    f = h.shape[1]
+    gid2 = gid[None]
+    cols = [w[:, None]]
+    if kind == "mean_max":
+        mx = segment_gather_cuda(z[None, :, f:].contiguous(), gid2)[0]
+        eq = ((h == mx) & (w[:, None] > 0)).to(h.dtype)
+        cols.append(eq)
+    ones = torch.ones((1, h.shape[0]), dtype=h.dtype, device=h.device)
+    sums = segment_scatter_cuda(gid2, ones,
+                                torch.cat(cols, dim=1).contiguous()[None],
+                                g.shape[0])[0]
+    per_graph = g[:, :f] / sums[:, :1].clamp_min(1.0)
+    if kind == "mean_max":
+        per_graph = torch.cat(
+            [per_graph, g[:, f:] / sums[:, 1:].clamp_min(1.0)], dim=1)
+    back = segment_gather_cuda(per_graph.contiguous()[None], gid2)[0]
+    dh = w[:, None] * back[:, :f]
+    if kind == "mean_max":
+        dh = dh + eq * back[:, f:]
+    return dh
+
+
+def readout_backward_entry(torch, dev, sweep_err: float) -> dict:
+    """segment_readout_backward at ``train_path``'s packed step (P=8192,
+    G=32, hidden 512) and at P=1024 with G=32 graphs, each against its
+    plain version and the composition it replaced, all three timed in this
+    run; the composition's device µs by kernel at both shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import (
+        readout_plan, segment_readout_backward_cuda, segment_readout_cuda)
+    rng = np.random.default_rng(4200)
+    hid = TRAIN_HIDDEN
+    pk = train_steps("packed")
+    small = readout_runs(rng, 1024, rng.integers(16, 36, 32), hid)[1:]
+    shapes = {"train step": (pk["graph_ids"].astype(np.int32), pk["mask"],
+                             pk["static"].shape[0]),
+              "P=1024": (*small, 32)}
+    out, err = {}, 0.0
+    for label, (ids, nm, g) in shapes.items():
+        p = ids.shape[0]
+        p_real = int((nm > 0).sum())
+        h = torch.as_tensor(rng.standard_normal((p, hid)).astype(np.float32),
+                            device=dev)
+        gid, w = torch.as_tensor(ids, device=dev), torch.as_tensor(
+            nm, device=dev)
+        z = segment_readout_cuda(h, gid, w, g)
+        gz = torch.as_tensor(rng.standard_normal(tuple(z.shape)).astype(
+            np.float32), device=dev)
+        calls = {
+            "ms": lambda: segment_readout_backward_cuda(h, gid, w, z, gz),
+            "plain_ms": lambda: ref.segment_readout_backward_ref(
+                h, gid, w, z, gz),
+            "composition_ms": lambda: readout_backward_composition(
+                torch, h, gid, w, z, gz)}
+        got = {k: fn() for k, fn in calls.items()}
+        again = calls["ms"]()
+        torch.cuda.synchronize()
+        if not same_bits(torch, got["ms"], again):
+            raise AssertionError(f"readout backward {label}: two runs "
+                                 f"differ in their bits")
+        for k in ("ms", "composition_ms"):
+            err = max(err, check_close(
+                f"readout backward {label} ({k[:-3] or 'kernel'})", got[k],
+                got["plain_ms"], KERNEL_ATOL, KERNEL_RTOL))
+        row = {k: time_graph_ms(torch, fn) for k, fn in calls.items()}
+        copies = [(h, gid, w, z, gz)] + [
+            tuple(x.clone() for x in (h, gid, w, z, gz))
+            for _ in range(cold_copies(4.0 * (2 * p * hid + 2 * p
+                                              + 4 * g * hid)) - 1)]
+        row["cold_ms"] = time_cold_ms(torch, [
+            lambda x=x: segment_readout_backward_cuda(*x) for x in copies])
+        del copies
+        nbytes = 4.0 * (p_real * hid + 2 * p + 3 * g * hid + p * hid)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            4.0 * p_real * hid + 2.0 * g * hid, nbytes)
+        row["shape"] = f"P={p} ({p_real} real) F={hid} G={g} mean_max, " \
+                       f"route {readout_plan(ids, nm)}"
+        row["composition_device_us"] = device_breakdown_us(
+            torch, {"c": calls["composition_ms"]})["c"]
+        out[label] = row
+    step = out["train step"]
+    return {"name": "segment_readout_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_readout.cu",
+            "replaces": "src/repro/kernels/segment_spmm.py:241",
+            "launches": None, "max_abs_err": max(err, sweep_err),
+            "ms": step["ms"], "cold_ms": step["cold_ms"],
+            "plain_ms": step["plain_ms"],
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+            "library_ms": None, "composition_ms": step["composition_ms"],
+            "timing_note": COLD_NOTE,
+            "unit": f"one packed training step's readout gradient: "
+                    f"{step['shape']}",
+            "shapes": out, "bitwise_repeat": True,
+            "replaces_note": "the gradient of B2; the JAX package "
+                             "differentiates its plain composition, which "
+                             "has no Pallas kernel of its own",
+            "library_note": "no single PyTorch call computes the masked "
+                            "mean and tied-max gradient; composition_ms is "
+                            "the gather + scatter + gather composition it "
+                            "replaced, on this tree's wrappers"}
+
+
 def phase_kernels(torch, dev, sage_cfg, gat_cfg) -> list:
     t0 = time.perf_counter()
     sage, sage_us, sage_info = sage_kernel_entries(torch, dev, sage_cfg)
     gat, gat_us, gat_info = gat_kernel_entries(torch, dev, gat_cfg)
     train, train_info = train_kernel_entries(torch, dev)
+    train.append(readout_backward_entry(
+        torch, dev, sage_info["sweep_max_abs_err"]["segment_readout_backward"]))
     lm_entries, lm_info = lm_kernel_entries(torch, dev)
     back = train_info["backward_max_abs_err"]
     for e in sage + gat:
@@ -1846,6 +2091,19 @@ def zero_counts(kernels: dict) -> None:
                 setattr(fn, key, dict.fromkeys(getattr(fn, key), 0))
 
 
+def readout_forward_counts() -> dict:
+    """The readout's forward launches by route on the current device, from
+    the kernel's own counters (``segment_spmm.readout_route_counts``)."""
+    from repro_torch.kernels.segment_spmm import readout_route_counts
+    return readout_route_counts()["forward"]
+
+
+def readout_route_diff(before: dict) -> dict:
+    """The readout's forward launches by route since ``before``."""
+    now = readout_forward_counts()
+    return {r: now[r] - before[r] for r in now}
+
+
 def check_shared_csr(kernels: dict, launches: dict, phase: str) -> dict:
     """Each CSR sharer's calls on the path, by CSR: all must have used the
     bin's shared CSR."""
@@ -1879,6 +2137,7 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
     kernels = path_kernels(cfg.variant)
 
     zero_counts(kernels)
+    routes0 = readout_forward_counts()
     fused = kernels.get("fused_mp_layer", (None,))[0]
     t0 = time.perf_counter()
     warmed = engine.warmup(rungs="all")
@@ -1887,15 +2146,24 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
     one = dippm.predict_json(docs[0])
     many, _ = dippm.predict_many(graphs, return_stats=True)
     bins_before = engine.stats.batches_run
-    bulk_s = []
+    bulk_s, bulk_ys = [], []
     for _ in range(BULK_REPEATS):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         ys = engine.predict_samples(samples)
         torch.cuda.synchronize()
         bulk_s.append(time.perf_counter() - t1)
+        bulk_ys.append(np.asarray(ys))
     t_bulk = statistics.median(bulk_s)
     launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    readout_routes = readout_route_diff(routes0)
+    # every bin of the bulk, run BULK_REPEATS times: GAT's kernels sum in
+    # a fixed order, so its predictions must repeat bit for bit; B1's edge
+    # phase still adds with float atomics, so GraphSAGE's are recorded
+    bulk_bitwise = all(y.tobytes() == bulk_ys[0].tobytes() for y in bulk_ys)
+    if cfg.variant == "gat" and not bulk_bitwise:
+        raise AssertionError(f"{phase}: the bulk's predictions differ in "
+                             f"their bits between repeats")
     routes = dict(fused.route_launches) if fused is not None else None
     gat_routes = (dict(kernels["fused_gat_aggregate"][0].route_launches)
                   if "fused_gat_aggregate" in kernels else None)
@@ -1910,6 +2178,12 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
         raise AssertionError(f"{phase}: launch counts {launches} != bins x "
                              f"layers {want} ({stats.batches_run} bins + "
                              f"{warmed} warmup shapes)")
+    if readout_routes != {"runs": launches["segment_readout"],
+                          "general": 0}:
+        raise AssertionError(f"{phase}: segment_readout ran the routes "
+                             f"{readout_routes}, not the runs route of a "
+                             f"packed bin ({launches['segment_readout']} "
+                             f"launches)")
     if routes is not None and routes != {
             "tf32x3": launches["fused_mp_layer"], "fma": 0}:
         raise AssertionError(f"{phase}: fused_mp_layer ran the routes "
@@ -1945,6 +2219,8 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
            "bulk_ms_per_bin": 1e3 * t_bulk / max(bulk_bins, 1),
            "launches": launches, "fused_mp_routes": routes,
            "gat_aggregate_routes": gat_routes, "csr_launches": csr_use,
+           "readout_routes": readout_routes,
+           "bulk_bitwise_repeat": bulk_bitwise,
            "engine_stats": {**{k: getattr(stats, k) for k in (
                "graphs_predicted", "batches_run", "cache_hits",
                "cache_misses", "cache_entries", "recompiles",
@@ -1983,6 +2259,7 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
         svc.warmup()
         torch.cuda.synchronize()
         zero_counts(kernels)
+        routes0 = readout_forward_counts()
         start = threading.Barrier(SERVE_THREADS)
 
         def client(t):
@@ -2015,6 +2292,7 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, (fn, _) in kernels.items()}
         csr_use = check_shared_csr(kernels, launches, "serving")
+        readout_routes = readout_route_diff(routes0)
         st = svc.stats
     answers = [kp for rs in results for kp in rs]
     n_req = SERVE_THREADS * SERVE_PER_THREAD
@@ -2028,6 +2306,9 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"serving: the batcher launched no kernel "
                              f"{launches}")
+    if readout_routes != {"runs": launches["segment_readout"], "general": 0}:
+        raise AssertionError(f"serving: segment_readout ran the routes "
+                             f"{readout_routes}")
     vec = lambda p: [p.latency_ms, p.energy_j, p.memory_mb]  # noqa: E731
     first = {}
     for k, p in answers:
@@ -2053,6 +2334,7 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
                "submitted", "completed", "failed", "deadline_expired",
                "shed_count", "rejected")},
            "launches": launches, "csr_launches": csr_use,
+           "readout_routes": readout_routes,
            "vs_direct_engine": {"max_abs_err": err,
                                 "atol": E2E_ATOL, "rtol": E2E_RTOL}}
     emit(out)
@@ -2061,7 +2343,8 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
 
 #: every wrapper, so a training run can show it launched none it should not
 TRAIN_WRAPPERS = ("segment_aggregate", "segment_scatter", "segment_gather",
-                  "dense_aggregate", "segment_readout", "edge_softmax",
+                  "dense_aggregate", "segment_readout",
+                  "segment_readout_backward", "edge_softmax",
                   "fused_mp_layer", "fused_gat_aggregate", "dst_csr")
 
 
@@ -2091,9 +2374,9 @@ def train_launch_rule(cfg, steps: int) -> dict:
       scatters and ``L`` softmaxes a step, each softmax on a CSR it builds
       itself (``L`` ``dst_csr`` launches; the forward's CSR is not shared
       across a training step).
-    * The packed readout: once forward; backward one gather of the max
-      (mean⊕max), one scatter of the counts and ties, one gather of the
-      per-graph gradient.
+    * The packed readout: once forward, and its gradient's own kernel
+      (``segment_readout_backward``) once backward; no gather or scatter
+      (the composition it replaced launched two gathers and a scatter).
     * The fused inference kernels: never.
     """
     n_layers = cfg.n_gnn_blocks
@@ -2111,9 +2394,7 @@ def train_launch_rule(cfg, steps: int) -> dict:
         raise ValueError(f"no launch rule for {cfg.variant} on {layout}")
     if layout == "packed":
         want["segment_readout"] += steps
-        want["segment_gather"] += steps * (
-            2 if cfg.readout == "mean_max" else 1)
-        want["segment_scatter"] += steps
+        want["segment_readout_backward"] += steps
     return want
 
 
@@ -3106,14 +3387,16 @@ def main() -> int:
         "dense_aggregate": train["runs"]["dense"]["launches"],
         "segment_scatter": train["runs"]["gat_packed"]["launches"],
         "segment_gather": train["runs"]["gat_packed"]["launches"],
+        "segment_readout_backward": train["runs"]["packed"]["launches"],
         "flash_attention": lm_run["serve"]["launches"],
         "ssd_scan": lm_run["serve"]["launches"],
     }
     for e in entries:
         # each kernel's count from the path that carries it: GraphSAGE
         # for the first two, GAT for the edge softmax and the aggregate,
-        # the training run that carries each of the next four, the full
-        # serving run of lm_path for the LM stack's two
+        # the training run that carries each of the next five (the packed
+        # GraphSAGE run for the readout's gradient), the full serving run
+        # of lm_path for the LM stack's two
         name = e["name"]
         if name in path_launches:
             e["launches"] = path_launches[name][name]

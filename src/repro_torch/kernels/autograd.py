@@ -18,7 +18,8 @@ therefore gets a ``torch.autograd.Function`` here:
 * :class:`SegmentReadout` (``segment_readout``, B2) — the mean part
   ``w·g_mean[gid] / max(cnt, 1)``; the max part ``g_max[gid]`` split
   evenly among tied real nodes (``w > 0``), JAX's ``segment_max`` rule,
-  and nothing for empty graphs.
+  and nothing for empty graphs: ``segment_readout_backward``, one kernel
+  launch on the card.
 * :class:`EdgeSoftmax` (``edge_softmax``, B3) —
   ``ds = att ⊙ (g − gather(scatter(att ⊙ g)))`` on real edges, 0 on
   masked ones.
@@ -161,27 +162,8 @@ class SegmentReadout(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, None, None, None, None
         h, gid, w, z = ctx.saved_tensors
-        f = h.shape[1]
-        gid2 = gid[None]
-        g = _c(g)
-        cols = [w[:, None]]                          # the count of graph g
-        if ctx.kind == "mean_max":
-            # the real nodes that hold their graph's max, feature by feature
-            mx = ops.kernel("segment_gather", h)(_c(z[None, :, f:]), gid2)[0]
-            eq = ((h == mx) & (w[:, None] > 0)).to(h.dtype)
-            cols.append(eq)
-        ones = torch.ones((1, h.shape[0]), dtype=h.dtype, device=h.device)
-        sums = ops.kernel("segment_scatter", h)(
-            gid2, ones, _c(torch.cat(cols, dim=1))[None], g.shape[0])[0]
-        per_graph = g[:, :f] / sums[:, :1].clamp_min(1.0)
-        if ctx.kind == "mean_max":
-            # split evenly among ties; no real node, no tie, no gradient
-            per_graph = torch.cat(
-                [per_graph, g[:, f:] / sums[:, 1:].clamp_min(1.0)], dim=1)
-        back = ops.kernel("segment_gather", h)(_c(per_graph)[None], gid2)[0]
-        dh = w[:, None] * back[:, :f]
-        if ctx.kind == "mean_max":
-            dh = dh + eq * back[:, f:]
+        dh = ops.kernel("segment_readout_backward", h)(h, gid, w, z, _c(g),
+                                                      kind=ctx.kind)
         return dh, None, None, None, None
 
 

@@ -12,7 +12,8 @@ The entries that training differentiates through — ``segment_aggregate``,
 ``segment_scatter``, ``segment_gather``, ``dense_aggregate``,
 ``segment_readout`` and ``edge_softmax`` — record their gradients through
 :mod:`repro_torch.kernels.autograd`, whose backward passes run on
-:func:`kernel` again. ``fused_mp_layer`` and ``fused_gat_aggregate`` are
+:func:`kernel` again (the readout's on ``segment_readout_backward``, a
+kernel of its own). ``fused_mp_layer`` and ``fused_gat_aggregate`` are
 inference only: training runs the composed layers. So are the LM stack's
 ``flash_attention`` and ``ssd_scan``: on either device they refuse an
 input that requires grad (LM training is ROADMAP A14b).
@@ -33,6 +34,7 @@ from . import ssd_scan as _ssd
 _KERNELS = {
     "fused_mp_layer": (_cuda, _ref),
     "segment_readout": (_cuda, _ref),
+    "segment_readout_backward": (_cuda, _ref),
     "edge_softmax": (_cuda, _ref),
     "fused_gat_aggregate": (_cuda, _ref),
     "segment_aggregate": (_cuda, _ref),

@@ -188,6 +188,37 @@ def segment_readout_ref(h: torch.Tensor, graph_ids: torch.Tensor,
     return torch.cat([mean, mx], dim=-1)
 
 
+def segment_readout_backward_ref(h: torch.Tensor, graph_ids: torch.Tensor,
+                                 node_mask: torch.Tensor, z: torch.Tensor,
+                                 g: torch.Tensor,
+                                 kind: str = "mean_max") -> torch.Tensor:
+    """The gradient in ``h`` of :func:`segment_readout_ref`.
+
+    h, graph_ids, node_mask: the forward's inputs; z: its output and g the
+    incoming gradient, both ``[G, F]`` (``kind="mean"``) or ``[G, 2F]``.
+    Returns ``dh [P, F]``: the mean part ``w · g_mean / max(cnt, 1)``;
+    with ``mean_max`` also ``g_max / max(ties, 1)`` on each real node
+    (``w > 0``) that holds its graph's max, column by column — JAX's
+    ``segment_max`` rule of an even split among ties. An empty graph
+    passes nothing back, and a NaN max has no ties.
+    """
+    if kind not in ("mean", "mean_max"):
+        raise ValueError(f"kind must be 'mean' or 'mean_max', got {kind!r}")
+    ids = graph_ids.long()
+    w = node_mask.to(h.dtype)
+    f, n = h.shape[1], g.shape[0]
+    cnt = torch.zeros((n,), dtype=h.dtype, device=h.device).index_add_(
+        0, ids, w)
+    dh = w[:, None] * (g[:, :f] / cnt.clamp_min(1.0)[:, None]).index_select(
+        0, ids)
+    if kind == "mean":
+        return dh
+    eq = ((h == z[:, f:].index_select(0, ids)) & (w[:, None] > 0)).to(h.dtype)
+    ties = torch.zeros((n, f), dtype=h.dtype, device=h.device).index_add_(
+        0, ids, eq)
+    return dh + eq * (g[:, f:] / ties.clamp_min(1.0)).index_select(0, ids)
+
+
 def _check_csr(csr, b: int, n: int, e: int) -> None:
     """The shapes of a CSR handed to a plain version, which computes as
     without it: rowptr [B, N + 1] and perm [B, E] (:func:`dst_csr_ref`)."""

@@ -3,7 +3,9 @@
 * :func:`fused_mp_layer_cuda` — one whole message-passing layer
   (``csrc/fused_mp.cu``), the port of ``fused_mp_layer_pallas``.
 * :func:`segment_readout_cuda` — per-graph mean / mean⊕max pooling
-  (``csrc/segment_readout.cu``), the port of ``segment_readout_pallas``.
+  (``csrc/segment_readout.cu``), the port of ``segment_readout_pallas``,
+  on the route :func:`readout_plan` names; :func:`segment_readout_backward_cuda`
+  is its gradient, one launch of the same source.
 * :func:`edge_softmax_cuda` — per-destination softmax of GAT's edge
   scores (``csrc/edge_softmax.cu``), the port of ``edge_softmax_pallas``.
 * :func:`fused_gat_aggregate_cuda` — GAT's gather ⊙ attention → scatter
@@ -53,6 +55,7 @@ import ctypes
 import threading
 from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from . import build
@@ -65,10 +68,11 @@ _SIGNATURES = {
                                          _P, _I, _I, _I, _I, _I, _I, _P,
                                          _P]),
     "fused_mp_scratch_words": ("fused_mp", [_I, _I, _I]),
-    "segment_readout_accumulate": ("segment_readout",
-                                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "segment_readout_finalize": ("segment_readout",
-                                 [_P, _P, _P, _P, _I, _I, _P]),
+    "segment_readout": ("segment_readout",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "segment_readout_backward": ("segment_readout",
+                                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _P]),
     "edge_softmax": ("edge_softmax",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "fused_gat_aggregate": ("gat_aggregate",
@@ -104,6 +108,8 @@ _GRAD_ENTRY = {
                            "the composed GAT layer through "
                            "ops.segment_scatter",
     "segment_readout": "ops.segment_readout",
+    "segment_readout_backward": "nothing: it is the gradient of "
+                                "ops.segment_readout, which records none",
     "edge_softmax": "ops.edge_softmax",
     "segment_aggregate": "ops.segment_aggregate",
     "segment_scatter": "ops.segment_scatter",
@@ -302,19 +308,66 @@ fused_mp_layer_cuda.launches = 0
 fused_mp_layer_cuda.route_launches = dict.fromkeys(FUSED_MP_ROUTES, 0)
 
 
-def segment_readout_cuda(h: torch.Tensor, graph_ids: torch.Tensor,
-                         node_mask: torch.Tensor, n_graphs: int, *,
-                         kind: str = "mean_max") -> torch.Tensor:
-    """Per-graph pooled readout on the card (``csrc/segment_readout.cu``).
+#: the readout's routes (``csrc/segment_readout.cu``) and their counter
+#: slots: the packed layout's sorted prefix of real rows, or any layout
+READOUT_ROUTES = {"runs": 0, "general": 1}
+#: the order the readout adds in on the runs route: a graph of at most
+#: READOUT_WINDOW rows is one warp's sum in ascending row order; a longer
+#: one is cut into min(READOUT_WARPS, ceil(n / READOUT_WINDOW)) pieces of
+#: equal length (the last shorter), each summed in ascending order, and the
+#: pieces are added in order. The general route adds a graph's rows in
+#: ascending order, one warp a graph.
+READOUT_WINDOW, READOUT_WARPS = 16, 16
+_readout_counters: dict = {}
 
-    h: [P, F] float32; graph_ids: [P] int32; node_mask: [P] float32.
-    Returns [G, F] (``kind="mean"``) or [G, 2F] (``"mean_max"``); a graph
-    with no real nodes reads out as zeros. Two launches: accumulate and
-    finalize.
-    """
+
+def readout_plan(graph_ids, node_mask) -> str:
+    """The readout's route for these rows, as the kernel decides it on the
+    card: ``"runs"`` where the real rows (``node_mask > 0``) form a prefix
+    whose graph ids do not decrease, as ``collate_packed`` lays a bin out;
+    else ``"general"``. numpy arrays or tensors; a statement of the rule,
+    not a switch: the kernel checks it itself."""
+    def host(a):
+        return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+    # the kernel's key of a row: its id where it is real, else INT_MIN
+    key = np.where(host(node_mask) > 0, host(graph_ids).astype(np.int32),
+                   np.iinfo(np.int32).min)
+    n_real = int((key != np.iinfo(np.int32).min).sum())
+    prefix = key[:n_real]
+    ok = bool(np.all(prefix != np.iinfo(np.int32).min)
+              and np.all(prefix[1:] >= prefix[:-1]))
+    return "runs" if ok else "general"
+
+
+def _route_counter(dev: torch.device) -> torch.Tensor:
+    """The device's readout route counters (forward runs, general; backward
+    runs, general), made zero on first use; the kernel adds to them."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    counter = _readout_counters.get(key)
+    if counter is None:
+        with _bind_lock:
+            counter = _readout_counters.get(key)
+            if counter is None:
+                counter = torch.zeros((4,), dtype=torch.int64,
+                                      device=torch.device("cuda", key))
+                _readout_counters[key] = counter
+    return counter
+
+
+def readout_route_counts(device=None) -> dict:
+    """The launches of the readout and its gradient on each route on
+    ``device`` (default: the current one) since the process began. Reading
+    waits for the device; the wrappers never read them."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    n = _route_counter(dev).tolist()
+    return {"forward": dict(zip(READOUT_ROUTES, n[:2])),
+            "backward": dict(zip(READOUT_ROUTES, n[2:]))}
+
+
+def _readout_checks(h, graph_ids, node_mask, n_graphs: int, kind: str):
     if kind not in ("mean", "mean_max"):
         raise ValueError(f"kind must be 'mean' or 'mean_max', got {kind!r}")
-    refuse_grad("segment_readout", h, node_mask)
     dev = _cuda_device(h)
     if h.dim() != 2:
         raise ValueError(f"h must be [P, F], got shape {tuple(h.shape)}")
@@ -322,29 +375,84 @@ def segment_readout_cuda(h: torch.Tensor, graph_ids: torch.Tensor,
     g = int(n_graphs)
     if g < 0:
         raise ValueError(f"n_graphs must be ≥ 0, got {g}")
-    _check_dims(P=p, F=2 * f, G=g)
-    f32 = torch.float32
-    _check(h, "h", f32, (p, f), dev)
+    # the kernel counts (graph, 128-column tile) pairs in 32 bits
+    _check_dims(P=p, F=2 * f, G=g, PF=p * f, GF=2 * g * f,
+                pairs=g * -(-f // 128))
+    _check(h, "h", torch.float32, (p, f), dev)
     _check(graph_ids, "graph_ids", torch.int32, (p,), dev)
-    _check(node_mask, "node_mask", f32, (p,), dev)
+    _check(node_mask, "node_mask", torch.float32, (p,), dev)
+    return dev, p, f, g
+
+
+def segment_readout_cuda(h: torch.Tensor, graph_ids: torch.Tensor,
+                         node_mask: torch.Tensor, n_graphs: int, *,
+                         kind: str = "mean_max") -> torch.Tensor:
+    """Per-graph pooled readout on the card (``csrc/segment_readout.cu``).
+
+    h: [P, F] float32; graph_ids: [P] int32; node_mask: [P] float32.
+    Returns [G, F] (``kind="mean"``) or [G, 2F] (``"mean_max"``); a graph
+    with no real nodes reads out as zeros, and the max keeps a NaN of a
+    real row. One launch, each output element written once, on the route
+    :func:`readout_plan` names (the kernel checks the rows itself and adds
+    to :func:`readout_route_counts`); the same bits run to run. ``G = 0``
+    or ``F = 0`` returns without a launch.
+    """
+    refuse_grad("segment_readout", h, node_mask)
+    dev, p, f, g = _readout_checks(h, graph_ids, node_mask, n_graphs, kind)
     want_max = kind == "mean_max"
     with torch.cuda.device(dev):
+        out = torch.empty((g, 2 * f if want_max else f), dtype=torch.float32,
+                          device=dev)
+        if not (g and f):
+            return out
         stream = torch.cuda.current_stream(dev).cuda_stream
-        sums = torch.zeros((g, f), dtype=f32, device=dev)
-        cnt = torch.zeros((g,), dtype=f32, device=dev)
-        mx = (torch.full((g, f), torch.finfo(f32).min, dtype=f32, device=dev)
-              if want_max else None)
-        out = torch.empty((g, 2 * f if want_max else f), dtype=f32, device=dev)
-        _call("segment_readout_accumulate", _ptr(h), _ptr(graph_ids),
-              _ptr(node_mask), _ptr(sums), _ptr(cnt), _ptr(mx), p, f, g, stream)
-        _call("segment_readout_finalize", _ptr(sums), _ptr(cnt), _ptr(mx),
-              _ptr(out), f, g, stream)
-    with _count_lock:
-        segment_readout_cuda.launches += 1
+        _call("segment_readout", _ptr(h), _ptr(graph_ids), _ptr(node_mask),
+              _ptr(out), _ptr(_route_counter(dev)), p, f, g, int(want_max),
+              int(_vec(f, h)), stream)
+    _count(segment_readout_cuda)
     return out
 
 
 segment_readout_cuda.launches = 0
+
+
+def segment_readout_backward_cuda(h: torch.Tensor, graph_ids: torch.Tensor,
+                                  node_mask: torch.Tensor, z: torch.Tensor,
+                                  g: torch.Tensor, *,
+                                  kind: str = "mean_max") -> torch.Tensor:
+    """The readout's gradient in h on the card (``csrc/segment_readout.cu``).
+
+    h, graph_ids, node_mask: the forward's inputs; z: its output and g the
+    incoming gradient, both [G, F] (``kind="mean"``) or [G, 2F]. Returns
+    dh [P, F]: ``w·g_mean / max(cnt, 1)`` plus, on the real rows that hold
+    their graph's max (column by column), ``g_max / max(ties, 1)``; 0 on
+    the rows of no graph. See
+    :func:`repro_torch.kernels.ref.segment_readout_backward_ref`. One
+    launch, each element written once, on the forward's route; no CSR, no
+    other kernel. ``P = 0`` or ``F = 0`` returns without a launch.
+    """
+    refuse_grad("segment_readout_backward", h, node_mask, z, g)
+    if not isinstance(z, torch.Tensor):
+        raise TypeError(f"z must be a torch.Tensor, got {type(z).__name__}")
+    dev, p, f, n = _readout_checks(h, graph_ids, node_mask, z.shape[0], kind)
+    want_max = kind == "mean_max"
+    width = 2 * f if want_max else f
+    _check(z, "z", torch.float32, (n, width), dev)
+    _check(g, "g", torch.float32, (n, width), dev)
+    with torch.cuda.device(dev):
+        dh = torch.empty((p, f), dtype=torch.float32, device=dev)
+        if not (p and f):
+            return dh
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _call("segment_readout_backward", _ptr(h), _ptr(graph_ids),
+              _ptr(node_mask), _ptr(z), _ptr(g), _ptr(dh),
+              _ptr(_route_counter(dev)), p, f, n, int(want_max),
+              int(_vec(f, h, z, g)), stream)
+    _count(segment_readout_backward_cuda)
+    return dh
+
+
+segment_readout_backward_cuda.launches = 0
 
 
 def edge_softmax_cuda(scores: torch.Tensor, dst: torch.Tensor,
