@@ -101,7 +101,40 @@ Phases, each printing one JSON line:
    bit-equal to the cold prediction and every answer matches the direct
    engine's; p50/p99 latency and the hit rate are printed; every GAT
    kernel launch must have used its bin's shared CSR.
-7. ``train_path`` — ``train_pmgns`` on the card at the paper's Table 3
+7. ``engine_layouts`` — GraphSAGE and GAT at the paper's width, from the
+   packed path's seed-0 parameters, through the bucketed engine on
+   ``layout="dense"`` and ``"sparse"`` (``DIPPM.from_params``, its
+   default engine's ``warmup``, ``predict_many`` of the six documents and
+   ``predict_samples`` of the 400 graphs): each held against the CPU's
+   plain versions and against the card's packed engine at 1e-3 + 1e-3,
+   its launches zeroed before and held to ``layout_launch_rule`` after
+   (B7 once a layer a chunk on dense GraphSAGE, B5's aggregate on sparse
+   GraphSAGE, B5's gather, B3 on its own CSR and B6 on sparse GAT, no
+   kernel on dense GAT, never B1); ``EngineStats``, ms per chunk,
+   predictions/s, the device busy ms a chunk, the staged bytes of a full
+   chunk; and B7, B5's aggregate and B6 (F = 512) on the bucket-256 ×
+   64 chunk against their plain versions, timed beside their bound and
+   ``torch.bmm`` (the kernels entries' ``inference_chunk``).
+8. ``bf16`` — torch's bfloat16 rounding on this host's CPU against the
+   integer round to nearest even (2^20 random patterns, ties,
+   subnormals, ±inf); GraphSAGE and GAT predictors trained on the card
+   as ``benchmarks/fused_mp.py`` trains its own, served by packed bf16
+   engines on the main path's inputs: MAPE against float32 at most
+   0.5 %, the CPU's bf16 run at 1e-3 + 1e-3, launches against bins ×
+   layers, ``bf16_max_abs_delta``, bulk ms a bin in turns with float32,
+   a full bin's float buffer bytes and upload ms in both, and two bf16
+   artifacts through ``DIPPM.load`` (float32 weights: the engine's
+   predictions; bfloat16 weights: the CPU's load's).
+9. ``fleet`` — ``ServeConfig(replicas=2)`` and ``4`` on the one card
+   (every replica on it, each on its own stream): an atomic
+   ``predict_many`` of the serving documents, GAT bit-equal to one
+   engine of the same plan and GraphSAGE within 1e-5 + 1e-5, every
+   replica taking bins, launches on bins × layers; a
+   ``FailureInjector`` kill of replica 0 mid-burst (no lost future, a
+   requeue, the counters conserve), its revival by a breaker probe, and
+   heartbeats of every replica; bins/s and p50/p99 at 1, 2 and 4
+   replicas in turns, at the engine level and through the service.
+10. ``train_path`` — ``train_pmgns`` on the card at the paper's Table 3
    settings over 400 synthetic graphs: GraphSAGE on the dense layout and
    on the packed one for 2 epochs each, each against the same run on the
    CPU's plain versions (per-epoch loss, the first step's gradients, the
@@ -112,7 +145,7 @@ Phases, each printing one JSON line:
    It prints ms per step, steps/s and the host share of a step, and
    reloads the trained model through ``save_artifact`` / ``DIPPM.load``
    to hold one served bin against the trainer's own evaluation.
-8. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
+11. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
    with the depth cut to 12 layers (2 groups), float32, weights from a
    seed, 2 prompts × 128 tokens through prefill and 16 greedy decode
    steps on the card against the same weights on the CPU: every step's
@@ -168,6 +201,24 @@ SERVE_THREADS, SERVE_PER_THREAD, SERVE_SHARED = 8, 50, 16
 SERVE_TIMEOUT = 120
 #: full packed bin of the engine's default budgets (batching.py:372-405)
 FULL_P, FULL_Q, FULL_G = 4096, 6656, 256
+#: engine_layouts and bf16 drive these variants; engine_layouts times B5,
+#: B6 and B7 on the bucketed engines' full chunk at this node bucket
+LAYOUT_VARIANTS, CHUNK_BUCKET = ("graphsage", "gat"), 256
+#: bf16 staging against float32: the reference's bar
+#: (benchmarks/fused_mp.py:245-292), on a predictor trained as it trains
+#: its own (samples, epochs, batch, learning rate)
+BF16_MAPE_BAR = 0.005
+BF16_TRAIN_SAMPLES, BF16_TRAIN_EPOCHS, BF16_TRAIN_BATCH, BF16_TRAIN_LR = (
+    96, 20, 16, 1e-3)
+#: fleet: GraphSAGE's edge phase adds with float atomics, so its fleet
+#: results are held to the kill drill's bar of tests/test_serve.py:603-605
+#: (GAT's must be bit-equal); the replica counts compared, the turns, the
+#: atomic bursts a turn and the bulk sweeps a turn; the drill's breaker
+#: cooldown and mean gap between arrivals
+FLEET_ATOL = FLEET_RTOL = 1e-5
+FLEET_REPLICAS, FLEET_TURNS, FLEET_BURSTS = (1, 2, 4), 2, 5
+FLEET_BULK_REPEATS = 3
+FLEET_COOLDOWN_S, FLEET_GAP_S = 0.5, 0.0005
 #: train_path: the paper's width, batch and learning rate (Table 3) over
 #: this many synthetic graphs of 16–200 nodes
 TRAIN_HIDDEN, TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_LR = 512, 400, 32, 2.754e-5
@@ -2119,16 +2170,31 @@ def check_shared_csr(kernels: dict, launches: dict, phase: str) -> dict:
     return out
 
 
-def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
-    """Drive one variant's main path on the card and hold it against the
-    CPU; returns the launch counts and the card's ``DIPPM``."""
-    from repro_torch.core import DIPPM, from_json, pmgns_init
+def path_inputs() -> tuple:
+    """The main path's inputs: six seeded ``repro.opgraph.v1`` DAGs of
+    20–800 nodes (their sizes, documents and graphs) and 400 synthetic
+    graphs of 16–200 nodes."""
+    from repro_torch.core import from_json
     from repro_torch.dataset.builder import synthetic_samples
     rng = np.random.default_rng(11)
     sizes = [20, 75, 160, 333, 512, 800]
     docs = [random_dag_doc(rng, n, i) for i, n in enumerate(sizes)]
     graphs = [from_json(d) for d in docs]
     samples = synthetic_samples(400, seed=1, n_min=16, n_max=200)
+    return sizes, docs, graphs, samples
+
+
+def pred_rows(preds) -> np.ndarray:
+    """``[n, 3]`` of a list of ``Prediction``s."""
+    return np.asarray([[p.latency_ms, p.energy_j, p.memory_mb]
+                       for p in preds])
+
+
+def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
+    """Drive one variant's main path on the card and hold it against the
+    CPU; returns the launch counts and the card's ``DIPPM``."""
+    from repro_torch.core import DIPPM, pmgns_init
+    sizes, docs, graphs, samples = path_inputs()
     tree = pmgns_init(0, cfg)
     dippm = DIPPM.from_params(tree, cfg)          # on the card by default
     if dippm.device.type != "cuda":
@@ -2238,10 +2304,10 @@ def phase_path(torch, cfg, name_limit: str, phase: str) -> tuple:
     return launches, dippm
 
 
-def phase_serving(torch, dippm, name_limit: str) -> dict:
-    """A burst of submit_json requests from many threads through a
-    dedicated service on the card."""
-    from repro_torch.core import from_json
+def serving_docs() -> tuple:
+    """The serving burst's documents: ``SERVE_SHARED`` that every thread
+    draws from and, per thread, ``SERVE_PER_THREAD // 2`` of its own;
+    returns ``(own, docs)``, ``docs`` the shared ones first."""
     rng = np.random.default_rng(23)
     shared = [random_dag_doc(rng, int(rng.integers(10, 300)), i)
               for i in range(SERVE_SHARED)]
@@ -2249,8 +2315,15 @@ def phase_serving(torch, dippm, name_limit: str) -> dict:
                            1000 * (t + 1) + j)
             for j in range(SERVE_PER_THREAD // 2)]
            for t in range(SERVE_THREADS)]
+    return own, shared + [d for ds in own for d in ds]
+
+
+def phase_serving(torch, dippm, name_limit: str) -> dict:
+    """A burst of submit_json requests from many threads through a
+    dedicated service on the card."""
+    from repro_torch.core import from_json
     # the same fingerprint always gets the same key: its index in `docs`
-    docs = shared + [d for ds in own for d in ds]
+    own, docs = serving_docs()
     direct = dippm.engine().predict_graphs([from_json(d) for d in docs])
     kernels = path_kernels(dippm.cfg.variant)
     results = [[] for _ in range(SERVE_THREADS)]
@@ -2396,6 +2469,659 @@ def train_launch_rule(cfg, steps: int) -> dict:
         want["segment_readout"] += steps
         want["segment_readout_backward"] += steps
     return want
+
+
+# ---------------------------------------------------------------------------
+# engine_layouts, bf16, fleet: the rest of the prediction engine and service
+# ---------------------------------------------------------------------------
+
+def all_wrappers() -> dict:
+    """Every prediction and training wrapper, for ``zero_counts``."""
+    return {name: (wrapper(name), None) for name in TRAIN_WRAPPERS}
+
+
+def layout_launch_rule(cfg, chunks: int) -> dict:
+    """The launches each wrapper counts in ``chunks`` bucketed chunks of
+    ``cfg`` at inference (L message-passing layers):
+
+    * GraphSAGE: ``dense_aggregate`` (dense) or ``segment_aggregate``
+      (sparse) once a layer;
+    * GAT on the sparse layout: per layer three gathers (``ed[dst]``,
+      ``es[src]``, ``z[src]``), one edge softmax on a CSR it builds itself
+      (one ``dst_csr``) and one scatter;
+    * GAT on the dense layout: none (plain torch, as plain ``jnp`` in the
+      JAX package);
+    * never a fused kernel or the packed readout (the bucketed readout is
+      plain torch).
+    """
+    n_layers, layout = cfg.n_gnn_blocks, cfg.resolved_layout
+    want = dict.fromkeys(TRAIN_WRAPPERS, 0)
+    if cfg.variant == "graphsage":
+        agg = "dense_aggregate" if layout == "dense" else "segment_aggregate"
+        want[agg] = chunks * n_layers
+    elif cfg.variant == "gat" and layout == "sparse":
+        want["segment_gather"] = chunks * 3 * n_layers
+        want["segment_scatter"] = chunks * n_layers
+        want["edge_softmax"] = chunks * n_layers
+        want["dst_csr"] = chunks * n_layers
+    elif not (cfg.variant == "gat" and layout == "dense"):
+        raise ValueError(f"no launch rule for {cfg.variant} on {layout}")
+    return want
+
+
+def chunk_staged_bytes(engine, bucket: int = CHUNK_BUCKET) -> dict:
+    """Host→device bytes of a full bucketed chunk at ``bucket`` (batch
+    axis at the engine's cap), by array."""
+    cfg = engine.cfg
+    b = engine._batch_cap(bucket)
+    out = {"batch": b, "x": 4 * b * bucket * cfg.node_feat_dim,
+           "mask": 4 * b * bucket, "static": 4 * b * cfg.static_dim}
+    if engine.sparse:
+        e = engine._edge_floor(bucket)
+        out.update(edges=8 * b * e, edge_mask=4 * b * e)
+    else:
+        out["adj"] = 4 * b * bucket * bucket
+    out["total"] = sum(v for k, v in out.items() if k != "batch")
+    return out
+
+
+def chunk_kernel_rows(torch, dev, samples, hidden: int) -> dict:
+    """B7 (``dense_aggregate``), B5's aggregate and B6 at F = hidden on
+    the bucketed engines' full chunk: the first bucket-``CHUNK_BUCKET``
+    chunk of ``samples`` at the engine's cap (64 graphs), its dense
+    adjacency and its sparse edge list at the bucket's edge floor, with
+    random activations; each held against its plain version and timed
+    beside its bound and, where one exists, a library call."""
+    from repro_torch.core.batching import (dense_adj, edge_bucket_for,
+                                           edge_floor, group_by_bucket,
+                                           max_batch_for_bucket, pack_edges)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sage_spmm import dense_aggregate_cuda
+    from repro_torch.kernels.segment_spmm import (segment_aggregate_cuda,
+                                                  segment_scatter_cuda)
+    n = CHUNK_BUCKET
+    cap = max_batch_for_bucket(n, 64)
+    members = group_by_bucket(samples)[n][:cap]
+    chunk = [samples[j] for j in members]
+    b = len(chunk)
+    adj_np = np.zeros((b, n, n), np.float32)
+    for i, s in enumerate(chunk):
+        dense_adj(s.edges, n, out=adj_np[i])
+    e = max(edge_bucket_for(max(s.n_edges for s in chunk)), edge_floor(n))
+    edges_np, em_np = pack_edges(chunk, e)
+    rng = np.random.default_rng(4200)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    adj, edges, em = t(adj_np), t(edges_np), t(em_np)
+    h = t(rng.standard_normal((b, n, hidden)).astype(np.float32))
+    msgs = t(rng.standard_normal((b, e, hidden)).astype(np.float32))
+    dst = edges[..., 1]
+    nnz, e_real = int(adj_np.sum()), int(em_np.sum())
+    pairs = {
+        "dense_aggregate": (
+            lambda: dense_aggregate_cuda(adj, h, "mean"),
+            lambda: ref.dense_aggregate_ref(adj, h, "mean"),
+            lambda: torch.bmm(adj, h),
+            bound_ms(2.0 * nnz * hidden + b * n * hidden + b * n * n,
+                     4.0 * (b * n * n + 2 * b * n * hidden))),
+        "segment_aggregate": (
+            lambda: segment_aggregate_cuda(edges, em, h, "mean"),
+            lambda: ref.segment_aggregate_ref(edges, em, h, "mean"), None,
+            bound_ms(2.0 * e_real * hidden + b * n * hidden,
+                     4.0 * (2 * b * n * hidden + 3 * b * e + b * n))),
+        "segment_scatter": (
+            lambda: segment_scatter_cuda(dst, em, msgs, n),
+            lambda: ref.segment_scatter_ref(dst, em, msgs, n), None,
+            bound_ms(2.0 * e_real * hidden,
+                     4.0 * (b * e * hidden + 2 * b * e + b * n * hidden))),
+    }
+    rows = {}
+    for name, (kern, plain, lib, (bnd, by)) in pairs.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = check_close(f"{name} at the inference chunk", got, want,
+                          KERNEL_ATOL, KERNEL_RTOL)
+        rows[name] = {"ms": time_graph_ms(torch, kern),
+                      "plain_ms": time_graph_ms(torch, plain),
+                      "library_ms": (time_graph_ms(torch, lib)
+                                     if lib is not None else None),
+                      "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+    shape = f"B={b} N={n} F={hidden}"
+    rows["dense_aggregate"]["unit"] = (
+        f"one dense inference layer, mean: {shape} ({nnz} nonzeros of "
+        f"{b * n * n})")
+    rows["dense_aggregate"]["library_note"] = "torch.bmm(adj, h), sum form"
+    rows["segment_aggregate"]["unit"] = (
+        f"one sparse inference layer, mean: {shape} E={e} ({e_real} real)")
+    rows["segment_scatter"]["unit"] = (
+        f"one sparse GAT layer's scatter: {shape} E={e} ({e_real} real)")
+    return rows
+
+
+def phase_engine_layouts(torch, name_limit: str) -> dict:
+    """GraphSAGE and GAT at the paper's width through the bucketed engine
+    (``layout="dense"`` and ``"sparse"``) on the main path's inputs, from
+    the packed path's seed-0 parameters: each held against the CPU's plain
+    versions and against the card's packed engine, its launches against
+    ``layout_launch_rule``."""
+    import dataclasses
+    from repro_torch.core import DIPPM, PMGNSConfig, pmgns_init
+    sizes, docs, graphs, samples = path_inputs()
+    kernels = all_wrappers()
+    out = {"phase": "engine_layouts", "card": name_limit,
+           "json_nodes": sizes, "bulk_graphs": len(samples), "runs": {}}
+    for variant in LAYOUT_VARIANTS:
+        packed_cfg = PMGNSConfig(variant=variant, layout="packed",
+                                 precision="f32")
+        tree = pmgns_init(0, packed_cfg)
+        packed = DIPPM.from_params(tree, packed_cfg)
+        packed_ref = np.concatenate([
+            pred_rows(packed.predict_many(graphs)),
+            packed.engine().predict_samples(samples)])
+        for layout in ("dense", "sparse"):
+            cfg = dataclasses.replace(packed_cfg, layout=layout)
+            dippm = DIPPM.from_params(tree, cfg)      # on the card
+            engine = dippm.engine()
+            if dippm.device.type != "cuda" or engine.layout != layout:
+                raise AssertionError(f"engine_layouts: {variant} {layout} "
+                                     f"ran {engine.layout} on "
+                                     f"{dippm.device}")
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            warmed = engine.warmup()
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t0
+            many = dippm.predict_many(graphs)
+            chunks_before = engine.stats.batches_run
+            bulk_s = []
+            for _ in range(BULK_REPEATS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ys = engine.predict_samples(samples)
+                torch.cuda.synchronize()
+                bulk_s.append(time.perf_counter() - t1)
+            launches = {k: fn.launches for k, (fn, _) in kernels.items()}
+            stats = engine.stats.snapshot()
+            want = layout_launch_rule(cfg, stats.batches_run + warmed)
+            if launches != want:
+                raise AssertionError(
+                    f"engine_layouts: {variant} {layout} launched "
+                    f"{launches}, want {want} ({stats.batches_run} chunks + "
+                    f"{warmed} warmup shapes)")
+            sparse_csr = None
+            if variant == "gat" and layout == "sparse":
+                sparse_csr = dict(wrapper("edge_softmax").csr_launches)
+                if sparse_csr != {"shared": 0, "own": launches[
+                        "edge_softmax"]}:
+                    raise AssertionError(f"engine_layouts: the sparse GAT "
+                                         f"softmax ran {sparse_csr}")
+            busy_ms, top = device_busy_ms(
+                torch, lambda: engine.predict_samples(samples))
+            card = np.concatenate([pred_rows(many), ys])
+            if card.shape != packed_ref.shape or not np.isfinite(card).all():
+                raise AssertionError(f"engine_layouts: {variant} {layout}: "
+                                     f"bad predictions {card.shape}")
+            cpu = DIPPM.from_params(tree, cfg, device="cpu")
+            ref = np.concatenate([pred_rows(cpu.predict_many(graphs)),
+                                  cpu.engine().predict_samples(samples)])
+            err_cpu = check_close(
+                f"engine_layouts: {variant} {layout} card vs CPU", card, ref,
+                E2E_ATOL, E2E_RTOL)
+            err_packed = check_close(
+                f"engine_layouts: {variant} {layout} vs the packed engine",
+                card, packed_ref, E2E_ATOL, E2E_RTOL)
+            t_bulk = statistics.median(bulk_s)
+            bulk_chunks = (stats.batches_run - chunks_before) // BULK_REPEATS
+            out["runs"][f"{variant}_{layout}"] = {
+                "warmup_shapes": warmed, "warmup_s": t_warm,
+                "bulk_s": bulk_s, "bulk_chunks": bulk_chunks,
+                "bulk_predictions_per_s": len(samples) / t_bulk,
+                "bulk_ms_per_chunk": 1e3 * t_bulk / max(bulk_chunks, 1),
+                "device_busy_ms_per_chunk": busy_ms / max(bulk_chunks, 1),
+                "top_device_ms_per_bulk": top,
+                "launches": {k: v for k, v in launches.items() if v},
+                "edge_softmax_csr": sparse_csr,
+                "staged_bytes_full_chunk": chunk_staged_bytes(engine),
+                "engine_stats": {**dataclasses.asdict(stats),
+                                 "padding_waste_frac":
+                                     stats.padding_waste_frac},
+                "vs_cpu": {"max_abs_err": err_cpu,
+                           "max_rel_err": rel_err(card, ref)},
+                "vs_packed": {"max_abs_err": err_packed,
+                              "max_rel_err": rel_err(card, packed_ref)},
+                "atol": E2E_ATOL, "rtol": E2E_RTOL}
+            del dippm, engine, cpu
+            torch.cuda.empty_cache()
+    out["kernels_at_chunk"] = chunk_kernel_rows(
+        torch, torch.device("cuda"), samples, PMGNSConfig().hidden)
+    emit(out)
+    return out
+
+
+#: float32 values whose bfloat16 rounding is easy to get wrong: ties to
+#: even both ways, just past a tie, subnormals, ±inf and past the largest
+BF16_SPECIAL = (1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8,
+                1.0 + 2.0 ** -8 + 2.0 ** -20, -(1.0 + 2.0 ** -7 + 2.0 ** -9),
+                1e-39, 1e-40, -3e-39, 1.1754942e-38, 2.0 ** -133,
+                float("inf"), float("-inf"), 3.4e38, 0.1, -0.0)
+
+
+def bf16_rounding_check(torch) -> dict:
+    """The staging's rounding point on this host's CPU: ``stage_bf16``
+    (one torch ``copy_``) against the integer round to nearest even of
+    ``serve.artifact.f32_to_bf16_bits`` (``ml_dtypes``' bits), on the
+    special values and 2^20 random bit patterns; a NaN must stay NaN."""
+    from repro_torch.core.engine import stage_bf16
+    from repro_torch.serve.artifact import f32_to_bf16_bits
+    rng = np.random.default_rng(7)
+    bulk = rng.integers(0, 2 ** 32, 1 << 20, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    v = np.concatenate([np.asarray(BF16_SPECIAL, np.float32), bulk])
+    got = stage_bf16(v).view(torch.int16).numpy().view(np.uint16)
+    want = f32_to_bf16_bits(v)
+    nan = np.isnan(v)
+    bad = int(np.count_nonzero(got[~nan] != want[~nan]))
+    nan_kept = bool(np.isnan(stage_bf16(v[nan]).float().numpy()).all())
+    if bad or not nan_kept:
+        raise AssertionError(f"bf16: torch's rounding differs from round "
+                             f"to nearest even in {bad} of {v.size} values "
+                             f"(NaN kept: {nan_kept})")
+    return {"values": int(v.size), "nan": int(nan.sum()), "differ": bad}
+
+
+def upload_ms(torch, buf) -> float:
+    """Median ms of one non-blocking upload of the pinned host ``buf``
+    (CUDA events around the copy)."""
+    dev = torch.device("cuda")
+    times = []
+    for _ in range(60):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        buf.to(dev, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[10:])
+
+
+def mape(got, want) -> float:
+    """Mean absolute percentage error of ``got`` against ``want``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.mean(np.abs(got - want) / np.maximum(np.abs(want),
+                                                         1e-6)))
+
+
+def phase_bf16(torch, name_limit: str) -> dict:
+    """bf16 staging at the paper's width: GraphSAGE and GAT predictors
+    trained on the card as ``benchmarks/fused_mp.py`` trains its own
+    (MAPE is relative to the float32 predictions, so they must sit at
+    calibrated magnitudes), each served by a packed bf16 engine on the
+    main path's inputs: MAPE against float32 on the card, the CPU's bf16
+    run, launches against bins × layers, the staged bytes and upload
+    times, and a bf16 artifact through ``DIPPM.load``."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core import DIPPM, PMGNSConfig, pmgns_init
+    from repro_torch.core.batching import (packed_rung_ladder,
+                                           resolve_packed_budgets)
+    from repro_torch.core.engine import EngineConfig, stage_bf16
+    from repro_torch.core.gnn import packed_staging_layout
+    from repro_torch.serve.artifact import load_artifact, save_artifact
+    from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
+    sizes, docs, graphs, samples = path_inputs()
+    out = {"phase": "bf16", "card": name_limit,
+           "rounding": bf16_rounding_check(torch), "runs": {},
+           "mape_bar": BF16_MAPE_BAR}
+    budgets = resolve_packed_budgets(EngineConfig().node_budget)
+    ladder = len(packed_rung_ladder(*budgets))
+    for variant in LAYOUT_VARIANTS:
+        cfg32 = PMGNSConfig(variant=variant, layout="packed",
+                            precision="f32", dropout=0.0)
+        cfg16 = dataclasses.replace(cfg32, precision="bf16")
+        t0 = time.perf_counter()
+        tree, hist = train_pmgns(cfg32, samples[:BF16_TRAIN_SAMPLES], (),
+                                 TrainConfig(epochs=BF16_TRAIN_EPOCHS,
+                                             batch_size=BF16_TRAIN_BATCH,
+                                             lr=BF16_TRAIN_LR, seed=0))
+        t_train = time.perf_counter() - t0
+        d32 = DIPPM.from_params(tree, cfg32)
+        d16 = DIPPM.from_params(tree, cfg16)
+        e16 = d16.engine()
+        kernels = path_kernels(variant)
+        zero_counts(kernels)
+        routes0 = readout_forward_counts()
+        warmed = e16.warmup(rungs="all")
+        delta = e16.stats.bf16_max_abs_delta
+        y16 = np.concatenate([pred_rows(d16.predict_many(graphs)),
+                              e16.predict_samples(samples)])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, (fn, _) in kernels.items()}
+        readout_routes = readout_route_diff(routes0)
+        stats = e16.stats.snapshot()
+        # every bin, every warmed rung and the delta probe's two passes
+        runs = stats.batches_run + ladder + 2
+        want = {k: runs * (cfg16.n_gnn_blocks if per == "layer" else 1)
+                for k, (_, per) in kernels.items()}
+        if launches != want:
+            raise AssertionError(f"bf16: {variant} launched {launches}, "
+                                 f"want {want}")
+        if readout_routes != {"runs": launches["segment_readout"],
+                              "general": 0}:
+            raise AssertionError(f"bf16: readout routes {readout_routes}")
+        if delta is None or not np.isfinite(delta):
+            raise AssertionError(f"bf16: bf16_max_abs_delta {delta}")
+        y32 = np.concatenate([pred_rows(d32.predict_many(graphs)),
+                              d32.engine().predict_samples(samples)])
+        drift = mape(y16, y32)
+        # the bulk sweep's wall ms a bin, float32 and bf16 staging in turns
+        turns = {"f32": [], "bf16": []}
+        for kind in ("f32", "bf16", "bf16", "f32") * BULK_REPEATS:
+            eng = e16 if kind == "bf16" else d32.engine()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.predict_samples(samples)
+            torch.cuda.synchronize()
+            turns[kind].append(1e3 * (time.perf_counter() - t1))
+        bulk_bins = len(e16.plan_bins(samples))
+        busy16, _ = device_busy_ms(torch, lambda: e16.predict_samples(samples))
+        if not np.isfinite(y16).all() or drift > BF16_MAPE_BAR:
+            raise AssertionError(f"bf16: {variant} MAPE against float32 "
+                                 f"{drift:.4%} exceeds {BF16_MAPE_BAR:.1%}")
+        c16 = DIPPM.from_params(tree, cfg16, device="cpu")
+        ref = np.concatenate([pred_rows(c16.predict_many(graphs)),
+                              c16.engine().predict_samples(samples)])
+        err_cpu = check_close(f"bf16: {variant} card vs CPU", y16, ref,
+                              E2E_ATOL, E2E_RTOL)
+        # the same drift on the seed-0 weights, for the record only
+        tree0 = pmgns_init(0, cfg32)
+        rand = mape(DIPPM.from_params(tree0, cfg16).engine()
+                    .predict_samples(samples),
+                    DIPPM.from_params(tree0, cfg32).engine()
+                    .predict_samples(samples))
+        # two artifacts of the bf16 model: float32 weights (the runtime
+        # bf16 deployment, which must serve the engine's predictions) and
+        # bfloat16 weights (precision="bf16", held against the CPU's load)
+        art = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for stored in ("f32", "bf16"):
+                path = str(Path(tmp) / f"{variant}_{stored}.npz")
+                save_artifact(path, tree, cfg16, precision=stored)
+                loaded = DIPPM.load(path)            # on the card
+                if load_artifact(path)[1].precision != "bf16" or \
+                        not loaded.engine()._stage_bf16:
+                    raise AssertionError("bf16: the artifact's engine does "
+                                         "not stage bfloat16")
+                art[stored] = np.concatenate([
+                    pred_rows(loaded.predict_many(graphs)),
+                    loaded.engine().predict_samples(samples)])
+                del loaded
+            c_art = DIPPM.load(path, device="cpu")
+            ref_art = np.concatenate([
+                pred_rows(c_art.predict_many(graphs)),
+                c_art.engine().predict_samples(samples)])
+        err_same = check_close(f"bf16: {variant} float32-weight artifact vs "
+                               f"the engine", art["f32"], y16, FLEET_ATOL,
+                               FLEET_RTOL)
+        err_art = check_close(f"bf16: {variant} bfloat16-weight artifact, "
+                              f"card vs CPU", art["bf16"], ref_art,
+                              E2E_ATOL, E2E_RTOL)
+        out["runs"][variant] = {
+            "train": {"samples": BF16_TRAIN_SAMPLES,
+                      "epochs": BF16_TRAIN_EPOCHS,
+                      "batch": BF16_TRAIN_BATCH, "lr": BF16_TRAIN_LR,
+                      "seconds": t_train,
+                      "final_train_loss": hist[-1]["train_loss"]},
+            "bf16_max_abs_delta": delta, "warmup_shapes": warmed,
+            "mape_vs_f32": drift, "mape_vs_f32_seed0_weights": rand,
+            "bulk_ms_per_bin": {k: [t / bulk_bins for t in v]
+                                for k, v in turns.items()},
+            "bf16_device_busy_ms_per_bin": busy16 / bulk_bins,
+            "vs_cpu_bf16": {"max_abs_err": err_cpu,
+                            "max_rel_err": rel_err(y16, ref)},
+            "launches": launches, "readout_routes": readout_routes,
+            "bins": stats.batches_run,
+            "artifact": {"f32_weights_vs_engine_max_abs_err": err_same,
+                         "f32_weights_bitwise_equal":
+                             art["f32"].tobytes() == y16.tobytes(),
+                         "bf16_weights_vs_cpu_max_abs_err": err_art,
+                         "bf16_weights_mape_vs_f32_model":
+                             mape(art["bf16"], y32)}}
+        del d32, d16, e16, c16, c_art
+        torch.cuda.empty_cache()
+    _, _, _, f_len, i_len = packed_staging_layout(PMGNSConfig(), FULL_P,
+                                                  FULL_Q, FULL_G)
+    f32 = torch.zeros((f_len,), pin_memory=True)
+    b16 = stage_bf16(np.zeros(f_len, np.float32), pin=True)
+    out["full_bin_staging"] = {
+        "shape": f"P={FULL_P} Q={FULL_Q} G={FULL_G}",
+        "float_bytes_f32": 4 * f_len, "float_bytes_bf16": 2 * f_len,
+        "int_bytes": 4 * i_len,
+        "upload_ms_f32": upload_ms(torch, f32),
+        "upload_ms_bf16": upload_ms(torch, b16)}
+    emit(out)
+    return out
+
+
+def fleet_drill(torch, tree, cfg, graphs, ref) -> dict:
+    """Kill replica 0 mid-burst (a ``FailureInjector``), then revive it
+    by a breaker probe after its cooldown; heartbeats for every
+    replica."""
+    import tempfile
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.runtime import FailureInjector, HeartbeatMonitor
+    from repro_torch.serve import (BreakerConfig, PredictionService,
+                                   ReplicaPool, ServeConfig)
+    inj = {0: FailureInjector(fail_at_steps=[2])}
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory() as hb:
+        pool = ReplicaPool(tree, cfg, EngineConfig(), n_replicas=2,
+                           injectors=inj, heartbeat_dir=hb,
+                           breaker=BreakerConfig(
+                               cooldown_s=FLEET_COOLDOWN_S))
+        svc = PredictionService(engine=pool, serve_cfg=ServeConfig(
+            max_wait_ms=2.0, cache_size=None))
+        try:
+            futs = []
+            for g in graphs:                  # open-loop Poisson arrivals
+                futs.append(svc.submit(g))
+                time.sleep(float(rng.exponential(FLEET_GAP_S)))
+            svc.flush()
+            got = pred_rows([f.result(timeout=SERVE_TIMEOUT) for f in futs])
+            st = svc.stats
+            states = pool.breaker_states
+            # one failure trips replica 0's breaker (threshold 1); it may
+            # already have revived if the burst outlasted its cooldown
+            if (inj[0].failures != 1 or st.requeues < 1 or st.failed
+                    or st.completed != len(graphs)
+                    or st.submitted != st.completed + st.failed
+                    + st.deadline_expired + st.shed_count):
+                raise AssertionError(f"fleet: the kill drill lost work: "
+                                     f"failures {inj[0].failures}, {st}")
+            err = check_close("fleet: the kill drill vs one engine", got,
+                              ref, FLEET_ATOL, FLEET_RTOL)
+            time.sleep(1.5 * FLEET_COOLDOWN_S)
+            svc.predict_many(graphs[:40], timeout=SERVE_TIMEOUT)
+            if pool.breaker_states != ("closed", "closed") or \
+                    pool.revivals != 1:
+                raise AssertionError(f"fleet: no revival: "
+                                     f"{pool.breaker_states}, "
+                                     f"{pool.revivals}")
+            beats = HeartbeatMonitor(hb).read_all()
+            if {b["replica"] for b in beats} != {0, 1}:
+                raise AssertionError(f"fleet: heartbeats {beats}")
+            return {"requests": len(graphs), "failures": inj[0].failures,
+                    "requeues": st.requeues, "bins": st.bins,
+                    "replica_bins": st.replica_bins,
+                    "breaker_after_kill": states,
+                    "breaker_after_probe": pool.breaker_states,
+                    "revivals": pool.revivals, "max_abs_err": err,
+                    "heartbeats": sorted((b["replica"], b["step"],
+                                          b["breaker"]) for b in beats)}
+        finally:
+            svc.close()
+            pool.close()
+
+
+def fleet_bulk(torch, engine, samples) -> dict:
+    """Bins/s and bin latency (submission to result, p50/p99) of the
+    bulk sweep's bins (``samples`` planned once, ``FLEET_BULK_REPEATS``
+    times over), all in flight at once: through ``submit_bin`` on a
+    pool, one after another through ``run_bin`` on an engine."""
+    bins = engine.plan_bins(samples)
+    chunks = [[samples[j] for j in b] for b in bins] * FLEET_BULK_REPEATS
+    done = [0.0] * len(chunks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if hasattr(engine, "submit_bin"):
+        futs = []
+        for i, c in enumerate(chunks):
+            f = engine.submit_bin(c)
+            f.add_done_callback(
+                lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
+            futs.append(f)
+        for f in futs:
+            f.result(timeout=SERVE_TIMEOUT)
+    else:
+        for i, c in enumerate(chunks):
+            engine.run_bin(c)
+            done[i] = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lat = 1e3 * (np.asarray(done) - t0)
+    return {"bins": len(chunks), "wall_s": wall,
+            "bins_per_s": len(chunks) / wall,
+            "bin_latency_ms_p50": float(np.percentile(lat, 50)),
+            "bin_latency_ms_p99": float(np.percentile(lat, 99)),
+            "peak_inflight": getattr(engine, "peak_inflight", 1)}
+
+
+def fleet_turns(torch, tree, cfg, graphs, samples) -> dict:
+    """At ``FLEET_REPLICAS`` replicas on this card, in turns (each count
+    once per turn, the order reversed every other turn), after warmup:
+    the engine level (``fleet_bulk``: one engine, then pools of 1, 2 and 4
+    replicas) and the request level (``FLEET_BURSTS`` atomic bursts of
+    ``graphs`` through ``ServeConfig(replicas=n)``, cache off: bins/s and
+    request p50/p99, featurization on the submitting thread included)."""
+    from repro_torch.core.engine import PredictionEngine
+    from repro_torch.serve import (PredictionService, ReplicaPool,
+                                   ServeConfig)
+    rows = {"engine": []}
+    rows.update({f"pool_{n}": [] for n in FLEET_REPLICAS})
+    rows.update({f"service_{n}": [] for n in FLEET_REPLICAS})
+    for turn in range(FLEET_TURNS):
+        order = FLEET_REPLICAS if turn % 2 == 0 else FLEET_REPLICAS[::-1]
+        engine = PredictionEngine(tree, cfg)
+        engine.warmup(rungs="all")
+        rows["engine"].append(fleet_bulk(torch, engine, samples))
+        del engine
+        for n in order:
+            with ReplicaPool(tree, cfg, n_replicas=n) as pool:
+                pool.warmup(rungs="all")
+                rows[f"pool_{n}"].append(fleet_bulk(torch, pool, samples))
+            with PredictionService(tree, cfg, ServeConfig(
+                    replicas=n, cache_size=None)) as svc:
+                svc.warmup()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(FLEET_BURSTS):
+                    svc.predict_many(graphs, timeout=SERVE_TIMEOUT)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                st = svc.stats
+            rows[f"service_{n}"].append({
+                "bins_per_s": st.bins / wall,
+                "requests_per_s": st.completed / wall,
+                "latency_ms_p50": st.latency_ms_p50,
+                "latency_ms_p99": st.latency_ms_p99,
+                "bins": st.bins, "wall_s": wall})
+    return rows
+
+
+def phase_fleet(torch, name_limit: str) -> dict:
+    """``ServeConfig(replicas=N)`` on the one card at the paper's width:
+    the placement (every replica on the card, each on a stream of its
+    own), an atomic ``predict_many`` of the serving documents against one
+    engine of the same plan (GAT bit for bit, GraphSAGE within
+    ``FLEET_ATOL`` + ``FLEET_RTOL``), launches against bins × layers, the
+    kill drill and revival, and bins/s and p50/p99 at 1, 2 and 4
+    replicas in turns (``fleet_turns``)."""
+    from repro_torch.core import PMGNSConfig, from_json, pmgns_init
+    from repro_torch.core.engine import PredictionEngine
+    from repro_torch.serve import PredictionService, ServeConfig
+    _, docs = serving_docs()
+    graphs = [from_json(d) for d in docs]
+    samples = path_inputs()[3]
+    out = {"phase": "fleet", "card": name_limit, "documents": len(docs),
+           "bulk_graphs": len(samples), "runs": {}}
+    for variant in LAYOUT_VARIANTS[::-1]:          # GAT first
+        cfg = PMGNSConfig(variant=variant, layout="packed", precision="f32")
+        tree = pmgns_init(0, cfg)
+        with PredictionService(engine=PredictionEngine(tree, cfg)) as one:
+            ref = pred_rows(one.predict_many(graphs, timeout=SERVE_TIMEOUT))
+            one_bins = one.stats.bins
+        kernels = path_kernels(variant)
+        run = {"one_engine_bins": one_bins, "replicas": {}}
+        for n in FLEET_REPLICAS[1:]:
+            with PredictionService(tree, cfg, ServeConfig(replicas=n)) as svc:
+                pool = svc.engine
+                streams = [s.cuda_stream for s in pool.streams]
+                default = torch.cuda.default_stream(pool.devices[0])
+                if ({d.type for d in pool.devices} != {"cuda"}
+                        or len(set(pool.devices)) != 1
+                        or len(set(streams)) != n
+                        or default.cuda_stream in streams):
+                    raise AssertionError(f"fleet: placement {pool.devices}"
+                                         f", streams {streams}")
+                torch.cuda.synchronize()
+                zero_counts(kernels)
+                routes0 = readout_forward_counts()
+                t0 = time.perf_counter()
+                got = pred_rows(svc.predict_many(graphs,
+                                                 timeout=SERVE_TIMEOUT))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k: fn.launches for k, (fn, _) in kernels.items()}
+                readout_routes = readout_route_diff(routes0)
+                st = svc.stats
+                placement = {"devices": [str(d) for d in pool.devices],
+                             "streams": [hex(s) for s in streams],
+                             "note": pool.placement.note}
+            if (st.bins != one_bins or sum(st.replica_bins) != st.bins
+                    or min(st.replica_bins) <= 0):
+                raise AssertionError(f"fleet: {n} replicas ran bins "
+                                     f"{st.replica_bins} of {st.bins}, one "
+                                     f"engine {one_bins}")
+            want = {k: st.bins * (cfg.n_gnn_blocks if per == "layer" else 1)
+                    for k, (_, per) in kernels.items()}
+            if launches != want or readout_routes != {
+                    "runs": launches["segment_readout"], "general": 0}:
+                raise AssertionError(f"fleet: {n} replicas launched "
+                                     f"{launches} ({readout_routes}), want "
+                                     f"{want}")
+            csr = check_shared_csr(kernels, launches, "fleet")
+            if variant == "gat":
+                if got.tobytes() != ref.tobytes():
+                    raise AssertionError(
+                        f"fleet: GAT on {n} replicas differs in its bits "
+                        f"from one engine: max |diff| "
+                        f"{np.max(np.abs(got - ref)):.3e}")
+                err = 0.0
+            else:
+                err = check_close(f"fleet: GraphSAGE on {n} replicas vs "
+                                  f"one engine", got, ref, FLEET_ATOL,
+                                  FLEET_RTOL)
+            run["replicas"][str(n)] = {
+                "placement": placement, "bins": st.bins,
+                "replica_bins": st.replica_bins, "wall_s": wall,
+                "launches": launches, "csr_launches": csr,
+                "bitwise_equal": got.tobytes() == ref.tobytes(),
+                "max_abs_err": err, "atol": FLEET_ATOL, "rtol": FLEET_RTOL}
+        run["kill_drill"] = fleet_drill(torch, tree, cfg, graphs, ref)
+        run["turns"] = fleet_turns(torch, tree, cfg, graphs, samples)
+        out["runs"][variant] = run
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
 
 
 def device_busy_ms(torch, fn) -> tuple:
@@ -3380,6 +4106,9 @@ def main() -> int:
     gat_launches, gat_dippm = phase_path(torch, gat_cfg, name_limit,
                                          "gat_path")
     phase_serving(torch, gat_dippm, name_limit)
+    layouts = phase_engine_layouts(torch, name_limit)
+    phase_bf16(torch, name_limit)
+    phase_fleet(torch, name_limit)
     train = phase_train(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
     path_launches = {
@@ -3405,6 +4134,12 @@ def main() -> int:
         if name in SEGMENT_SUMS:
             run = "packed" if name == "segment_aggregate" else "gat_packed"
             e["route_launches"] = train["runs"][run]["route_launches"][name]
+        if name in layouts["kernels_at_chunk"]:
+            # the bucketed engines' full chunk, and their launches there
+            e["inference_chunk"] = {
+                **layouts["kernels_at_chunk"][name],
+                "launches": {run: r["launches"].get(name, 0)
+                             for run, r in layouts["runs"].items()}}
         per_launch(e)
     emit({"kernels": entries})
     print(smi(), flush=True)

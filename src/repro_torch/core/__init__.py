@@ -10,4 +10,5 @@ from .gnn import (PMGNS, PMGNSConfig, decode_targets, encode_targets,
                   pmgns_init)
 from .mig import predict_mig, predict_pods, predict_tpu_slice
 from .predictor import DIPPM, Prediction, make_prediction
-from .engine import EngineConfig, EngineStats, PredictionEngine
+from .engine import (INFERENCE_BUCKETS, EngineConfig, EngineStats,
+                     PredictionEngine)

@@ -66,8 +66,6 @@ N_TARGETS = 3
 PORTED_VARIANTS = ("graphsage", "gcn", "gat", "gin", "mlp")
 #: attention heads of a GAT layer (``repro.core.gnn.gat_layer_init``)
 GAT_HEADS = 4
-_NOT_PORTED_BF16 = ("precision='bf16' staging is not ported yet (ROADMAP.md "
-                    "A10); use 'f32' or 'int8-weights'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +93,11 @@ class PMGNSConfig:
     #: ``"dense"``, ``"sparse"``, or ``"packed"`` (the prediction
     #: engine's layout).
     layout: str = "auto"
-    #: Inference precision policy: ``"f32"``, ``"bf16"`` (staging in
-    #: bfloat16; not ported yet) or ``"int8-weights"`` (artifact-level
-    #: int8 weights, dequantized at load, so float32 at run time).
+    #: Inference precision policy: ``"f32"``, ``"bf16"`` (the packed
+    #: engine stages its float buffer in bfloat16 and the device upcasts
+    #: it; parameters and compute stay float32) or ``"int8-weights"``
+    #: (artifact-level int8 weights, dequantized at load, so float32 at
+    #: run time).
     precision: str = "f32"
     #: Fused message-passing policy (packed layout only): ``"auto"`` and
     #: ``"on"`` run each inference layer as one fused kernel call;
@@ -144,13 +144,11 @@ class PMGNSConfig:
 
 
 def check_supported(cfg: PMGNSConfig) -> None:
-    """Validate ``cfg``; raise ``NotImplementedError`` for a setting the
-    port does not run yet, naming the ROADMAP item that ports it."""
+    """Validate ``cfg``: a known variant, layout, fused policy and
+    precision (each property raises ``ValueError`` if invalid)."""
     if cfg.variant not in PORTED_VARIANTS:
         raise ValueError(f"unknown variant {cfg.variant!r}")
-    _ = (cfg.resolved_layout, cfg.resolved_fused)   # both raise if invalid
-    if cfg.resolved_precision == "bf16":
-        raise NotImplementedError(_NOT_PORTED_BF16)
+    _ = (cfg.resolved_layout, cfg.resolved_fused, cfg.resolved_precision)
 
 
 def resolve_device(device: Union[None, str, torch.device] = None
@@ -577,7 +575,8 @@ def pmgns_apply(p: Union[PMGNS, Params], cfg: PMGNSConfig,
 @torch.no_grad()
 def pmgns_infer(p: Union[PMGNS, Params], cfg: PMGNSConfig,
                 batch: Dict[str, Any]) -> torch.Tensor:
-    """Packed inference: ``[G, n_targets]`` in physical units.
+    """Inference: ``[B or G, n_targets]`` in physical units, on a batch
+    of ``cfg.resolved_layout``.
 
     Runs on the parameters' device. Batch entries may be numpy arrays
     (for example ``collate_packed``'s output); they are moved there.
@@ -586,6 +585,18 @@ def pmgns_infer(p: Union[PMGNS, Params], cfg: PMGNSConfig,
     dev = _leaf_device(tree)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     return decode_targets(pmgns_apply(tree, cfg, batch))
+
+
+def make_infer_fn(cfg: PMGNSConfig) -> Callable[..., torch.Tensor]:
+    """``(params, batch) → [B, n_targets]`` over :func:`pmgns_infer`: the
+    bucketed engine's function for every dense or sparse chunk shape
+    (PyTorch runs eagerly, so one closure serves them all)."""
+    check_supported(cfg)
+
+    def infer(params: Union[PMGNS, Params],
+              batch: Dict[str, Any]) -> torch.Tensor:
+        return pmgns_infer(params, cfg, batch)
+    return infer
 
 
 def packed_staging_layout(cfg: PMGNSConfig, p: int, q: int,
@@ -608,13 +619,19 @@ def make_staged_packed_infer_fn(cfg: PMGNSConfig, p: int, q: int, g: int
                                 ) -> Callable[..., torch.Tensor]:
     """Packed infer over the two flat staging buffers of one ``(P, Q, G)``
     shape: ``(params, fbuf, ibuf) → [G, n_targets]``. The buffers are
-    sliced into the batch as views, with no copy."""
+    sliced into the batch as views, with no copy.
+
+    Under ``precision="bf16"`` the engine stages ``fbuf`` in bfloat16;
+    it is upcast to float32 on its device before slicing, so compute is
+    float32 and the drift is the staging's rounding alone. The
+    parameters are float32 and never rounded."""
     check_supported(cfg)
     feat, sdim = cfg.node_feat_dim, cfg.static_dim
     o1, o2, o3, _, _ = packed_staging_layout(cfg, p, q, g)
 
     def infer(params: Union[PMGNS, Params], fbuf: torch.Tensor,
               ibuf: torch.Tensor) -> torch.Tensor:
+        fbuf = fbuf.to(torch.float32)
         batch = {
             "x": fbuf[:o1].view(p, feat),
             "mask": fbuf[o1:o2],

@@ -69,7 +69,13 @@ def make_prediction(y: np.ndarray,
 
 
 class DIPPM:
-    """Trained predictor + frontends + resource advisors, on one device."""
+    """Trained predictor + frontends + resource advisors, on one device.
+
+    Serves every layout (``dense``, the ``PMGNSConfig()`` default;
+    ``sparse``; ``packed``) and precision (``f32``, ``bf16`` staging on
+    the packed layout, ``int8-weights``) of the configuration it is
+    given, as the JAX package's ``DIPPM`` does.
+    """
 
     def __init__(self, params: Union[PMGNS, dict], cfg: PMGNSConfig, *,
                  device: Union[None, str, torch.device] = None):
@@ -153,7 +159,9 @@ class DIPPM:
 
         With no arguments, returns the default engine that
         ``predict_graph`` / ``predict_many`` use. Keyword overrides are
-        :class:`~repro_torch.core.engine.EngineConfig` fields and return a
+        :class:`~repro_torch.core.engine.EngineConfig` fields (for
+        example ``buckets=INFERENCE_BUCKETS`` or ``max_batch`` on a dense
+        or sparse model, ``node_budget`` on a packed one) and return a
         **fresh** engine on the same device, sharing the parameters.
         """
         from .engine import EngineConfig, PredictionEngine

@@ -1,9 +1,13 @@
 """``repro_torch.serve`` — request-oriented serving on top of the engine.
 
-The port of ``repro.serve``, less the replica fleet (ROADMAP.md A8b):
+The port of ``repro.serve``:
 
 * :class:`PredictionService` / :class:`ServeConfig` / :class:`ServeStats`
   — the micro-batching request/response service (``service.py``).
+* :class:`ReplicaPool` — N device-bound engine replicas behind a
+  least-loaded dispatcher with circuit breakers and requeue on failure,
+  each replica on a CUDA stream of its own (``fleet.py``;
+  ``ServeConfig(replicas=N)``).
 * :class:`PredictionCache` — content-addressed fingerprint→prediction
   LRU with single-flight dedup (``cache.py``).
 * :class:`PredictionFuture` / :class:`QueueFullError` — request
@@ -23,7 +27,7 @@ construct :class:`PredictionService` around trained params or an engine.
 from .artifact import (ARTIFACT_SCHEMA, ARTIFACT_VERSION, load_artifact,
                        save_artifact)
 from .cache import PredictionCache
-from .fleet import NoHealthyReplicaError
+from .fleet import NoHealthyReplicaError, ReplicaPool
 from .lifecycle import (BreakerConfig, CircuitBreaker,
                         DeadlineExceededError, GraphValidationError,
                         PoisonRequestError, PredictionInvalidError,
@@ -33,7 +37,7 @@ from .service import PredictionService, ServeConfig, ServeStats
 
 __all__ = [
     "PredictionService", "ServeConfig", "ServeStats", "PredictionCache",
-    "NoHealthyReplicaError", "PredictionFuture",
+    "NoHealthyReplicaError", "ReplicaPool", "PredictionFuture",
     "QueueFullError", "save_artifact", "load_artifact", "ARTIFACT_SCHEMA",
     "ARTIFACT_VERSION",
     "DeadlineExceededError", "PoisonRequestError", "ServiceDrainingError",

@@ -2,8 +2,8 @@
 
 The port of ``repro.serve.lifecycle``, whole: no line of it touches
 JAX, so it carries over with its imports pointed at the port. The
-circuit breaker guards the replicas of the fleet, which is not ported
-yet (ROADMAP A8b); until then only its unit tests use it.
+circuit breaker guards each replica of the serving fleet
+(:class:`~repro_torch.serve.fleet.ReplicaPool`).
 
 Serving a predictor to open traffic means serving *arbitrary* graphs
 from callers with their own latency budgets, on replicas that fail and

@@ -1,7 +1,8 @@
 """Request-oriented serving core — DIPPM as a prediction *service*.
 
 The port of ``repro.serve.service`` over one
-:class:`~repro_torch.core.engine.PredictionEngine`. The batched engine
+:class:`~repro_torch.core.engine.PredictionEngine` or a replica fleet
+(:class:`~repro_torch.serve.fleet.ReplicaPool`). The batched engine
 is right when one caller already holds a graph list; serving traffic is
 the opposite shape — many concurrent callers each holding ONE graph. A
 per-request ``predict_graph`` loop runs a 1-graph bin per call and
@@ -18,9 +19,12 @@ closes that gap:
    ``max_batch_graphs`` requests are waiting or the oldest request is
    ``max_wait_ms`` old, whichever comes first.
 3. **Bin-pack + run** — the drained batch is planned into the engine's
-   budget-rung bins (``PredictionEngine.plan_bins``) and each bin runs
-   through the thread-safe ``PredictionEngine.run_bin`` — on the card,
-   the batcher thread launches the kernels on its own current stream.
+   bins (``PredictionEngine.plan_bins``) and each bin runs through the
+   thread-safe ``PredictionEngine.run_bin`` — on the card, the batcher
+   thread launches the kernels on its own current stream. A fleet
+   backend (``ServeConfig(replicas=N)``) takes the drain's bins at once
+   through ``submit_bin`` and runs them on its replicas concurrently,
+   each replica on a CUDA stream of its own.
 4. **Resolve in arrival order** — per-request ``Prediction``s scatter
    back to submission order; futures resolve FIFO with per-request
    latency stamped, and :attr:`PredictionService.stats` aggregates queue
@@ -43,9 +47,8 @@ isolate the offender (then quarantined), ``drain()`` / ``close()``
 stopping admission and settling everything in flight, and the counters
 conserving ``submitted = completed + failed + deadline_expired + shed``.
 
-Not ported yet: ``ServeConfig(replicas>1)``, the replica fleet
-(ROADMAP.md A8b), and ``submit_jax``, which waits for a torch frontend
-(A13); both raise ``NotImplementedError``.
+Not ported yet: ``submit_jax``, which waits for a torch frontend
+(ROADMAP.md A13); it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ from ..core.batching import (packed_rung_ladder, resolve_packed_budgets,
 from ..core.engine import EngineConfig, PredictionEngine
 from ..core.ir import GraphValidationError, OpGraph
 from .cache import CacheWaiter, PredictionCache
-from .fleet import NoHealthyReplicaError
+from .fleet import NoHealthyReplicaError, ReplicaPool
 from .lifecycle import (BreakerConfig, DeadlineExceededError,
                         PoisonRequestError, PredictionInvalidError,
                         QuarantineList, ServiceDrainingError)
@@ -71,8 +74,6 @@ from .queue import PredictionFuture, QueueFullError, Request, RequestQueue
 
 __all__ = ["ServeConfig", "ServeStats", "PredictionService"]
 
-_NOT_PORTED_FLEET = ("ServeConfig(replicas>1) needs the replica fleet, which "
-                     "is not ported yet (ROADMAP.md A8b)")
 _NOT_PORTED_JAX = ("submit_jax traces a JAX callable; the port's torch "
                    "frontend is not written yet (ROADMAP.md A13) — submit "
                    "an OpGraph or a repro.opgraph.v1 document instead")
@@ -96,9 +97,13 @@ class ServeConfig:
     with ``QueueFullError``) and admits the new one.
 
     ``cache_size`` bounds the content-addressed prediction cache
-    (``None``/``0`` disables it). ``replicas`` must be 1 in the port:
-    the fleet that takes more, and the circuit-breaker policy
-    ``breaker`` that it reads, come with ROADMAP.md A8b.
+    (``None``/``0`` disables it). ``replicas`` > 1 backs the service
+    with a :class:`~repro_torch.serve.fleet.ReplicaPool` of that many
+    engines (ignored when wrapping an existing engine): on the device
+    the service was given, or on every card when that is ``"cuda"``
+    with no index, round-robin, each replica on a CUDA stream of its
+    own. ``breaker`` sets the pool's replica circuit-breaker policy
+    (``None`` = ``BreakerConfig()`` defaults).
 
     Lifecycle knobs: ``default_deadline_ms`` applies to every submit
     that doesn't pass its own ``deadline_ms`` (``None`` = requests wait
@@ -121,7 +126,7 @@ class ServeConfig:
     latency_window: int = 2048
     #: LRU capacity of the fingerprint→prediction cache (None/0 = off).
     cache_size: Optional[int] = 2048
-    #: Engine replicas behind the micro-batcher (only 1 in the port).
+    #: Engine replicas behind the micro-batcher (1 = single engine).
     replicas: int = 1
     #: Who loses when a bounded queue is full: "reject" | "oldest".
     shed_policy: str = "reject"
@@ -131,7 +136,7 @@ class ServeConfig:
     quarantine_size: Optional[int] = 256
     #: Failed-bin recovery: "bisect" (isolate poison) | "fail-bin".
     poison_policy: str = "bisect"
-    #: Replica circuit-breaker policy, read by the fleet (A8b).
+    #: Replica circuit-breaker policy (None = BreakerConfig defaults).
     breaker: Optional[BreakerConfig] = None
 
 
@@ -139,10 +144,7 @@ class ServeConfig:
 class ServeStats:
     """A detached snapshot of service counters (``service.stats``).
 
-    The fields of ``repro.serve.ServeStats`` that one engine can fill;
-    the fleet's (``replicas``, ``replica_bins``, ``requeues``,
-    ``breaker_states``, ``revivals``) come with ROADMAP.md A8b and
-    ``bf16_max_abs_delta`` with bf16 staging (A10).
+    The fields of ``repro.serve.ServeStats``, in its order.
 
     ``batch_occupancy`` is mean graphs per drained batch — how well
     coalescing is working (1.0 ≡ the per-request loop the service
@@ -155,7 +157,10 @@ class ServeStats:
     ``cache_hits`` resolved from the store, ``cache_coalesced`` joined
     an in-flight duplicate, ``cache_misses`` reached the engine.
     ``shed_count`` is requests evicted by ``shed_policy="oldest"``
-    (``rejected`` counts turn-aways at the door).
+    (``rejected`` counts turn-aways at the door). ``replica_bins`` is
+    completed bins per replica when a fleet backs the service
+    (``replicas`` > 1) and ``requeues`` counts bins re-dispatched after
+    a replica failure.
 
     Lifecycle counters: ``deadline_expired`` requests rejected with
     ``DeadlineExceededError`` at a waiting stage; ``poisoned`` requests
@@ -163,8 +168,11 @@ class ServeStats:
     executions spent on that isolation; ``quarantine_fastfail``
     resubmits rejected at the door; ``quarantine_entries`` fingerprints
     currently quarantined; ``invalid`` documents rejected by
-    ``submit_json`` validation; ``draining`` is True once
-    :meth:`PredictionService.drain` / ``close`` stopped admission.
+    ``submit_json`` validation; ``breaker_states`` / ``revivals``
+    mirror the fleet's circuit breakers (closed replicas take traffic;
+    a revival is a half-open probe that re-closed one); ``draining`` is
+    True once :meth:`PredictionService.drain` / ``close`` stopped
+    admission.
     """
 
     submitted: int = 0
@@ -179,6 +187,8 @@ class ServeStats:
     quarantine_entries: int = 0
     invalid: int = 0
     draining: bool = False
+    breaker_states: Tuple[str, ...] = ()
+    revivals: int = 0
     batches: int = 0
     bins: int = 0
     queue_depth: int = 0
@@ -192,15 +202,22 @@ class ServeStats:
     cache_coalesced: int = 0
     cache_entries: int = 0
     hit_rate: float = 0.0
-    #: Engine inference precision policy (``f32`` | ``int8-weights``).
+    replicas: int = 1
+    replica_bins: Tuple[int, ...] = ()
+    requeues: int = 0
+    #: Engine inference precision policy (``f32`` | ``bf16`` |
+    #: ``int8-weights``) and the bf16-vs-f32 max-abs prediction delta
+    #: measured at warmup (``None`` unless the engine warmed up in bf16).
     precision: str = "f32"
+    bf16_max_abs_delta: Optional[float] = None
 
 
 class PredictionService:
     """Thread-safe micro-batching prediction service over one engine.
 
     Construct from trained ``(params, cfg)`` on ``device`` (default
-    ``"cuda"``) — or wrap an existing
+    ``"cuda"``; ``ServeConfig(replicas=N)`` builds a fleet there) — or
+    wrap an existing engine or ``ReplicaPool``
     :class:`~repro_torch.core.engine.PredictionEngine` via ``engine=`` so
     the service shares its shape set and stats with bulk-sweep callers
     (this is how the ``DIPPM`` facade's default service is built). The
@@ -216,8 +233,7 @@ class PredictionService:
                  device: Union[None, str, torch.device] = None):
         self.serve_cfg = serve_cfg or ServeConfig()
         sc = self.serve_cfg
-        if sc.replicas != 1:
-            raise NotImplementedError(_NOT_PORTED_FLEET)
+        self._owns_engine = engine is None
         if engine is None:
             if params is None or cfg is None:
                 raise ValueError(
@@ -229,10 +245,21 @@ class PredictionService:
                     or EngineConfig.node_budget,
                     edge_budget=sc.edge_budget,
                     graph_budget=sc.graph_budget)
-            engine = PredictionEngine(params, cfg,
-                                      engine_cfg or EngineConfig(),
-                                      device=device)
+            if sc.replicas > 1:
+                dev = None if device is None else torch.device(device)
+                every_card = dev is None or (dev.type == "cuda"
+                                             and dev.index is None)
+                engine = ReplicaPool(params, cfg,
+                                     engine_cfg or EngineConfig(),
+                                     n_replicas=sc.replicas,
+                                     devices=None if every_card else [dev],
+                                     breaker=sc.breaker)
+            else:
+                engine = PredictionEngine(params, cfg,
+                                          engine_cfg or EngineConfig(),
+                                          device=device)
         self.engine = engine
+        self._fleet = hasattr(engine, "submit_bin")
         self._cache = (PredictionCache(sc.cache_size)
                        if sc.cache_size else None)
         self._quarantine = (QuarantineList(sc.quarantine_size)
@@ -583,16 +610,26 @@ class PredictionService:
     # -- lifecycle -----------------------------------------------------------
     def warmup(self, rungs=None) -> int:
         """Run every shape before traffic; returns shapes seen for the
-        first time. ``rungs=None`` warms the whole ``(P, Q, G)``
-        budget-rung ladder (:func:`~repro_torch.core.batching.packed_rung_ladder`);
-        a sequence of ``P`` values selects rungs."""
-        return self.engine.warmup(rungs="all" if rungs is None else rungs)
+        first time.
+
+        Packed engines warm the whole ``(P, Q, G)`` budget-rung ladder by
+        default (``rungs=None`` →
+        :func:`~repro_torch.core.batching.packed_rung_ladder`; a sequence
+        of ``P`` values selects rungs). Bucketed engines treat ``rungs``
+        as node buckets (default: all of them).
+        """
+        if self.engine.packed:
+            return self.engine.warmup(rungs="all" if rungs is None
+                                      else rungs)
+        return self.engine.warmup(node_buckets=rungs)
 
     def expected_rungs(self) -> int:
         """How many shapes :meth:`warmup` runs by default."""
         ecfg = self.engine.engine_cfg
-        return len(packed_rung_ladder(*resolve_packed_budgets(
-            ecfg.node_budget, ecfg.edge_budget, ecfg.graph_budget)))
+        if self.engine.packed:
+            return len(packed_rung_ladder(*resolve_packed_budgets(
+                ecfg.node_budget, ecfg.edge_budget, ecfg.graph_budget)))
+        return len(ecfg.buckets)
 
     @property
     def draining(self) -> bool:
@@ -613,9 +650,11 @@ class PredictionService:
         return not self._worker.is_alive()
 
     def close(self, timeout: Optional[float] = 10.0) -> None:
-        """:meth:`drain`. The engine holds nothing that needs releasing:
-        its parameters are freed with the last reference to it."""
+        """:meth:`drain`, then release the engine (a replica pool's
+        worker threads) when the service built it."""
         self.drain(timeout)
+        if self._owns_engine and hasattr(self.engine, "close"):
+            self.engine.close()
 
     def __enter__(self) -> "PredictionService":
         return self
@@ -628,6 +667,8 @@ class PredictionService:
     def stats(self) -> ServeStats:
         """A detached :class:`ServeStats` snapshot."""
         cache = self._cache
+        pool_bins = getattr(self.engine, "replica_bins", None)
+        engine_stats = self.engine.stats
         with self._state:
             lat = np.asarray(self._latencies, dtype=np.float64)
             batches = self._batches
@@ -646,13 +687,17 @@ class PredictionService:
                 quarantine_entries=len(q) if q is not None else 0,
                 invalid=self._invalid,
                 draining=self._queue.closed,
+                breaker_states=tuple(
+                    getattr(self.engine, "breaker_states", ())),
+                revivals=getattr(self.engine, "revivals", 0),
                 batches=batches,
                 bins=self._bins,
                 queue_depth=len(self._queue),
                 queue_peak=self._queue.peak_depth,
                 batch_occupancy=round(occupancy, 3),
-                padding_waste_frac=self.engine.stats.padding_waste_frac,
-                precision=self.engine.stats.precision,
+                padding_waste_frac=engine_stats.padding_waste_frac,
+                precision=engine_stats.precision,
+                bf16_max_abs_delta=engine_stats.bf16_max_abs_delta,
                 latency_ms_p50=float(np.percentile(lat, 50))
                 if lat.size else 0.0,
                 latency_ms_p99=float(np.percentile(lat, 99))
@@ -664,6 +709,10 @@ class PredictionService:
                 cache_entries=len(cache) if cache is not None else 0,
                 hit_rate=(round(cache.hit_rate, 4)
                           if cache is not None else 0.0),
+                replicas=getattr(self.engine, "n_replicas", 1),
+                replica_bins=(tuple(pool_bins)
+                              if pool_bins is not None else ()),
+                requeues=getattr(self.engine, "requeues", 0),
             )
 
     # -- batcher thread ------------------------------------------------------
@@ -689,26 +738,47 @@ class PredictionService:
         they must never quarantine the bin's riders."""
         return isinstance(e, (NoHealthyReplicaError, DeadlineExceededError))
 
+    def _run_bin_sync(self, chunk, deadline: Optional[float]):
+        """One synchronous bin dispatch; the fleet backend also gets
+        the bin deadline so its requeue loop can stop once every rider
+        has expired."""
+        if self._fleet:
+            return self.engine.run_bin(chunk, deadline)
+        return self.engine.run_bin(chunk)
+
     @staticmethod
-    def _prune_bin(idx, live: List[Request], bin_err) -> List[int]:
+    def _prune_bin(idx, live: List[Request], bin_err
+                   ) -> Tuple[List[int], Optional[float]]:
         """Drop bin members whose deadline passed while staged behind
-        earlier bins; returns the survivors."""
+        earlier bins; returns the survivors and the bin's dispatch
+        deadline — the *latest* member deadline (``None`` when any
+        member waits forever)."""
         now = time.perf_counter()
         keep: List[int] = []
+        deadlines: List[float] = []
+        unbounded = False
         for j in idx:
-            if live[j].expired(now):
+            r = live[j]
+            if r.expired(now):
                 bin_err[j] = DeadlineExceededError(
                     "request deadline expired while staged behind "
                     "earlier bins of the same drain")
+                continue
+            keep.append(j)
+            if r.deadline is None:
+                unbounded = True
             else:
-                keep.append(j)
-        return keep
+                deadlines.append(r.deadline)
+        return keep, (None if unbounded or not deadlines
+                      else max(deadlines))
 
     def _recover_chunk(self, js: List[int], samples, ys, bin_err,
-                       exc: BaseException, live: List[Request]) -> None:
+                       deadline: Optional[float], exc: BaseException,
+                       live: List[Request]) -> None:
         """A dispatched bin failed with ``exc`` — settle every rider.
 
-        Infrastructure errors fail the whole chunk: the riders are
+        Infrastructure errors (no healthy replica, the bin deadline blown
+        in the fleet's requeue loop) fail the whole chunk: the riders are
         innocent. Anything else under ``poison_policy="bisect"`` is
         split-retried: parts that pass complete their riders normally,
         and each singleton that still fails is the isolated poison — it
@@ -761,8 +831,8 @@ class PredictionService:
                 with self._state:
                     self._bisect_runs += 1
                 try:
-                    ys[part] = self.engine.run_bin(
-                        [samples[j] for j in part])
+                    ys[part] = self._run_bin_sync(
+                        [samples[j] for j in part], deadline)
                 except Exception as e2:
                     if self._infra_error(e2):
                         for j in part:
@@ -796,17 +866,36 @@ class PredictionService:
             ys = np.zeros((len(samples), self.engine.cfg.n_targets),
                           dtype=np.float32)
             # a failed bin settles only its own riders — and with
-            # poison_policy="bisect" only the isolated offenders
+            # poison_policy="bisect" only the isolated offenders (a fleet
+            # has already requeued it on its healthy replicas by the time
+            # an error surfaces here)
             bin_err: List[Optional[BaseException]] = [None] * len(samples)
-            for idx in bins:
-                keep = self._prune_bin(idx, live, bin_err)
-                if not keep:
-                    continue
-                try:
-                    ys[keep] = self.engine.run_bin(
-                        [samples[j] for j in keep])
-                except Exception as e:
-                    self._recover_chunk(keep, samples, ys, bin_err, e, live)
+            if self._fleet and n_bins > 1:
+                # fleet backend: fan this drain's bins out so they run on
+                # the replicas concurrently
+                futs = []
+                for idx in bins:
+                    keep, bin_dl = self._prune_bin(idx, live, bin_err)
+                    if keep:
+                        futs.append((keep, bin_dl, self.engine.submit_bin(
+                            [samples[j] for j in keep], bin_dl)))
+                for keep, bin_dl, f in futs:
+                    try:
+                        ys[keep] = f.result()
+                    except Exception as e:
+                        self._recover_chunk(keep, samples, ys, bin_err,
+                                            bin_dl, e, live)
+            else:
+                for idx in bins:
+                    keep, bin_dl = self._prune_bin(idx, live, bin_err)
+                    if not keep:
+                        continue
+                    try:
+                        ys[keep] = self._run_bin_sync(
+                            [samples[j] for j in keep], bin_dl)
+                    except Exception as e:
+                        self._recover_chunk(keep, samples, ys, bin_err,
+                                            bin_dl, e, live)
             t_done = time.perf_counter()
             # batch is FIFO-drained, so walking it resolves futures in
             # submission order; ys is already scattered to batch order

@@ -212,13 +212,10 @@ def predict_batch(params: Union[PMGNS, Params], cfg: PMGNSConfig,
                   device: Union[None, str, torch.device] = None
                   ) -> np.ndarray:
     """Physical-unit predictions [n, 3] for a list of samples, through the
-    packed prediction engine (``repro_torch.core.engine``), so eval and
-    serving share one inference implementation. A one-slot module cache
-    reuses the engine across calls with the *same params object*. The
-    engine runs the packed layout only: a dense or sparse ``cfg`` raises
-    ``NotImplementedError`` (ROADMAP A11c); pass
-    ``dataclasses.replace(cfg, layout="packed")``, which takes the same
-    parameters.
+    prediction engine (``repro_torch.core.engine``) on ``cfg``'s own
+    layout, so eval and serving share one inference implementation. A
+    one-slot module cache reuses the engine across calls with the *same
+    params object*.
     """
     if engine is not None:
         return engine.predict_samples(list(samples))

@@ -139,35 +139,6 @@ def test_config_mirrors_jax():
                     cfg.resolved_fused
 
 
-@pytest.mark.parametrize("kw,match", [
-    pytest.param({"layout": "packed", "precision": "bf16"}, "bf16",
-                 id="kw5-bf16"),
-])
-def test_unported_configurations_raise(kw, match):
-    """bf16 staging waits for ROADMAP A10: the configuration and its
-    parameters refuse it."""
-    cfg = tg.PMGNSConfig(hidden=8, n_gnn_blocks=1, n_fc_blocks=1, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        tg.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg, device="cpu")
-
-
-@pytest.mark.parametrize("layout", ["auto", "dense", "sparse"])
-def test_engine_refuses_dense_and_sparse_layouts(layout):
-    """The dense and sparse layouts build, train and run ``pmgns_apply``;
-    the prediction engine runs the packed layout only and refuses them,
-    naming ROADMAP A11c."""
-    from repro_torch.core.engine import PredictionEngine
-    cfg = tg.PMGNSConfig(hidden=8, n_gnn_blocks=1, n_fc_blocks=1,
-                         layout=layout)
-    tg.check_supported(cfg)
-    model = tg.params_from_numpy(tg.pmgns_init(0, cfg), cfg, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="packed layout only.*A11c"):
-        PredictionEngine(model, cfg, device="cpu")
-
-
 @pytest.mark.parametrize("variant", VARIANTS + ["gat"])
 def test_composed_engine_matches_fused(variant):
     """``fused_mp="off"`` predicts through the engine on the composed

@@ -5,7 +5,8 @@ conserved (``repro_torch.serve.lifecycle`` + its wiring), on
 ``device="cpu"``.
 
 These are the tests of ``tests/test_lifecycle.py`` that need no replica
-fleet (ROADMAP.md A8b), with a timeout on every wait. The lifecycle
+fleet (the fleet's are in ``tests/test_torch_fleet.py``), with a timeout
+on every wait. The lifecycle
 schedule runs on one engine: its ``kill`` step fails the engine's next
 bin instead of a replica. The structured ``from_json`` validation cases
 are held against the JAX package in ``tests/test_torch_frontend.py``.

@@ -3,8 +3,8 @@ control, warmup, the prediction cache, load shedding and versioned
 artifacts (``repro_torch.serve``), on ``device="cpu"``.
 
 These are the tests of ``tests/test_serve.py`` that need no replica
-fleet (the fleet is ROADMAP.md A8b), run on the port, with a timeout on
-every wait. The last section holds the port against the JAX package:
+fleet (the fleet's are in ``tests/test_torch_fleet.py``), run on the
+port, with a timeout on every wait. The last section holds the port against the JAX package:
 the default services of both give the same predictions for the same
 graphs and weights (GraphSAGE and GAT), and an artifact written by
 either package loads in the other with the same predictions, in all
@@ -286,12 +286,24 @@ def test_engine_warmup_default_still_single_rung(packed_dippm):
     assert eng2.warmup(rungs="all") == 5
 
 
-def test_bucketed_engine_is_not_ported(packed_dippm):
-    """The JAX package's dense (bucketed) engine refuses rung warmup; the
-    port has no bucketed engine at all and refuses the configuration."""
+def test_bucketed_engine_serves_and_refuses_rungs(packed_dippm):
+    """A dense (bucketed) engine serves: the service warms every node
+    bucket, and the engine refuses rung warmup as the JAX package's
+    does (``tests/test_serve.py::test_warmup_rungs_rejected_on_bucketed_engine``)."""
     cfg = dataclasses.replace(packed_dippm.cfg, layout="dense")
-    with pytest.raises(NotImplementedError, match="packed"):
-        PredictionEngine(pmgns_init(0, cfg), cfg, device="cpu")
+    eng = PredictionEngine(pmgns_init(0, cfg), cfg, device="cpu")
+    with pytest.raises(ValueError, match="packed"):
+        eng.warmup(rungs="all")
+    with PredictionService(engine=eng) as svc:
+        assert svc.warmup() == svc.expected_rungs() == len(
+            eng.engine_cfg.buckets)
+        preds = svc.predict_many([_graph(9 + 20 * s, seed=s)
+                                  for s in range(4)], timeout=TIMEOUT)
+    want = packed_dippm.engine().predict_graphs(
+        [_graph(9 + 20 * s, seed=s) for s in range(4)])
+    for a, b in zip(preds, want):
+        np.testing.assert_allclose(_pred_vec(a), _pred_vec(b),
+                                   rtol=1e-5, atol=1e-6)
 
 
 # ---- serve config plumbing -------------------------------------------------
@@ -309,8 +321,12 @@ def test_serve_config_budget_overrides():
 
 
 def test_serve_config_replicas_and_submit_jax_not_ported(packed_dippm):
-    with pytest.raises(NotImplementedError, match="A8b"):
-        packed_dippm.serve(replicas=2)
+    """``replicas=2`` builds the fleet (``tests/test_torch_fleet.py``);
+    ``submit_jax`` still waits for the torch frontend (A13)."""
+    with packed_dippm.serve(replicas=2) as svc:
+        assert svc.stats.replicas == 2
+        with pytest.raises(NotImplementedError, match="A13"):
+            svc.submit_jax(lambda p, x: x, None, None)
     with packed_dippm.serve() as svc:
         with pytest.raises(NotImplementedError, match="A13"):
             svc.submit_jax(lambda p, x: x, None, None)

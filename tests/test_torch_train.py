@@ -288,8 +288,8 @@ def test_checkpoints_restore_across_packages(direction, tmp_path,
 
 
 def test_evaluate_and_predict_batch_across_layouts():
-    """Eval on every layout and the engine-backed predictions agree; the
-    engine refuses the dense and sparse layouts, naming ROADMAP A11c."""
+    """Eval on every layout and the engine-backed predictions agree:
+    dense and sparse predict on their own layouts and match packed."""
     samples = synthetic_samples(10, seed=17)
     tree = pmgns_init(0, CFG)
     evs = [tt.evaluate(tree, dataclasses.replace(CFG, layout=lay), samples,
@@ -302,9 +302,9 @@ def test_evaluate_and_predict_batch_across_layouts():
     preds = tt.predict_batch(tree, packed, samples, device="cpu")
     assert preds.shape == (10, 3) and np.isfinite(preds).all()
     for lay in ("dense", "sparse"):
-        with pytest.raises(NotImplementedError, match="A11c"):
-            tt.predict_batch(tree, dataclasses.replace(CFG, layout=lay),
-                             samples, device="cpu")
+        got = tt.predict_batch(tree, dataclasses.replace(CFG, layout=lay),
+                               samples, device="cpu")
+        np.testing.assert_allclose(got, preds, rtol=1e-5, atol=1e-5)
 
 
 def test_refusals():
