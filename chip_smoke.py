@@ -145,7 +145,25 @@ Phases, each printing one JSON line:
    It prints ms per step, steps/s and the host share of a step, and
    reloads the trained model through ``save_artifact`` / ``DIPPM.load``
    to hold one served bin against the trainer's own evaluation.
-11. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
+11. ``train_dp`` — ``TrainConfig(data_parallel=True)`` at train_path's
+   settings, one epoch each of dense GraphSAGE and of sparse GraphSAGE at
+   depth 2. World 1 over NCCL in this process (the default group given
+   its rank and a ``file://`` store, ``cpu:gloo,cuda:nccl``), in turns
+   with the single-device run (single, data-parallel, data-parallel,
+   single): every run's parameters and losses bit-equal to the first
+   single run's, launches on ``train_launch_rule``, ms per step in turns;
+   the gradient all-reduce's device µs per step (``torch.profiler``, the
+   NCCL kernels) and one all-reduce of the gradient's size timed alone;
+   ``compressed_grad_allreduce`` on one real dense step's gradients, the
+   card's bits against the CPU's. World 2 over ``gloo``: two spawned
+   processes on the one card, gradients staged through the host; losses
+   within 1e-4 relative of world 1, parameters within the trainer's bar
+   save for Adam noise, both ranks the same bits, ms per step (not a
+   scaling number). With two or more cards, NCCL with a rank a card under
+   the same checks; else ``"multi_card": "one card"``. Every child is
+   joined by a deadline and killed past it; a failed or hung child fails
+   the phase.
+12. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
    with the depth cut to 12 layers (2 groups), float32, weights from a
    seed, 2 prompts × 128 tokens through prefill and 16 greedy decode
    steps on the card against the same weights on the CPU: every step's
@@ -239,6 +257,9 @@ TRAIN_NOISE_FLOOR, TRAIN_NOISE_ATOL = 1e-4, 5e-4
 #: one step's gradients, card vs CPU, relative to each leaf's largest:
 #: float32 sums in another order through 3 layers, the readout and the head
 TRAIN_GRAD_RTOL = 1e-5
+#: train_dp: seconds a collective waits for a missing rank, and seconds the
+#: spawned ranks of a world may take before they are killed
+DP_PG_TIMEOUT, DP_CHILD_TIMEOUT = 120, 300
 #: the cold timings (``time_cold_ms``) cycle through copies of a call's
 #: inputs and outputs until they hold at least this many bytes, three times
 #: the H100's 50 MB L2, so that every call reads and writes device memory
@@ -3124,10 +3145,10 @@ def phase_fleet(torch, name_limit: str) -> dict:
     return out
 
 
-def device_busy_ms(torch, fn) -> tuple:
+def device_ms_by_kernel(torch, fn) -> dict:
     """Device milliseconds of every kernel and copy that ``fn()`` runs,
-    from ``torch.profiler``, and the ten largest by kernel name; 0.0
-    and {} where it recorded no device time."""
+    by kernel name, from ``torch.profiler``; {} where it recorded no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3139,19 +3160,29 @@ def device_busy_ms(torch, fn) -> tuple:
         if t > 0 and not e.key.startswith("cuda"):
             name = kernel_name(e.key)
             rows[name] = rows.get(name, 0.0) + t / 1e3
+    return rows
+
+
+def device_busy_ms(torch, fn) -> tuple:
+    """Device milliseconds of every kernel and copy that ``fn()`` runs,
+    from ``torch.profiler``, and the ten largest by kernel name; 0.0
+    and {} where it recorded no device time."""
+    rows = device_ms_by_kernel(torch, fn)
     top = dict(sorted(rows.items(), key=lambda kv: -kv[1])[:10])
     return sum(rows.values()), top
 
 
 def train_run(torch, cfg, samples, epochs: int, phase: str,
-              compare_cpu: bool) -> dict:
-    """``train_pmgns`` on the card (``device=None``) with the launch
-    counts zeroed before and checked after; optionally the same run on
-    the CPU's plain versions, held to the trainer's parity bar."""
+              compare_cpu: bool, data_parallel: bool = False,
+              device=None) -> dict:
+    """``train_pmgns`` on the card (``device=None``: the current one) with
+    the launch counts zeroed before and checked after; optionally the
+    same run on the CPU's plain versions, held to the trainer's parity
+    bar. ``data_parallel`` splits the steps over the default group."""
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
     tcfg = TrainConfig(epochs=epochs, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
-                       seed=0)
+                       seed=0, data_parallel=data_parallel)
     for name in TRAIN_WRAPPERS:
         wrapper(name).launches = 0
     for name in SEGMENT_SUMS:
@@ -3159,7 +3190,7 @@ def train_run(torch, cfg, samples, epochs: int, phase: str,
             wrapper(name).route_launches, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, hist = train_pmgns(cfg, samples, (), tcfg)
+    params, hist = train_pmgns(cfg, samples, (), tcfg, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: wrapper(n).launches for n in TRAIN_WRAPPERS}
@@ -3242,27 +3273,35 @@ def params_vs_cpu(card: list, cpu: list, grads: list, phase: str) -> dict:
     return out
 
 
+def first_step_grads(torch, cfg, samples, dev) -> dict:
+    """The gradient tree of the trainer's first step (its initial tree
+    and first batch) on ``dev``."""
+    from repro_torch.core import gnn
+    from repro_torch.core.batching import stack_epoch_segments
+    from repro_torch.train import gnn_trainer as gt
+    seg = stack_epoch_segments(samples, TRAIN_BATCH, rng=gt._epoch_rng(0, 0),
+                               layout=cfg.resolved_layout)[0]
+    mean, std = gt._target_stats(samples)
+    model = gnn.params_from_numpy(gnn.pmgns_init(0, cfg), cfg, dev,
+                                  requires_grad=True)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    wl, wn = gt._loss_terms(model.tree(), cfg,
+                            {k: t(v[0]) for k, v in seg.items()}, None, 1.0,
+                            t(mean), t(std))
+    leaves = gt.tree_leaves(model.tree())
+    grads = torch.autograd.grad(wl / wn, leaves)
+    return gt._unflatten(model.tree(), iter(g.detach() for g in grads))
+
+
 def step_grads_vs_cpu(torch, cfg, samples, phase: str) -> tuple:
     """The first training step's gradients on the card against the CPU's,
     from the trainer's initial tree and its first batch; returns the
     comparison and the CPU's gradients (numpy, one per leaf)."""
-    from repro_torch.core.batching import stack_epoch_segments
     from repro_torch.core import gnn
-    from repro_torch.train import gnn_trainer as gt
-    seg = stack_epoch_segments(samples, TRAIN_BATCH, rng=gt._epoch_rng(0, 0),
-                               layout=cfg.resolved_layout)[0]
-    batch = {k: v[0] for k, v in seg.items()}
-    mean, std = gt._target_stats(samples)
-    grads = []
-    for d in (gnn.resolve_device(None), torch.device("cpu")):
-        model = gnn.params_from_numpy(gnn.pmgns_init(0, cfg), cfg, d,
-                                      requires_grad=True)
-        t = lambda a: torch.as_tensor(a, device=d)  # noqa: E731
-        wl, wn = gt._loss_terms(model.tree(), cfg,
-                                {k: t(v) for k, v in batch.items()}, None,
-                                1.0, t(mean), t(std))
-        grads.append([g.cpu().numpy() for g in torch.autograd.grad(
-            wl / wn, gt.tree_leaves(model.tree()))])
+    from repro_torch.optim.optimizers import tree_leaves
+    grads = [[g.cpu().numpy() for g in tree_leaves(
+        first_step_grads(torch, cfg, samples, d))]
+        for d in (gnn.resolve_device(None), torch.device("cpu"))]
     worst = 0.0
     for a, b in zip(*grads):
         err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
@@ -3353,6 +3392,294 @@ def phase_train(torch, name_limit: str) -> dict:
            "lr": TRAIN_LR, "runs": runs,
            "reload": reload_check(torch, packed_params, packed_cfg),
            "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train_dp: data-parallel training over torch.distributed
+# ---------------------------------------------------------------------------
+
+def dp_configs() -> dict:
+    """train_dp's two runs: train_path's dense GraphSAGE, and its sparse
+    one at train_path's sparse depth."""
+    import dataclasses
+    from repro_torch.core.gnn import PMGNSConfig
+    sage = PMGNSConfig(variant="graphsage", hidden=TRAIN_HIDDEN, dropout=0.0)
+    return {"dense": sage,
+            "sparse": dataclasses.replace(sage, layout="sparse",
+                                          n_gnn_blocks=2)}
+
+
+def dp_samples():
+    from repro_torch.dataset.builder import synthetic_samples
+    return synthetic_samples(TRAIN_SAMPLES, seed=1, n_min=16, n_max=200)
+
+
+def init_group(backend: str, store: str, rank: int, world: int) -> None:
+    """The default group, its rank and address given explicitly: a
+    ``file://`` store, so no port is opened."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_PG_TIMEOUT))
+
+
+def dp_child(rank: int, world: int, backend: str, store: str,
+             out_dir: str) -> None:
+    """A rank of a spawned data-parallel world: cuda:0 for every rank under
+    ``gloo`` (two processes sharing the one card), cuda:rank under NCCL.
+    Trains each of ``dp_configs`` one epoch; writes its runs, or the
+    traceback, to ``rank<r>.pkl``."""
+    import pickle
+    import traceback
+    out = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch.core.gnn import resolve_device
+        from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
+        index = rank if backend == "nccl" else 0
+        torch.cuda.set_device(index)
+        dev = resolve_device(f"cuda:{index}")
+        init_group(backend, store, rank, world)
+        samples = dp_samples()
+        for key, cfg in dp_configs().items():
+            # a short warm-up run first, so that the timed one holds no
+            # first-call set-up of this new process
+            train_pmgns(cfg, samples[:2 * TRAIN_BATCH], (), TrainConfig(
+                epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                data_parallel=True), device=dev)
+            run, params = train_run(torch, cfg, samples, 1,
+                                    f"train_dp {backend} world {world} {key}",
+                                    compare_cpu=False, data_parallel=True,
+                                    device=dev)
+            out[key] = (run, params)
+        dist.destroy_process_group()
+    except BaseException:   # recorded for the parent, which fails the phase
+        out["error"] = traceback.format_exc()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def dp_spawn(world: int, backend: str, tmp: str) -> list:
+    """``world`` spawned ranks of :func:`dp_child`, joined by a deadline and
+    killed past it; each rank's runs. Fails if any rank failed or hung."""
+    import multiprocessing
+    import pickle
+    out_dir = Path(tmp) / f"{backend}{world}"
+    out_dir.mkdir()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_child,
+                         args=(r, world, backend, str(out_dir / "store"),
+                               str(out_dir)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_CHILD_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+    if hung:
+        raise AssertionError(f"train_dp: {len(hung)} of {world} {backend} "
+                             f"ranks still running after "
+                             f"{DP_CHILD_TIMEOUT} s; killed")
+    ranks = []
+    for r, p in enumerate(procs):
+        path = out_dir / f"rank{r}.pkl"
+        if not path.exists():
+            raise AssertionError(f"train_dp: {backend} rank {r} exited "
+                                 f"{p.exitcode} with no result")
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+        if "error" in ranks[-1]:
+            raise AssertionError(f"train_dp: {backend} rank {r} failed:\n"
+                                 f"{ranks[-1]['error']}")
+    return ranks
+
+
+def leaves_of(params) -> list:
+    from repro_torch.optim.optimizers import tree_leaves
+    return [np.asarray(v) for v in tree_leaves(params)]
+
+
+def same_params(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(leaves_of(a),
+                                                    leaves_of(b)))
+
+
+def allreduce_ms(torch, n: int, group, reps: int = 20) -> float:
+    """CUDA-event ms of one float32 all-reduce of ``n`` values over
+    ``group`` (after three warm-up calls)."""
+    import torch.distributed as dist
+    buf = torch.randn(n, device="cuda")
+    for _ in range(3):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        dist.all_reduce(buf, group=group)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def dp_compression(torch, grads: dict) -> dict:
+    """``compressed_grad_allreduce`` at world 1 over the card's group and
+    over the CPU's, on the same gradients: the same bits required."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.runtime.compression import (compressed_grad_allreduce,
+                                                 init_error_state)
+    results, ms = {}, None
+    for kind in ("cuda", "cpu"):
+        tree = tree_map(lambda g: g.to(kind), grads)
+        mesh = make_mesh((1,), ("data",), kind)
+        err = init_error_state(tree)
+        out = compressed_grad_allreduce(tree, err, mesh, axis="data")
+        results[kind] = [t.cpu() for t in tree_leaves(out[0])
+                         + tree_leaves(out[1])]
+        if kind == "cuda":
+            ms = time_eager_ms(torch, lambda: compressed_grad_allreduce(
+                tree, err, mesh, axis="data"))
+    differ = sum(int(not torch.equal(a, b))
+                 for a, b in zip(results["cuda"], results["cpu"]))
+    if differ:
+        raise AssertionError(f"train_dp: compressed_grad_allreduce on the "
+                             f"card differs from the CPU's in {differ} of "
+                             f"{len(results['cpu'])} tensors")
+    return {"tensors": len(results["cpu"]), "bit_equal_to_cpu": True,
+            "values": sum(t.numel() for t in tree_leaves(grads)),
+            "ms": ms}
+
+
+def dp_vs_world1(torch, ranks: list, world1: dict, grads: dict,
+                 phase: str) -> dict:
+    """A spawned world's runs against world 1's: every rank's parameters
+    the same bits, losses within ``TRAIN_LOSS_RTOL``, parameters within
+    the trainer's bar save for Adam noise (``params_vs_cpu``)."""
+    from repro_torch.optim.optimizers import tree_leaves
+    out = {}
+    for key in dp_configs():
+        run, params = ranks[0][key]
+        for r, other in enumerate(ranks[1:], 1):
+            if not same_params(other[key][1], params):
+                raise AssertionError(f"{phase} {key}: rank {r}'s parameters "
+                                     f"differ from rank 0's")
+        want_run, want_params = world1[key]
+        err = rel_err(run["losses"], want_run["losses"])
+        if err > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{phase} {key}: losses {run['losses']} vs "
+                                 f"world 1's {want_run['losses']}: "
+                                 f"relative {err:.3e}")
+        g = [np.asarray(v.cpu()) for v in tree_leaves(grads[key])]
+        out[key] = {"losses": run["losses"], "loss_rel_err": err,
+                    "ms_per_step_by_rank": [r[key][0]["ms_per_step"]
+                                            for r in ranks],
+                    "steps": run["steps"], "launches": run["launches"],
+                    **params_vs_cpu(leaves_of(params),
+                                    leaves_of(want_params), g,
+                                    f"{phase} {key}")}
+    return out
+
+
+def phase_train_dp(torch, name_limit: str) -> dict:
+    """Data-parallel training (``TrainConfig(data_parallel=True)``) at
+    train_path's settings, one epoch each of dense and sparse GraphSAGE:
+    world 1 over NCCL in this process, bit-equal to the single-device run
+    (in turns with it), launches on ``train_launch_rule``, the gradient
+    all-reduce's device time; world 2 over ``gloo``, two processes on the
+    one card, within the trainer's bar of world 1; NCCL over every card
+    where there are two or more; the int8 all-reduce on the card against
+    the CPU."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
+    t0 = time.perf_counter()
+    samples = dp_samples()
+    cfgs = dp_configs()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"phase": "train_dp", "card": name_limit,
+           "samples": TRAIN_SAMPLES, "batch_size": TRAIN_BATCH,
+           "lr": TRAIN_LR, "epochs": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_group("cpu:gloo,cuda:nccl", str(Path(tmp) / "store"), 0, 1)
+        try:
+            world1, grads, turns = {}, {}, {}
+            for key, cfg in cfgs.items():
+                runs = []
+                for dp in (False, True, True, False):
+                    run, params = train_run(
+                        torch, cfg, samples, 1,
+                        f"train_dp world 1 {key} dp={dp}",
+                        compare_cpu=False, data_parallel=dp)
+                    runs.append((dp, run, params))
+                single = runs[0][2]
+                for dp, run, params in runs[1:]:
+                    if not same_params(params, single) or \
+                            run["losses"] != runs[0][1]["losses"]:
+                        raise AssertionError(
+                            f"train_dp world 1 {key}: the "
+                            f"{'data-parallel' if dp else 'repeated'} run's "
+                            f"parameters or losses differ from the "
+                            f"single-device run's")
+                world1[key] = runs[1][1:]
+                turns[key] = {
+                    "order": ["single", "dp", "dp", "single"],
+                    "ms_per_step": [r["ms_per_step"] for _, r, _ in runs],
+                    "losses": runs[1][1]["losses"],
+                    "steps": runs[1][1]["steps"],
+                    "launches": runs[1][1]["launches"],
+                    "bit_equal_to_single": True}
+                grads[key] = first_step_grads(torch, cfg, samples, dev)
+            group = make_mesh((1,), ("data",), "cuda").get_group("data")
+            n_grad = sum(t.numel() for t in tree_leaves(grads["dense"]))
+            steps = turns["dense"]["steps"]
+            rows = device_ms_by_kernel(torch, lambda: train_pmgns(
+                cfgs["dense"], samples, (), TrainConfig(
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                    data_parallel=True)))
+            nccl = {k: v for k, v in rows.items() if "nccl" in k.lower()}
+            out["world1_nccl"] = {
+                "runs": turns,
+                "gradient_values": n_grad,
+                "gradient_bytes": 4 * n_grad,
+                "allreduce_device_us_per_step": 1e3 * sum(nccl.values())
+                / steps,
+                "allreduce_kernels": nccl or "none recorded: NCCL "
+                "launched no device work for an all-reduce over one rank",
+                "device_busy_ms_per_step": sum(rows.values()) / steps,
+                "allreduce_ms_per_call": allreduce_ms(torch, n_grad, group)}
+            out["compression"] = dp_compression(torch, grads["dense"])
+            world2 = dp_spawn(2, "gloo", tmp)
+            out["world2_gloo_one_card"] = {
+                "note": "two processes sharing one card, gradients staged "
+                        "through the host by gloo: not a scaling number",
+                **dp_vs_world1(torch, world2, world1, grads,
+                               "train_dp world 2 gloo")}
+            n_cards = torch.cuda.device_count()
+            if n_cards >= 2:
+                ranks = dp_spawn(n_cards, "nccl", tmp)
+                out["multi_card"] = {
+                    "world": n_cards,
+                    **dp_vs_world1(torch, ranks, world1, grads,
+                                   f"train_dp world {n_cards} nccl")}
+            else:
+                out["multi_card"] = "one card"
+        finally:
+            dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
 
@@ -4110,6 +4437,7 @@ def main() -> int:
     phase_bf16(torch, name_limit)
     phase_fleet(torch, name_limit)
     train = phase_train(torch, name_limit)
+    phase_train_dp(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],

@@ -25,14 +25,26 @@ when asked, where every kernel takes its plain version.
    device seeded from ``(seed, epoch, step)``, so a resumed run repeats
    the uninterrupted one bit for bit. Its bits are torch's, not
    ``jax.random``'s: compare with the JAX trainer at dropout 0.
-4. **Durability** — ``TrainConfig(checkpoint_dir=..., checkpoint_every=k)``
+4. **Data parallelism** — ``TrainConfig(data_parallel=True)`` splits
+   each step's batch rows over the ranks of the default
+   ``torch.distributed`` group, one process per card (``gloo`` processes
+   on the CPU), as the JAX trainer's ``shard_map`` splits them over its
+   devices. The caller initialises the group (backend, ``init_method``,
+   ``rank``, ``world_size``) and passes each rank's own ``device``; the
+   trainer builds a ``("data",)`` mesh over it
+   (:mod:`repro_torch.launch.mesh`). Every rank stacks the same segments
+   with the batch padded to a multiple of the world size (zero-weight
+   rows) and keeps its own rows of each; the loss divides by the whole
+   step's weight, the gradients are summed over the group in one flat
+   all-reduce a step, and every rank applies the same Adam update. The
+   same trainer runs one rank (or no group) and N ranks unchanged.
+5. **Durability** — ``TrainConfig(checkpoint_dir=..., checkpoint_every=k)``
    checkpoints ``(params, opt_state, step, epoch, target stats)`` in the
-   JAX package's format (:mod:`repro_torch.checkpoint`);
+   JAX package's format (:mod:`repro_torch.checkpoint`), from rank 0 only;
    ``train_pmgns(resume_from=...)`` continues a run exactly.
 
-``data_parallel=True`` (DDP over several cards) is not ported yet
-(ROADMAP A11b). Targets are regressed in log1p space; MAPE is computed in
-physical units after decoding, like the paper.
+Targets are regressed in log1p space; MAPE is computed in physical units
+after decoding, like the paper.
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager, latest_step, restore_checkpoint
 from ..core.batching import (GraphSample, batches_by_bucket, collate_packed,
@@ -56,9 +69,6 @@ from ..optim.optimizers import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
-_NOT_PORTED_DP = ("TrainConfig(data_parallel=True) needs DDP over several "
-                  "cards, which is not ported yet (ROADMAP.md A11b)")
-
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -71,7 +81,7 @@ class TrainConfig:
     grad_clip: Optional[float] = None   # global-norm clip (adam transform)
     mode: str = "scan"            # "scan" (a segment per transfer) | "eager"
     scan_steps: int = 32          # max steps per stacked segment
-    data_parallel: bool = False   # not ported (ROADMAP A11b)
+    data_parallel: bool = False   # split batch rows over the default group
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0     # epochs between checkpoints (0 = off)
     checkpoint_keep: int = 3
@@ -241,11 +251,14 @@ def _epoch_rng(seed: int, epoch: int) -> np.random.Generator:
     return np.random.default_rng([seed, 1, epoch])
 
 
-def _step_generator(seed: int, epoch: int, step: int,
-                    device: torch.device) -> torch.Generator:
-    """The dropout generator of one step, seeded from (seed, epoch, step)."""
-    state = np.random.SeedSequence([seed, 2, epoch, step]).generate_state(
-        2, np.uint32)
+def _step_generator(seed: int, epoch: int, step: int, device: torch.device,
+                    rank: int = 0) -> torch.Generator:
+    """The dropout generator of one step, seeded from (seed, epoch, step)
+    and, past rank 0, the data-parallel rank, as the JAX trainer folds the
+    axis index into its key: ranks draw different masks, and rank 0 draws
+    a single-device run's."""
+    entropy = [seed, 2, epoch, step] + ([rank] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen
@@ -272,6 +285,48 @@ def _restore(path: str, model: PMGNS, opt_state, dev: torch.device):
             f32(state["t_std"]))
 
 
+def _data_group(device: torch.device):
+    """The ``data`` axis's process group over every rank of the default
+    group, or None without a default group (one rank, no collective)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from ..launch.mesh import make_mesh
+    return make_mesh((dist.get_world_size(),), ("data",),
+                     device.type).get_group("data")
+
+
+def _split_flat(flat: torch.Tensor, like: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+    return [v.view_as(t) for t, v in
+            zip(like, flat.split([t.numel() for t in like]))]
+
+
+def _all_reduce_flat(tensors: Sequence[torch.Tensor], group
+                     ) -> List[torch.Tensor]:
+    """The sum of ``tensors`` over ``group``, in one flat all-reduce."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    return _split_flat(flat, tensors)
+
+
+@torch.no_grad()
+def _broadcast_from_first(tensors: Sequence[torch.Tensor], group) -> None:
+    """Overwrite ``tensors`` on every rank of ``group`` with its first
+    rank's, in one flat broadcast."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+    for t, v in zip(tensors, _split_flat(flat, tensors)):
+        t.copy_(v)
+
+
+def _barrier(group, device: torch.device) -> None:
+    """Return once every rank of ``group`` has reached this point (a
+    one-element all-reduce on ``device``, read back on the host)."""
+    flag = torch.ones(1, device=device)
+    dist.all_reduce(flag, group=group)
+    flag.item()
+
+
 def train_pmgns(
     model_cfg: PMGNSConfig,
     train_samples: Sequence[GraphSample],
@@ -291,15 +346,24 @@ def train_pmgns(
     ``(params, opt_state, step, epoch, target stats)`` and training
     continues from the next epoch, bit-matching an uninterrupted run; with
     no committed checkpoint there, training starts fresh.
+
+    ``cfg.data_parallel`` splits each step's rows over the ranks of the
+    default process group, which the caller has initialised; each rank
+    calls this with its own ``device`` and gets the same result. Without a
+    group it trains alone. Rank 0's initial parameters are broadcast,
+    only rank 0 writes checkpoints, and every rank restores them.
     """
     if cfg.mode not in ("scan", "eager"):
         raise ValueError(f"TrainConfig.mode must be 'scan' or 'eager', "
                          f"got {cfg.mode!r}")
-    if cfg.data_parallel:
-        raise NotImplementedError(_NOT_PORTED_DP)
+    layout = model_cfg.resolved_layout
+    if cfg.data_parallel and layout == "packed":
+        raise ValueError(
+            "data_parallel=True shards the scan's batch axis, but packed "
+            "segments have no batch axis to shard (one flat node axis per "
+            "step) — train data-parallel with layout='sparse' instead")
     check_supported(model_cfg)
     dev = resolve_device(device)
-    layout = model_cfg.resolved_layout
     train_samples = list(train_samples)
     model = params_from_numpy(pmgns_init(cfg.seed, model_cfg), model_cfg,
                               dev, requires_grad=True)
@@ -316,19 +380,35 @@ def train_pmgns(
         opt_state, step, last, t_mean, t_std = _restore(
             resume_from, model, opt_state, dev)
         start_epoch = last + 1
+    if cfg.data_parallel and cfg.mode != "scan":
+        raise ValueError(
+            "data_parallel=True requires mode='scan' — the eager reference "
+            "loop is single-device by design")
+    group, rank, world = None, 0, 1
+    if cfg.data_parallel:
+        group = _data_group(dev)
+    if group is not None:
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        _broadcast_from_first(leaves, group)
 
-    def train_step(batch: Dict[str, torch.Tensor], k: int, epoch: int):
+    def train_step(batch: Dict[str, torch.Tensor], k: int, epoch: int,
+                   wn_total: Optional[torch.Tensor] = None):
         """One loss + gradient + Adam update; returns the device-side
-        (Σ wt·huber, Σ wt·n_targets) of the step."""
+        (Σ wt·huber, Σ wt·n_targets) of the step's rows. Under data
+        parallelism the loss divides by ``wn_total``, the whole step's
+        Σ wt·n_targets, and the gradients are summed over the group."""
         nonlocal opt_state, step
-        gen = (_step_generator(cfg.seed, epoch, k, dev)
+        gen = (_step_generator(cfg.seed, epoch, k, dev, rank)
                if model_cfg.dropout > 0 else None)
         wl, wn = _loss_terms(params, model_cfg, batch, gen, cfg.huber_delta,
                              t_mean, t_std)
-        grads = torch.autograd.grad(wl / torch.clamp_min(wn, 1.0), leaves,
+        denom = wn if wn_total is None else wn_total
+        grads = torch.autograd.grad(wl / torch.clamp_min(denom, 1.0), leaves,
                                     allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        if group is not None:
+            grads = _all_reduce_flat(grads, group)
         with torch.no_grad():
             grad_tree = _unflatten(params, iter(grads))
             new, opt_state = opt.update(step, opt_state, params, grad_tree)
@@ -344,18 +424,31 @@ def train_pmgns(
             folded, model_cfg, val_samples, cfg.batch_size).items()}
 
     mgr = (CheckpointManager(cfg.checkpoint_dir, keep=cfg.checkpoint_keep)
-           if cfg.checkpoint_dir else None)
+           if cfg.checkpoint_dir and rank == 0 else None)
     history: List[Dict[str, float]] = []
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         segments = stack_epoch_segments(
             train_samples, cfg.batch_size, rng=_epoch_rng(cfg.seed, epoch),
-            max_steps=cfg.scan_steps, layout=layout)
+            batch_multiple=world, max_steps=cfg.scan_steps, layout=layout)
         total_steps = sum(int(s["wt"].shape[0]) for s in segments)
         wl_sum, wn_sum, k = 0.0, 0.0, 0
         for seg in segments:
             n_steps = int(seg["wt"].shape[0])
             if cfg.mode == "scan":
+                wn_steps = None
+                if group is not None:
+                    # the whole step's Σ wt·n_targets, on the host: the
+                    # reference's psum of the shards' sums (0/1 weights
+                    # times T, so the float32 sums are exact either way);
+                    # then this rank's rows of every leaf
+                    wn_steps = torch.as_tensor(
+                        seg["wt"].sum(axis=1, dtype=np.float32)
+                        * np.float32(seg["y"].shape[-1]), device=dev)
+                    per = seg["wt"].shape[1] // world
+                    seg = {key: np.ascontiguousarray(
+                        v[:, rank * per:(rank + 1) * per])
+                        for key, v in seg.items()}
                 # one transfer per segment; the sums stay on the device
                 on_dev = {key: torch.as_tensor(v, device=dev)
                           for key, v in seg.items()}
@@ -364,10 +457,15 @@ def train_pmgns(
                 wn_seg = torch.zeros((), dtype=torch.float64, device=dev)
                 for si in range(n_steps):
                     wl, wn = train_step(
-                        {key: v[si] for key, v in on_dev.items()}, k, epoch)
+                        {key: v[si] for key, v in on_dev.items()}, k, epoch,
+                        None if wn_steps is None else wn_steps[si])
                     wl_seg = wl_seg + wl.double()
                     wn_seg = wn_seg + wn.double()
                     k += 1
+                if group is not None:
+                    sums = torch.stack([wl_seg, wn_seg])
+                    dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+                    wl_seg, wn_seg = sums[0], sums[1]
                 wl_sum += float(wl_seg)
                 wn_sum += float(wn_seg)
             else:
@@ -384,19 +482,24 @@ def train_pmgns(
         if val_samples:
             rec.update(validate())
         history.append(rec)
-        if mgr is not None and cfg.checkpoint_every and \
+        if cfg.checkpoint_dir and cfg.checkpoint_every and \
                 (epoch + 1) % cfg.checkpoint_every == 0:
-            mgr.save(int(step), {
-                "params": params, "opt_state": opt_state,
-                "step": np.asarray(int(step), np.int32),
-                "epoch": np.asarray(epoch, np.int64),
-                "t_mean": t_mean, "t_std": t_std})
+            if mgr is not None:
+                mgr.save(int(step), {
+                    "params": params, "opt_state": opt_state,
+                    "step": np.asarray(int(step), np.int32),
+                    "epoch": np.asarray(epoch, np.int64),
+                    "t_mean": t_mean, "t_std": t_std})
+            if group is not None:
+                _barrier(group, dev)
         if cfg.log_every and (epoch % cfg.log_every == 0):
             print(f"[pmgns] epoch {epoch}: "
                   + " ".join(f"{key}={v:.4g}" for key, v in rec.items()
                              if key != "epoch"))
     if mgr is not None:
         mgr.wait()
+    if group is not None and cfg.checkpoint_dir:
+        _barrier(group, dev)        # rank 0's last checkpoint is on disk
     if not history and start_epoch > 0:
         # resumed at/past cfg.epochs: the run is already complete. Emit
         # one terminal record so relaunch loops indexing hist[-1] work.

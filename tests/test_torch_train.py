@@ -12,8 +12,8 @@ runs through ``repro_torch.kernels.autograd``:
   layouts;
 * scan equals eager, padding rows are no-ops, grad clipping is wired,
   resume is bit-exact with dropout on, checkpoints restore across the two
-  packages, and the refusals (``data_parallel``, ``device=None`` without
-  CUDA, the engine's dense and sparse layouts).
+  packages, and the refusals (``data_parallel`` on the packed layout or in
+  eager mode, ``device=None`` without CUDA).
 """
 import dataclasses
 
@@ -312,9 +312,13 @@ def test_refusals():
     with pytest.raises(ValueError, match="mode"):
         train_pmgns(CFG, samples, (), TrainConfig(epochs=1, mode="fused"),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        train_pmgns(CFG, samples, (),
+    with pytest.raises(ValueError, match="layout='sparse'"):
+        train_pmgns(dataclasses.replace(CFG, layout="packed"), samples, (),
                     TrainConfig(epochs=1, data_parallel=True), device="cpu")
+    with pytest.raises(ValueError, match="mode='scan'"):
+        train_pmgns(CFG, samples, (),
+                    TrainConfig(epochs=1, mode="eager", data_parallel=True),
+                    device="cpu")
 
 
 def test_device_none_raises_without_cuda(monkeypatch):
