@@ -113,8 +113,9 @@ Phases, each printing one JSON line:
    kernel on dense GAT, never B1); ``EngineStats``, ms per chunk,
    predictions/s, the device busy ms a chunk, the staged bytes of a full
    chunk; and B7, B5's aggregate and B6 (F = 512) on the bucket-256 ×
-   64 chunk against their plain versions, timed beside their bound and
-   ``torch.bmm`` (the kernels entries' ``inference_chunk``).
+   64 chunk against their plain versions, timed beside their bound,
+   ``torch.bmm`` (B7) and a flattened ``index_add_`` (B6, warm and cold)
+   (the kernels entries' ``inference_chunk``).
 8. ``bf16`` — torch's bfloat16 rounding on this host's CPU against the
    integer round to nearest even (2^20 random patterns, ties,
    subnormals, ±inf); GraphSAGE and GAT predictors trained on the card
@@ -163,7 +164,22 @@ Phases, each printing one JSON line:
    the same checks; else ``"multi_card": "one card"``. Every child is
    joined by a deadline and killed past it; a failed or hung child fails
    the phase.
-12. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
+12. ``zoo_path`` — the graph sources on the card: one ``family_variants``
+   draw (seed 0) of each of the 11 zoo families at its Table-2 size and
+   a ``variant_grid`` sweep (ViT depth × width × batch) traced on the
+   meta device (host ms per trace, nodes per graph); their labels from
+   the cost model on both devices (finite, positive, the same twice);
+   ``build_dataset(36, seed 0, convnext held out)``, a save and load
+   round trip bit for bit, and one packed GraphSAGE training epoch at
+   ``train_path``'s settings on the train split (loss within the
+   trainer's bar of the CPU's, launches on ``train_launch_rule``);
+   ``DIPPM.predict_zoo`` on the sweep and ``predict_many`` on the draws
+   at full width, GraphSAGE and GAT, packed, against the CPU's plain
+   versions at 1e-3 + 1e-3 with launches on bins × layers (GAT's B3 and
+   B4 every one on the bin's shared CSR), predictions/s and ms per bin;
+   and ``submit_torch`` through a started service, the same bits as
+   ``predict_torch`` on a zoo forward and on a user ``nn.Module``.
+13. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
    with the depth cut to 12 layers (2 groups), float32, weights from a
    seed, 2 prompts × 128 tokens through prefill and 16 greedy decode
    steps on the card against the same weights on the CPU: every step's
@@ -267,6 +283,13 @@ COLD_BYTES = 150e6
 #: a bfloat16 kernel against its plain version on the same bfloat16 inputs:
 #: both sum in float32, then the output rounds to 8 mantissa bits
 KERNEL_BF16_TOL = 2e-2
+#: zoo_path: the ``variant_grid`` sweep it traces and predicts (ViT at
+#: its default resolution 224 and patch 16), the dataset it builds
+#: (graphs, seed, the held-out family) and the wall-time repeats of its
+#: bins
+ZOO_GRID = {"depth": [6, 12], "dim": [192, 384], "batch": [1, 8]}
+ZOO_DATASET, ZOO_SEED, ZOO_HELD_OUT = 36, 0, ("convnext",)
+ZOO_REPEATS = 3
 #: lm_path: the model it serves (full width; LM_SMOKE_WIDTH swaps in the
 #: smoke config, for rehearsing the script on the CPU), the full serving run
 #: (prompts × prompt length, new tokens; max_len their sum) and the parity
@@ -2577,6 +2600,16 @@ def chunk_kernel_rows(torch, dev, samples, hidden: int) -> dict:
     msgs = t(rng.standard_normal((b, e, hidden)).astype(np.float32))
     dst = edges[..., 1]
     nnz, e_real = int(adj_np.sum()), int(em_np.sum())
+    # B6's library call, as at the full bin: index_add_ of the
+    # pre-weighted messages into a fresh zero tensor, flattened over the
+    # chunk (each graph's destinations offset by its slot)
+    flat_dst = (dst.long() + n * torch.arange(b, device=dev)[:, None]
+                ).reshape(-1)
+    weighted = (msgs * em[..., None]).reshape(-1, hidden).contiguous()
+
+    def index_add(x, w):
+        return torch.zeros((b * n, hidden), device=dev).index_add_(
+            0, x, w).view(b, n, hidden)
     pairs = {
         "dense_aggregate": (
             lambda: dense_aggregate_cuda(adj, h, "mean"),
@@ -2591,7 +2624,8 @@ def chunk_kernel_rows(torch, dev, samples, hidden: int) -> dict:
                      4.0 * (2 * b * n * hidden + 3 * b * e + b * n))),
         "segment_scatter": (
             lambda: segment_scatter_cuda(dst, em, msgs, n),
-            lambda: ref.segment_scatter_ref(dst, em, msgs, n), None,
+            lambda: ref.segment_scatter_ref(dst, em, msgs, n),
+            lambda: index_add(flat_dst, weighted),
             bound_ms(2.0 * e_real * hidden,
                      4.0 * (b * e * hidden + 2 * b * e + b * n * hidden))),
     }
@@ -2606,6 +2640,28 @@ def chunk_kernel_rows(torch, dev, samples, hidden: int) -> dict:
                       "library_ms": (time_graph_ms(torch, lib)
                                      if lib is not None else None),
                       "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+    lib_err = check_close("index_add_ vs segment_scatter's plain version at "
+                          "the inference chunk", index_add(flat_dst, weighted),
+                          ref.segment_scatter_ref(dst, em, msgs, n),
+                          KERNEL_ATOL, KERNEL_RTOL)
+
+    def copies(nbytes, *ts):
+        return [ts] + [tuple(x.clone() for x in ts)
+                       for _ in range(cold_copies(nbytes) - 1)]
+    sc = copies(4.0 * (b * e * hidden + 3 * b * e + b * n * hidden),
+                edges, em, msgs)
+    ia = copies(4.0 * (b * e * hidden + 2 * b * e + b * n * hidden),
+                flat_dst, weighted)
+    rows["segment_scatter"].update(
+        cold_ms=time_cold_ms(torch, [
+            lambda x=x: segment_scatter_cuda(x[0][..., 1], x[1], x[2], n)
+            for x in sc]),
+        library_cold_ms=time_cold_ms(torch, [lambda x=x: index_add(*x)
+                                             for x in ia]),
+        library_max_abs_err=lib_err,
+        library_note="index_add_ of the pre-weighted messages into a "
+                     "fresh zero tensor, flattened over the chunk")
+    del sc, ia
     shape = f"B={b} N={n} F={hidden}"
     rows["dense_aggregate"]["unit"] = (
         f"one dense inference layer, mean: {shape} ({nnz} nonzeros of "
@@ -3685,6 +3741,285 @@ def phase_train_dp(torch, name_limit: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# zoo_path: the graph sources — tracer, zoo, labels, dataset
+# ---------------------------------------------------------------------------
+
+def plain_cfg(cfg: dict) -> dict:
+    """A zoo config with numpy scalars as Python numbers, for JSON."""
+    return json.loads(json.dumps(cfg, default=lambda v: v.item()))
+
+
+def zoo_traces() -> tuple:
+    """One ``family_variants`` draw (seed 0) of each zoo family at its
+    Table-2 size, then the ``ZOO_GRID`` sweep of ViT, each traced on the
+    meta device: (family, cfg, graph) triples and the host ms each
+    trace took."""
+    from repro_torch.zoo import (FAMILIES, family_variants, trace_family,
+                                 variant_grid)
+    rng = np.random.default_rng(0)
+    plan = [(fam, family_variants(fam, rng)) for fam in FAMILIES]
+    plan += [("vit", cfg) for cfg in variant_grid("vit", ZOO_GRID)]
+    out, ms = [], []
+    for fam, cfg in plan:
+        t0 = time.perf_counter()
+        g = trace_family(fam, cfg)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        out.append((fam, cfg, g))
+    return out, ms
+
+
+def zoo_labels(traced: list) -> dict:
+    """Every graph's labels from the cost model on both profiled devices:
+    finite, positive, and the same from a second call."""
+    import dataclasses
+    from repro_torch.perfmodel import DEVICES, estimate
+    out = {}
+    for dev_name, dev in DEVICES.items():
+        rows = []
+        for fam, _, g in traced:
+            a, b = estimate(g, dev), estimate(g, dev)
+            y = a.as_targets()
+            if not (np.isfinite(y).all() and (y > 0).all()):
+                raise AssertionError(f"zoo_path: {fam} labels {y} on "
+                                     f"{dev_name}")
+            if dataclasses.asdict(a) != dataclasses.asdict(b):
+                raise AssertionError(f"zoo_path: {fam} labels differ "
+                                     f"between two calls")
+            rows.append(y.tolist())
+        out[dev_name] = rows
+    return out
+
+
+def zoo_dataset(torch) -> tuple:
+    """``build_dataset`` as the reference's default build at a small
+    count, its v1 save and load round trip (bit for bit), and the train
+    split as padded samples."""
+    import tempfile
+    from repro_torch.dataset import builder
+    t0 = time.perf_counter()
+    ds = builder.build_dataset(ZOO_DATASET, seed=ZOO_SEED,
+                               extra_families=ZOO_HELD_OUT)
+    t_build = time.perf_counter() - t0
+    if ds.n_skipped or not ds:
+        raise AssertionError(f"zoo_path: build_dataset skipped "
+                             f"{ds.skips_by_family()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        builder.save_dataset(ds, tmp, shard_size=16)
+        back = builder.load_dataset(tmp)
+    same = len(back) == len(ds) and all(
+        all(getattr(r, k).dtype == getattr(q, k).dtype
+            and getattr(r, k).tobytes() == getattr(q, k).tobytes()
+            for k in ("x", "edges", "static", "y"))
+        and (r.family, r.n_nodes, r.meta) == (q.family, q.n_nodes, q.meta)
+        for r, q in zip(back, ds))
+    if not same:
+        raise AssertionError("zoo_path: the saved dataset did not load "
+                             "back bit for bit")
+    splits = builder.split_dataset(ds, seed=ZOO_SEED)
+    samples = builder.records_to_samples(splits["train"])
+    info = {"records": len(ds), "build_s": t_build,
+            "families": sorted({r.family for r in ds}),
+            "splits": {k: len(v) for k, v in splits.items()},
+            "nodes": [r.n_nodes for r in ds], "round_trip_bitwise": same,
+            "train_samples": len(samples)}
+    return info, samples
+
+
+def zoo_train(torch, samples) -> dict:
+    """One packed GraphSAGE epoch at ``train_path``'s settings on the
+    built records' train split: launches on ``train_launch_rule``
+    (``train_run``) and the loss against the same epoch on the CPU."""
+    from repro_torch.core.gnn import PMGNSConfig
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
+    cfg = PMGNSConfig(variant="graphsage", hidden=TRAIN_HIDDEN, dropout=0.0,
+                      layout="packed")
+    out, params = train_run(torch, cfg, samples, 1, "zoo_path train",
+                            compare_cpu=False)
+    c_params, c_hist = train_pmgns(
+        cfg, samples, (), TrainConfig(epochs=1, batch_size=TRAIN_BATCH,
+                                      lr=TRAIN_LR, seed=0), device="cpu")
+    c_losses = [r["train_loss"] for r in c_hist]
+    loss_err = rel_err(out["losses"], c_losses)
+    if loss_err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"zoo_path train: losses {out['losses']} vs "
+                             f"the CPU's {c_losses}: relative "
+                             f"{loss_err:.3e}")
+    d = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+            for a, b in zip(tree_leaves(params), tree_leaves(c_params)))
+    out["vs_cpu"] = {"cpu_losses": c_losses, "loss_rel_err": loss_err,
+                     "loss_rtol": TRAIN_LOSS_RTOL, "param_max_abs_err": d}
+    return out
+
+
+def zoo_predict(torch, cfg, draws: list, sweep: list, grid: list) -> tuple:
+    """``predict_zoo`` on the ViT ``grid`` and ``predict_many`` on the
+    family draws' graphs at full width on the card: launches zeroed
+    before and held to bins × layers after (GAT's B3 and B4 all on the
+    bin's shared CSR), predictions against the CPU's plain versions on
+    the same graphs (``sweep`` holds the grid's traces); then those
+    graphs straight through the engine, ``ZOO_REPEATS`` times, for wall
+    ms per bin, the host's feature time and the device's busy ms a bin.
+    Returns the line's entry and the card's ``DIPPM``."""
+    from repro_torch.core import DIPPM, pmgns_init, sample_from_graph
+    tree = pmgns_init(0, cfg)
+    dippm = DIPPM.from_params(tree, cfg)          # on the card by default
+    if dippm.device.type != "cuda":
+        raise AssertionError(f"zoo_path: DIPPM ran on {dippm.device}")
+    engine = dippm.engine()
+    kernels = path_kernels(cfg.variant)
+    phase = f"zoo_path {cfg.variant}"
+
+    zero_counts(kernels)
+    bins0 = engine.stats.batches_run
+    t0 = time.perf_counter()
+    zoo = dippm.predict_zoo("vit", grid)
+    torch.cuda.synchronize()
+    t_zoo = time.perf_counter() - t0
+    many = dippm.predict_many(draws)
+    torch.cuda.synchronize()
+    bins = engine.stats.batches_run - bins0
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    want = {name: bins * (cfg.n_gnn_blocks if per == "layer" else 1)
+            for name, (_, per) in kernels.items()}
+    if launches != want or min(launches.values()) <= 0:
+        raise AssertionError(f"{phase}: launch counts {launches} != bins x "
+                             f"layers {want} ({bins} bins)")
+    csr_use = check_shared_csr(kernels, launches, phase)
+    if [c for c, _ in zoo] != grid:
+        raise AssertionError(f"{phase}: predict_zoo returned other configs")
+    card = pred_rows([p for _, p in zoo] + many)
+    if not np.isfinite(card).all():
+        raise AssertionError(f"{phase}: non-finite predictions")
+
+    cpu = DIPPM.from_params(tree, cfg, device="cpu")
+    ref = pred_rows(cpu.predict_many(sweep + draws))
+    err = check_close(f"{phase}: card vs CPU predictions", card, ref,
+                      E2E_ATOL, E2E_RTOL)
+    graphs = sweep + draws
+    walls, feats = [], []
+    for _ in range(ZOO_REPEATS):
+        b0 = engine.stats.batches_run
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.predict_graphs(graphs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        # the host's share of that: the graphs' features and padding
+        t2 = time.perf_counter()
+        samples = [sample_from_graph(g, buckets=engine.engine_cfg.buckets)
+                   for g in graphs]
+        feats.append(time.perf_counter() - t2)
+    per_run = engine.stats.batches_run - b0
+    t_run = statistics.median(walls)
+    busy, top = device_busy_ms(torch, lambda: engine.predict_samples(samples))
+    out = {"launches": launches, "bins": bins, "csr_launches": csr_use,
+           "predict_zoo_s": t_zoo, "graphs": len(graphs),
+           "nodes": sum(g.num_nodes for g in graphs),
+           "vs_cpu": {"max_abs_err": err, "max_rel_err": rel_err(card, ref),
+                      "atol": E2E_ATOL, "rtol": E2E_RTOL},
+           "engine_s": walls, "engine_bins": per_run,
+           "featurize_s": feats,
+           "predictions_per_s": len(graphs) / t_run,
+           "ms_per_bin": 1e3 * t_run / max(per_run, 1),
+           "device_busy_ms_per_bin": busy / max(per_run, 1),
+           "device_ms_by_kernel": top}
+    return out, dippm
+
+
+def zoo_net(torch):
+    """A user model for ``submit_torch``: a convolution, a layer norm,
+    GELU and a linear head, weights from a seed."""
+    nn = torch.nn
+
+    class Net(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2d(3, 64, 3, stride=2, padding=1)
+            self.norm = nn.LayerNorm(64)
+            self.act = nn.GELU()
+            self.fc = nn.Linear(64, 1000)
+
+        def forward(self, x):
+            y = self.conv(x).permute(0, 2, 3, 1)
+            return self.fc(self.act(self.norm(y))).mean((1, 2))
+
+    torch.manual_seed(0)
+    return Net()
+
+
+def zoo_submit(torch, dippm) -> dict:
+    """``submit_torch`` through a started service against
+    ``predict_torch`` on the same predictor: a zoo forward and a user
+    module, the same bits required (GAT sums in a fixed order)."""
+    from repro_torch.zoo import build_family
+    specs, fwd, meta = build_family("resnet", {"batch": 8, "res": 224})
+    net = zoo_net(torch)
+    x_img = ((8, 224, 224, 3), torch.float32)
+    x_net = ((8, 3, 224, 224), torch.float32)
+    ptrs = [p.data_ptr() for p in net.parameters()]
+    direct = [dippm.predict_torch(fwd, specs, x_img, meta=meta),
+              dippm.predict_torch(net, None, x_net, batch=8)]
+    with dippm.serve() as svc:
+        futs = [svc.submit_torch(fwd, specs, x_img, meta=meta),
+                svc.submit_torch(net, None, x_net, batch=8)]
+        served = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+        stats = svc.stats
+    a, b = pred_rows(direct), pred_rows(served)
+    if a.tobytes() != b.tobytes():
+        raise AssertionError(f"zoo_path: submit_torch {b} != predict_torch "
+                             f"{a}")
+    if [p.data_ptr() for p in net.parameters()] != ptrs or any(
+            p.device.type != "cpu" for p in net.parameters()):
+        raise AssertionError("zoo_path: tracing moved the caller's module")
+    return {"models": ["resnet b8 r224", "conv-norm-gelu-linear b8 r224"],
+            "predictions": a.tolist(), "bitwise": True,
+            "served": stats.completed, "invalid": stats.invalid}
+
+
+def phase_zoo(torch, name_limit: str) -> dict:
+    """The graph sources on the card: traces, labels, the dataset and a
+    training epoch on it, ``predict_zoo`` at full width and
+    ``submit_torch``."""
+    import dataclasses
+    from repro_torch.core.gnn import PMGNSConfig
+    from repro_torch.zoo import variant_grid
+    t0 = time.perf_counter()
+    traced, trace_ms = zoo_traces()
+    grid = variant_grid("vit", ZOO_GRID)
+    n_draws = len(traced) - len(grid)
+    traces = {fam: {"cfg": plain_cfg(cfg), "nodes": g.num_nodes,
+                    "edges": g.num_edges, "raw_nodes": g.meta["n_raw_nodes"],
+                    "host_ms": ms}
+              for (fam, cfg, g), ms in zip(traced[:n_draws], trace_ms)}
+    sweep = [{"cfg": plain_cfg(cfg), "nodes": g.num_nodes, "host_ms": ms}
+             for (_, cfg, g), ms in zip(traced[n_draws:],
+                                        trace_ms[n_draws:])]
+    labels = zoo_labels(traced)
+    dataset, samples = zoo_dataset(torch)
+    train = zoo_train(torch, samples)
+    predict = {}
+    sage = PMGNSConfig(variant="graphsage", layout="packed", precision="f32")
+    draws = [g for _, _, g in traced[:n_draws]]
+    sweep_graphs = [g for _, _, g in traced[n_draws:]]
+    predict["graphsage"], _ = zoo_predict(torch, sage, draws, sweep_graphs,
+                                          grid)
+    predict["gat"], gat_dippm = zoo_predict(
+        torch, dataclasses.replace(sage, variant="gat"), draws, sweep_graphs,
+        grid)
+    out = {"phase": "zoo_path", "card": name_limit,
+           "traces": traces, "sweep": sweep,
+           "trace_ms": {"median": statistics.median(trace_ms),
+                        "max": max(trace_ms), "total": sum(trace_ms)},
+           "nodes_per_graph": [g.num_nodes for _, _, g in traced],
+           "labels": labels, "dataset": dataset, "train": train,
+           "predict": predict, "submit_torch": zoo_submit(torch, gat_dippm),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the LM stack: flash attention and the SSD scan, then lm_path
 # ---------------------------------------------------------------------------
 
@@ -4438,6 +4773,7 @@ def main() -> int:
     phase_fleet(torch, name_limit)
     train = phase_train(torch, name_limit)
     phase_train_dp(torch, name_limit)
+    phase_zoo(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],

@@ -1,6 +1,8 @@
-"""DIPPM core on PyTorch: from an op-graph document to a prediction."""
+"""DIPPM core on PyTorch: from a model or an op-graph document to a
+prediction."""
 from .ir import OpGraph, OpNode, OP_VOCAB, GraphValidationError
-from .frontends import from_json, from_json_file
+from .frontends import from_json, from_json_file, from_torch
+from .tracer import trace_apply, trace_graph
 from .node_features import NODE_FEATURE_DIM, node_feature_matrix
 from .static_features import STATIC_FEATURE_DIM, static_features
 from .batching import (GraphSample, collate_packed, pack_graphs, pad_sample,

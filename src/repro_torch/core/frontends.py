@@ -1,25 +1,33 @@
 """Graph frontends (paper §3.1 — "Relay Parser").
 
 The paper parses PyTorch / TensorFlow / ONNX / PaddlePaddle through TVM
-Relay. This slice of the port has one frontend:
-:func:`from_json` / :func:`from_json_file` — the **portable serialized
-graph schema** (``repro.opgraph.v1``): any external framework exporter
-that can emit a node list with ``op / out_shape / attrs`` is parseable
-without that framework being importable here. A tracer of PyTorch
-modules is later work (ROADMAP A13).
+Relay. The port has two frontends:
 
-It produces the same :class:`~repro_torch.core.ir.OpGraph` as the JAX
-package's ``from_json``, so the rest of the pipeline (NFG → SFG → PMGNS
-→ MIG) is frontend-agnostic, exactly as in the paper's Fig. 2.
+* :func:`from_torch` — any PyTorch callable of tensors or ``nn.Module``
+  (the model zoo, user models) via the meta-device ATen tracer
+  (:mod:`repro_torch.core.tracer`), the counterpart of the JAX package's
+  ``from_jax``.
+* :func:`from_json` / :func:`from_json_file` — the **portable serialized
+  graph schema** (``repro.opgraph.v1``): any external framework exporter
+  that can emit a node list with ``op / out_shape / attrs`` is parseable
+  without that framework being importable here. A JAX model reaches the
+  port this way: the JAX package traces it and exports the document.
+
+Both produce the same :class:`~repro_torch.core.ir.OpGraph` as the JAX
+package's frontends, so the rest of the pipeline (NFG → SFG → PMGNS →
+MIG) is frontend-agnostic, exactly as in the paper's Fig. 2.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+import torch
 
 from .ir import (OP_INDEX, GraphValidationError, OpGraph, OpNode,
                  filter_and_preprocess)
+from .tracer import trace_graph, trace_module
 
 #: aliases accepted from external exporters → canonical OP_VOCAB names
 _OP_ALIASES: Dict[str, str] = {
@@ -44,6 +52,24 @@ _OP_ALIASES: Dict[str, str] = {
     "scatter": "scatter", "one_hot": "scatter",
     "reduce": "reduce", "elementwise": "elementwise",
 }
+
+
+def from_torch(fn_or_module, params_spec: Any = None, *data_specs: Any,
+               meta: Optional[Dict[str, Any]] = None) -> OpGraph:
+    """Trace a PyTorch callable or ``nn.Module`` into an OpGraph on the
+    meta device (see :mod:`repro_torch.core.tracer`).
+
+    A callable is traced as ``fn(params, *data)`` with ``params_spec``'s
+    leaves as weights. A module is traced through
+    ``torch.func.functional_call`` over meta copies of its parameters and
+    buffers (or over ``params_spec``, a name → spec mapping, when given);
+    the caller's module is left untouched. Specs are tensors or
+    ``(shape, dtype)`` pairs.
+    """
+    if isinstance(fn_or_module, torch.nn.Module):
+        return trace_module(fn_or_module, *data_specs, state=params_spec,
+                            meta=meta)
+    return trace_graph(fn_or_module, params_spec, *data_specs, meta=meta)
 
 
 def _validated_edges(doc: Dict[str, Any], node_ids: set) -> list:

@@ -11,20 +11,23 @@ over the default engine: ``predict_graph`` is a submit + flush + wait
 round trip, ``predict_many`` a synchronous burst through the same
 micro-batcher. ``DIPPM.serve(**overrides)`` hands out a dedicated service
 for request traffic, and ``save`` writes the pickle-free artifact that
-both packages load. ``predict_jax`` and ``predict_zoo`` wait for the
-torch frontend (ROADMAP.md A13).
+both packages load. ``predict_torch`` traces a PyTorch callable or
+``nn.Module`` on the meta device (the counterpart of the JAX package's
+``predict_jax``), and ``predict_zoo`` sweeps a zoo family over a config
+grid: traced on the host, predicted in bins on the device.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import weakref
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import (Any, Dict, Iterable, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
-from .frontends import from_json
+from .frontends import from_json, from_torch
 from .gnn import PMGNS, PMGNSConfig
 from .ir import OpGraph
 from .mig import predict_mig, predict_pods, predict_tpu_slice
@@ -177,6 +180,18 @@ class DIPPM:
         coalesce into shared bins."""
         return self._default_service().predict_one(g)
 
+    def predict_torch(self, fn_or_module, params_spec=None, *input_specs,
+                      batch: Optional[int] = None,
+                      meta: Optional[Dict[str, Any]] = None) -> Prediction:
+        """Trace a PyTorch callable or ``nn.Module`` on the meta device
+        and predict it — Fig. 5 flow (see
+        :func:`~repro_torch.core.frontends.from_torch`)."""
+        m = dict(meta or {})
+        if batch is not None:
+            m.setdefault("batch", batch)
+        g = from_torch(fn_or_module, params_spec, *input_specs, meta=m)
+        return self.predict_graph(g)
+
     def predict_json(self, doc: Dict[str, Any]) -> Prediction:
         """Predict a portable serialized graph (``repro.opgraph.v1``)."""
         return self.predict_graph(from_json(doc))
@@ -196,3 +211,21 @@ class DIPPM:
         if return_stats:
             return preds, svc.engine.stats.snapshot()
         return preds
+
+    def predict_zoo(self, family: str,
+                    grid: Iterable[Dict[str, Any]],
+                    ) -> List[Tuple[Dict[str, Any], Prediction]]:
+        """Sweep a zoo family over a config grid without running any model.
+
+        ``grid`` is an iterable of variant configs for
+        :func:`repro_torch.zoo.families.build_family` (see
+        :func:`~repro_torch.zoo.families.variant_grid` for the
+        cartesian-product helper). The variants are traced on the host,
+        then predicted through :meth:`predict_many`, bin-packed on this
+        predictor's device. Returns ``(cfg, Prediction)`` pairs in grid
+        order.
+        """
+        from ..zoo.families import trace_family
+        cfgs = list(grid)
+        graphs = [trace_family(family, cfg) for cfg in cfgs]
+        return list(zip(cfgs, self.predict_many(graphs)))

@@ -47,8 +47,11 @@ isolate the offender (then quarantined), ``drain()`` / ``close()``
 stopping admission and settling everything in flight, and the counters
 conserving ``submitted = completed + failed + deadline_expired + shed``.
 
-Not ported yet: ``submit_jax``, which waits for a torch frontend
-(ROADMAP.md A13); it raises ``NotImplementedError``.
+A PyTorch model enters through :meth:`~PredictionService.submit_torch`,
+traced on the caller's thread by the port's meta-device tracer.
+``submit_jax`` raises ``NotImplementedError``: the port does not import
+JAX, so a JAX model is traced by the JAX package and arrives as a
+``repro.opgraph.v1`` document (``submit_json``).
 """
 from __future__ import annotations
 
@@ -74,9 +77,11 @@ from .queue import PredictionFuture, QueueFullError, Request, RequestQueue
 
 __all__ = ["ServeConfig", "ServeStats", "PredictionService"]
 
-_NOT_PORTED_JAX = ("submit_jax traces a JAX callable; the port's torch "
-                   "frontend is not written yet (ROADMAP.md A13) — submit "
-                   "an OpGraph or a repro.opgraph.v1 document instead")
+_NOT_PORTED_JAX = ("submit_jax traces a JAX callable, and the port does not "
+                   "import JAX (ROADMAP.md A13): trace the model with the "
+                   "JAX package and submit its repro.opgraph.v1 document "
+                   "(submit_json), or submit a torch callable or "
+                   "nn.Module through submit_torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,9 +390,43 @@ class PredictionService:
             return fut
         return self.submit(g, deadline_ms=deadline_ms)
 
+    def submit_torch(self, fn_or_module, params_spec=None, *input_specs,
+                     batch: Optional[int] = None,
+                     meta: Optional[Dict[str, Any]] = None,
+                     deadline_ms: Optional[float] = None
+                     ) -> PredictionFuture:
+        """Trace a PyTorch callable or ``nn.Module`` on the meta device
+        and enqueue it — the ``from_torch`` frontend, the counterpart of
+        the JAX package's ``submit_jax``. Tracing happens on the
+        caller's thread; a model that does not trace returns an
+        already-rejected future carrying
+        :class:`~repro_torch.core.ir.GraphValidationError`, as an invalid
+        ``submit_json`` document does."""
+        from ..core.frontends import from_torch
+        m = dict(meta or {})
+        if batch is not None:
+            m.setdefault("batch", batch)
+        try:
+            g = from_torch(fn_or_module, params_spec, *input_specs, meta=m)
+        except Exception as e:
+            err = GraphValidationError(
+                f"model did not trace: {type(e).__name__}: {e}")
+            err.__cause__ = e
+            fut = PredictionFuture()
+            fut._reject(err)
+            with self._state:
+                self._submitted += 1
+                self._failed += 1
+                self._invalid += 1
+            return fut
+        return self.submit(g, deadline_ms=deadline_ms)
+
     def submit_jax(self, *args, **kwargs) -> PredictionFuture:
-        """Not ported: tracing a model needs the torch frontend
-        (ROADMAP.md A13). Raises ``NotImplementedError``."""
+        """Refused: the port does not import JAX (ROADMAP.md A13). A JAX
+        model reaches the port as a ``repro.opgraph.v1`` document
+        exported by the JAX package (:meth:`submit_json`); a PyTorch
+        model goes through :meth:`submit_torch`. Raises
+        ``NotImplementedError``."""
         raise NotImplementedError(_NOT_PORTED_JAX)
 
     def _submit_sample(self, sample, meta, fp: Optional[str] = None,
