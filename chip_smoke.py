@@ -167,7 +167,8 @@ Phases, each printing one JSON line:
 12. ``zoo_path`` — the graph sources on the card: one ``family_variants``
    draw (seed 0) of each of the 11 zoo families at its Table-2 size and
    a ``variant_grid`` sweep (ViT depth × width × batch) traced on the
-   meta device (host ms per trace, nodes per graph); their labels from
+   meta device (host ms per trace, nodes per graph; each draw's raw node
+   count the reference tracer's, ``ZOO_REF_RAW_NODES``); their labels from
    the cost model on both devices (finite, positive, the same twice);
    ``build_dataset(36, seed 0, convnext held out)``, a save and load
    round trip bit for bit, and one packed GraphSAGE training epoch at
@@ -179,7 +180,21 @@ Phases, each printing one JSON line:
    B4 every one on the bin's shared CSR), predictions/s and ms per bin;
    and ``submit_torch`` through a started service, the same bits as
    ``predict_torch`` on a zoo forward and on a user ``nn.Module``.
-13. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
+13. ``factory`` — the dataset factory (``repro_torch.dataset.factory``)
+   on the host, then its records on the card: a zoo-only plan (48
+   graphs, shards of 16, seed 0, convnext held out) built by two spawned
+   worker processes; beside it, the same plan built again, stopped after
+   one shard and resumed, every shard's sha256 equal to the first
+   build's; the
+   records streamed with ``verify=True`` and split by fingerprint;
+   packed GraphSAGE at hidden 512 trained two epochs on the train split
+   (losses within 1e-4 relative of the CPU's, launches on
+   ``train_launch_rule``: B2 and its gradient once a step); the test
+   split predicted on the card against the CPU at 1e-3 + 1e-3, B1 and B2
+   launches on bins × layers. The line carries build seconds, records/s,
+   the sidecars' and the host's peak RSS, shards reused, the plan hash
+   and the launch counts.
+14. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
    with the depth cut to 12 layers (2 groups), float32, weights from a
    seed, 2 prompts × 128 tokens through prefill and 16 greedy decode
    steps on the card against the same weights on the CPU: every step's
@@ -290,6 +305,18 @@ KERNEL_BF16_TOL = 2e-2
 ZOO_GRID = {"depth": [6, 12], "dim": [192, 384], "batch": [1, 8]}
 ZOO_DATASET, ZOO_SEED, ZOO_HELD_OUT = 36, 0, ("convnext",)
 ZOO_REPEATS = 3
+#: zoo_path: the reference tracer's raw node count (``meta["n_raw_nodes"]``)
+#: of each family's seed-0 draw, which the port's traces must equal
+#: (``tests/test_torch_zoo.py`` holds these against the JAX package)
+ZOO_REF_RAW_NODES = {
+    "efficientnet": 540, "mnasnet": 336, "mobilenet": 352, "resnet": 223,
+    "vgg": 43, "swin": 1280, "vit": 615, "densenet": 795, "visformer": 259,
+    "poolformer": 285, "convnext": 529}
+#: factory: the zoo-only plan it builds (graphs, shard size; seed and
+#: held-out family as zoo_path's), its worker processes, and the packed
+#: GraphSAGE epochs it trains on the plan's train split
+FACTORY_GRAPHS, FACTORY_SHARD, FACTORY_WORKERS = 48, 16, 2
+FACTORY_EPOCHS = 2
 #: lm_path: the model it serves (full width; LM_SMOKE_WIDTH swaps in the
 #: smoke config, for rehearsing the script on the CPU), the full serving run
 #: (prompts × prompt length, new tokens; max_len their sum) and the parity
@@ -3825,31 +3852,33 @@ def zoo_dataset(torch) -> tuple:
     return info, samples
 
 
-def zoo_train(torch, samples) -> dict:
-    """One packed GraphSAGE epoch at ``train_path``'s settings on the
-    built records' train split: launches on ``train_launch_rule``
-    (``train_run``) and the loss against the same epoch on the CPU."""
+def zoo_train(torch, samples, phase: str = "zoo_path train",
+              epochs: int = 1) -> tuple:
+    """Packed GraphSAGE epochs at ``train_path``'s settings on a built
+    dataset's train split: launches on ``train_launch_rule``
+    (``train_run``) and the losses against the same epochs on the CPU.
+    Returns the line's entry and the card's trained parameters."""
     from repro_torch.core.gnn import PMGNSConfig
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.train.gnn_trainer import TrainConfig, train_pmgns
     cfg = PMGNSConfig(variant="graphsage", hidden=TRAIN_HIDDEN, dropout=0.0,
                       layout="packed")
-    out, params = train_run(torch, cfg, samples, 1, "zoo_path train",
+    out, params = train_run(torch, cfg, samples, epochs, phase,
                             compare_cpu=False)
     c_params, c_hist = train_pmgns(
-        cfg, samples, (), TrainConfig(epochs=1, batch_size=TRAIN_BATCH,
+        cfg, samples, (), TrainConfig(epochs=epochs, batch_size=TRAIN_BATCH,
                                       lr=TRAIN_LR, seed=0), device="cpu")
     c_losses = [r["train_loss"] for r in c_hist]
     loss_err = rel_err(out["losses"], c_losses)
     if loss_err > TRAIN_LOSS_RTOL:
-        raise AssertionError(f"zoo_path train: losses {out['losses']} vs "
+        raise AssertionError(f"{phase}: losses {out['losses']} vs "
                              f"the CPU's {c_losses}: relative "
                              f"{loss_err:.3e}")
     d = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
             for a, b in zip(tree_leaves(params), tree_leaves(c_params)))
     out["vs_cpu"] = {"cpu_losses": c_losses, "loss_rel_err": loss_err,
                      "loss_rtol": TRAIN_LOSS_RTOL, "param_max_abs_err": d}
-    return out
+    return out, params
 
 
 def zoo_predict(torch, cfg, draws: list, sweep: list, grid: list) -> tuple:
@@ -3992,12 +4021,16 @@ def phase_zoo(torch, name_limit: str) -> dict:
                     "edges": g.num_edges, "raw_nodes": g.meta["n_raw_nodes"],
                     "host_ms": ms}
               for (fam, cfg, g), ms in zip(traced[:n_draws], trace_ms)}
+    raw = {fam: t["raw_nodes"] for fam, t in traces.items()}
+    if raw != ZOO_REF_RAW_NODES:
+        raise AssertionError(f"zoo_path: raw node counts {raw} != the "
+                             f"reference tracer's {ZOO_REF_RAW_NODES}")
     sweep = [{"cfg": plain_cfg(cfg), "nodes": g.num_nodes, "host_ms": ms}
              for (_, cfg, g), ms in zip(traced[n_draws:],
                                         trace_ms[n_draws:])]
     labels = zoo_labels(traced)
     dataset, samples = zoo_dataset(torch)
-    train = zoo_train(torch, samples)
+    train, _ = zoo_train(torch, samples)
     predict = {}
     sage = PMGNSConfig(variant="graphsage", layout="packed", precision="f32")
     draws = [g for _, _, g in traced[:n_draws]]
@@ -4014,6 +4047,139 @@ def phase_zoo(torch, name_limit: str) -> dict:
            "nodes_per_graph": [g.num_nodes for _, _, g in traced],
            "labels": labels, "dataset": dataset, "train": train,
            "predict": predict, "submit_torch": zoo_submit(torch, gat_dippm),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def factory_shas(path: str) -> dict:
+    """sha256 of every shard file of a factory build, by file name."""
+    import hashlib
+    shard_dir = Path(path) / "shards"
+    return {f.name: hashlib.sha256(f.read_bytes()).hexdigest()
+            for f in sorted(shard_dir.glob("*.npz"))}
+
+
+def factory_predict(torch, cfg, params, samples: list) -> dict:
+    """The trained parameters' predictions of ``samples`` on the card,
+    launches zeroed before and held to bins × layers after, against the
+    same parameters on the CPU's plain versions."""
+    from repro_torch.core import DIPPM
+    dippm = DIPPM.from_params(params, cfg)        # on the card by default
+    if dippm.device.type != "cuda":
+        raise AssertionError(f"factory: DIPPM ran on {dippm.device}")
+    engine = dippm.engine()
+    kernels = path_kernels(cfg.variant)
+    zero_counts(kernels)
+    bins0 = engine.stats.batches_run
+    card = engine.predict_samples(samples)
+    torch.cuda.synchronize()
+    bins = engine.stats.batches_run - bins0
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    want = {name: bins * (cfg.n_gnn_blocks if per == "layer" else 1)
+            for name, (_, per) in kernels.items()}
+    if launches != want or min(launches.values()) <= 0:
+        raise AssertionError(f"factory predict: launch counts {launches} != "
+                             f"bins x layers {want} ({bins} bins)")
+    if not np.isfinite(card).all():
+        raise AssertionError("factory predict: non-finite predictions")
+    cpu = DIPPM.from_params(params, cfg, device="cpu")
+    ref = cpu.engine().predict_samples(samples)
+    err = check_close("factory predict: card vs CPU", card, ref, E2E_ATOL,
+                      E2E_RTOL)
+    return {"graphs": len(samples), "bins": bins, "launches": launches,
+            "vs_cpu": {"max_abs_err": err, "max_rel_err": rel_err(card, ref),
+                       "atol": E2E_ATOL, "rtol": E2E_RTOL}}
+
+
+def timed(fn, *args, **kwargs) -> tuple:
+    """``fn``'s result and the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def phase_factory(torch, name_limit: str) -> dict:
+    """The dataset factory on the card machine's host, then its records on
+    the card: a zoo-only plan built by ``FACTORY_WORKERS`` spawned
+    processes; beside it (a thread of its own, so the two builds share
+    the host's cores) the same plan built again, stopped after one shard
+    and resumed, its shards' sha256 equal to the first build's; the
+    records streamed with ``verify=True`` and split by fingerprint;
+    packed GraphSAGE trained on the train split against the CPU; the
+    test split predicted on the card against the CPU, launches on
+    bins × layers."""
+    import resource
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import DIPPM
+    from repro_torch.core.gnn import PMGNSConfig
+    from repro_torch.dataset import builder, factory
+    t0 = time.perf_counter()
+    cfg = factory.FactoryConfig(n_graphs=FACTORY_GRAPHS, seed=ZOO_SEED,
+                                shard_size=FACTORY_SHARD,
+                                extra_families=ZOO_HELD_OUT)
+    with tempfile.TemporaryDirectory() as tmp:
+        full, cut = str(Path(tmp) / "full"), str(Path(tmp) / "cut")
+        with ThreadPoolExecutor(1) as pool:
+            first = pool.submit(timed, factory.build, full, cfg,
+                                workers=FACTORY_WORKERS)
+            part, stop_s = timed(factory.build, cut, cfg,
+                                 workers=FACTORY_WORKERS,
+                                 _stop_after_shards=1)
+            if part.shards_built != 1 or part.manifest_path:
+                raise AssertionError(f"factory: the stopped build built "
+                                     f"{part.shards_built} shards")
+            resumed, resume_s = timed(factory.build, cut,
+                                      workers=FACTORY_WORKERS)
+            res, build_s = first.result()
+        if res.n_skipped or res.n_built != res.n_planned \
+                or not res.manifest_path:
+            raise AssertionError(f"factory: built {res.n_built} of "
+                                 f"{res.n_planned}, skips "
+                                 f"{res.skips_by_family}")
+        shas, cut_shas = factory_shas(full), factory_shas(cut)
+        if resumed.shards_reused != 1 or cut_shas != shas \
+                or resumed.plan_hash != res.plan_hash:
+            raise AssertionError(f"factory: the resumed build reused "
+                                 f"{resumed.shards_reused} shards; its "
+                                 f"shards {cut_shas} != {shas}")
+        records = list(factory.iter_records(full, verify=True))
+    splits = builder.split_dataset(records, seed=ZOO_SEED)
+    if sum(len(v) for v in splits.values()) != len(records) \
+            or not splits["train"] or not splits["test"]:
+        raise AssertionError(f"factory: split "
+                             f"{ {k: len(v) for k, v in splits.items()} }")
+    train, params = zoo_train(torch, builder.records_to_samples(
+        splits["train"]), "factory train", FACTORY_EPOCHS)
+    pcfg = PMGNSConfig(variant="graphsage", hidden=TRAIN_HIDDEN,
+                       dropout=0.0, layout="packed")
+    buckets = DIPPM.from_params(params, pcfg, device="cpu").engine() \
+        .engine_cfg.buckets
+    predict = factory_predict(torch, pcfg, params, builder.records_to_samples(
+        splits["test"], buckets=buckets))
+    out = {"phase": "factory", "card": name_limit,
+           "plan": {"graphs": FACTORY_GRAPHS, "shard_size": FACTORY_SHARD,
+                    "held_out": list(ZOO_HELD_OUT), "seed": ZOO_SEED,
+                    "workers": FACTORY_WORKERS},
+           "plan_hash": res.plan_hash, "records": res.n_built,
+           "shards": res.n_shards, "build_s": build_s,
+           "records_per_s": res.n_built / build_s,
+           # the sidecars' ru_maxrss: a spawned worker's starts at its
+           # parent's at the fork (Linux keeps the high-water mark across
+           # exec), so this is at least the host process's RSS then
+           "sidecar_max_rss_kb": res.max_rss_kb,
+           "host_peak_rss_kb": int(resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss),
+           "resume": {"stopped_build_s": stop_s,
+                      "shards_reused": resumed.shards_reused,
+                      "shards_built": resumed.shards_built,
+                      "seconds": resume_s, "same_sha256": True},
+           "shard_sha256": shas,
+           "splits": {k: len(v) for k, v in splits.items()},
+           "train": train, "predict": predict,
+           "launches": {"train": train["launches"],
+                        "predict": predict["launches"]},
            "seconds": time.perf_counter() - t0}
     emit(out)
     return out
@@ -4774,6 +4940,7 @@ def main() -> int:
     train = phase_train(torch, name_limit)
     phase_train_dp(torch, name_limit)
     phase_zoo(torch, name_limit)
+    phase_factory(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],

@@ -15,9 +15,9 @@ the same :class:`~repro_torch.core.ir.OpGraph`:
   the reference's ``_eqn_costs``): FLOPs, MACs and ``bytes_accessed`` =
   input bytes + output bytes.
 * **Layout ops** (views, permutes, copies, padding, creation ops) are kept
-  as raw nodes for connectivity and contracted by
-  :func:`~repro_torch.core.ir.filter_and_preprocess`; an op the table
-  does not know becomes ``elementwise``.
+  as raw nodes for connectivity, as the raw-node rule below says, and
+  contracted by :func:`~repro_torch.core.ir.filter_and_preprocess`; an
+  op the table does not know becomes ``elementwise``.
 * **Scalar constants** — a rank-0 tensor made from no tensor (``full``,
   ``zeros``, ``scalar_tensor``, a rank-0 closure constant) stands for the
   jaxpr's literal: it has no node and its bytes are not counted.
@@ -50,6 +50,40 @@ a ``convolution`` with a bias likewise emits ``conv`` + ``add``.
 channels per group). (3) ``sort`` and ``topk`` cost n·log₂n. A
 multi-output op (``max_pool2d_with_indices``) counts its first output's
 bytes and shape only.
+
+Raw-node rule. The reference keeps one raw node per jaxpr equation, at
+the equation's shape, and ``meta["n_raw_nodes"]`` and the shapes enter
+the graph's fingerprint (so the labels' noise and the dataset split).
+The port records what the jaxpr of the same program holds; ATen adds
+layout steps of its own and leaves some of jnp's implicit:
+
+==============================================  ========================
+ATen nodes                                      raw nodes (shape)
+==============================================  ========================
+a compute op                                    1 (+1 ``add`` of a bias)
+each operand of a pointwise op whose rank is    +1 ``broadcast_in_dim``
+at least 1 and below the output's               (jnp's rank promotion)
+a reduction with ``keepdim``                    1 at the reduced shape
+                                                +1 ``broadcast_in_dim``
+``permute(0,3,1,2)`` [``constant_pad_nd``] →    0, 1, 0: the window op at
+conv / pool → ``permute(0,2,3,1)``              its NHWC shape and window
+``view`` → ``mm`` → ``view`` over the rows of   0, 1, 0: the product at
+an N-D input (``matmul``, ``F.linear``)         its N-D shape
+``matmul``'s ``permute`` / ``transpose``,       0 each, 1, 0: the product
+same-shape ``expand``, ``clone`` and batch-     at its N-D shape with
+merging view → ``bmm`` → view                   N - 2 batch dims
+a view, reshape or ``expand`` to its input's    0 (``lax.reshape``
+own shape                                       returns its operand)
+``clone``, ``contiguous``, ``alias``,           0 (``_REF_EQNS``)
+``lift_fresh_copy``
+``select`` (an integer index)                   2: slice + squeeze
+any other layout op (``detach`` is              1
+``stop_gradient``, ``_to_copy`` is
+``convert_element_type``)
+==============================================  ========================
+
+A ``from_torch`` model that runs its own NCHW convolutions keeps its
+NCHW shapes: only the permute pair above is folded.
 """
 from __future__ import annotations
 
@@ -98,6 +132,23 @@ _LAYOUT_ATEN = {
     "empty", "empty_like", "scalar_tensor", "arange", "new_zeros",
     "new_ones", "new_full", "new_empty",
 }
+
+#: layout ops that add other than one raw node: the jaxpr equations
+#: of the same step (the rest of the raw-node rule is in the module
+#: docstring)
+_REF_EQNS: Dict[str, int] = {
+    "clone": 0, "contiguous": 0, "alias": 0, "lift_fresh_copy": 0,
+    "select": 2,             # an integer index: lax.slice + squeeze
+}
+
+#: window ops a channels-last trace wraps in permutes (``_fold_window``)
+_WINDOW_ATEN = ("convolution", "max_pool2d_with_indices", "avg_pool2d")
+
+#: canonical ops that do not broadcast their operands the jnp way
+_NOT_POINTWISE = {"dense", "conv", "reduce", "pool", "gather", "scatter"}
+
+#: reductions whose third argument is ``keepdim``
+_KEEPDIM_ATEN = {"sum", "amax", "amin", "mean", "argmax"}
 
 #: products whose first argument is a bias, which the reference writes as
 #: a product + ``add``
@@ -277,25 +328,183 @@ def _is_literal(node, literals: set) -> bool:
     return not args and name in _LAYOUT_ATEN
 
 
-def _emit(b: _Builder, op: str, out, costs, inputs) -> int:
+def _emit(b: _Builder, op: str, out, costs, inputs, shape=None) -> int:
     """One compute node from its ``(value, origin)`` inputs: bytes of
     the inputs and the output, bytes of the weight inputs, edges from the
-    producers."""
+    producers. A pointwise op's operand ranked below its output (and
+    above 0) first goes through a ``broadcast_in_dim`` raw node, as jnp
+    broadcasts it; the bytes stay the operand's."""
     flops, macs, attrs = costs
     known = [(v, og) for v, og in inputs if og is not None]
     in_bytes = sum(_bytes(v) for v, _ in known)
     param_bytes = float(sum(_bytes(v) for v, og in known if og.is_param))
-    nid = b.new_node(op, _shape(out), _dtype_str(out.dtype), attrs, flops,
-                     macs, float(in_bytes + _bytes(out)), param_bytes)
-    for _, og in known:
+    srcs = []
+    for v, og in known:
+        if op not in _NOT_POINTWISE and 0 < v.dim() < out.dim():
+            srcs.append(_broadcast(b, og, (1,) * (out.dim() - v.dim())
+                                   + _shape(v), _dtype_str(v.dtype)))
+        else:
+            srcs.append(og)
+    nid = b.new_node(op, _shape(out) if shape is None else shape,
+                     _dtype_str(out.dtype), attrs, flops, macs,
+                     float(in_bytes + _bytes(out)), param_bytes)
+    for og in srcs:
         if og.node is not None:
             b.add_edge(og.node, nid)
     return nid
 
 
+def _broadcast(b: _Builder, og: _Origin, shape, dtype) -> _Origin:
+    """A ``broadcast_in_dim`` raw node after ``og``."""
+    nid = b.new_node("broadcast_in_dim", shape, dtype, {}, 0.0, 0.0, 0.0,
+                     0.0)
+    if og.node is not None:
+        b.add_edge(og.node, nid)
+    return _Origin(nid, og.is_param)
+
+
+# ---------------------------------------------------------------------------
+# folds: ATen's own layout steps, recorded the reference's way
+# ---------------------------------------------------------------------------
+
+_TO_NCHW, _TO_NHWC = [0, 3, 1, 2], [0, 2, 3, 1]
+
+
+def _is_call(node, *names) -> bool:
+    return (isinstance(node, torch.fx.Node) and node.op == "call_function"
+            and node.target is not operator.getitem
+            and _op_name(node.target) in names)
+
+
+def _only_user(node):
+    """The one consumer of ``node`` (a multi-output op's unused outputs
+    left out), or None."""
+    users = [u for u in node.users
+             if u.users or u.target is not operator.getitem]
+    return users[0] if len(users) == 1 else None
+
+
+def _perm(node) -> Optional[List[int]]:
+    return [int(d) for d in node.args[1]] if _is_call(node, "permute") \
+        else None
+
+
+class _Folds:
+    """The shapes and attributes a compute node is recorded at, and the
+    layout nodes that add no raw node (see ``_REF_EQNS``)."""
+
+    def __init__(self):
+        self.shape: Dict[Any, Tuple[int, ...]] = {}
+        self.attrs: Dict[Any, Dict[str, Any]] = {}
+        self.skip: set = set()
+
+
+def _fold_window(node, f: _Folds) -> None:
+    """``permute(0,3,1,2)`` → conv / pool → ``permute(0,2,3,1)``: the
+    window op recorded channels-last, its window too."""
+    src, inner = node.args[0], node
+    if _is_call(src, "constant_pad_nd") and _only_user(src) is node:
+        src, inner = src.args[0], src     # "SAME" padding is conv's own
+    out = _only_user(node)
+    if out is not None and out.target is operator.getitem:
+        out = _only_user(out)
+    if _perm(src) != _TO_NCHW or _only_user(src) is not inner \
+            or out is None or _perm(out) != _TO_NHWC:
+        return
+    f.shape[node] = _shape(_val(out))
+    f.skip.update({src, inner, out} - {node})
+    if _op_name(node.target) != "convolution":
+        window = [int(k) for k in node.args[1]]
+        window = (window * 2)[:2] if len(window) == 1 else window
+        f.attrs[node] = {"window": [1] + window + [1]}
+
+
+def _batch_chain(a, consumer) -> Optional[List[Any]]:
+    """The layout nodes ``matmul`` puts before a ``bmm`` operand — the
+    permute or transpose that brings the batch dims forward, an
+    ``expand`` to the same shape, a ``clone``, and the view that merges
+    the batch dims — which a ``dot_general`` carries as its dimension
+    numbers; None if ``a`` is not such a view."""
+    if not (_is_call(a, "view", "_unsafe_view") and _only_user(a) is consumer):
+        return None
+    x, y = _shape(_val(a.args[0])), _shape(_val(a))
+    if len(x) < 4 or y != (_prod(x[:-2]),) + x[-2:]:
+        return None
+    chain, node = [a], a.args[0]
+    while (_is_call(node, "clone", "permute", "transpose")
+           or (_is_call(node, "expand")
+               and _shape(_val(node)) == _shape(_val(node.args[0])))) \
+            and _only_user(node) is chain[-1]:
+        chain.append(node)
+        node = node.args[0]
+    return chain
+
+
+def _fold_product(node, f: _Folds) -> None:
+    """A product over rows ``view`` → ``mm`` → ``view`` (``matmul`` of an
+    N-D input by a matrix), or over batches (``matmul`` of two N-D
+    inputs), recorded at its N-D shape, as ``dot_general`` gives it."""
+    name = _op_name(node.target)
+    out = _only_user(node)
+    if not _is_call(out, "view", "_unsafe_view"):
+        return
+    o, n = _shape(_val(out)), _shape(_val(node))
+    if name in ("mm", "addmm"):
+        lhs = node.args[1 if name == "addmm" else 0]
+        if not (_is_call(lhs, "view", "_unsafe_view")
+                and _only_user(lhs) is node):
+            return
+        x = _shape(_val(lhs.args[0]))
+        if len(x) < 3 or _shape(_val(lhs)) != (_prod(x[:-1]), x[-1]) \
+                or o != x[:-1] + n[-1:]:
+            return
+        f.skip.update({lhs, out})
+    else:
+        chains = [_batch_chain(a, node) for a in node.args[:2]]
+        if len(o) < 4 or o[-2:] != n[-2:] or None in chains:
+            return
+        f.skip.update([out, *chains[0], *chains[1]])
+        f.attrs[node] = {"batch_dims": len(o) - 2}
+    f.shape[node] = o
+
+
+def _reduced_shape(node) -> Optional[Tuple[int, ...]]:
+    """A keepdim reduction's shape without the kept dims, or None."""
+    keep = node.kwargs.get("keepdim",
+                           node.args[2] if len(node.args) > 2 else False)
+    if not keep:
+        return None
+    rank = _val(node.args[0]).dim()
+    dims = node.args[1] if len(node.args) > 1 and node.args[1] else \
+        range(rank)
+    dims = {int(d) % max(rank, 1) for d in dims}
+    return tuple(s for i, s in enumerate(_shape(_val(node)))
+                 if i not in dims)
+
+
+def _plan_folds(graph: torch.fx.Graph) -> _Folds:
+    f = _Folds()
+    for node in graph.nodes:
+        if _is_call(node, *_WINDOW_ATEN):
+            _fold_window(node, f)
+        elif _is_call(node, "mm", "addmm", "bmm"):
+            _fold_product(node, f)
+    return f
+
+
+def _passes_through(node, name: str) -> bool:
+    """A layout node that adds no raw node (``_REF_EQNS``)."""
+    if name in _REF_EQNS:
+        return _REF_EQNS[name] == 0
+    if name in ("view", "_unsafe_view", "reshape", "expand"):
+        return _shape(_val(node)) == _shape(_val(node.args[0]))
+    return False
+
+
 def _process_graph(b: _Builder, graph: torch.fx.Graph,
                    env: Dict[Any, _Origin]) -> None:
     literals: set = set()
+    folds = _plan_folds(graph)
     for node in graph.nodes:
         if node.op in ("placeholder", "output"):
             continue
@@ -320,6 +529,14 @@ def _process_graph(b: _Builder, graph: torch.fx.Graph,
             continue
         ins = _tensor_args(node)
 
+        if name in _LAYOUT_ATEN and (node in folds.skip
+                                     or _passes_through(node, name)):
+            src = ins[0] if ins else None
+            if src in env:
+                env[node] = env[src]
+            elif src in literals:
+                literals.add(node)
+            continue
         if name in _LAYOUT_ATEN:
             # layout raw node: kept for connectivity, contracted later
             known = [env[a] for a in ins if a in env]
@@ -329,25 +546,38 @@ def _process_graph(b: _Builder, graph: torch.fx.Graph,
             for og in known:
                 if og.node is not None:
                     b.add_edge(og.node, nid)
+            for _ in range(_REF_EQNS.get(name, 1) - 1):
+                nid = b.new_node(name, _shape(out), _dtype_str(out.dtype),
+                                 {}, 0.0, 0.0, 0.0, 0.0)
+                b.add_edge(nid - 1, nid)
             env[node] = _Origin(nid, is_param)
             continue
 
         op = _ATEN_MAP.get(name, "elementwise")
-        costs = _node_costs(op, name, node, out)
+        flops, macs, attrs = _node_costs(op, name, node, out)
+        costs = (flops, macs, {**attrs, **folds.attrs.get(node, {})})
+        shape = folds.shape.get(node)
+        kept = _reduced_shape(node) if name in _KEEPDIM_ATEN else None
         bias = node.args[0] if name in _BIAS_PRODUCTS else \
             node.args[2] if name == "convolution" else None
         if bias is None:
             nid = _emit(b, op, out, costs, [(_val(a), env.get(a))
-                                            for a in ins])
+                                            for a in ins],
+                        shape=shape if kept is None else kept)
         else:
             # product + bias: a dense/conv node, then an add of the bias
             pid = _emit(b, op, out, costs, [(_val(a), env.get(a))
-                                            for a in ins if a is not bias])
+                                            for a in ins if a is not bias],
+                        shape=shape)
             add_cost = (_POINTWISE_COST["add"] * _prod(_shape(out)), 0.0, {})
             nid = _emit(b, "add", out, add_cost,
                         [(out, _Origin(pid, False)),
-                         (_val(bias), env.get(bias))])
-        env[node] = _Origin(nid, False)
+                         (_val(bias), env.get(bias))], shape=shape)
+        og = _Origin(nid, False)
+        if kept is not None:
+            # jnp's keepdims: the reduction, then a broadcast_in_dim
+            og = _broadcast(b, og, _shape(out), _dtype_str(out.dtype))
+        env[node] = og
 
 
 # ---------------------------------------------------------------------------

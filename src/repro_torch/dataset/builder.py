@@ -15,8 +15,10 @@ model (:mod:`repro_torch.perfmodel.cost_model`). Each record keeps
 
 Storage is the v1 layout (``manifest.json`` + ``shardNNNN.npz`` with edge
 lists), which either package reads from the other (the same manifest
-bytes, the same arrays); and
-:func:`records_to_samples` pads to bucketed sparse-edge ``GraphSample``s.
+bytes, the same arrays); paper-scale builds use the factory's sharded v2
+layout (:mod:`repro_torch.dataset.factory`), which :func:`load_dataset`
+reads too. :func:`records_to_samples` pads to bucketed sparse-edge
+``GraphSample``s.
 :func:`synthetic_samples` makes cheap random samples with the same
 storage contract for tests and benchmarks.
 """
@@ -126,8 +128,8 @@ def build_dataset(
     ``.skips`` holds a :class:`SkipRecord` per failed variant trace) so
     silent dataset shrinkage is visible to callers and manifests.
 
-    This is the in-memory path; the sharded, resumable, multi-worker
-    factory of paper-scale builds is not ported yet (ROADMAP.md A13c).
+    This is the small, in-memory path; paper-scale builds go through the
+    sharded, resumable, multi-worker ``repro_torch.dataset.factory``.
     """
     fractions = dict(fractions or TABLE2_FRACTIONS)
     rng = np.random.default_rng(seed)
@@ -196,20 +198,19 @@ def save_dataset(records: Sequence[DatasetRecord], path: str,
 
 
 def load_dataset(path: str) -> List[DatasetRecord]:
-    """Load a saved v1 dataset (this module's layout, or the JAX
-    package's). Every shard's npz handle is closed before the next shard
-    opens. A factory-built ``dippm-ds-v2`` dataset raises
-    ``NotImplementedError``: its reader is not ported yet (ROADMAP.md
-    A13c).
+    """Load a saved dataset — v1 (this module's layout) or v2 (the
+    factory's), written by either package.
+
+    A factory-built ``dippm-ds-v2`` dataset goes to the factory's
+    streaming reader. Every shard's npz handle is closed before the next
+    shard opens.
     """
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     version = manifest.get("version")
     if version == "dippm-ds-v2":
-        raise NotImplementedError(
-            f"{path!r} is a factory-built dippm-ds-v2 dataset; the port "
-            f"does not read that layout yet (ROADMAP.md A13c) — rebuild "
-            f"it with build_dataset / save_dataset (v1)")
+        from .factory import load_factory_dataset
+        return load_factory_dataset(path)
     if version != DATASET_VERSION:
         raise ValueError(
             f"dataset version mismatch at {path!r}: manifest says "

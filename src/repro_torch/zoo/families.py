@@ -16,10 +16,19 @@ fuse into each group: a mean is a sum and a divide, GELU is its tanh
 formula, softmax is max / subtract / exp / sum / divide, ReLU6 is a
 max and a min, a dense layer is ``x @ w + b``, a variance is
 ``jnp.var``'s own steps, and average pooling is a window sum and a
-divide. Convolutions run in NCHW with OIHW weights (parameter bytes do
-not depend on layout). "SAME" padding gives the reference's output
-shapes: symmetric padding where that gives the same size, an explicit
-``F.pad`` otherwise, so the op reads the input the reference's does.
+divide. The layout steps are the reference's too: each is written as
+the ATen op that ``core.tracer``'s raw-node rule counts as the
+reference's equations (the attention's products as its two
+``dot_general`` equations, ``[:, None, None, :]`` as one reshape, a
+converted scalar as a ``_to_copy``).
+
+Activations are NHWC from the input to the head, as the reference's
+are. Only the torch convolution or pooling call sees NCHW, between a
+``permute(0, 3, 1, 2)`` and a ``permute(0, 2, 3, 1)``, with OIHW
+weights (parameter bytes do not depend on layout); the tracer records
+such a call at its NHWC shape and the two permutes add no raw node.
+"SAME" padding gives the reference's output shapes: symmetric padding
+where that gives the same size, an explicit ``F.pad`` otherwise.
 """
 from __future__ import annotations
 
@@ -67,7 +76,7 @@ def _bn_spec(c):
 
 
 # ---------------------------------------------------------------------------
-# forward helpers (NCHW images, [B, N, D] tokens)
+# forward helpers (NHWC images, [B, N, D] tokens)
 # ---------------------------------------------------------------------------
 
 def _same(size: int, k: int, s: int):
@@ -77,8 +86,9 @@ def _same(size: int, k: int, s: int):
 
 
 def _same_padding(x, k: int, s: int, value: float = 0.0):
-    """(input, symmetric padding) that give the "SAME" output size: the
-    symmetric padding when it does, else the input padded explicitly."""
+    """(NCHW input, symmetric padding) that give the "SAME" output size:
+    the symmetric padding when it does, else the input padded
+    explicitly."""
     h = int(x.shape[-1])
     out, total = _same(h, k, s)
     p = (total + 1) // 2
@@ -88,40 +98,45 @@ def _same_padding(x, k: int, s: int, value: float = 0.0):
     return F.pad(x, (lo, total - lo, lo, total - lo), value=value), 0
 
 
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
 def conv(p, x, stride=1, groups=1, padding="SAME"):
     w = p["w"]
+    x = _nchw(x)
     if padding == "VALID":
-        return F.conv2d(x, w, stride=stride, groups=groups)
+        return _nhwc(F.conv2d(x, w, stride=stride, groups=groups))
     x, pad = _same_padding(x, int(w.shape[-1]), stride)
-    return F.conv2d(x, w, stride=stride, padding=pad, groups=groups)
+    return _nhwc(F.conv2d(x, w, stride=stride, padding=pad, groups=groups))
 
 
 def dwconv(p, x, stride=1, padding="SAME"):
-    return conv(p, x, stride, groups=int(x.shape[1]), padding=padding)
-
-
-def _chan(v):
-    """A per-channel vector shaped to broadcast over NCHW."""
-    return v.view(-1, 1, 1)
+    return conv(p, x, stride, groups=int(x.shape[-1]), padding=padding)
 
 
 def bn(p, x):
     # inference-mode affine (folded statistics)
-    if x.dim() == 4:
-        return x * _chan(p["g"]) + _chan(p["b"])
     return x * p["g"] + p["b"]
 
 
 def _var(x):
     """``jnp.var(x, axis=-1, keepdims=True)``, step for step: the mean,
     the squared deviations, ``n - ddof`` from a converted scalar, the
-    divide, and the ``where`` that makes a zero count NaN."""
+    divide, and the ``where`` that makes a zero count NaN (a converted
+    and broadcast NaN)."""
     n = x.shape[-1]
     c = x - x.sum(-1, keepdim=True) / n
     sq = torch.square(c)
     dof = n - torch.zeros((), dtype=torch.int32, device=x.device).to(x.dtype)
     v = sq.sum(-1, keepdim=True) / dof
-    return torch.where(dof > 0, v, torch.full_like(v, math.nan))
+    nan = torch.scalar_tensor(math.nan, dtype=torch.float64,
+                              device=x.device).to(x.dtype)
+    return torch.where(dof > 0, v, nan.expand(v.shape))
 
 
 def ln(p, x, eps=1e-6):
@@ -162,37 +177,40 @@ def softmax(x):
 
 
 def maxpool(x, k=2, s=2):
-    x, pad = _same_padding(x, k, s, value=-math.inf)
-    return F.max_pool2d(x, k, s, padding=pad)
+    x, pad = _same_padding(_nchw(x), k, s, value=-math.inf)
+    return _nhwc(F.max_pool2d(x, k, s, padding=pad))
 
 
 def avgpool(x, k=2, s=2):
-    x, pad = _same_padding(x, k, s)
+    x, pad = _same_padding(_nchw(x), k, s)
     summed = F.avg_pool2d(x, k, s, padding=pad, divisor_override=1)
-    return summed / float(k * k)
+    return _nhwc(summed) / float(k * k)
 
 
 def gap(x):
-    return x.sum((2, 3)) / (x.shape[2] * x.shape[3])
+    return x.sum((1, 2)) / (x.shape[1] * x.shape[2])
 
 
 def _tokens(x):
-    """NCHW feature map → [B, H·W, C] tokens (the reference's reshape of
-    its NHWC map)."""
-    b, c = x.shape[0], x.shape[1]
-    return x.permute(0, 2, 3, 1).reshape(b, -1, c)
+    """NHWC feature map → [B, H·W, C] tokens."""
+    return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
 def mha(p, x, heads):
+    """The reference's two einsums as its ``dot_general`` equations
+    compute them: ``[b, h, n, m]`` scores, then ``[b, h, d, n]``
+    transposed to ``[b, n, h, d]``; the scale is a converted
+    ``jnp.sqrt`` of a float."""
     B, N, D = x.shape
     q = dense(p["q"], x).reshape(B, N, heads, D // heads)
     k = dense(p["k"], x).reshape(B, N, heads, D // heads)
     v = dense(p["v"], x).reshape(B, N, heads, D // heads)
-    att = torch.einsum("bnhd,bmhd->bhnm", q, k) / torch.sqrt(
-        torch.scalar_tensor(D / heads, device=x.device))
+    att = torch.matmul(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
+    scale = torch.sqrt(torch.scalar_tensor(D / heads, device=x.device))
+    att = att / scale.to(x.dtype, copy=True)
     att = softmax(att)
-    o = torch.einsum("bhnm,bmhd->bnhd", att, v).reshape(B, N, D)
-    return dense(p["o"], o)
+    o = torch.matmul(v.permute(0, 2, 3, 1), att.transpose(-1, -2))
+    return dense(p["o"], o.permute(0, 3, 1, 2).reshape(B, N, D))
 
 
 def _mha_spec(d):
@@ -212,10 +230,6 @@ def _tx_spec(d, mlp_ratio=4):
     return {"ln1": _ln_spec(d), "attn": _mha_spec(d), "ln2": _ln_spec(d),
             "fc1": _dense_spec(d, d * mlp_ratio),
             "fc2": _dense_spec(d * mlp_ratio, d)}
-
-
-def _nchw(x):
-    return x.permute(0, 3, 1, 2)
 
 
 # ===========================================================================
@@ -240,7 +254,6 @@ def build_vgg(cfg):
     specs["head"] = _dense_spec(4096, 1000)
 
     def fwd(p, x):
-        x = _nchw(x)
         for si, n in enumerate(convs_per_stage):
             for ci in range(n):
                 x = torch.relu(conv(p[f"s{si}c{ci}"], x))
@@ -284,7 +297,6 @@ def build_resnet(cfg):
     specs["head"] = _dense_spec(cin, 1000)
 
     def fwd(p, x):
-        x = _nchw(x)
         x = torch.relu(bn(p["stem_bn"], conv(p["stem"], x, stride=2)))
         x = maxpool(x, 3, 2)
         for si, n in enumerate(depths):
@@ -331,7 +343,6 @@ def build_densenet(cfg):
     specs["head"] = _dense_spec(c, 1000)
 
     def fwd(p, x):
-        x = _nchw(x)
         x = torch.relu(bn(p["stem_bn"], conv(p["stem"], x, 2)))
         x = maxpool(x, 3, 2)
         for si, n in enumerate(blocks):
@@ -339,7 +350,7 @@ def build_densenet(cfg):
                 blk = p[f"s{si}b{bi}"]
                 y = conv(blk["c1"], torch.relu(bn(blk["bn1"], x)), 1)
                 y = conv(blk["c2"], torch.relu(bn(blk["bn2"], y)), 1)
-                x = torch.cat([x, y], dim=1)
+                x = torch.cat([x, y], dim=-1)
             if si < len(blocks) - 1:
                 t = p[f"t{si}"]
                 x = conv(t["c"], torch.relu(bn(t["bn"], x)), 1)
@@ -386,7 +397,6 @@ def build_mobilenet(cfg):
     specs["head"] = _dense_spec(ch(1280), 1000)
 
     def fwd(p, x):
-        x = _nchw(x)
         x = relu6(bn(p["stem_bn"], conv(p["stem"], x, 2)))
         cin_l = ch(32)
         for si, (e, c, n, s0) in enumerate(settings):
@@ -423,7 +433,6 @@ def build_mnasnet(cfg):
     specs["head"] = _dense_spec(cin, 1000)
 
     def fwd(p, x):
-        x = _nchw(x)
         x = torch.relu(bn(p["stem_bn"], conv(p["stem"], x, 2)))
         x = torch.relu(bn(p["sep_bn"], dwconv(p["sep_dw"], x, 1)))
         x = bn(p["sep_pbn"], conv(p["sep_p"], x, 1))
@@ -472,12 +481,13 @@ def build_efficientnet(cfg):
         s = gap(y)
         s = silu(dense(p["se1"], s))
         s = torch.sigmoid(dense(p["se2"], s))
-        y = y * s[:, :, None, None]
+        # one reshape, as the reference's s[:, None, None, :] is one
+        # broadcast_in_dim
+        y = y * s.reshape(s.shape[0], 1, 1, s.shape[1])
         y = bn(p["pbn"], conv(p["p"], y, 1))
         return x + y if use_res else y
 
     def fwd(p, x):
-        x = _nchw(x)
         x = silu(bn(p["stem_bn"], conv(p["stem"], x, 2)))
         cin_l = ch(32)
         for si, (e, c, n, s0, k) in enumerate(base):
@@ -509,7 +519,7 @@ def build_vit(cfg):
         specs[f"blk{i}"] = _tx_spec(d)
 
     def fwd(p, x):
-        x = conv(p["embed"], _nchw(x), patch, padding="VALID")
+        x = conv(p["embed"], x, patch, padding="VALID")
         x = _tokens(x) + p["pos"]
         for i in range(depth):
             x = tx_block(p[f"blk{i}"], x, heads)
@@ -549,8 +559,8 @@ def build_swin(cfg):
         return xw.permute(0, 1, 3, 2, 4, 5).reshape(B, H * W, dim_l)
 
     def fwd(p, x):
-        x = conv(p["embed"], _nchw(x), patch, padding="VALID")
-        B, hw = x.shape[0], x.shape[2]
+        x = conv(p["embed"], x, patch, padding="VALID")
+        B, hw = x.shape[0], x.shape[1]
         dim_l = d
         x = _tokens(x)
         for si, n in enumerate(depths):
@@ -590,7 +600,6 @@ def build_visformer(cfg):
     specs["head"] = _dense_spec(d, 1000)
 
     def fwd(p, x):
-        x = _nchw(x)
         x = torch.relu(bn(p["stem_bn"], conv(p["stem"], x, 2)))
         x = maxpool(x)
         for i in range(conv_depth):
@@ -626,7 +635,7 @@ def build_poolformer(cfg):
     specs["head"] = _dense_spec(dims[-1], 1000)
 
     def fwd(p, x):
-        x = conv(p["embed"], _nchw(x), 4)
+        x = conv(p["embed"], x, 4)
         for si, n in enumerate(depths):
             for bi in range(n):
                 blk = p[f"s{si}b{bi}"]
@@ -665,17 +674,15 @@ def build_convnext(cfg):
     specs["head"] = _dense_spec(dims[-1], 1000)
 
     def fwd(p, x):
-        # channels-last between the blocks' convolutions, as the
-        # reference's NHWC: the norm and the dense layers act on C
-        x = conv(p["stem"], _nchw(x), 4, padding="VALID")
+        x = conv(p["stem"], x, 4, padding="VALID")
         for si, n in enumerate(depths):
             for bi in range(n):
                 blk = p[f"s{si}b{bi}"]
-                y = dwconv(blk["dw"], x, 1).permute(0, 2, 3, 1)
+                y = dwconv(blk["dw"], x, 1)
                 y = ln(blk["ln"], y)
                 y = gelu(dense(blk["fc1"], y))
                 y = dense(blk["fc2"], y)
-                x = x + y.permute(0, 3, 1, 2)
+                x = x + y
             if si < len(depths) - 1:
                 x = conv(p[f"down{si}"], x, 2, padding="VALID")
         x = ln(p["final_ln"], gap(x)[:, None, :])[:, 0]
