@@ -181,19 +181,26 @@ Phases, each printing one JSON line:
    and ``submit_torch`` through a started service, the same bits as
    ``predict_torch`` on a zoo forward and on a user ``nn.Module``.
 13. ``factory`` — the dataset factory (``repro_torch.dataset.factory``)
-   on the host, then its records on the card: a zoo-only plan (48
-   graphs, shards of 16, seed 0, convnext held out) built by two spawned
-   worker processes; beside it, the same plan built again, stopped after
-   one shard and resumed, every shard's sha256 equal to the first
-   build's; the
-   records streamed with ``verify=True`` and split by fingerprint;
-   packed GraphSAGE at hidden 512 trained two epochs on the train split
-   (losses within 1e-4 relative of the CPU's, launches on
+   on the host, then its records on the card: a plan of 48 zoo graphs
+   (shards of 16, seed 0, convnext held out) and one LM entry of each of
+   the six archs the port's LM stack runs (56 records, 4 shards), its
+   hash ``FACTORY_PLAN_HASH``, built by two spawned worker processes;
+   beside it, the same plan built again, stopped after one shard and
+   resumed, every shard's sha256 equal to the first build's, and whether
+   they equal the JAX package's (``FACTORY_REF_SHA256``) printed, not
+   required; the records streamed with ``verify=True`` and split by
+   fingerprint; packed GraphSAGE at hidden 512 trained two epochs on the
+   train split (losses within 1e-4 relative of the CPU's, launches on
    ``train_launch_rule``: B2 and its gradient once a step); the test
-   split predicted on the card against the CPU at 1e-3 + 1e-3, B1 and B2
-   launches on bins × layers. The line carries build seconds, records/s,
-   the sidecars' and the host's peak RSS, shards reused, the plan hash
-   and the launch counts.
+   split, and apart the six LM records, predicted on the card against
+   the CPU at 1e-3 + 1e-3, B1 and B2 launches on bins × layers; host ms
+   of an LM entry's trace against a zoo entry's; at each LM entry's
+   attention and SSD shapes, B8 and B9 on the card against the graph
+   forms (the JAX package's jnp steps) run on the card, float32, 1e-4
+   relative. The line carries build seconds, records/s, the sidecars'
+   and the host's peak RSS, shards reused, the plan hash, each LM
+   record's arch, batch, seq, nodes and fingerprint, and the launch
+   counts.
 14. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
    with the depth cut to 12 layers (2 groups), float32, weights from a
    seed, 2 prompts × 128 tokens through prefill and 16 greedy decode
@@ -317,6 +324,29 @@ ZOO_REF_RAW_NODES = {
 #: GraphSAGE epochs it trains on the plan's train split
 FACTORY_GRAPHS, FACTORY_SHARD, FACTORY_WORKERS = 48, 16, 2
 FACTORY_EPOCHS = 2
+#: factory: the LM archs of its plan (one entry each at the default
+#: ``lm_fraction``), the plan's hash (a function of the config alone:
+#: ``tests/test_torch_factory.py`` holds the port's plans to the JAX
+#: package's), and the shard sha256 that the JAX package's build of the
+#: plan writes on an x86-64 Linux host's CPU (zlib and libm of another
+#: host may differ, so the phase prints the comparison, not requires it)
+FACTORY_LM_ARCHS = ("qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
+                    "h2o-danube-3-4b", "chatglm3-6b")
+FACTORY_PLAN_HASH = ("1f3df1d4f158a2f24684c22d9159af428f6bfb4af47c99aaeb66"
+                     "b228808075f5")
+FACTORY_REF_SHA256 = {
+    "shard00000.npz":
+        "c4c26f84fca1c94a056625589b9cd336635bd99542b2adcb2ac0941a0c54faa3",
+    "shard00001.npz":
+        "9b5ce6c125f2fb8ccc3ba11efa4ad5d8cbf20c30ad56c0f16337a633a3f4d78e",
+    "shard00002.npz":
+        "1667ea593c279c9d0f32d9d3fb3db655d81bffa8f27dbb638e96ac37894342f0",
+    "shard00003.npz":
+        "004d5bb212b94961f4cb0d14f6628d43084a8715c25d6ec9ed2c658cbeeb0939"}
+#: factory: the zoo entries whose trace it times beside the LM entries',
+#: and the bar of B8 / B9 against the graph forms on the card (float32,
+#: relative to the output's largest magnitude)
+FACTORY_TIMED_ZOO, GRAPH_FORM_RTOL = 6, 1e-4
 #: lm_path: the model it serves (full width; LM_SMOKE_WIDTH swaps in the
 #: smoke config, for rehearsing the script on the CPU), the full serving run
 #: (prompts × prompt length, new tokens; max_len their sum) and the parity
@@ -4099,16 +4129,119 @@ def timed(fn, *args, **kwargs) -> tuple:
     return out, time.perf_counter() - t0
 
 
+def factory_trace_ms(factory, plan) -> dict:
+    """Host ms of one trace + labels (``factory._trace_entry``) of every
+    LM entry of the plan and of its first ``FACTORY_TIMED_ZOO`` zoo
+    entries, in this process."""
+    device = plan.config["device_name"]
+    sigma = float(plan.config["noise_sigma"])
+    out = {"lm": {}, "zoo": {}}
+    zoo = 0
+    for e in plan.entries:
+        if e["kind"] == "zoo":
+            if zoo == FACTORY_TIMED_ZOO:
+                continue
+            zoo += 1
+        t0 = time.perf_counter()
+        factory._trace_entry(e, device, sigma)
+        out[e["kind"]][f"{e['index']}:{e['family']}"] = \
+            1e3 * (time.perf_counter() - t0)
+    for kind in ("lm", "zoo"):
+        out[f"{kind}_median_ms"] = statistics.median(out[kind].values())
+    return out
+
+
+def graph_form_case(what: str, got, want) -> dict:
+    """One kernel output against its graph form, at ``GRAPH_FORM_RTOL``
+    of the graph form's largest magnitude."""
+    scale = float(want.abs().max())
+    err = check_close(what, got, want, GRAPH_FORM_RTOL * scale,
+                      GRAPH_FORM_RTOL)
+    return {"max_abs_err": err, "scale": scale,
+            "max_rel_err": err / max(scale, 1e-30)}
+
+
+def lm_graph_form_checks(torch, dev, entries: list) -> dict:
+    """B8 and B9 on ``dev`` against the graph forms that a trace of
+    ``lm.forward`` records (``layers._blockwise_attention_jnp``,
+    ``layers._ssd_chunked``: the JAX package's jnp steps) run on ``dev``,
+    float32, at each LM entry's attention and SSD shapes (its smoke
+    config at its batch and seq), on seeded inputs; the kernels'
+    launches counted."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models import layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ZOO_SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    wrappers = {"flash_attention": flash_attention_cuda,
+                "ssd_scan": ssd_scan_cuda}
+    before = {k: w.launches for k, w in wrappers.items()}
+    out = {k: {"cases": []} for k in wrappers}
+    for e in entries:
+        cfg = get_smoke_config(e["family"])
+        b, s = int(e["cfg"]["batch"]), int(e["cfg"]["seq"])
+        case = {"arch": e["family"], "batch": b, "seq": s}
+        if cfg.block in ("attn", "hybrid"):
+            hd = cfg.resolved_head_dim
+            q = rnd(b, s, cfg.n_heads, hd)
+            k, v = rnd(b, s, cfg.n_kv_heads, hd), rnd(b, s, cfg.n_kv_heads, hd)
+            got = ops.flash_attention(q, k, v, causal=cfg.causal,
+                                      window=cfg.window)
+            want = layers._blockwise_attention_jnp(q, k, v, causal=cfg.causal,
+                                                   window=cfg.window)
+            out["flash_attention"]["cases"].append({
+                **case, "q": list(q.shape), "kv": list(k.shape),
+                "window": cfg.window, **graph_form_case(
+                    f"factory: B8 vs the graph form, {case}", got, want)})
+        if cfg.block in ("mamba2", "hybrid"):
+            ssm = cfg.ssm
+            nh, g = ssm.n_heads(cfg.d_model), ssm.n_groups
+            x = rnd(b, s, nh, ssm.head_dim)
+            dt = 0.05 + 0.1 * torch.rand((b, s, nh), generator=gen,
+                                         device=dev)
+            a = -torch.exp(0.1 * rnd(nh))
+            bm, cm = rnd(b, s, g, ssm.d_state), rnd(b, s, g, ssm.d_state)
+            y, last = ops.ssd_scan(x, dt, a, bm, cm, chunk=ssm.chunk)
+            wy, wlast = layers._ssd_chunked(
+                x, dt, a, bm.repeat_interleave(nh // g, 2),
+                cm.repeat_interleave(nh // g, 2), ssm.chunk)
+            out["ssd_scan"]["cases"].append({
+                **case, "x": list(x.shape), "bc": list(bm.shape),
+                "chunk": ssm.chunk,
+                "y": graph_form_case(f"factory: B9 y vs the graph form, "
+                                     f"{case}", y, wy),
+                "last_state": graph_form_case(
+                    f"factory: B9 state vs the graph form, {case}", last,
+                    wlast)})
+    torch.cuda.synchronize()
+    for name, w in wrappers.items():
+        n = w.launches - before[name]
+        if not out[name]["cases"] or n != len(out[name]["cases"]):
+            raise AssertionError(f"factory: {name} launched {n} times for "
+                                 f"{len(out[name]['cases'])} graph-form "
+                                 f"checks")
+        out[name].update(launches=n, rtol=GRAPH_FORM_RTOL)
+    return out
+
+
 def phase_factory(torch, name_limit: str) -> dict:
     """The dataset factory on the card machine's host, then its records on
-    the card: a zoo-only plan built by ``FACTORY_WORKERS`` spawned
-    processes; beside it (a thread of its own, so the two builds share
-    the host's cores) the same plan built again, stopped after one shard
-    and resumed, its shards' sha256 equal to the first build's; the
-    records streamed with ``verify=True`` and split by fingerprint;
-    packed GraphSAGE trained on the train split against the CPU; the
-    test split predicted on the card against the CPU, launches on
-    bins × layers."""
+    the card: a plan of zoo graphs and six LM entries built by
+    ``FACTORY_WORKERS`` spawned processes; beside it (a thread of its
+    own, so the two builds share the host's cores) the same plan built
+    again, stopped after one shard and resumed, its shards' sha256 equal
+    to the first build's; the records streamed with ``verify=True`` and
+    split by fingerprint; packed GraphSAGE trained on the train split
+    against the CPU; the test split and the LM records predicted on the
+    card against the CPU, launches on bins × layers; the LM entries'
+    trace ms beside the zoo's; B8 and B9 against the graph forms at the
+    LM entries' shapes."""
     import resource
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -4118,7 +4251,12 @@ def phase_factory(torch, name_limit: str) -> dict:
     t0 = time.perf_counter()
     cfg = factory.FactoryConfig(n_graphs=FACTORY_GRAPHS, seed=ZOO_SEED,
                                 shard_size=FACTORY_SHARD,
-                                extra_families=ZOO_HELD_OUT)
+                                extra_families=ZOO_HELD_OUT,
+                                lm_archs=FACTORY_LM_ARCHS)
+    plan = factory.make_plan(cfg)
+    if plan.plan_hash != FACTORY_PLAN_HASH:
+        raise AssertionError(f"factory: plan hash {plan.plan_hash} != "
+                             f"{FACTORY_PLAN_HASH}")
     with tempfile.TemporaryDirectory() as tmp:
         full, cut = str(Path(tmp) / "full"), str(Path(tmp) / "cut")
         with ThreadPoolExecutor(1) as pool:
@@ -4145,6 +4283,13 @@ def phase_factory(torch, name_limit: str) -> dict:
                                  f"{resumed.shards_reused} shards; its "
                                  f"shards {cut_shas} != {shas}")
         records = list(factory.iter_records(full, verify=True))
+    lm_records = [r for r in records if r.meta.get("kind") == "lm"]
+    if sorted(r.family for r in lm_records) != sorted(FACTORY_LM_ARCHS):
+        raise AssertionError(f"factory: LM records "
+                             f"{[r.family for r in lm_records]}")
+    trace_ms = factory_trace_ms(factory, plan)
+    checks = lm_graph_form_checks(
+        torch, "cuda", [e for e in plan.entries if e["kind"] == "lm"])
     splits = builder.split_dataset(records, seed=ZOO_SEED)
     if sum(len(v) for v in splits.values()) != len(records) \
             or not splits["train"] or not splits["test"]:
@@ -4158,9 +4303,13 @@ def phase_factory(torch, name_limit: str) -> dict:
         .engine_cfg.buckets
     predict = factory_predict(torch, pcfg, params, builder.records_to_samples(
         splits["test"], buckets=buckets))
+    predict_lm = factory_predict(torch, pcfg, params,
+                                 builder.records_to_samples(
+                                     lm_records, buckets=buckets))
     out = {"phase": "factory", "card": name_limit,
            "plan": {"graphs": FACTORY_GRAPHS, "shard_size": FACTORY_SHARD,
                     "held_out": list(ZOO_HELD_OUT), "seed": ZOO_SEED,
+                    "lm_archs": list(FACTORY_LM_ARCHS),
                     "workers": FACTORY_WORKERS},
            "plan_hash": res.plan_hash, "records": res.n_built,
            "shards": res.n_shards, "build_s": build_s,
@@ -4176,10 +4325,22 @@ def phase_factory(torch, name_limit: str) -> dict:
                       "shards_built": resumed.shards_built,
                       "seconds": resume_s, "same_sha256": True},
            "shard_sha256": shas,
+           "reference_sha256_equal": shas == FACTORY_REF_SHA256,
+           "lm_records": [{"arch": r.family, "batch": r.meta["batch"],
+                           "seq": r.meta["seq"], "nodes": r.n_nodes,
+                           "fingerprint": r.meta["fingerprint"]}
+                          for r in lm_records],
+           "trace_ms": trace_ms,
            "splits": {k: len(v) for k, v in splits.items()},
-           "train": train, "predict": predict,
+           "lm_splits": {k: sum(r.meta.get("kind") == "lm" for r in v)
+                         for k, v in splits.items()},
+           "train": train, "predict": predict, "predict_lm": predict_lm,
+           "graph_form_checks": checks,
            "launches": {"train": train["launches"],
-                        "predict": predict["launches"]},
+                        "predict": predict["launches"],
+                        "predict_lm": predict_lm["launches"],
+                        "graph_form_checks": {
+                            k: v["launches"] for k, v in checks.items()}},
            "seconds": time.perf_counter() - t0}
     emit(out)
     return out
@@ -4940,7 +5101,7 @@ def main() -> int:
     train = phase_train(torch, name_limit)
     phase_train_dp(torch, name_limit)
     phase_zoo(torch, name_limit)
-    phase_factory(torch, name_limit)
+    fac = phase_factory(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],
@@ -4965,6 +5126,10 @@ def main() -> int:
         if name in SEGMENT_SUMS:
             run = "packed" if name == "segment_aggregate" else "gat_packed"
             e["route_launches"] = train["runs"][run]["route_launches"][name]
+        if name in fac["graph_form_checks"]:
+            # the factory's comparisons with the graph forms: not counted
+            # in ``launches``
+            e["graph_form_checks"] = fac["graph_form_checks"][name]
         if name in layouts["kernels_at_chunk"]:
             # the bucketed engines' full chunk, and their launches there
             e["inference_chunk"] = {

@@ -25,7 +25,8 @@ the same :class:`~repro_torch.core.ir.OpGraph`:
 Lowering table (``_ATEN_MAP``, by ATen op name without overload):
 
 ==========================================================  ==============
-``mm``, ``bmm``, ``addmm``, ``baddbmm``                     ``dense`` (1)
+``mm``, ``bmm``, ``addmm``, ``baddbmm``,                    ``dense`` (1)
+``dot_general`` (``core.prims``)
 ``convolution``                                             ``conv`` (2)
 ``add``, ``sub``, ``rsub``                                  ``add``
 ``mul`` / ``div``                                           ``mul`` / ``div``
@@ -40,11 +41,14 @@ Lowering table (``_ATEN_MAP``, by ATen op name without overload):
 ``index_select``, ``gather``, ``embedding``                 ``gather``
 ``scatter*``, ``index_add``, ``index_put``                  ``scatter``
 views, ``permute``, ``expand``, ``cat``, ``slice``,         layout
-``constant_pad_nd``, ``_to_copy``, ``clone``, ``detach``
+``constant_pad_nd``, ``_to_copy``, ``clone``, ``detach``,
+``repeat``, ``iota`` (``core.prims``)
 ==========================================================  ==============
 
 (1) ``addmm`` / ``baddbmm`` emit a ``dense`` node and an ``add`` node of
 the bias, as the reference's ``x @ w + b`` is ``dot_general`` + ``add``;
+``dot_general`` is the primitive itself: ``contract_k`` the product of
+its contracting dims, ``batch_dims`` the number of its batch dims;
 a ``convolution`` with a bias likewise emits ``conv`` + ``add``.
 (2) MACs = output elements × kernel area × ``weight.shape[1]`` (input
 channels per group). (3) ``sort`` and ``topk`` cost n·log₂n. A
@@ -77,10 +81,31 @@ own shape                                       returns its operand)
 ``clone``, ``contiguous``, ``alias``,           0 (``_REF_EQNS``)
 ``lift_fresh_copy``
 ``select`` (an integer index)                   2: slice + squeeze
+``index`` by rank-0 integer tensors (a          2: dynamic_slice +
+traced index)                                   squeeze
+``index_select``, ``embedding``                 +1 ``broadcast_in_dim``
+                                                of the index to [..., 1]
+                                                before the gather
+``unbind`` (a ``lax.scan``'s per-step slices    0: each slice has its
+of its stacked xs: the layers' weights)         stack's origin, a
+                                                weight at its bytes
+``stack`` (a scan's stacked ys)                 0: its last operand's
+                                                origin (the reference
+                                                hands the last replica's
+                                                value on); of literals,
+                                                a value of no node
+``alias`` of a literal (the literal bound to    0: a value of no node
+an inlined jit's argument)                      whose bytes count
 any other layout op (``detach`` is              1
 ``stop_gradient``, ``_to_copy`` is
 ``convert_element_type``)
 ==============================================  ========================
+
+A graph form that is to trace to a jaxpr writes each equation as the
+op this table counts for it (``repro_torch.models.layers``'s jnp steps):
+a scan's stack is read with ``unbind``, since an integer ``select`` of a
+weight is a real slice + squeeze in the jaxpr (``_causal_dwconv``'s
+``w[i]``).
 
 A ``from_torch`` model that runs its own NCHW convolutions keeps its
 NCHW shapes: only the permute pair above is folded.
@@ -101,6 +126,7 @@ from .ir import OpGraph, OpNode, dtype_bytes, filter_and_preprocess
 
 _ATEN_MAP: Dict[str, str] = {
     "mm": "dense", "bmm": "dense", "addmm": "dense", "baddbmm": "dense",
+    "dot_general": "dense",
     "convolution": "conv",
     "add": "add", "sub": "add", "rsub": "add",
     "mul": "mul",
@@ -130,7 +156,7 @@ _LAYOUT_ATEN = {
     "detach", "lift_fresh_copy", "copy", "repeat", "flip",
     "full", "full_like", "zeros", "zeros_like", "ones", "ones_like",
     "empty", "empty_like", "scalar_tensor", "arange", "new_zeros",
-    "new_ones", "new_full", "new_empty",
+    "new_ones", "new_full", "new_empty", "iota",
 }
 
 #: layout ops that add other than one raw node: the jaxpr equations
@@ -139,7 +165,13 @@ _LAYOUT_ATEN = {
 _REF_EQNS: Dict[str, int] = {
     "clone": 0, "contiguous": 0, "alias": 0, "lift_fresh_copy": 0,
     "select": 2,             # an integer index: lax.slice + squeeze
+    "index": 2,              # by scalar tensors: dynamic_slice + squeeze
+    "unbind": 0,             # a scan's per-step slices of its xs
 }
+
+#: gathers whose index operand jnp first broadcasts to [..., 1], with the
+#: index operand's position
+_GATHER_INDEX = {"index_select": 2, "embedding": 1}
 
 #: window ops a channels-last trace wraps in permutes (``_fold_window``)
 _WINDOW_ATEN = ("convolution", "max_pool2d_with_indices", "avg_pool2d")
@@ -240,6 +272,13 @@ def _node_costs(op: str, name: str, node, out) -> Tuple[float, float,
         macs = float(out_elems) * float(k)
         attrs = {"contract_k": k, "batch_dims": 1 if lhs.dim() == 3 else 0}
         return 2.0 * macs, macs, attrs
+
+    if name == "dot_general":
+        lhs = _val(args[0])
+        k = _prod(lhs.shape[d] for d in args[2])
+        macs = float(out_elems) * float(k)
+        return 2.0 * macs, macs, {"contract_k": int(k),
+                                  "batch_dims": len(args[4])}
 
     if name == "convolution":
         w = _val(args[1])
@@ -492,6 +531,16 @@ def _plan_folds(graph: torch.fx.Graph) -> _Folds:
     return f
 
 
+def _is_scalar_index(node, name: str) -> bool:
+    """``x[..., i]`` by rank-0 integer tensors (``aten.index``): the
+    jaxpr's dynamic index, ``dynamic_slice`` + ``squeeze``."""
+    if name != "index":
+        return False
+    idx = [_val(a) for a in _tensor_args(node)[1:]]
+    return bool(idx) and all(v.dim() == 0 and not v.is_floating_point()
+                             for v in idx)
+
+
 def _passes_through(node, name: str) -> bool:
     """A layout node that adds no raw node (``_REF_EQNS``)."""
     if name in _REF_EQNS:
@@ -529,15 +578,25 @@ def _process_graph(b: _Builder, graph: torch.fx.Graph,
             continue
         ins = _tensor_args(node)
 
+        if name == "stack":
+            # a scan's stacked ys: the reference hands on the last
+            # replica's value; a stack of literals is a value of no node
+            env[node] = env.get(ins[-1]) or _Origin(None, False)
+            continue
         if name in _LAYOUT_ATEN and (node in folds.skip
                                      or _passes_through(node, name)):
             src = ins[0] if ins else None
             if src in env:
                 env[node] = env[src]
             elif src in literals:
-                literals.add(node)
+                if name == "alias":
+                    # a literal bound to an inlined jit's argument: a
+                    # variable of no equation, whose bytes count
+                    env[node] = _Origin(None, False)
+                else:
+                    literals.add(node)
             continue
-        if name in _LAYOUT_ATEN:
+        if name in _LAYOUT_ATEN or _is_scalar_index(node, name):
             # layout raw node: kept for connectivity, contracted later
             known = [env[a] for a in ins if a in env]
             is_param = len(known) > 0 and all(og.is_param for og in known)
@@ -560,9 +619,16 @@ def _process_graph(b: _Builder, graph: torch.fx.Graph,
         kept = _reduced_shape(node) if name in _KEEPDIM_ATEN else None
         bias = node.args[0] if name in _BIAS_PRODUCTS else \
             node.args[2] if name == "convolution" else None
+        inputs = [(_val(a), env.get(a)) for a in ins]
+        if name in _GATHER_INDEX:
+            # jnp's gather takes its indices broadcast to [..., 1]
+            idx = node.args[_GATHER_INDEX[name]]
+            if env.get(idx) is not None:
+                v = _val(idx)
+                inputs[ins.index(idx)] = (v, _broadcast(
+                    b, env[idx], _shape(v) + (1,), _dtype_str(v.dtype)))
         if bias is None:
-            nid = _emit(b, op, out, costs, [(_val(a), env.get(a))
-                                            for a in ins],
+            nid = _emit(b, op, out, costs, inputs,
                         shape=shape if kept is None else kept)
         else:
             # product + bias: a dense/conv node, then an add of the bias

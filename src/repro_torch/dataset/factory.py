@@ -22,9 +22,9 @@ splits the build into three crash-isolated stages:
    ``.npz`` (fixed zip timestamps, fixed member order) → atomic rename +
    a ``.json`` sidecar with the shard's sha256, record and skip counts
    and the worker's peak RSS. Host memory is bounded by one shard. A
-   failed zoo trace becomes a structured skip record (family, error
-   type, message). A zoo shard's bytes are the reference's shard's for
-   the same plan.
+   failed trace becomes a structured skip record (family, error type,
+   message). A shard's bytes are the reference's shard's for the same
+   plan, LM records included.
 3. **Manifest** — once every shard is done, :func:`build` writes
    ``<out>/manifest.json``: plan hash, per-shard checksums, family
    counts and aggregated ``skips_by_family``.
@@ -35,11 +35,14 @@ rebuilds only what is missing or corrupt. Shard bytes are a pure
 function of the plan, so a killed-and-resumed build writes shards
 byte-identical to an uninterrupted one.
 
-LM entries are planned but not built: the port's tracer does not yet
-give the reference's graph of ``lm.forward`` (ROADMAP.md A13c-2), so
-:func:`build` and :func:`build_shard` refuse a plan that holds one
-before they write anything. A v2 dataset the reference built with LM
-records reads all the same: reading only loads arrays.
+An LM entry traces ``lm.forward`` of the arch's smoke config at the
+entry's (batch, seq) on the meta device over ``lm.param_specs``, and
+gives the reference's graph, so its record too is the reference's. The
+archs whose blocks the port does not run yet (mixture-of-experts, MLA,
+cross-attention, the audio frontend: ROADMAP.md A14c) are refused by
+name, by :func:`build` and :func:`build_shard`, before anything is
+written. A v2 dataset the reference built with such records reads all
+the same: reading only loads arrays.
 
 Consumption is streaming: :func:`iter_records` yields
 :class:`~repro_torch.dataset.builder.DatasetRecord` one shard at a time
@@ -206,17 +209,74 @@ def plan_hash(cfg: FactoryConfig) -> str:
 
 
 # ---------------------------------------------------------------------------
-# LM entries
+# tracing one entry
 # ---------------------------------------------------------------------------
 
-def _refuse_lm(plan: FactoryPlan) -> None:
-    """Raise before anything is written if the plan holds an LM entry."""
-    archs = sorted({e["family"] for e in plan.entries if e["kind"] == "lm"})
-    if archs:
+def _trace_entry(entry: Dict[str, Any], device_name: str,
+                 noise_sigma: float) -> DatasetRecord:
+    if entry["kind"] == "zoo":
+        return _trace_and_label(entry["family"], dict(entry["cfg"]),
+                                device_name, noise_sigma)
+    return _trace_lm_entry(entry, device_name, noise_sigma)
+
+
+def _trace_lm_entry(entry: Dict[str, Any], device_name: str,
+                    noise_sigma: float) -> DatasetRecord:
+    """Trace one LM smoke config from ``repro_torch.configs`` into a
+    record: ``lm.forward``'s logits on the meta device, labelled."""
+    import torch
+    from ..configs import get_smoke_config
+    from ..core.frontends import from_torch
+    from ..core.node_features import node_feature_matrix
+    from ..core.static_features import static_features
+    from ..models import lm
+    from ..perfmodel.cost_model import estimate
+    from ..perfmodel.devices import DEVICES
+
+    arch = entry["family"]
+    batch = int(entry["cfg"]["batch"])
+    seq = int(entry["cfg"]["seq"])
+    acfg = get_smoke_config(arch)
+
+    def fwd(params, tokens):
+        logits, _ = lm.forward(params, acfg, {"tokens": tokens})
+        return logits
+
+    g = from_torch(fwd, lm.param_specs(acfg), ((batch, seq), torch.int32),
+                   meta={"family": arch, "batch": batch, "seq": seq})
+    est = estimate(g, DEVICES[device_name], noise_sigma=noise_sigma)
+    return DatasetRecord(
+        x=node_feature_matrix(g),
+        edges=np.asarray(g.edges, dtype=np.int32).reshape(-1, 2),
+        static=static_features(g),
+        y=est.as_targets(),
+        family=arch,
+        n_nodes=g.num_nodes,
+        meta={"batch": batch, "seq": seq, "kind": "lm",
+              "fingerprint": g.fingerprint()},
+    )
+
+
+def _refuse_unported_lm(plan: FactoryPlan) -> None:
+    """Raise before anything is written if the plan holds an LM entry
+    whose config ``lm.check_supported`` refuses (ROADMAP.md A14c)."""
+    from ..configs import get_smoke_config
+    from ..models import lm
+    refused = []
+    for arch in sorted({e["family"] for e in plan.entries
+                        if e["kind"] == "lm"}):
+        try:
+            acfg = get_smoke_config(arch)
+        except Exception:
+            continue            # an unknown arch: a skip record, as ever
+        try:
+            lm.check_supported(acfg)
+        except NotImplementedError as e:
+            refused.append(f"{arch}: {e}")
+    if refused:
         raise NotImplementedError(
-            f"the plan holds LM entries ({', '.join(archs)}): the port "
-            f"does not trace lm.forward into the reference's graph yet "
-            f"(ROADMAP.md A13c-2); build a zoo-only plan (lm_archs=())")
+            f"the plan holds LM entries of archs the port does not run "
+            f"yet ({'; '.join(refused)}); leave them out of lm_archs")
 
 
 # ---------------------------------------------------------------------------
@@ -277,9 +337,10 @@ def build_shard(plan: FactoryPlan, shard_index: int,
 
     Returns the sidecar dict. At most ``shard_size`` records are ever
     held in memory; a failed trace becomes a structured skip record. A
-    plan with LM entries is refused before anything is written.
+    plan with LM entries of an arch the port does not run is refused
+    before anything is written.
     """
-    _refuse_lm(plan)
+    _refuse_unported_lm(plan)
     a, b = plan.shard_range(shard_index)
     device = plan.config["device_name"]
     sigma = float(plan.config["noise_sigma"])
@@ -287,8 +348,7 @@ def build_shard(plan: FactoryPlan, shard_index: int,
     skips: List[Dict[str, Any]] = []
     for entry in plan.entries[a:b]:
         try:
-            rec = _trace_and_label(entry["family"], dict(entry["cfg"]),
-                                   device, sigma)
+            rec = _trace_entry(entry, device, sigma)
             rec.meta["plan_index"] = entry["index"]
             records.append(rec)
         except Exception as e:
@@ -417,8 +477,8 @@ def build(out_dir: str, cfg: Optional[FactoryConfig] = None, *,
     ``cfg=None`` resumes whatever plan the directory holds. Passing a
     config whose plan hash differs from the committed one raises
     :class:`PlanMismatchError` (delete the directory to rebuild). A plan
-    with LM entries raises ``NotImplementedError`` before anything is
-    written (ROADMAP.md A13c-2). ``workers > 1`` fans shard builds over
+    with LM entries of an arch the port does not run yet raises
+    ``NotImplementedError`` before anything is written (ROADMAP.md A14c). ``workers > 1`` fans shard builds over
     spawned processes that re-read ``plan.json``; bytes are identical
     regardless of worker count. ``_stop_after_shards`` is a test hook
     simulating a mid-build kill.
@@ -434,13 +494,13 @@ def build(out_dir: str, cfg: Optional[FactoryConfig] = None, *,
                     f"{plan.plan_hash[:12]}…, requested config hashes to "
                     f"{want.plan_hash[:12]}… — delete the directory or "
                     f"point the build elsewhere")
-        _refuse_lm(plan)
+        _refuse_unported_lm(plan)
     else:
         if cfg is None:
             raise FileNotFoundError(
                 f"{plan_path} does not exist and no FactoryConfig given")
         plan = make_plan(cfg)
-        _refuse_lm(plan)
+        _refuse_unported_lm(plan)
         os.makedirs(out_dir, exist_ok=True)
         _atomic_write(plan_path,
                       json.dumps(plan.to_json(), sort_keys=True).encode())
@@ -578,8 +638,9 @@ def _cli() -> None:  # pragma: no cover — exercised via CI
     ap.add_argument("--extra-families", default="convnext",
                     help="comma-separated held-out families ('' for none)")
     ap.add_argument("--lm-archs", default="",
-                    help="comma-separated configs arch names (planned and "
-                         "hashed; a build refuses them, ROADMAP.md A13c-2)")
+                    help="comma-separated configs arch names (a build "
+                         "refuses MoE, MLA, cross-attention and audio "
+                         "archs, ROADMAP.md A14c)")
     ap.add_argument("--print-plan-hash", action="store_true",
                     help="print the plan hash and exit (no build)")
     args = ap.parse_args()

@@ -21,10 +21,16 @@ mesh.
 
 :func:`decode_step` updates the cache that :func:`init_cache` made IN
 PLACE (the JAX package's update is functional) and returns it.
+
+:func:`param_specs` gives the tree's ``(shape, dtype)`` pairs without
+allocating. :func:`forward` is written in the JAX package's steps, and
+on meta tensors (a trace by ``repro_torch.core.tracer``, as the dataset
+factory's LM entries take it) its layers run their graph forms, so that
+the traced graph is the reference's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,11 +70,12 @@ def check_supported(cfg: ArchConfig) -> None:
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 
-def decoder_layer_init(gen: torch.Generator, cfg: ArchConfig,
+def decoder_layer_init(gen: Optional[torch.Generator], cfg: ArchConfig,
                        lead: Tuple[int, ...] = ()) -> Params:
     dt = L.torch_dtype(cfg.param_dtype)
-    return {"ln1": nn.rmsnorm_init(cfg.d_model, dt, gen.device, lead),
-            "ln2": nn.rmsnorm_init(cfg.d_model, dt, gen.device, lead),
+    dev = L.gen_device(gen)
+    return {"ln1": nn.rmsnorm_init(cfg.d_model, dt, dev, lead),
+            "ln2": nn.rmsnorm_init(cfg.d_model, dt, dev, lead),
             "ffn": L.mlp_init(gen, cfg, lead),
             "attn": L.attention_init(gen, cfg, lead)}
 
@@ -84,10 +91,10 @@ def decoder_layer_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     return x + L.mlp_apply(p["ffn"], nn.rmsnorm(p["ln2"], x)), new_cache
 
 
-def mamba_layer_init(gen: torch.Generator, cfg: ArchConfig,
+def mamba_layer_init(gen: Optional[torch.Generator], cfg: ArchConfig,
                      lead: Tuple[int, ...] = ()) -> Params:
     return {"ln": nn.rmsnorm_init(cfg.d_model, L.torch_dtype(cfg.param_dtype),
-                                  gen.device, lead),
+                                  L.gen_device(gen), lead),
             "mix": L.mamba2_init(gen, cfg, lead)}
 
 
@@ -106,6 +113,16 @@ def _at(tree, *idx):
     return tree[idx]
 
 
+def _unstack(tree) -> List[Params]:
+    """The layers of a stacked tree as ``lax.scan`` hands them to its
+    body: every leaf unbound along its leading axis (views)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -121,6 +138,26 @@ def init_params(cfg: ArchConfig, *, seed: int, device: Device = None
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    return _init_tree(cfg, gen)
+
+
+def param_specs(cfg: ArchConfig) -> Params:
+    """The parameter tree as ``(shape, dtype)`` pairs, nothing allocated:
+    ``repro.models.lm.param_specs`` (the same keys, stacked leading axes
+    and dtypes), the spec ``core.tracer.trace_graph`` takes."""
+    check_supported(cfg)
+
+    def spec(tree):
+        if isinstance(tree, dict):
+            return {k: spec(v) for k, v in tree.items()}
+        return tuple(tree.shape), tree.dtype
+
+    return spec(_init_tree(cfg, None))
+
+
+def _init_tree(cfg: ArchConfig, gen: Optional[torch.Generator]) -> Params:
+    """The tree drawn from ``gen``, or on the meta device for None."""
+    dev = L.gen_device(gen)
     dt = L.torch_dtype(cfg.param_dtype)
     p: Params = {"embed": L.normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)}
     if cfg.block == "attn":
@@ -182,26 +219,34 @@ def _head(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params: Params, cfg: ArchConfig,
             inputs: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits [B, S, V] float32, aux loss 0)."""
+    """Full-sequence forward → (logits [B, S, V] float32, aux loss 0), in
+    the JAX package's steps: ``jnp.take`` of the tokens, int32 positions,
+    each stack read as ``lax.scan`` reads it (:func:`_unstack`), and the
+    aux loss of every attention stack, which the jaxpr keeps though it is
+    zero. So a trace of it on the meta device is the reference's graph."""
     check_supported(cfg)
-    x = _embed(params, inputs)
+    x = L._jnp_take_rows(params["embed"], inputs["tokens"])
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = aux       # an MLP layer's aux loss: a literal
     if cfg.block == "attn":
-        for i in range(cfg.n_layers):
-            x, _ = decoder_layer_apply(_at(params["blocks"], i), cfg, x,
-                                       positions=positions)
+        for lp in _unstack(params["blocks"]):
+            x, _ = decoder_layer_apply(lp, cfg, x, positions=positions)
+        aux = aux + torch.stack([zero] * cfg.n_layers).sum()
     elif cfg.block == "mamba2":
-        for i in range(cfg.n_layers):
-            x, _ = mamba_layer_apply(_at(params["blocks"], i), cfg, x)
+        for lp in _unstack(params["blocks"]):
+            x, _ = mamba_layer_apply(lp, cfg, x)
     else:
-        ng, per = params["groups"]["ln"]["scale"].shape[:2]
-        for g in range(ng):
-            for i in range(per):
-                x, _ = mamba_layer_apply(_at(params["groups"], g, i), cfg, x)
+        groups = _unstack(params["groups"])
+        for gp in groups:
+            for lp in _unstack(gp):
+                x, _ = mamba_layer_apply(lp, cfg, x)
             x, _ = decoder_layer_apply(params["shared_attn"], cfg, x,
                                        positions=positions)
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+        aux = aux + torch.stack([zero] * len(groups)).sum()
+    return _head(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,14 @@
   same sha256, and manifests equal but for the workers' peak RSS.
 * v2 datasets load both ways through ``load_dataset``, with equal arrays
   and metas; a reference-built dataset with LM records loads in the port.
+* A plan with LM entries of the six archs the port runs, around a zoo
+  record, built by each package: the same shard sha256 and manifests;
+  killed and resumed on two workers, the same bytes again.
 * Kill and resume, a corrupt shard and ``workers=2`` give the same bytes;
   a changed config raises ``PlanMismatchError``; failed traces become
   the reference's skip records.
-* A plan with LM entries is refused by name before anything is written.
+* A plan with LM entries of an arch whose blocks the port does not run
+  (ROADMAP A14c) is refused by name before anything is written.
 """
 import hashlib
 import json
@@ -40,7 +44,19 @@ ZOO = dict(n_graphs=6, seed=3, shard_size=3,
 LM_MIX = dict(n_graphs=2, seed=0, shard_size=4, fractions={"vgg": 1.0},
               lm_archs=("mamba2-370m",), lm_fraction=0.5)
 
+#: the six archs whose LM stack the port runs, around a vgg record:
+#: seven records in three shards
+LM_ARCHS = ("qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
+            "h2o-danube-3-4b", "chatglm3-6b")
+LM_SIX = dict(n_graphs=2, seed=0, shard_size=3, fractions={"vgg": 0.5},
+              lm_archs=LM_ARCHS, lm_fraction=0.5)
+
+#: an arch whose blocks the port does not run yet (mixture-of-experts)
+A14C_ARCH = "grok-1-314b"
+LM_A14C = dict(LM_MIX, lm_archs=(A14C_ARCH,))
+
 PLAN_CFGS = {"reference_test": CFG, "zoo": ZOO, "lm_mix": LM_MIX,
+             "lm_six": LM_SIX,
              "default": {}, "paper_320": dict(n_graphs=320, seed=1),
              "zoo_held_out": dict(n_graphs=64, seed=5, shard_size=16,
                                   extra_families=("convnext",),
@@ -179,7 +195,7 @@ def test_v2_datasets_load_both_ways(built, writer):
 
 def test_reference_dataset_with_lm_records_loads(tmp_path):
     path = str(tmp_path / "lm")
-    res = jf.build(path, jf.FactoryConfig(**LM_MIX))
+    res = jf.build(path, jf.FactoryConfig(**LM_A14C))
     assert res.n_built == 3 and res.n_skipped == 0
     got = tb.load_dataset(path)
     want = jb.load_dataset(path)
@@ -187,13 +203,52 @@ def test_reference_dataset_with_lm_records_loads(tmp_path):
     assert sum(r.meta.get("kind") == "lm" for r in got) == 1
     for r, q in zip(got, want):
         assert np.array_equal(r.x, q.x) and np.array_equal(r.y, q.y)
-    # resuming it in the port is refused, and writes nothing
+    # its arch is not run by the port: resuming it is refused by name,
+    # and writes nothing
     before = {f: os.path.getmtime(os.path.join(path, f))
               for f in ("plan.json", "manifest.json")}
-    with pytest.raises(NotImplementedError, match="A13c-2"):
+    with pytest.raises(NotImplementedError, match=f"{A14C_ARCH}.*A14c"):
         tf.build(path)
     assert before == {f: os.path.getmtime(os.path.join(path, f))
                       for f in before}
+
+
+@pytest.fixture(scope="module")
+def lm_built(tmp_path_factory):
+    """LM_SIX built once by each package."""
+    root = tmp_path_factory.mktemp("factory_lm")
+    ref, port = str(root / "ref"), str(root / "port")
+    ref_res = jf.build(ref, jf.FactoryConfig(**LM_SIX))
+    port_res = tf.build(port, tf.FactoryConfig(**LM_SIX))
+    return ref, ref_res, port, port_res
+
+
+def test_lm_shards_are_the_reference_bytes(lm_built):
+    ref, ref_res, port, port_res = lm_built
+    assert port_res.n_built == ref_res.n_built == 7
+    assert port_res.n_skipped == ref_res.n_skipped == 0
+    assert port_res.n_shards == 3
+    assert _shas(port) == _shas(ref)
+    assert _manifest(port) == _manifest(ref)
+    recs = tf.load_factory_dataset(port, verify=True)
+    lm = [r for r in recs if r.meta.get("kind") == "lm"]
+    assert sorted(r.family for r in lm) == sorted(LM_ARCHS)
+    assert all(tb.record_fingerprint(r) == r.meta["fingerprint"]
+               for r in lm)
+    assert all(set(r.meta) == {"batch", "seq", "kind", "fingerprint",
+                               "plan_index"} for r in lm)
+
+
+def test_lm_plan_killed_and_resumed_on_two_workers(lm_built, tmp_path):
+    _, _, port, _ = lm_built
+    out = str(tmp_path / "ds")
+    partial = tf.build(out, tf.FactoryConfig(**LM_SIX),
+                       _stop_after_shards=1)
+    assert partial.shards_built == 1 and not partial.manifest_path
+    resumed = tf.build(out, workers=2)
+    assert resumed.shards_reused == 1 and resumed.shards_built == 2
+    assert _shas(out) == _shas(port)
+    assert _manifest(out) == _manifest(port)
 
 
 # ---------------------------------------------------------------------------
@@ -262,11 +317,13 @@ def test_failed_traces_are_the_reference_skip_records(tmp_path):
 
 def test_lm_plan_is_refused_before_anything_is_written(tmp_path):
     out = str(tmp_path / "ds")
-    with pytest.raises(NotImplementedError, match="A13c-2"):
-        tf.build(out, tf.FactoryConfig(**CFG))
+    cfg = tf.FactoryConfig(**dict(CFG, lm_archs=("mamba2-370m", A14C_ARCH)))
+    with pytest.raises(NotImplementedError, match="A14c"):
+        tf.build(out, cfg)
     assert not os.path.exists(out)
-    with pytest.raises(NotImplementedError, match="mamba2-370m"):
-        tf.build_shard(tf.make_plan(tf.FactoryConfig(**CFG)), 0, out)
+    with pytest.raises(NotImplementedError, match=A14C_ARCH) as e:
+        tf.build_shard(tf.make_plan(cfg), 0, out)
+    assert "mamba2-370m" not in str(e.value)
     assert not os.path.exists(out)
 
 
