@@ -326,10 +326,12 @@ FACTORY_GRAPHS, FACTORY_SHARD, FACTORY_WORKERS = 48, 16, 2
 FACTORY_EPOCHS = 2
 #: factory: the LM archs of its plan (one entry each at the default
 #: ``lm_fraction``), the plan's hash (a function of the config alone:
-#: ``tests/test_torch_factory.py`` holds the port's plans to the JAX
-#: package's), and the shard sha256 that the JAX package's build of the
-#: plan writes on an x86-64 Linux host's CPU (zlib and libm of another
-#: host may differ, so the phase prints the comparison, not requires it)
+#: ``tests/test_torch_factory.py`` holds it to the JAX package's plan of
+#: :func:`factory_config`), and the shard sha256 that the JAX package's
+#: build of the plan wrote once on an x86-64 Linux host's CPU, copied in
+#: by hand: nothing in the repo derives them again, and zlib and libm of
+#: another host may differ, so the phase prints the comparison and does
+#: not require it
 FACTORY_LM_ARCHS = ("qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
                     "h2o-danube-3-4b", "chatglm3-6b")
 FACTORY_PLAN_HASH = ("1f3df1d4f158a2f24684c22d9159af428f6bfb4af47c99aaeb66"
@@ -4163,8 +4165,8 @@ def graph_form_case(what: str, got, want) -> dict:
 
 def lm_graph_form_checks(torch, dev, entries: list) -> dict:
     """B8 and B9 on ``dev`` against the graph forms that a trace of
-    ``lm.forward`` records (``layers._blockwise_attention_jnp``,
-    ``layers._ssd_chunked``: the JAX package's jnp steps) run on ``dev``,
+    ``lm.forward`` records (``graph_form.blockwise_attention``,
+    ``graph_form._ssd_chunked``: the JAX package's jnp steps) run on ``dev``,
     float32, at each LM entry's attention and SSD shapes (its smoke
     config at its batch and seq), on seeded inputs; the kernels'
     launches counted."""
@@ -4172,7 +4174,7 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-    from repro_torch.models import layers
+    from repro_torch.models import graph_form
     gen = torch.Generator(device=dev)
     gen.manual_seed(ZOO_SEED)
 
@@ -4193,8 +4195,8 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
             k, v = rnd(b, s, cfg.n_kv_heads, hd), rnd(b, s, cfg.n_kv_heads, hd)
             got = ops.flash_attention(q, k, v, causal=cfg.causal,
                                       window=cfg.window)
-            want = layers._blockwise_attention_jnp(q, k, v, causal=cfg.causal,
-                                                   window=cfg.window)
+            want = graph_form.blockwise_attention(q, k, v, causal=cfg.causal,
+                                                  window=cfg.window)
             out["flash_attention"]["cases"].append({
                 **case, "q": list(q.shape), "kv": list(k.shape),
                 "window": cfg.window, **graph_form_case(
@@ -4208,7 +4210,7 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
             a = -torch.exp(0.1 * rnd(nh))
             bm, cm = rnd(b, s, g, ssm.d_state), rnd(b, s, g, ssm.d_state)
             y, last = ops.ssd_scan(x, dt, a, bm, cm, chunk=ssm.chunk)
-            wy, wlast = layers._ssd_chunked(
+            wy, wlast = graph_form._ssd_chunked(
                 x, dt, a, bm.repeat_interleave(nh // g, 2),
                 cm.repeat_interleave(nh // g, 2), ssm.chunk)
             out["ssd_scan"]["cases"].append({
@@ -4230,6 +4232,15 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
     return out
 
 
+def factory_config(factory):
+    """The factory phase's plan config, in ``factory``'s ``FactoryConfig``
+    (the port's, or the JAX package's in a test)."""
+    return factory.FactoryConfig(n_graphs=FACTORY_GRAPHS, seed=ZOO_SEED,
+                                 shard_size=FACTORY_SHARD,
+                                 extra_families=ZOO_HELD_OUT,
+                                 lm_archs=FACTORY_LM_ARCHS)
+
+
 def phase_factory(torch, name_limit: str) -> dict:
     """The dataset factory on the card machine's host, then its records on
     the card: a plan of zoo graphs and six LM entries built by
@@ -4249,10 +4260,7 @@ def phase_factory(torch, name_limit: str) -> dict:
     from repro_torch.core.gnn import PMGNSConfig
     from repro_torch.dataset import builder, factory
     t0 = time.perf_counter()
-    cfg = factory.FactoryConfig(n_graphs=FACTORY_GRAPHS, seed=ZOO_SEED,
-                                shard_size=FACTORY_SHARD,
-                                extra_families=ZOO_HELD_OUT,
-                                lm_archs=FACTORY_LM_ARCHS)
+    cfg = factory_config(factory)
     plan = factory.make_plan(cfg)
     if plan.plan_hash != FACTORY_PLAN_HASH:
         raise AssertionError(f"factory: plan hash {plan.plan_hash} != "

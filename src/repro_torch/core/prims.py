@@ -1,9 +1,9 @@
-"""Two jaxpr primitives that no single ATen op writes, as torch custom ops.
+"""Jaxpr steps that no single ATen op writes, as torch custom ops.
 
-A graph form of a JAX function (``repro_torch.models.layers``'
+A graph form of a JAX function (``repro_torch.models.graph_form``'s
 ``_flash_fwd_chunks`` and ``_ssd_chunked``) is written step for step as
 the jaxpr's equations, so that :mod:`repro_torch.core.tracer` records
-the reference's raw nodes. Two equations have no one-op counterpart in
+the reference's raw nodes. Three steps have no one-op counterpart in
 ATen:
 
 * ``dot_general`` — a product over any contracting and batch dims, with
@@ -16,8 +16,14 @@ ATen:
   one dim of an N-D shape, which ``jnp.tri`` makes in one equation and
   ATen in an ``arange``, a view and an expand. The tracer records it as
   one layout raw node.
+* ``scan_ys`` — the stacked per-step outputs (ys) of a ``lax.scan``
+  whose body the reference replicates once per step. The jaxpr's scan
+  hands on the last replica's value and adds no equation for the stack,
+  so the tracer gives the result its last operand's origin. An
+  ``aten.stack`` of a user's program stays a node with an edge from
+  every operand.
 
-Both run on any device (the graph forms run on the CPU in the tests and
+All three run on any device (the graph forms run on the CPU in the tests and
 on the card in ``chip_smoke.py``) and have fake versions for tracing.
 """
 from __future__ import annotations
@@ -88,3 +94,14 @@ def iota(shape: List[int], dimension: int, dtype: torch.dtype,
 @iota.register_fake
 def _(shape, dimension, dtype, device):
     return torch.empty(shape, dtype=dtype, device=device)
+
+
+@torch.library.custom_op(f"{_LIB}::scan_ys", mutates_args=())
+def scan_ys(ys: List[torch.Tensor]) -> torch.Tensor:
+    """A scan's per-step outputs stacked along a new leading axis."""
+    return torch.stack(ys)
+
+
+@scan_ys.register_fake
+def _(ys):
+    return ys[0].new_empty((len(ys),) + tuple(ys[0].shape))

@@ -43,6 +43,8 @@ Lowering table (``_ATEN_MAP``, by ATen op name without overload):
 views, ``permute``, ``expand``, ``cat``, ``slice``,         layout
 ``constant_pad_nd``, ``_to_copy``, ``clone``, ``detach``,
 ``repeat``, ``iota`` (``core.prims``)
+``stack`` (and any other op the table does not know)        ``elementwise``
+``scan_ys`` (``core.prims``)                                none (4)
 ==========================================================  ==============
 
 (1) ``addmm`` / ``baddbmm`` emit a ``dense`` node and an ``add`` node of
@@ -53,7 +55,8 @@ a ``convolution`` with a bias likewise emits ``conv`` + ``add``.
 (2) MACs = output elements × kernel area × ``weight.shape[1]`` (input
 channels per group). (3) ``sort`` and ``topk`` cost n·log₂n. A
 multi-output op (``max_pool2d_with_indices``) counts its first output's
-bytes and shape only.
+bytes and shape only. (4) No node: the result has its last operand's
+origin (the raw-node rule below); only the LM graph forms call it.
 
 Raw-node rule. The reference keeps one raw node per jaxpr equation, at
 the equation's shape, and ``meta["n_raw_nodes"]`` and the shapes enter
@@ -89,8 +92,8 @@ traced index)                                   squeeze
 ``unbind`` (a ``lax.scan``'s per-step slices    0: each slice has its
 of its stacked xs: the layers' weights)         stack's origin, a
                                                 weight at its bytes
-``stack`` (a scan's stacked ys)                 0: its last operand's
-                                                origin (the reference
+``scan_ys`` (``core.prims``: a scan's stacked    0: its last operand's
+ys)                                             origin (the reference
                                                 hands the last replica's
                                                 value on); of literals,
                                                 a value of no node
@@ -102,10 +105,11 @@ any other layout op (``detach`` is              1
 ==============================================  ========================
 
 A graph form that is to trace to a jaxpr writes each equation as the
-op this table counts for it (``repro_torch.models.layers``'s jnp steps):
-a scan's stack is read with ``unbind``, since an integer ``select`` of a
+op this table counts for it (``repro_torch.models.graph_form``): a
+scan's stack is read with ``unbind``, since an integer ``select`` of a
 weight is a real slice + squeeze in the jaxpr (``_causal_dwconv``'s
-``w[i]``).
+``w[i]``), and its ys are stacked with ``core.prims.scan_ys``, since an
+``aten.stack`` is a node with an edge from every operand.
 
 A ``from_torch`` model that runs its own NCHW convolutions keeps its
 NCHW shapes: only the permute pair above is folded.
@@ -578,7 +582,7 @@ def _process_graph(b: _Builder, graph: torch.fx.Graph,
             continue
         ins = _tensor_args(node)
 
-        if name == "stack":
+        if name == "scan_ys":
             # a scan's stacked ys: the reference hands on the last
             # replica's value; a stack of literals is a value of no node
             env[node] = env.get(ins[-1]) or _Origin(None, False)

@@ -19,26 +19,20 @@ mixture-of-experts and cross-attention are A14c.
 
 On the meta device (a trace by ``repro_torch.core.tracer``, which the
 dataset factory's LM entries take) the steps run as the JAX package's
-jnp equations instead, so that the trace is the reference's graph: the
-two contractions as ``_blockwise_attention_jnp`` / ``_flash_fwd_chunks``
-and ``_ssd_chunked`` (their products as ``core.prims.dot_general``), and
-the small steps (silu, RoPE's strided lanes, softplus, padding, ``where``
-with a number) as the ``_jnp_*`` helpers. The graph forms compute the
-same functions on any device; a meta tensor that reaches a kernel entry
-still raises.
+jnp equations instead, so that the trace is the reference's graph; the
+decision and those steps are :mod:`repro_torch.models.graph_form`'s.
 """
 from __future__ import annotations
 
-import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import nn
-from ..core import prims
 from ..kernels import ops
 from ..kernels.ref import ssd_decode_ref
+from . import graph_form as G
 from .config import ArchConfig
 
 Params = Dict[str, Any]
@@ -76,99 +70,6 @@ def _full(gen: Optional[torch.Generator], shape, value: float, dtype
 
 
 # ---------------------------------------------------------------------------
-# jnp steps on the meta device (graph forms)
-# ---------------------------------------------------------------------------
-#
-# ``repro_torch.core.tracer`` records one raw node per jaxpr equation of
-# the JAX package's model. Where a torch op differs from the jnp step in
-# its equations (a mean, silu, a strided slice, a where with a number),
-# the functions here run the jnp step's equations instead. The layers
-# take them on the meta device (a trace) only: on the card and the CPU
-# the serving ops run. They compute the same values on every device.
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: x · sigmoid(x) on a trace, ``F.silu`` otherwise."""
-    return x * torch.sigmoid(x) if x.is_meta else F.silu(x)
-
-
-def _jnp_constant(make: Callable[[], torch.Tensor]) -> torch.Tensor:
-    """A value jnp computes from Python numbers at trace time, which the
-    jaxpr holds as a constant (a weight of the graph): a meta tensor made
-    outside the trace, so that the trace records a tensor constant."""
-    from torch._subclasses.fake_tensor import unset_fake_temporarily
-    from torch.fx.experimental.proxy_tensor import \
-        disable_proxy_modes_tracing
-    with unset_fake_temporarily(), disable_proxy_modes_tracing():
-        return make().to("meta")
-
-
-def _jnp_scalar(value, dtype: torch.dtype, device) -> torch.Tensor:
-    """A Python number bound to a jitted jnp function's argument and
-    converted there (``convert_element_type``)."""
-    return torch.ops.aten._to_copy(
-        torch.full((), value, dtype=dtype, device=device), dtype=dtype)
-
-
-def _jnp_where(mask: torch.Tensor, x: torch.Tensor, value) -> torch.Tensor:
-    """``jnp.where(mask, x, value)`` for a Python number: the number
-    converted, mask and number broadcast to x's shape, a select."""
-    c = _jnp_scalar(value, x.dtype, x.device)
-    return torch.where(mask.expand(x.shape), x, c.expand(x.shape))
-
-
-def _jnp_pad(x: torch.Tensor, dim: int, before: int, after: int = 0
-             ) -> torch.Tensor:
-    """``jnp.pad`` with zeros along one dim: the pad value converted, the
-    pad."""
-    _jnp_scalar(0.0, x.dtype, x.device)
-    widths = [0, 0] * (x.dim() - 1 - dim) + [before, after]
-    return F.pad(x, widths)
-
-
-def _jnp_index(i: int, n: int, device) -> torch.Tensor:
-    """A static index as jnp's dynamic indexing wraps it: ``i + n`` where
-    ``i < 0`` (an int32 scalar tensor)."""
-    lit = torch.full((), i, dtype=torch.int32, device=device)
-    return torch.where(lit < 0, lit + n, lit)
-
-
-def _jnp_lanes(x: torch.Tensor, start: int, step: int) -> torch.Tensor:
-    """``x[..., start::step]``, which jnp writes as a gather of an iota."""
-    n = (x.shape[-1] - start + step - 1) // step
-    idx = torch.arange(n, dtype=torch.int32, device=x.device) * step + start
-    return x.index_select(x.dim() - 1, idx)
-
-
-def _jnp_take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(table, idx, axis=0)``: negative indices wrapped, then a
-    gather of rows."""
-    idx = torch.where(idx < 0, idx + table.shape[0], idx)
-    return F.embedding(idx, table)
-
-
-def _jnp_softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` = ``jnp.logaddexp(x, 0)`` step for step."""
-    zero = torch.ops.aten.alias(torch.zeros((), dtype=x.dtype,
-                                            device=x.device))
-    amax = torch.maximum(x, zero)
-    delta = x - zero
-    nan = delta != delta
-    both = x + zero
-    soft = amax + torch.log1p(torch.exp(-torch.abs(delta)))
-    return torch.where(nan, both, soft)
-
-
-def _jnp_tril_ones(n: int, device) -> torch.Tensor:
-    """``jnp.tril(jnp.ones((n, n), bool))``: ones, ``jnp.tri``'s mask from
-    two iotas, zeros, a select."""
-    ones = torch.ones((n, n), dtype=torch.bool, device=device)
-    rows = prims.iota([n, n], 0, torch.int32, device) + 0
-    mask = rows >= prims.iota([n, n], 1, torch.int32, device)
-    return torch.where(mask, ones,
-                       torch.zeros((n, n), dtype=torch.bool, device=device))
-
-
-# ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
 
@@ -176,15 +77,11 @@ def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float,
                  dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions [..., S] → cos, sin [..., S, dim / 2]."""
-    if positions.is_meta:
-        # jnp: the float arange is a constant, 1.0 / · a division
-        base = _jnp_constant(
-            lambda: torch.arange(0, dim, 2, dtype=torch.float32))
-        inv_freq = torch.div(torch.full((), 1.0, device=positions.device),
-                             theta ** (base / dim))
-    else:
-        inv_freq = 1.0 / (theta ** (torch.arange(
-            0, dim, 2, dtype=torch.float32, device=positions.device) / dim))
+    # jnp's float arange is a constant of the jaxpr, 1.0 / · a division
+    base = G.constant(lambda dev: torch.arange(
+        0, dim, 2, dtype=torch.float32, device=dev), positions)
+    inv_freq = torch.div(torch.full((), 1.0, device=positions.device),
+                         theta ** (base / dim))
     ang = positions[..., None].float() * inv_freq
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 
@@ -198,8 +95,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     rd -= rd % 2
     if rd == 0:
         return x
-    if x.is_meta:
-        return _apply_rope_jnp(x, cos, sin, rd)
+    if G.is_trace(x):
+        # gathers of an iota where the card takes strided views
+        return G.apply_rope(x, cos, sin, rd)
     xr, xp = x[..., :rd], x[..., rd:]
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     c = cos[..., :rd // 2][:, :, None, :]
@@ -207,22 +105,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     y1 = (x1 * c - x2 * s).to(x.dtype)
     y2 = (x2 * c + x1 * s).to(x.dtype)
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
-    return torch.cat([yr, xp], dim=-1) if rd < d else yr
-
-
-def _apply_rope_jnp(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                    rd: int) -> torch.Tensor:
-    """:func:`apply_rope`'s jnp steps: a full slice is no step, a strided
-    one a gather, the stack two broadcasts and a concatenate."""
-    d = x.shape[-1]
-    xr = x if rd == d else x[..., :rd]
-    xp = x[..., rd:]
-    x1, x2 = _jnp_lanes(xr, 0, 2), _jnp_lanes(xr, 1, 2)
-    c = (cos if cos.shape[-1] == rd // 2 else cos[..., :rd // 2])[:, :, None]
-    s = (sin if sin.shape[-1] == rd // 2 else sin[..., :rd // 2])[:, :, None]
-    y1 = (x1 * c - x2 * s).to(x.dtype)
-    y2 = (x2 * c + x1 * s).to(x.dtype)
-    yr = torch.cat([y1[..., None], y2[..., None]], dim=-1).reshape(xr.shape)
     return torch.cat([yr, xp], dim=-1) if rd < d else yr
 
 
@@ -236,112 +118,16 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Sq, H, D] over k, v [B, Skv, Hkv, D] → [B, Sq, H, D]: the
     function of the JAX package's ``blockwise_attention``, on the flash
-    kernel. Offsets are Python ints (a decode step's cache index). On the
-    meta device (a trace) it is the JAX package's jnp form instead."""
-    if q.is_meta:
-        return _blockwise_attention_jnp(q, k, v, causal=causal,
-                                        window=window, q_offset=q_offset,
-                                        kv_offset=kv_offset, scale=scale)
+    kernel. Offsets are Python ints (a decode step's cache index). On a
+    trace it is the JAX package's jnp form instead (the card launches
+    B8)."""
+    if G.is_trace(q):
+        return G.blockwise_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, kv_offset=kv_offset,
+                                     scale=scale)
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                q_offset=int(q_offset),
                                kv_offset=int(kv_offset), scale=scale)
-
-
-def _mask_for(rows: torch.Tensor, cols: torch.Tensor, kv_valid: int,
-              causal: bool, window: int) -> torch.Tensor:
-    m = (cols[None, :] >= 0) & (cols[None, :] < kv_valid)
-    if causal:
-        m = m & (cols[None, :] <= rows[:, None])
-    if window > 0:
-        m = m & (cols[None, :] >= rows[:, None] - window + 1)
-    return m
-
-
-def _flash_fwd_chunks(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
-                      q_off: int, kv_off: int, skv: int, causal: bool,
-                      window: int, scale: float, with_lse: bool
-                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The JAX package's jnp twin of the flash kernel, equation for
-    equation: qs [nq, B, qc, g, r, D], ks / vs [nk, B, kc, g, D] → out
-    [nq, B, qc, g, r, Dv] (+ lse [nq, B, g, r, qc]). A streaming softmax
-    over kv chunks in float32, each product one ``dot_general``."""
-    nq, b, qc, g, r, _ = qs.shape
-    nk, _, kc, _, dv = vs.shape
-    kv_valid = kv_off + skv
-    dev = qs.device
-    f32 = torch.float32
-
-    def q_block(qi, qblk):
-        qblk = qblk.float()
-        rows = q_off + qi * qc + torch.arange(qc, dtype=torch.int32,
-                                              device=dev)
-        m = torch.full((b, g, r, qc), -1e30, dtype=f32, device=dev)
-        l = torch.zeros((b, g, r, qc), dtype=f32, device=dev)
-        acc = torch.zeros((b, g, r, qc, dv), dtype=f32, device=dev)
-        kjs = torch.arange(nk, dtype=torch.int32, device=dev)
-        for kj, kblk, vblk in zip(kjs.unbind(0), ks.unbind(0), vs.unbind(0)):
-            cols = kv_off + kj * kc + torch.arange(kc, dtype=torch.int32,
-                                                   device=dev)
-            # "bqgrd,bkgd->bgrqk": dot_general(k, q) → [b, g, k, q, r]
-            s = prims.dot_general(kblk.float(), qblk, [3], [4], [0, 2],
-                                  [0, 2]).permute(0, 1, 4, 3, 2) * scale
-            mask = _mask_for(rows, cols, kv_valid, causal, window)
-            s = _jnp_where(mask.view(1, 1, 1, *mask.shape), s, -1e30)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            p = _jnp_where(mask.view(1, 1, 1, *mask.shape), p, 0.0)
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            # "bgrqk,bkgd->bgrqd"
-            acc = acc * alpha[..., None] + prims.dot_general(
-                p, vblk.float(), [4], [1], [0, 1], [0, 2])
-            m = m_new
-        lsafe = torch.clamp_min(l, 1e-20)
-        out = acc / lsafe[..., None]
-        lse = m + torch.log(lsafe)
-        return out.permute(0, 3, 1, 2, 4), lse
-
-    if nq == 1:
-        o, s = q_block(torch.zeros((), dtype=torch.int32, device=dev), qs[0])
-        outs, lses = o[None], s[None]
-    else:
-        blocks = [q_block(qi, qblk) for qi, qblk in zip(
-            torch.arange(nq, dtype=torch.int32, device=dev).unbind(0),
-            qs.unbind(0))]
-        outs = torch.stack([o for o, _ in blocks])
-        lses = torch.stack([s for _, s in blocks])
-    return (outs, lses) if with_lse else (outs, None)
-
-
-def _blockwise_attention_jnp(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, *, causal: bool,
-                             window: int = 0, q_offset: int = 0,
-                             kv_offset: int = 0, q_chunk: int = 2048,
-                             kv_chunk: int = 1024,
-                             scale: Optional[float] = None) -> torch.Tensor:
-    """The JAX package's ``blockwise_attention`` with static offsets: pad
-    to the chunks, chunk, :func:`_flash_fwd_chunks`, unchunk."""
-    b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    dv = v.shape[-1]
-    rep = h // hkv
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
-    pq, pk = (-sq) % q_chunk, (-skv) % kv_chunk
-    qp = _jnp_pad(q, 1, 0, pq) if pq else q
-    kp = _jnp_pad(k, 1, 0, pk) if pk else k
-    vp = _jnp_pad(v, 1, 0, pk) if pk else v
-    nq, nk = (sq + pq) // q_chunk, (skv + pk) // kv_chunk
-    qs = qp.reshape(b, nq, q_chunk, hkv, rep, d).permute(1, 0, 2, 3, 4, 5)
-    ks = kp.reshape(b, nk, kv_chunk, hkv, d).permute(1, 0, 2, 3, 4)
-    vs = vp.reshape(b, nk, kv_chunk, hkv, dv).permute(1, 0, 2, 3, 4)
-    out, _ = _flash_fwd_chunks(qs, ks, vs, int(q_offset), int(kv_offset),
-                               skv, causal, window, scale, False)
-    out = out.permute(1, 0, 2, 3, 4, 5).reshape(b, sq + pq, h, dv)
-    if pq:
-        out = out[:, :sq]
-    return out.to(q.dtype)
 
 
 def attention_init(gen: torch.Generator, cfg: ArchConfig,
@@ -449,7 +235,7 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig,
 
 
 def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return (G.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
 
 
 # ---------------------------------------------------------------------------
@@ -493,8 +279,7 @@ def _causal_dwconv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     K − 1 inputs). ``state`` carries the K − 1 inputs before x."""
     k, s = w.shape[0], x.shape[1]
     if state is None:
-        padded = _jnp_pad(x, 1, k - 1) if x.is_meta else \
-            F.pad(x, (0, 0, k - 1, 0))
+        padded = G.pad(x, 1, k - 1)
     else:
         padded = torch.cat([state.to(x.dtype), x], dim=1)
     new_state = padded[:, -(k - 1):] if k > 1 else None
@@ -503,71 +288,6 @@ def _causal_dwconv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         t = padded[:, i:i + s] * w[i]
         y = t if y is None else y + t
     return y + b, new_state
-
-
-def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                 bm: torch.Tensor, cm: torch.Tensor, chunk: int,
-                 s0: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The JAX package's chunked SSD in jnp, equation for equation: x
-    [Bt, S, H, P], dt [Bt, S, H], a [H], B and C [Bt, S, H, N] (per head)
-    → (y [Bt, S, H, P] float32, last state [Bt, H, N, P]). The intra-chunk
-    products are ``dot_general``s in their own output order, then a
-    transpose; the scan over the S / chunk chunks is a loop."""
-    bt, sl, h, p = x.shape
-    n = bm.shape[-1]
-    dev = x.device
-    chunk = min(chunk, sl)
-    pad = (-sl) % chunk
-    if pad:
-        x, dt = _jnp_pad(x, 1, 0, pad), _jnp_pad(dt, 1, 0, pad)
-        bm, cm = _jnp_pad(bm, 1, 0, pad), _jnp_pad(cm, 1, 0, pad)
-    nc = (sl + pad) // chunk
-    xc = x.reshape(bt, nc, chunk, h, p).float()
-    dtc = dt.reshape(bt, nc, chunk, h).float()
-    bc = bm.reshape(bt, nc, chunk, h, n).float()
-    cc = cm.reshape(bt, nc, chunk, h, n).float()
-
-    cum = torch.cumsum(dtc * a.view(1, 1, 1, h), 2)         # [Bt,nc,Lc,H]
-    L = torch.exp(cum.view(bt, nc, chunk, 1, h)
-                  - cum.view(bt, nc, 1, chunk, h))
-    tri = _jnp_tril_ones(chunk, dev)
-    L = _jnp_where(tri.view(1, 1, chunk, chunk, 1), L, 0.0)
-
-    # "bnihd,bnjhd->bnijh" (C_i · B_j)
-    cb = prims.dot_general(cc, bc, [4], [4], [0, 1, 3], [0, 1, 3]) \
-        .permute(0, 1, 3, 4, 2)
-    m = cb * L * dtc.view(bt, nc, 1, chunk, h)
-    # "bnijh,bnjhp->bnihp": dot_general(x, M) → [b, n, h, p, i]
-    y_intra = prims.dot_general(xc, m, [2], [3], [0, 1, 3], [0, 1, 4]) \
-        .permute(0, 1, 4, 2, 3)
-
-    # cum[:, :, -1]: a dynamic index, [Bt, nc, H]
-    total = torch.ops.aten.index(cum, [None, None,
-                                       _jnp_index(-1, chunk, dev)])
-    w = torch.exp(total.view(bt, nc, 1, h) - cum) * dtc
-    # "bnlh,bnlhd,bnlhp->bnhdp" in two products
-    chunk_state = prims.dot_general(
-        prims.dot_general(w, bc, [], [], [0, 1, 2, 3], [0, 1, 2, 3]),
-        xc, [2], [2], [0, 1, 3], [0, 1, 3])
-
-    if s0 is None:
-        s0 = torch.zeros((bt, h, n, p), dtype=torch.float32, device=dev)
-    states, s_prev = [], s0
-    for tot, cst in zip(total.permute(1, 0, 2).unbind(0),
-                        chunk_state.permute(1, 0, 2, 3, 4).unbind(0)):
-        states.append(s_prev)
-        s_prev = s_prev * torch.exp(tot).view(bt, h, 1, 1) + cst
-    states_in = torch.stack(states).permute(1, 0, 2, 3, 4)  # [Bt,nc,H,N,P]
-
-    # "bnlhd,bnhdp->bnlhp": dot_general(states, C) → [b, n, h, p, l]
-    y_inter = prims.dot_general(states_in, cc, [3], [4], [0, 1, 2],
-                                [0, 1, 3]).permute(0, 1, 4, 2, 3) \
-        * torch.exp(cum)[..., None]
-    y = (y_intra + y_inter).reshape(bt, sl + pad, h, p)
-    if pad:
-        y = y[:, :sl]
-    return y, s_prev
 
 
 def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
@@ -594,20 +314,14 @@ def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     xs, ns_x = _causal_dwconv(xs, p["conv_x"], p["conv_xb"], st_x)
     bs, ns_b = _causal_dwconv(bs, p["conv_bw"], p["conv_bb"], st_b)
     cs, ns_c = _causal_dwconv(cs, p["conv_cw"], p["conv_cb"], st_c)
-    xs, bs, cs = silu(xs), silu(bs), silu(cs)
+    xs, bs, cs = G.silu(xs), G.silu(bs), G.silu(cs)
 
     x_ssd = xs.reshape(b, sl, nh, s.head_dim)
     bmat = bs.reshape(b, sl, g, n)
     cmat = cs.reshape(b, sl, g, n)
-    if x.is_meta and cache is None:
-        # a trace: the JAX package's steps — B and C repeated to the
-        # heads, jnp's softplus, the chunked scan in jnp
-        hpg = nh // g
-        bh = bmat.repeat(1, 1, 1, hpg).view(b, sl, nh, n)
-        ch = cmat.repeat(1, 1, 1, hpg).view(b, sl, nh, n)
-        dt = _jnp_softplus(dt_raw.float() + p["dt_bias"])
-        a = -torch.exp(p["A_log"])
-        y, last_state = _ssd_chunked(x_ssd, dt, a, bh, ch, s.chunk)
+    if G.is_trace(x) and cache is None:
+        # the JAX package's steps (the card launches B9)
+        y, last_state = G.mamba2_scan(p, x_ssd, dt_raw, bmat, cmat, s.chunk)
     else:
         dt = F.softplus(dt_raw.float() + p["dt_bias"])
         a = -torch.exp(p["A_log"])
@@ -628,8 +342,8 @@ def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 
     y = y + x_ssd.float() * p["D"].view(1, 1, nh, 1)
     y = y.reshape(b, sl, di).to(x.dtype)
-    y = y * silu(z)
-    y = nn.rmsnorm(p["norm"], y)
+    y = y * G.silu(z)
+    y = G.rmsnorm(p["norm"], y)
     out = y @ p["out_proj"]
     new_cache = ((ns_x, ns_b, ns_c), last_state) if s.d_conv > 1 else None
     return out, new_cache

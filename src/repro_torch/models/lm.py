@@ -23,10 +23,10 @@ mesh.
 PLACE (the JAX package's update is functional) and returns it.
 
 :func:`param_specs` gives the tree's ``(shape, dtype)`` pairs without
-allocating. :func:`forward` is written in the JAX package's steps, and
-on meta tensors (a trace by ``repro_torch.core.tracer``, as the dataset
-factory's LM entries take it) its layers run their graph forms, so that
-the traced graph is the reference's.
+allocating. On meta tensors (a trace by ``repro_torch.core.tracer``, as
+the dataset factory's LM entries take it) :func:`forward` runs the
+graph forms of :mod:`repro_torch.models.graph_form`, so that the traced
+graph is the reference's.
 """
 from __future__ import annotations
 
@@ -34,10 +34,10 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import nn
 from ..core.gnn import resolve_device
+from . import graph_form as G
 from . import layers as L
 from .config import ArchConfig
 
@@ -84,11 +84,11 @@ def decoder_layer_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                         positions: torch.Tensor, cache=None,
                         cache_index: Optional[int] = None):
     """→ (x, attention cache)."""
-    a, new_cache = L.attention_apply(p["attn"], cfg, nn.rmsnorm(p["ln1"], x),
+    a, new_cache = L.attention_apply(p["attn"], cfg, G.rmsnorm(p["ln1"], x),
                                      positions=positions, cache=cache,
                                      cache_index=cache_index)
     x = x + a
-    return x + L.mlp_apply(p["ffn"], nn.rmsnorm(p["ln2"], x)), new_cache
+    return x + L.mlp_apply(p["ffn"], G.rmsnorm(p["ln2"], x)), new_cache
 
 
 def mamba_layer_init(gen: Optional[torch.Generator], cfg: ArchConfig,
@@ -101,7 +101,7 @@ def mamba_layer_init(gen: Optional[torch.Generator], cfg: ArchConfig,
 def mamba_layer_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                       cache=None):
     """→ (x, ((conv states), ssd state))."""
-    y, new_cache = L.mamba2_apply(p["mix"], cfg, nn.rmsnorm(p["ln"], x),
+    y, new_cache = L.mamba2_apply(p["mix"], cfg, G.rmsnorm(p["ln"], x),
                                   cache=cache)
     return x + y, new_cache
 
@@ -207,11 +207,11 @@ def params_to_numpy(params: Params) -> Params:
 # ---------------------------------------------------------------------------
 
 def _embed(p: Params, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return F.embedding(inputs["tokens"].long(), p["embed"])
+    return G.take_rows(p["embed"], inputs["tokens"])
 
 
 def _head(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    x = nn.rmsnorm(p["final_norm"], x)
+    x = G.rmsnorm(p["final_norm"], x)
     w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
     return (x @ w).float()
 
@@ -220,21 +220,20 @@ def forward(params: Params, cfg: ArchConfig,
             inputs: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (logits [B, S, V] float32, aux loss 0), in
-    the JAX package's steps: ``jnp.take`` of the tokens, int32 positions,
-    each stack read as ``lax.scan`` reads it (:func:`_unstack`), and the
-    aux loss of every attention stack, which the jaxpr keeps though it is
-    zero. So a trace of it on the meta device is the reference's graph."""
+    the JAX package's steps: int32 positions, each stack read as
+    ``lax.scan`` reads it (:func:`_unstack`), and on a trace ``jnp.take``
+    of the tokens and the aux loss of every attention stack, which the
+    jaxpr keeps though it is zero."""
     check_supported(cfg)
-    x = L._jnp_take_rows(params["embed"], inputs["tokens"])
+    x = _embed(params, inputs)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    zero = aux       # an MLP layer's aux loss: a literal
     if cfg.block == "attn":
         for lp in _unstack(params["blocks"]):
             x, _ = decoder_layer_apply(lp, cfg, x, positions=positions)
-        aux = aux + torch.stack([zero] * cfg.n_layers).sum()
+        aux = G.scan_aux(aux, cfg.n_layers)
     elif cfg.block == "mamba2":
         for lp in _unstack(params["blocks"]):
             x, _ = mamba_layer_apply(lp, cfg, x)
@@ -245,7 +244,7 @@ def forward(params: Params, cfg: ArchConfig,
                 x, _ = mamba_layer_apply(lp, cfg, x)
             x, _ = decoder_layer_apply(params["shared_attn"], cfg, x,
                                        positions=positions)
-        aux = aux + torch.stack([zero] * len(groups)).sum()
+        aux = G.scan_aux(aux, len(groups))
     return _head(params, cfg, x), aux
 
 

@@ -104,13 +104,8 @@ def rmsnorm_init(d: int, dtype: torch.dtype = torch.float32,
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``repro.nn.rmsnorm`` step for step: the square in x's dtype, the mean
     in float32, the reciprocal root cast back to x's dtype, eps 1e-6 (the
-    JAX model never reads ``ArchConfig.norm_eps``). On the meta device
-    (a trace) the mean is jnp's: a sum, then a division."""
-    sq = torch.square(x).float()
-    if x.is_meta:
-        ms = sq.sum(-1, keepdim=True) / sq.shape[-1]
-    else:
-        ms = torch.mean(sq, dim=-1, keepdim=True)
+    JAX model never reads ``ArchConfig.norm_eps``)."""
+    ms = torch.mean(torch.square(x).float(), dim=-1, keepdim=True)
     inv = torch.rsqrt(ms + eps).to(x.dtype)
     return x * inv * p["scale"]
 

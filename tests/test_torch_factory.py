@@ -130,6 +130,29 @@ def test_plan_with_lm_entries_is_planned_as_the_reference():
                       and e["cfg"]["seq"] in tf.LM_SEQLENS for e in lm)
 
 
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_plan_is_the_reference_plan():
+    """``chip_smoke.py``'s factory plan: its hash is the JAX package's
+    plan of the same config, and one entry of each of the six LM archs."""
+    cs = _chip_smoke()
+    want = jf.make_plan(cs.factory_config(jf))
+    plan = tf.make_plan(cs.factory_config(tf))
+    assert want.plan_hash == plan.plan_hash == cs.FACTORY_PLAN_HASH
+    assert plan.to_json() == want.to_json()
+    assert sorted(e["family"] for e in plan.entries if e["kind"] == "lm") \
+        == sorted(cs.FACTORY_LM_ARCHS)
+    assert plan.n_shards == len(cs.FACTORY_REF_SHA256)
+
+
 def test_npz_bytes_match_reference():
     rng = np.random.default_rng(0)
     arrays = {"x0": rng.standard_normal((5, 32)).astype(np.float32),

@@ -14,7 +14,7 @@
   a dynamic index, jnp's gathers, ``dot_general``, ``jnp.tri``), each on
   a small program written both ways.
 * The graph forms compute the serving function: ``_flash_fwd_chunks`` /
-  ``_blockwise_attention_jnp`` and ``_ssd_chunked`` on seeded float32
+  ``blockwise_attention`` and ``_ssd_chunked`` on seeded float32
   CPU tensors against the reference's jnp functions and against the
   kernels' plain versions, at 1e-5 relative.
 * An arch whose blocks the port does not run raises naming ROADMAP A14c
@@ -41,7 +41,6 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.perfmodel.cost_model import estimate as j_estimate  # noqa: E402
 from repro.perfmodel.devices import DEVICES as J_DEVICES  # noqa: E402
-from repro_torch import nn as tnn  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import prims  # noqa: E402
 from repro_torch.core import tracer as tt  # noqa: E402
@@ -50,7 +49,7 @@ from repro_torch.core.node_features import node_feature_matrix as t_x  # noqa: E
 from repro_torch.core.static_features import static_features as t_static  # noqa: E402,E501
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
-from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import graph_form as G  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.perfmodel.cost_model import estimate as t_estimate  # noqa: E402,E501
 from repro_torch.perfmodel.devices import DEVICES as T_DEVICES  # noqa: E402
@@ -119,6 +118,10 @@ def _graphs(arch, batch, seq):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"b{s[0]}s{s[1]}")
 @pytest.mark.parametrize("arch", PORTED)
 def test_lm_graph_and_record_match_reference(arch, shape):
+    try:
+        G.trace_internals()
+    except ImportError as e:
+        pytest.fail(f"RoPE's constant cannot be traced: {e}")
     gj, gt = _graphs(arch, *shape)
     assert _nodes(gt) == _nodes(gj)
     assert gt.edges == gj.edges
@@ -175,7 +178,7 @@ def _rule_cases():
         for w in p["w"].unbind(0):
             states.append(h)
             h = h * w + 1.0
-        return torch.exp(torch.stack(states)) + h.sum()
+        return torch.exp(prims.scan_ys(states)) + h.sum()
 
     def j_scan_ys(p, x):
         h, ys = lax.scan(lambda c, w: (c * w + 1.0, c), x, p["w"])
@@ -185,7 +188,7 @@ def _rule_cases():
         zero = torch.zeros((), device=x.device)
         for w in p["w"].unbind(0):
             x = x @ w
-        return x + torch.stack([zero] * 3).sum()
+        return x + prims.scan_ys([zero] * 3).sum()
 
     def j_literal_ys(p, x):
         x, aux = lax.scan(lambda h, w: (h @ w, jnp.zeros((), f32)), x,
@@ -201,17 +204,17 @@ def _rule_cases():
                     [((4,), f32)]),
         "scan_literal_ys": (t_literal_ys, j_literal_ys,
                             {"w": ((3, 4, 4), f32)}, [((2, 4), f32)]),
-        "jit_literal_arg": (lambda p, x: TL._jnp_softplus(x),
+        "jit_literal_arg": (lambda p, x: G.softplus(x),
                             lambda p, x: jax.nn.softplus(x), {},
                             [((2, 8), f32)]),
         "dynamic_index": (
             lambda p, x: torch.exp(torch.ops.aten.index(
-                x, [None, None, TL._jnp_index(-1, 5, x.device)])),
+                x, [None, None, G.index(-1, 5, x.device)])),
             lambda p, x: jnp.exp(x[:, :, -1]), {}, [((2, 3, 5, 4), f32)]),
-        "strided_gather": (lambda p, x: TL._jnp_lanes(x, 1, 2) * 2.0,
+        "strided_gather": (lambda p, x: G.lanes(x, 1, 2) * 2.0,
                            lambda p, x: x[..., 1::2] * 2.0, {},
                            [((2, 3, 8), f32)]),
-        "take_rows": (lambda p, i: TL._jnp_take_rows(p["e"], i) * 2.0,
+        "take_rows": (lambda p, i: G.take_rows(p["e"], i) * 2.0,
                       lambda p, i: jnp.take(p["e"], i, axis=0) * 2.0,
                       {"e": ((10, 4), f32)}, [((2, 3), i32)]),
         "dot_general": (
@@ -220,11 +223,11 @@ def _rule_cases():
             lambda p, q, k: jnp.einsum("bqgrd,bkgd->bgrqk", q, k), {},
             [((2, 5, 3, 2, 4), f32), ((2, 7, 3, 4), f32)]),
         "tri_where": (
-            lambda p, x: TL._jnp_where(TL._jnp_tril_ones(4, x.device), x,
+            lambda p, x: G.where(G.tril_ones(4, x.device), x,
                                        0.0),
             lambda p, x: jnp.where(jnp.tril(jnp.ones((4, 4), bool)), x, 0.0),
             {}, [((4, 4), f32)]),
-        "rmsnorm_mean": (lambda p, x: tnn.rmsnorm(p, x),
+        "rmsnorm_mean": (lambda p, x: G.rmsnorm(p, x),
                          lambda p, x: jnn.rmsnorm(p, x),
                          {"scale": ((8,), f32)}, [((2, 3, 8), f32)]),
     }
@@ -254,6 +257,30 @@ def test_raw_node_rule_matches_reference(case):
     assert g.meta == g_ref.meta
 
 
+class _TwoBranches(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.a = torch.nn.Linear(8, 8)
+        self.b = torch.nn.Linear(8, 8)
+
+    def forward(self, x):
+        return torch.tanh(torch.stack([self.a(x), self.b(x)]))
+
+
+def test_stack_in_a_user_module_keeps_every_operand():
+    """An ``aten.stack`` outside the graph forms is a node with an edge
+    from each operand: both branches feed it (a scan's ys, which take
+    their last operand's origin, are ``prims.scan_ys`` only)."""
+    g = from_torch(_TwoBranches(), None, ((2, 8), torch.float32))
+    ops_ = [nd.op for nd in g.nodes]
+    assert ops_.count("dense") == 2 and ops_.count("add") == 2
+    stack = ops_.index("elementwise")
+    branches = [i for i, op in enumerate(ops_) if op == "add"]
+    feeds = {a for a, b in g.edges if b == stack}
+    assert set(branches) <= feeds
+    assert (stack, ops_.index("tanh")) in g.edges
+
+
 def test_prims_compute_their_jax_primitive():
     rng = np.random.default_rng(0)
     a = rng.standard_normal((2, 5, 3, 4)).astype(np.float32)
@@ -270,6 +297,10 @@ def test_prims_compute_their_jax_primitive():
     got = prims.dot_general(torch.tensor(w), torch.tensor(v), [], [],
                             [0, 1], [0, 1])
     np.testing.assert_array_equal(got.numpy(), w[..., None] * v)
+    ys = [torch.tensor(rng.standard_normal((3, 2)).astype(np.float32))
+          for _ in range(4)]
+    np.testing.assert_array_equal(prims.scan_ys(ys).numpy(),
+                                  np.stack([y.numpy() for y in ys]))
     for dim in (0, 1):
         np.testing.assert_array_equal(
             prims.iota([3, 4], dim, torch.int32, "cpu").numpy(),
@@ -296,7 +327,7 @@ def test_flash_graph_form_computes_attention(case):
     q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
     k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
     v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
-    got = TL._blockwise_attention_jnp(
+    got = G.blockwise_attention(
         torch.tensor(q), torch.tensor(k), torch.tensor(v), causal=causal,
         window=window, q_chunk=qc, kv_chunk=kc).numpy()
     want = np.asarray(JL.blockwise_attention(q, k, v, causal=causal,
@@ -316,9 +347,9 @@ def test_flash_fwd_chunks_lse_matches_reference():
     ks = rng.standard_normal((nk, b, kc, g, d)).astype(np.float32)
     vs = rng.standard_normal((nk, b, kc, g, d)).astype(np.float32)
     scale = 1.0 / math.sqrt(d)
-    out, lse = TL._flash_fwd_chunks(torch.tensor(qs), torch.tensor(ks),
-                                    torch.tensor(vs), 8, 0, nk * kc, True,
-                                    0, scale, True)
+    out, lse = G._flash_fwd_chunks(torch.tensor(qs), torch.tensor(ks),
+                                   torch.tensor(vs), 8, 0, nk * kc, True, 0,
+                                   scale)
     wout, wlse = JL._flash_fwd_chunks(qs, ks, vs, 8, 0, nk * kc, True, 0,
                                       scale, True)
     np.testing.assert_allclose(out.numpy(), np.asarray(wout), rtol=RTOL,
@@ -347,7 +378,7 @@ def test_ssd_graph_form_computes_the_scan(case):
     s0 = rng.standard_normal((bt, h, n, p)).astype(np.float32) \
         if with_s0 else None
     T = torch.tensor
-    y, last = TL._ssd_chunked(T(x), T(dt), T(a), T(bm), T(cm), chunk,
+    y, last = G._ssd_chunked(T(x), T(dt), T(a), T(bm), T(cm), chunk,
                               s0=None if s0 is None else T(s0))
     wy, wlast = JL._ssd_chunked(x, dt, a, bm, cm, chunk, s0=s0)
     py, plast = kref.ssd_scan_ref(T(x), T(dt), T(a), T(bm), T(cm),
