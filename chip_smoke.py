@@ -214,6 +214,39 @@ Phases, each printing one JSON line:
    per step, tokens/s, peak device memory, parameter and cache bytes, and
    the device time of one prefill and one decode step by kernel.
 
+15. ``accuracy`` — the paper's accuracy protocol on the card, the JAX
+   package's CI gate (``benchmarks/accuracy_mape.py``) run by the port: the
+   gate's plan (320 zoo graphs, convnext held out, qwen2.5-3b and
+   mamba2-370m traced, shards of 64; its hash ``ACCURACY_PLAN_HASH``,
+   checked) built by the port's factory with ``min(8, cpu_count)`` spawned
+   workers, coverage at least 0.95, a second build that reuses every
+   shard; ``run_accuracy`` with the default ``AccuracyProtocol``
+   (GraphSAGE-512, 30 epochs in chunks of 15) on the card, twice, the same
+   report and parameters bit for bit; every head of
+   the test and unseen splits at most ``max(base × rel, base + abs)`` of
+   ``benchmarks/baselines/accuracy_mape.json`` (read, never written), but
+   a head that the JAX package's own run of the plan misses
+   (``ACCURACY_REF_CPU``: the unseen latency) is held to that tolerance
+   around the reference's value, and the baseline's verdict is printed
+   beside it. It prints the splits, epochs, best epoch, convergence, each
+   head beside its baseline, bounds and the reference, the unseen family's
+   MAPE per head, and the build and train seconds.
+16. ``lm_train`` — LM training through the flash kernels: (a)
+   ``flash_attention_bwd`` and the forward's log-sum-exp against their
+   plain versions on the card (qwen2.5-3b's heads at 4 × 1024 causal,
+   h2o-danube's 32 over 8 at D = 120 with window 256, a padded length, a
+   query offset, rows with no kept key), float32 within 1e-5 and bf16
+   within 2e-2 of each gradient's largest magnitude, every case twice with
+   the same bits; timed beside its bound, its plain version and SDPA's
+   forward + backward (``is_causal``; measured only, never on the path);
+   (b) qwen2.5-3b at full width, depth 2, float32, 2 × 128 tokens, three
+   ``make_train_step`` steps on the card against the CPU's plain versions
+   (losses within 1e-4 relative, parameters on ROADMAP §C's bar); (c) the
+   full model, bf16, ``default_optimizer()``, ``remat=True``, 4 × 1024
+   tokens: ms per step, tokens/s, peak memory, the device-busy share, the
+   backward's µs per launch, and the flash launches held to
+   ``lm_train_launch_rule``.
+
 Then it prints ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
 limit, and, as the last line, ``{"ok": true, "device": {...}}``. Any failed
 check raises, so the script exits non-zero and prints no result; it also
@@ -357,6 +390,56 @@ LM_ARCH, LM_SMOKE_WIDTH, LM_SEED = "zamba2-2.7b", False, 0
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
 LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_STEPS = (
     12, 2, 128, 16)
+
+
+#: accuracy: the JAX package's CI gate (``benchmarks/accuracy_mape.py``:
+#: ``CI_N_GRAPHS``, ``LM_ARCHS``, ``MIN_COVERAGE``), the hash of its plan
+#: (``tests/test_torch_factory.py`` holds it to the JAX package's), its
+#: baseline file (read, never written) and the build's worker cap
+ACCURACY_GRAPHS, ACCURACY_SHARD = 320, 64
+ACCURACY_LM_ARCHS = ("qwen2.5-3b", "mamba2-370m")
+ACCURACY_MIN_COVERAGE, ACCURACY_MAX_WORKERS = 0.95, 8
+ACCURACY_PLAN_HASH = ("0b66d35b68ff5427f1d7fb1174f2b2d55c8928b0dd6fc16252f0"
+                      "4974c235fab7")
+ACCURACY_BASELINE = "benchmarks/baselines/accuracy_mape.json"
+#: the JAX package's own run of that plan at the default protocol on an
+#: x86-64 CPU host (``scripts/accuracy_cpu_parity.py --runs jax``), copied
+#: in by hand: its unseen latency head misses the baseline's bound (0.5337)
+#: as well. The protocol's 100x learning rate makes training chaotic: from
+#: the same initial tree at dropout 0 the two packages agree to 1.6e-6 over
+#: two epochs at the paper's rate but part within the first epoch at the
+#: boosted one (the script's --trajectory), so each host's float32 rounding
+#: gives another model and the baseline's single draw is not reproduced.
+#: A head the reference misses here is held to the baseline's tolerance
+#: around the reference's value (``gate_mape``)
+ACCURACY_REF_CPU = {
+    "test": {"mape_latency": 0.448497, "mape_energy": 0.724069,
+             "mape_memory": 0.07297, "mape": 0.415179},
+    "unseen": {"mape_latency": 0.581415, "mape_energy": 0.465891,
+               "mape_memory": 0.127273, "mape": 0.391527}}
+ACCURACY_HEADS = ("mape_latency", "mape_energy", "mape_memory", "mape")
+#: lm_train: the model it trains (full width; LM_SMOKE_WIDTH swaps in the
+#: smoke config), the full run (batch × sequence, measured steps after one
+#: warm-up), the parity run against the CPU (depth, batch × sequence,
+#: steps, the AdamW rate) and the bars: the flash backward against its
+#: plain version (float32: sums in another order over up to 1,024 keys;
+#: bf16: the gradients round to 8 bits and the forward's bf16 output
+#: enters delta), the parity run's losses (float32 through two layers and
+#: a 151,936-wide head)
+LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = (
+    "qwen2.5-3b", 4, 1024, 3)
+LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ = 2, 2, 128
+LM_TRAIN_PARITY_STEPS, LM_TRAIN_PARITY_LR = 3, 1e-4
+BWD_F32_TOL, BWD_BF16_TOL, LM_TRAIN_LOSS_RTOL = 1e-5, 2e-2, 1e-4
+#: (B, Sq, Skv, H, Hkv, D, causal, window, q_offset, kv_offset)
+BWD_CASES = [
+    (4, 1024, 1024, 16, 2, 128, True, 0, 0, 0),      # qwen2.5-3b
+    (2, 1024, 1024, 32, 8, 120, True, 256, 0, 0),    # h2o-danube, window
+    (2, 1000, 1000, 16, 2, 128, True, 0, 0, 0),      # a padded length
+    (1, 300, 700, 8, 2, 64, True, 0, 400, 0),        # a query offset
+    (1, 6, 8, 2, 1, 128, True, 0, 0, 3),             # rows 0-2: no key
+    (2, 77, 77, 4, 4, 80, False, 0, 0, 0),           # not causal
+]
 
 
 def emit(obj: dict) -> None:
@@ -3405,7 +3488,7 @@ def first_step_grads(torch, cfg, samples, dev) -> dict:
                             t(mean), t(std))
     leaves = gt.tree_leaves(model.tree())
     grads = torch.autograd.grad(wl / wn, leaves)
-    return gt._unflatten(model.tree(), iter(g.detach() for g in grads))
+    return gt.tree_unflatten(model.tree(), (g.detach() for g in grads))
 
 
 def step_grads_vs_cpu(torch, cfg, samples, phase: str) -> tuple:
@@ -5061,6 +5144,478 @@ def phase_lm(torch, dev, name_limit: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# accuracy: the paper's protocol, gated on the JAX package's baseline
+# ---------------------------------------------------------------------------
+
+def accuracy_config(factory):
+    """The accuracy gate's plan config, in ``factory``'s ``FactoryConfig``
+    (the port's, or the JAX package's in a test): ``_factory_config`` of
+    ``benchmarks/accuracy_mape.py`` at its CI size."""
+    return factory.FactoryConfig(n_graphs=ACCURACY_GRAPHS, seed=ZOO_SEED,
+                                 shard_size=ACCURACY_SHARD,
+                                 extra_families=ZOO_HELD_OUT,
+                                 lm_archs=ACCURACY_LM_ARCHS)
+
+
+def gate_mape(measured: dict, baseline: dict, tol: dict,
+              reference: dict) -> dict:
+    """Per head: the JAX gate's bound max(base · rel, base + abs)
+    (``_gate_mape`` of ``benchmarks/accuracy_mape.py``) and whether the
+    port meets it (``ok_baseline``). A head that the JAX package itself
+    misses on this plan (``reference``: ``ACCURACY_REF_CPU``) is held to
+    the same tolerance around the reference's own value (``held_bound``);
+    every other head to the baseline's bound. ``ok`` is the held gate."""
+    rel, add = float(tol["rel"]), float(tol["abs"])
+    out = {}
+    for head in ACCURACY_HEADS:
+        base, ref = float(baseline[head]), float(reference[head])
+        bound = max(base * rel, base + add)
+        held = bound if ref <= bound else max(ref * rel, ref + add)
+        got = float(measured[head])
+        out[head] = {"measured": got, "baseline": base, "bound": bound,
+                     "ok_baseline": got <= bound, "reference_cpu": ref,
+                     "reference_misses": ref > bound, "held_bound": held,
+                     "ok": got <= held}
+    return out
+
+
+def phase_accuracy(torch, name_limit: str) -> dict:
+    """The JAX package's accuracy gate run by the port: the gate's plan
+    built by the port's factory (spawned workers), a second build reusing
+    every shard, ``run_accuracy`` on the card at the default protocol, and
+    every head of the test and unseen splits within the checked-in
+    baseline's bound."""
+    import os
+    import tempfile
+    from repro_torch.dataset import factory
+    from repro_torch.train import AccuracyProtocol, run_accuracy
+    t0 = time.perf_counter()
+    cfg = accuracy_config(factory)
+    ph = factory.plan_hash(cfg)
+    if ph != ACCURACY_PLAN_HASH:
+        raise AssertionError(f"accuracy: plan hash {ph} != "
+                             f"{ACCURACY_PLAN_HASH}")
+    workers = min(ACCURACY_MAX_WORKERS, os.cpu_count() or 1)
+    baseline = json.loads((ROOT / ACCURACY_BASELINE).read_text())
+    kernels = all_wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = str(Path(tmp) / "ds")
+        res, build_s = timed(factory.build, out_dir, cfg, workers=workers)
+        res2, rebuild_s = timed(factory.build, out_dir, cfg, workers=workers)
+        if res2.shards_built != 0 or res2.shards_reused != res.n_shards:
+            raise AssertionError(f"accuracy: the second build reused "
+                                 f"{res2.shards_reused} of {res.n_shards} "
+                                 f"shards and built {res2.shards_built}")
+        coverage = res.n_built / max(res.n_planned, 1)
+        if coverage < ACCURACY_MIN_COVERAGE:
+            raise AssertionError(f"accuracy: coverage {coverage:.3f} < "
+                                 f"{ACCURACY_MIN_COVERAGE}; skips "
+                                 f"{res.skips_by_family}")
+        zero_counts(kernels)
+        report, train_s = timed(run_accuracy, out_dir, AccuracyProtocol())
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+        # the protocol again: the card's training is deterministic, so the
+        # gate reads the same report every run
+        again = run_accuracy(out_dir, AccuracyProtocol())
+    if not same_params(again.pop("params"), report["params"]) or \
+            json.dumps(again, sort_keys=True) != json.dumps(
+                {k: v for k, v in report.items() if k != "params"},
+                sort_keys=True):
+        raise AssertionError("accuracy: a second run of the protocol gave "
+                             "another report")
+    if launches["dense_aggregate"] <= 0:
+        raise AssertionError(f"accuracy: the dense GraphSAGE trainer "
+                             f"launched no B7 ({launches})")
+    tol = baseline["tolerance"]
+    gates = {split: gate_mape(report[split], baseline[split], tol,
+                              ACCURACY_REF_CPU[split])
+             for split in ("test", "unseen")}
+    unseen = report["per_family"].get("unseen", {})
+    if not unseen or any(h not in m for m in unseen.values()
+                         for h in ("mape_latency", "mape_energy",
+                                   "mape_memory")):
+        raise AssertionError(f"accuracy: per-family holdout MAPE missing: "
+                             f"{unseen}")
+    failed = [f"{split}.{head}" for split, checks in gates.items()
+              for head, c in checks.items() if not c["ok"]]
+    baseline_misses = [f"{split}.{head}" for split, checks in gates.items()
+                       for head, c in checks.items() if not c["ok_baseline"]]
+    report.pop("params")
+    out = {"phase": "accuracy", "card": name_limit, "plan_hash": ph,
+           "workers": workers,
+           "dataset": {"n_planned": res.n_planned, "n_built": res.n_built,
+                       "n_skipped": res.n_skipped, "n_shards": res.n_shards,
+                       "coverage": coverage,
+                       "skips_by_family": res.skips_by_family,
+                       "shards_reused_on_resume": res2.shards_reused},
+           "build_s": build_s, "rebuild_s": rebuild_s, "train_s": train_s,
+           "splits": report["splits"],
+           "epochs_trained": report["epochs_trained"],
+           "best_epoch": report["best_epoch"],
+           "best_val_mape": report["best_val_mape"],
+           "converged": report["converged"],
+           "history_val_mape": report["history_val_mape"],
+           "gates": gates, "gates_failed": failed,
+           "baseline_misses": baseline_misses,
+           "reference_misses": [f"{split}.{head}" for split, checks in
+                                gates.items() for head, c in checks.items()
+                                if c["reference_misses"]],
+           "val": report.get("val"),
+           "unseen_per_family": unseen,
+           "launches": launches, "second_run_same_bits": True,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if failed:
+        raise AssertionError(f"accuracy: MAPE above the held bound: "
+                             f"{failed}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lm_train: the flash backward, then LM training on the card
+# ---------------------------------------------------------------------------
+
+def lm_train_config(**overrides):
+    """``LM_TRAIN_ARCH``'s config (its smoke config under
+    ``LM_SMOKE_WIDTH``) with ``overrides``."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if LM_SMOKE_WIDTH else get_config)(LM_TRAIN_ARCH)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def bwd_inputs(torch, dev, case, dtype, seed):
+    """q, k, v and the output's gradient of a ``BWD_CASES`` case."""
+    b, sq, skv, h, hkv, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=dev).to(dtype)
+            for shape in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                          (b, sq, h, d))]
+
+
+def bwd_kw(case) -> dict:
+    return dict(causal=case[6], window=case[7], q_offset=case[8],
+                kv_offset=case[9])
+
+
+def sweep_flash_bwd(torch, dev) -> dict:
+    """The forward's lse and ``flash_attention_bwd_cuda`` against their
+    plain versions on ``BWD_CASES`` in float32 and bf16, each gradient
+    within the dtype's bar of its largest magnitude, every case run twice
+    with the same bits; the worst error relative to scale per dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = []
+    for i, case in enumerate(BWD_CASES):
+        kw = bwd_kw(case)
+        for name, tol in (("float32", BWD_F32_TOL),
+                          ("bfloat16", BWD_BF16_TOL)):
+            q, k, v, g = bwd_inputs(torch, dev, case, getattr(torch, name),
+                                    6000 + i)
+            out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+            _, lse_want = ref.flash_attention_ref(q, k, v, with_lse=True,
+                                                  **kw)
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, g, **kw)
+            again = flash_attention_bwd_cuda(q, k, v, out, lse, g, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {name} case "
+                                     f"{case}: two runs differ")
+            live = lse_want > -1e29          # rows that keep a key
+            lse_err = check_close(f"flash lse {name} case {case}",
+                                  lse[live], lse_want[live], 1e-3, 1e-4)
+            rels = {}
+            for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+                scale = max(float(w.float().abs().max()), 1e-30)
+                check_close(f"flash_attention_bwd {name} {gname} case {case}",
+                            a.float(), w.float(), tol * scale, tol)
+                rels[gname] = float((a.float() - w.float()).abs().max()) \
+                    / scale
+            if case[9] > 0 and case[6]:          # rows with no kept key
+                dead = got[0][:, :case[9]]
+                if not torch.equal(dead, torch.zeros_like(dead)):
+                    raise AssertionError(f"flash_attention_bwd {name}: a row "
+                                         f"with no kept key has dq != 0")
+            worst[name] = max(worst[name], *rels.values())
+            cases.append({"case": list(case), "dtype": name,
+                          "rel_err": rels, "lse_max_abs_err": lse_err,
+                          "same_bits": True})
+    return {"worst_rel_err": worst, "cases": cases}
+
+
+def flash_bwd_entry(torch, dev) -> dict:
+    """flash_attention_bwd at the full training run's shape (qwen2.5-3b's
+    heads, bf16, causal) against its plain version, timed beside its
+    bound, the plain version and SDPA's forward + backward; the sweep."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    sweep = sweep_flash_bwd(torch, dev)
+    cfg = lm_train_config()
+    b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    case = (b, s, s, h, hkv, d, True, 0, 0, 0)
+    kw = bwd_kw(case)
+    q, k, v, g = bwd_inputs(torch, dev, case, torch.bfloat16, 6100)
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    kern = lambda: flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, lse, g, **kw)
+    plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+        q, k, v, out, lse, g, **kw)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(check_close(f"flash_attention_bwd {n} at the training shape",
+                          a.float(), w.float(),
+                          BWD_BF16_TOL * float(w.float().abs().max()),
+                          BWD_BF16_TOL)
+              for n, a, w in zip(("dq", "dk", "dv"), got, want))
+    del got, want
+    ms = time_eager_ms(torch, kern, calls=5, reps=5)
+    plain_ms = time_eager_ms(torch, plain, calls=2, reps=3)
+    fwd_bwd_ms = time_eager_ms(torch, lambda: flash_attention_bwd_cuda(
+        q, k, v, *flash_attention_cuda(q, k, v, with_lse=True, **kw), g,
+        **kw), calls=5, reps=5)
+    # the yardstick: SDPA forward + backward, is_causal, grouped heads
+    qt, kt, vt = (z.transpose(1, 2).contiguous().requires_grad_()
+                  for z in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+
+    def library():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), gt)
+    library_ms = time_eager_ms(torch, library, calls=5, reps=5)
+    us = device_breakdown_us(torch, {"bwd": kern}, reps=5)["bwd"]
+    # bound: the five products of the custom VJP's backward (s, dout·v,
+    # dv, dq, dk), 2·D flops each per kept (causal) pair, at the bf16
+    # tensor-core peak; bytes: q, k, v, out, dout read and dq, dk, dv
+    # written once in bf16, lse read once in float32
+    kept = b * h * s * (s + 1) // 2
+    nbytes = 2.0 * (3 * q.numel() + 2 * out.numel() + 3 * k.numel()) \
+        + 4.0 * lse.numel()
+    bound = bound_ms(10.0 * d * kept, nbytes, PEAK_BF16_FLOPS)
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:162",
+            "replaces_note": "no Pallas kernel: the custom VJP's bwd of "
+                             "_make_flash, jnp that XLA compiles",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms,
+            "library_note": "scaled_dot_product_attention forward + "
+                            "backward, is_causal, enable_gqa, on [B, H, S, "
+                            "D] copies: measured only, never on the path",
+            "fwd_bwd_ms": fwd_bwd_ms,
+            "fwd_bwd_note": "this port's forward with lse + backward, the "
+                            "like-for-like yardstick to library_ms",
+            "unit": f"q, dout [{b}, {s}, {h}, {d}] over k/v [{b}, {s}, {hkv}, "
+                    f"{d}] bf16, causal",
+            "device_us_by_kernel": us,
+            "sweep": sweep,
+            "build": segment_build_facts("flash_attention_bwd")}
+
+
+def lm_train_launch_rule(cfg, steps: int, remat: bool) -> dict:
+    """The flash launches of ``steps`` training steps: the forward once
+    per attention layer, again in the backward under ``remat`` (each
+    layer recomputed), and the backward kernel once per layer."""
+    n = cfg.n_layers
+    return {"flash_attention": steps * n * (2 if remat else 1),
+            "flash_attention_bwd": steps * n}
+
+
+def lm_train_batch(torch, cfg, b: int, s: int, dev, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                               dtype=torch.int32, device=dev)
+            for k in ("tokens", "labels")}
+
+
+def lm_train_parity(torch, dev) -> dict:
+    """qwen2.5-3b at full width, depth cut, float32: three train steps on
+    the card against the same steps on the CPU's plain versions; losses
+    within LM_TRAIN_LOSS_RTOL, parameters on ROADMAP §C's bar (an element
+    whose first-step CPU gradient is below TRAIN_NOISE_FLOOR of its
+    leaf's largest may leave it by TRAIN_NOISE_ATOL)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, constant
+    from repro_torch.optim.optimizers import tree_leaves
+    t0 = time.perf_counter()
+    cfg = lm_train_config(n_layers=LM_TRAIN_PARITY_LAYERS,
+                          param_dtype="float32")
+    opt = adamw(constant(LM_TRAIN_PARITY_LR), b1=0.9, b2=0.95,
+                weight_decay=0.1, state_dtype=torch.float32,
+                grad_clip_norm=1.0)
+    step_fn = make_train_step(cfg, opt)
+    cpu = lm.init_params(cfg, seed=LM_SEED, device="cpu")
+    batches = [lm_train_batch(torch, cfg, LM_TRAIN_PARITY_BATCH,
+                              LM_TRAIN_PARITY_SEQ, "cpu", LM_SEED + 10 + i)
+               for i in range(LM_TRAIN_PARITY_STEPS)]
+    # the first step's CPU gradient: which elements are float noise
+    leaves = tree_leaves(cpu)
+    for t in leaves:
+        t.requires_grad_()
+    grads0 = torch.autograd.grad(lm.loss_fn(cpu, cfg, batches[0])[0], leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    quiet = [(gr.abs() < TRAIN_NOISE_FLOOR * gr.abs().max()).numpy()
+             for gr in grads0]
+    del grads0
+    runs = {}
+    for where in ("card", "cpu"):
+        params = tree_to(cpu, dev) if where == "card" else cpu
+        pd = params["embed"].device
+        state, step, losses = opt.init(params), 0, []
+        wrappers = (flash_attention_cuda, flash_attention_bwd_cuda)
+        before = [w.launches for w in wrappers]
+        for batch in batches:
+            params, state, step, m = step_fn(
+                params, state, step, {k: v.to(pd) for k, v in batch.items()})
+            losses.append(float(m["loss"]))
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = dict(zip(("flash_attention", "flash_attention_bwd"),
+                                (w.launches - n for w, n in
+                                 zip(wrappers, before))))
+            want = lm_train_launch_rule(cfg, LM_TRAIN_PARITY_STEPS, True)
+            if launches != want:
+                raise AssertionError(f"lm_train parity: launches {launches} "
+                                     f"!= the rule's {want}")
+        runs[where] = (losses, [t.detach().cpu().numpy()
+                                for t in tree_leaves(params)])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][0],
+                                                         runs["cpu"][0]))
+    if loss_rel > LM_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"lm_train parity: losses {runs['card'][0]} vs "
+                             f"the CPU's {runs['cpu'][0]}")
+    outside, worst_noise, worst = 0, 0.0, 0.0
+    for a, w, q in zip(runs["card"][1], runs["cpu"][1], quiet):
+        excess = np.abs(a - w) - (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL
+                                  * np.abs(w))
+        worst = max(worst, float(np.abs(a - w).max()))
+        out_el = excess > 0
+        if (out_el & ~q).any() or (excess > TRAIN_NOISE_ATOL).any():
+            raise AssertionError(f"lm_train parity: parameters outside the "
+                                 f"bar (max excess {excess.max():.3e})")
+        outside += int(out_el.sum())
+        if out_el.any():
+            worst_noise = max(worst_noise, float(excess[out_el].max()))
+    return {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                       "d_model": cfg.d_model, "dtype": cfg.param_dtype},
+            "batch": [LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ],
+            "steps": LM_TRAIN_PARITY_STEPS, "lr": LM_TRAIN_PARITY_LR,
+            "losses": runs["card"][0], "cpu_losses": runs["cpu"][0],
+            "loss_max_rel_err": loss_rel, "param_max_abs_err": worst,
+            "params_outside_bar": outside,
+            "outside_bar_max_excess": worst_noise,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def phase_lm_train(torch, dev, name_limit: str) -> tuple:
+    """The flash backward against its plain version, the parity run, then
+    the full model trained on the card with its launches on
+    ``lm_train_launch_rule``. Returns (phase line, the backward's kernels
+    entry)."""
+    from repro_torch import nn as tnn
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.launch.steps import default_optimizer, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_leaves
+    t0 = time.perf_counter()
+    entry = flash_bwd_entry(torch, dev)
+    torch.cuda.empty_cache()
+    parity = lm_train_parity(torch, dev)
+    torch.cuda.empty_cache()
+
+    cfg = lm_train_config()
+    params = lm.init_params(cfg, seed=LM_SEED)
+    opt = default_optimizer()
+    state, step = opt.init(params), 0
+    train_step = make_train_step(cfg, opt, remat=True)
+    batches = [lm_train_batch(torch, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev,
+                              LM_SEED + 20 + i)
+               for i in range(LM_TRAIN_STEPS + 2)]
+    params, state, step, m = train_step(params, state, step, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {"flash_attention": flash_attention_cuda,
+                "flash_attention_bwd": flash_attention_bwd_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    losses, step_ms = [float(m["loss"])], []
+    for batch in batches[1:LM_TRAIN_STEPS + 1]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, step, m = train_step(params, state, step, batch)
+        losses.append(float(m["loss"]))      # waits for the step
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = lm_train_launch_rule(cfg, LM_TRAIN_STEPS, True)
+    if launches != want:
+        raise AssertionError(f"lm_train: launches {launches} != the rule's "
+                             f"{want}")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lm_train: losses {losses}")
+    if not all(bool(torch.isfinite(t.float()).all())
+               for t in tree_leaves(params)):
+        raise AssertionError("lm_train: non-finite parameters")
+
+    # where a step's device time goes: one more step under the profiler
+    holder = {}
+
+    def one_step():
+        holder["out"] = train_step(params, state, step,
+                                   batches[LM_TRAIN_STEPS + 1])
+    rows = device_ms_by_kernel(torch, one_step)
+    holder.clear()
+    busy = sum(rows.values())
+    top = dict(sorted(rows.items(), key=lambda kv: -kv[1])[:12])
+    bwd_ms = {k: rows.get(k, 0.0)
+              for k in ("delta_kernel", "dkdv_kernel", "dq_kernel")}
+    med = statistics.median(step_ms)
+    entry["launches"] = launches["flash_attention_bwd"]
+    out = {"phase": "lm_train", "card": name_limit,
+           "kernel_sweep": entry["sweep"]["worst_rel_err"],
+           "parity": parity,
+           "train": {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                                "d_model": cfg.d_model,
+                                "dtype": cfg.param_dtype},
+                     "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
+                     "optimizer": "default_optimizer() (AdamW, bf16 states)",
+                     "remat": True, "steps": LM_TRAIN_STEPS,
+                     "losses": losses, "step_ms": step_ms,
+                     "ms_per_step": med,
+                     "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ
+                     / (med / 1e3),
+                     "max_memory_allocated": peak,
+                     "param_bytes": tnn.tree_bytes(params),
+                     "param_count": tnn.tree_size(params),
+                     "launches": launches,
+                     "step_device_busy_ms": busy,
+                     "device_busy_share": busy / med,
+                     "step_device_ms_by_kernel": top,
+                     "bwd_device_ms_by_kernel": bwd_ms,
+                     "bwd_us_per_launch": 1e3 * sum(bwd_ms.values())
+                     / cfg.n_layers},
+           "seconds": time.perf_counter() - t0}
+    del params, state
+    torch.cuda.empty_cache()
+    emit(out)
+    return out, entry
+
+
 def per_launch(e: dict) -> None:
     """``ms_per_launch`` and ``bound_per_launch_ms``: one wrapper call's
     time and bound on the entry's path, so that launches × (time − bound)
@@ -5110,7 +5665,10 @@ def main() -> int:
     phase_train_dp(torch, name_limit)
     phase_zoo(torch, name_limit)
     fac = phase_factory(torch, name_limit)
+    phase_accuracy(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
+    lm_train, bwd_entry = phase_lm_train(torch, dev, name_limit)
+    entries.append(bwd_entry)
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],
         "dense_aggregate": train["runs"]["dense"]["launches"],
@@ -5119,13 +5677,16 @@ def main() -> int:
         "segment_readout_backward": train["runs"]["packed"]["launches"],
         "flash_attention": lm_run["serve"]["launches"],
         "ssd_scan": lm_run["serve"]["launches"],
+        "flash_attention_bwd": lm_train["train"]["launches"],
     }
     for e in entries:
         # each kernel's count from the path that carries it: GraphSAGE
         # for the first two, GAT for the edge softmax and the aggregate,
         # the training run that carries each of the next five (the packed
         # GraphSAGE run for the readout's gradient), the full serving run
-        # of lm_path for the LM stack's two
+        # of lm_path for the LM stack's two, lm_train's full run for the
+        # flash backward (and, beside it, the flash forward's training
+        # launches)
         name = e["name"]
         if name in path_launches:
             e["launches"] = path_launches[name][name]
@@ -5138,6 +5699,9 @@ def main() -> int:
             # the factory's comparisons with the graph forms: not counted
             # in ``launches``
             e["graph_form_checks"] = fac["graph_form_checks"][name]
+        if name == "flash_attention":
+            e["train_launches"] = \
+                lm_train["train"]["launches"]["flash_attention"]
         if name in layouts["kernels_at_chunk"]:
             # the bucketed engines' full chunk, and their launches there
             e["inference_chunk"] = {

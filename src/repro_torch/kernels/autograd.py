@@ -23,13 +23,17 @@ therefore gets a ``torch.autograd.Function`` here:
 * :class:`EdgeSoftmax` (``edge_softmax``, B3) —
   ``ds = att ⊙ (g − gather(scatter(att ⊙ g)))`` on real edges, 0 on
   masked ones.
+* :class:`FlashAttention` (``flash_attention``, B8) — the forward keeps
+  each row's log-sum-exp, and the backward (``flash_attention_bwd``, a
+  kernel of its own) recomputes p from it: the JAX package's custom VJP
+  of ``_make_flash``, so residuals stay O(S), not O(S²).
 
 Every formula is written once, over :func:`repro_torch.kernels.ops.kernel`:
 the CUDA kernels for a CUDA tensor and their plain versions for a CPU
 tensor, so the CPU tests run the very backward the card runs. The JAX
 package differentiates its plain compositions instead (its Pallas calls
-have no ``custom_vjp``); the tests hold these gradients against
-``jax.grad`` of them.
+have no ``custom_vjp``; its attention has one, over jnp); the tests hold
+these gradients against ``jax.grad`` of them.
 
 There is no gradient for ``edges``, ``edge_mask``, ``adj``, ``graph_ids``
 or ``node_mask``: they depend only on the data (GCN's normalization
@@ -190,3 +194,26 @@ class EdgeSoftmax(torch.autograd.Function):
         back = ops.kernel("segment_gather", ag)(per_dst, dst, live)
         ds = torch.where(live[..., None] > 0, att * (g - back), 0.0)
         return ds, None, None, None, None
+
+
+class FlashAttention(torch.autograd.Function):
+    """Masked softmax attention of q [B, Sq, H, D] over k, v [B, Skv, Hkv,
+    D] (``flash_attention``); the offsets and window are Python ints."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_offset, scale):
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_offset=kv_offset, scale=scale)
+        q, k, v = _c(q), _c(k), _c(v)
+        out, lse = ops.kernel("flash_attention", q)(q, k, v, with_lse=True,
+                                                    **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ops.kernel("flash_attention_bwd", q)(
+            q, k, v, out, lse, _c(g.to(q.dtype)), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

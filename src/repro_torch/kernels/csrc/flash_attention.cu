@@ -88,6 +88,13 @@
 //      every split empty the row reads 0 / 1e-20 = 0. With one split the
 //      split kernel normalises and writes the output itself (no merge).
 //
+// With an `lse` pointer (training: the backward in flash_attention_bwd.cu
+// recomputes p from it) the two Sq > 1 kernels also write each row's
+// log-sum-exp m + log(max(l, 1e-20)), natural log, float32 [B, H, Sq]: about
+// -1e30 for a row with no kept key, so the backward's p is its mask's 0. A
+// call with `lse` and Sq == 1 takes the Sq > 1 kernels, not the decode. A
+// null `lse` writes nothing more: the serving path launches what it did.
+//
 // Head dims: any D <= 128 with D % 8 == 0 (the configs use 16, 64, 80, 120,
 // 128); the wrapper checks it. Tolerance against the plain version: float32
 // sums in another order, 1e-4 absolute + 1e-4 relative in float32. In
@@ -106,6 +113,7 @@ namespace {
 constexpr int kMaxD = 128;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct FlashArgs {
   const void* q;   // [B, Sq, H, D]
@@ -113,6 +121,7 @@ struct FlashArgs {
   const void* v;   // [B, Skv, Hkv, D]
   void* out;       // [B, Sq, H, D]
   float* scratch;  // decode with n_splits > 1: [B * H, n_splits, D + 2]
+  float* lse;      // null, or [B, H, Sq]: each row's log-sum-exp (Sq > 1)
   int b, sq, skv, h, hkv, d;
   float scale;
   int causal, window, q_off, kv_off;
@@ -332,6 +341,9 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(FlashArgs a) {
                          acc[rr][3] / l));
     }
   }
+  if (a.lse != nullptr && tid < BQ && q0 + tid < a.sq)
+    a.lse[(static_cast<long long>(bi) * a.h + hi) * a.sq + q0 + tid] =
+        row_m[tid] + logf(fmaxf(row_l[tid], 1e-20f));
 }
 
 }  // namespace fp32
@@ -737,6 +749,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float inv0 = 1.0f / fmaxf(l0, 1e-20f);
     const float inv1 = 1.0f / fmaxf(l1, 1e-20f);
     const int qr = q0 + r_loc;
+    if (a.lse != nullptr && (lane & 3) == 0) {   // m in log2 units
+      float* const lb = a.lse + (static_cast<long long>(bi) * a.h + hi) * a.sq;
+      if (qr < a.sq) lb[qr] = m0 * kLn2 + logf(fmaxf(l0, 1e-20f));
+      if (qr + 8 < a.sq) lb[qr + 8] = m1 * kLn2 + logf(fmaxf(l1, 1e-20f));
+    }
     const long long rs = static_cast<long long>(a.h) * a.d;
     __nv_bfloat16* const ob = static_cast<__nv_bfloat16*>(a.out) +
                               (static_cast<long long>(bi) * a.sq + qr) * rs +
@@ -1187,8 +1204,11 @@ extern "C" {
 // `scratch` holds B * H * n_splits * (D + 2) floats when n_splits > 1.
 // Returns 0, a cudaError_t, or -CUresult when a TMA descriptor could not
 // be encoded (-1000: no cuTensorMapEncodeTiled entry point was found).
+// `lse`: null, or [B, H, Sq] float32 for each row's log-sum-exp; with it
+// Sq == 1 takes the Sq > 1 kernels, and with Skv == 0 it is not written.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    void* scratch, int dtype, int b, int sq, int skv, int h,
+                    void* scratch, void* lse, int dtype, int b, int sq,
+                    int skv, int h,
                     int hkv, int d, float scale, int causal, int window,
                     int q_off, int kv_off, int key_lo, int key_hi,
                     int split_len, int n_splits, void* stream) {
@@ -1201,10 +1221,11 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   if (skv == 0)   // no key at all: every row reads 0
     return static_cast<int>(cudaMemsetAsync(
         out, 0, static_cast<size_t>(b) * sq * h * d * elem, s));
-  const FlashArgs a{q, k, v, out, static_cast<float*>(scratch), b, sq, skv,
-                    h, hkv, d, scale, causal, window, q_off, kv_off, key_lo,
-                    key_hi, split_len, n_splits};
-  if (sq == 1) {
+  const FlashArgs a{q, k, v, out, static_cast<float*>(scratch),
+                    static_cast<float*>(lse), b, sq, skv, h, hkv, d, scale,
+                    causal, window, q_off, kv_off, key_lo, key_hi, split_len,
+                    n_splits};
+  if (sq == 1 && lse == nullptr) {
     if (n_splits < 1 || (n_splits > 1 && (scratch == nullptr ||
                                            split_len <= 0)))
       return static_cast<int>(cudaErrorInvalidValue);

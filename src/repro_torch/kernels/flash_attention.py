@@ -1,4 +1,4 @@
-"""Python wrapper around the hand-written flash-attention kernels.
+"""Python wrappers around the hand-written flash-attention kernels.
 
 :func:`flash_attention_cuda` runs ``csrc/flash_attention.cu``, the port of
 ``flash_attention_pallas``: the function of ``blockwise_attention``
@@ -17,17 +17,26 @@ dtype (the source's header says why):
 * ``Sq == 1``, either dtype: split-KV decode over the plan of
   :func:`decode_split_plan`, then a log-sum-exp merge of the splits.
 
+``with_lse=True`` (training) also returns each row's log-sum-exp, written
+by the two ``Sq > 1`` kernels (a one-row call then takes them too).
+
+:func:`flash_attention_bwd_cuda` runs ``csrc/flash_attention_bwd.cu``,
+the gradient: the custom VJP's ``bwd`` of the JAX package's
+``_make_flash`` (no Pallas kernel), semantics those of
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`. Training reaches
+both through ``kernels.autograd.FlashAttention``.
+
 The choice is by dtype and shape, not a fallback: a launch that fails
 raises, and so does a tensor map that ``cuTensorMapEncodeTiled`` refuses.
 
-The wrapper follows :mod:`repro_torch.kernels.segment_spmm`: CUDA tensors
+The wrappers follow :mod:`repro_torch.kernels.segment_spmm`: CUDA tensors
 only, checked for device, dtype (float32 or bfloat16, q, k and v alike),
-shape, contiguity and alignment; the output and the decode scratch
-allocated with ``torch.empty``; the launches on the current stream, one
-call counted once in ``flash_attention_cuda.launches`` (a decode call
-with more than one split launches two kernels, the split pass and the
-merge, and still counts one); an input that requires grad while grad mode
-is on raises (the kernel has no backward; LM training is ROADMAP A14b).
+shape, contiguity and alignment; outputs and scratch allocated with
+``torch.empty``; the launches on the current stream, one call counted
+once in ``launches`` (a decode call with more than one split launches two
+kernels, the split pass and the merge, and the backward three, and each
+still counts one); an input that requires grad while grad mode is on
+raises (use ``ops.flash_attention_train``).
 """
 from __future__ import annotations
 
@@ -107,7 +116,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int = 0, q_offset: int = 0,
                          kv_offset: int = 0,
                          scale: Optional[float] = None,
-                         decode_waves: int = _DECODE_WAVES) -> torch.Tensor:
+                         decode_waves: int = _DECODE_WAVES,
+                         with_lse: bool = False):
     """Masked streaming-softmax attention on the card
     (``csrc/flash_attention.cu``).
 
@@ -118,6 +128,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns [B, Sq, H, D] in q's dtype; a row with no kept key is 0.
     ``decode_waves`` is the split plan's target at ``Sq == 1``
     (:func:`decode_split_plan`'s ``waves``; 0 runs one split).
+    ``with_lse`` returns ``(out, lse)``, lse [B, H, Sq] float32 as
+    :func:`~repro_torch.kernels.ref.flash_attention_ref` gives it.
 
     ``launches`` counts calls: one per call that reaches the card, also a
     decode call whose C entry launches the split pass and the merge.
@@ -145,20 +157,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(v, "v", q.dtype, (b, skv, hkv, d), dev)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
-    offsets = dict(q_offset=q_offset, kv_offset=kv_offset, window=window)
-    for name, val in offsets.items():
-        if not isinstance(val, int):
-            raise TypeError(f"{name} must be a Python int, got "
-                            f"{type(val).__name__}")
-    _check_dims(q_end=abs(q_offset) + sq, kv_end=abs(kv_offset) + skv)
+    _check_offsets(sq, skv, q_offset, kv_offset, window)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     plan = SplitPlan(0, 0, 0, 1)
     with torch.cuda.device(dev):
         out = torch.empty_like(q)
+        lse = None
+        if with_lse:   # with no key at all, the running maximum's -1e30
+            lse = (torch.full((b, h, sq), -1e30, device=dev) if skv == 0
+                   else torch.empty((b, h, sq), device=dev))
         if out.numel() == 0:
-            return out
+            return (out, lse) if with_lse else out
         scratch = None
-        if sq == 1:
+        if sq == 1 and not with_lse:
             plan = decode_split_plan(
                 skv, causal=bool(causal), window=window, q_offset=q_offset,
                 kv_offset=kv_offset,
@@ -170,7 +181,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry("flash_attention")(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(scratch),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(scratch), _ptr(lse),
             _DTYPES[q.dtype], b, sq, skv, h, hkv, d, scale, int(causal),
             int(window), q_offset, kv_offset, *plan, stream)
     if rc < 0:
@@ -182,7 +193,79 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"CUDA kernel flash_attention was not launched: "
                            f"cudaError_t {rc}")
     _count(flash_attention_cuda)
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention_cuda.launches = 0
+
+
+def _check_offsets(sq: int, skv: int, q_offset, kv_offset, window) -> None:
+    offsets = dict(q_offset=q_offset, kv_offset=kv_offset, window=window)
+    for name, val in offsets.items():
+        if not isinstance(val, int):
+            raise TypeError(f"{name} must be a Python int, got "
+                            f"{type(val).__name__}")
+    _check_dims(q_end=abs(q_offset) + sq, kv_end=abs(kv_offset) + skv)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool, window: int = 0,
+                             q_offset: int = 0, kv_offset: int = 0,
+                             scale: Optional[float] = None):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_cuda` on
+    the card (``csrc/flash_attention_bwd.cu``).
+
+    q, out, dout: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D], all float32 or
+    all bfloat16, contiguous, 16-byte aligned; lse: [B, H, Sq] float32
+    (``flash_attention_cuda(..., with_lse=True)``'s). The masks and
+    offsets are the forward's. Returns dq, dk, dv in the inputs' dtype; dk
+    and dv of a kv head are summed over its query heads. ``launches``
+    counts calls (each launches three kernels: delta, dk / dv, dq).
+    """
+    refuse_grad("flash_attention_bwd", q, k, v, out, lse, dout)
+    dev = _cuda_device(q)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be [B, S, H, D], got {tuple(q.shape)} "
+                         f"and {tuple(k.shape)}")
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if d % 8 or not 0 < d <= _MAX_D:
+        raise ValueError(f"head dim {d} is not a multiple of 8 in [8, "
+                         f"{_MAX_D}]")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
+    if b * h > _MAX_BH:
+        raise ValueError(f"B*H={b * h} exceeds the kernel's grid limit "
+                         f"{_MAX_BH}")
+    _check_dims(BSHD=b * sq * h * d, BSKD=b * skv * hkv * d)
+    for t, name, shape in ((q, "q", (b, sq, h, d)), (k, "k", (b, skv, hkv, d)),
+                           (v, "v", (b, skv, hkv, d)),
+                           (out, "out", (b, sq, h, d)),
+                           (dout, "dout", (b, sq, h, d))):
+        _check(t, name, q.dtype, shape, dev)
+    _check(lse, "lse", torch.float32, (b, h, sq), dev)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("q, k, v, out and dout must be 16-byte aligned")
+    _check_offsets(sq, skv, q_offset, kv_offset, window)
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    with torch.cuda.device(dev):
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty((b, h, sq), device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _entry("flash_attention_bwd")(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
+            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _DTYPES[q.dtype], b,
+            sq, skv, h, hkv, d, scale, int(causal), int(window), q_offset,
+            kv_offset, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel flash_attention_bwd was not "
+                           f"launched: cudaError_t {rc}")
+    _count(flash_attention_bwd_cuda)
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

@@ -16,7 +16,10 @@ The entries that training differentiates through — ``segment_aggregate``,
 kernel of its own). ``fused_mp_layer`` and ``fused_gat_aggregate`` are
 inference only: training runs the composed layers. So are the LM stack's
 ``flash_attention`` and ``ssd_scan``: on either device they refuse an
-input that requires grad (LM training is ROADMAP A14b).
+input that requires grad. LM training takes :func:`flash_attention_train`
+(``autograd.FlashAttention``: the forward with its log-sum-exp and the
+backward kernel ``flash_attention_bwd``); the SSD scan's backward is
+ROADMAP A14b-2.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ _KERNELS = {
     "dst_csr": (_cuda, _ref),
     "dense_aggregate": (_dense, _ref),
     "flash_attention": (_flash, _ref),
+    "flash_attention_bwd": (_flash, _ref),
     "ssd_scan": (_ssd, _ref),
 }
 
@@ -169,6 +173,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return kernel("flash_attention", q)(
         q, k, v, causal=causal, window=window, q_offset=q_offset,
         kv_offset=kv_offset, scale=scale)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool, window: int = 0,
+                          q_offset: int = 0, kv_offset: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_attention`, differentiable in q, k and v: the kernel
+    with its log-sum-exp forward, ``flash_attention_bwd`` backward (see
+    :class:`repro_torch.kernels.autograd.FlashAttention`)."""
+    return _ag.FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    kv_offset, scale)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

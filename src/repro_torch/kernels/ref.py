@@ -8,8 +8,10 @@ follow ``repro.kernels.ref`` function for function. Every function works
 in the dtype of its float inputs, float64 included, so that
 ``torch.autograd.gradcheck`` can run the backward passes of
 :mod:`repro_torch.kernels.autograd` on the CPU. The LM kernels'
-versions (:func:`flash_attention_ref`, :func:`ssd_scan_ref`) compute in
-float32 whatever their inputs, as the JAX package's model code does.
+versions (:func:`flash_attention_ref`, :func:`flash_attention_bwd_ref`,
+:func:`ssd_scan_ref`) compute in float32 for float32 and bfloat16
+inputs, as the JAX package's model code does; the attention pair keeps
+float64 in float64, for ``gradcheck``.
 """
 from __future__ import annotations
 
@@ -344,10 +346,27 @@ def fused_mp_layer_ref(x: torch.Tensor, edges: torch.Tensor,
     return y
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32, or float64 for a float64 input (``gradcheck``)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _attention_mask(rows: torch.Tensor, cols: torch.Tensor, causal: bool,
+                    window: int) -> torch.Tensor:
+    """``_mask_for`` of ``repro/models/layers.py``: key position ``≥ 0``,
+    not after the row if ``causal``, within ``window`` of it."""
+    mask = cols[None, :] >= 0
+    if causal:
+        mask = mask & (cols[None, :] <= rows[:, None])
+    if window > 0:
+        mask = mask & (cols[None, :] >= rows[:, None] - window + 1)
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int = 0, q_offset: int = 0,
-                        kv_offset: int = 0,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        kv_offset: int = 0, scale: Optional[float] = None,
+                        with_lse: bool = False):
     """Masked softmax attention, the function of ``blockwise_attention``
     (``repro/models/layers.py``) in one piece.
 
@@ -358,31 +377,96 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with ``window > 0``, within ``window`` of it (``_mask_for``). Scores
     and sums in float32, the masked maximum starting at -1e30 and the sum
     divided by ``max(l, 1e-20)``, so a row with no kept key reads 0 (not
-    NaN, as a softmax over -inf would). Returns [B, Sq, H, D] in q's dtype.
+    NaN, as a softmax over -inf would). Returns [B, Sq, H, D] in q's dtype;
+    with ``with_lse`` also the log-sum-exp ``m + log(max(l, 1e-20))``
+    [B, H, Sq] (float32; float64 for float64 inputs) that the backward
+    takes, ``_flash_fwd_chunks``' lse: about -1e30 for a row with no kept
+    key.
     """
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    qf, kf, vf = q.float(), k.float(), v.float()
+    acc = _acc_dtype(q)
+    qf, kf, vf = q.to(acc), k.to(acc), v.to(acc)
     if rep > 1:
         kf = kf.repeat_interleave(rep, dim=2)
         vf = vf.repeat_interleave(rep, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    rows = q_offset + torch.arange(sq, device=q.device)[:, None]
-    cols = kv_offset + torch.arange(skv, device=q.device)[None, :]
-    mask = cols >= 0
-    if causal:
-        mask = mask & (cols <= rows)
-    if window > 0:
-        mask = mask & (cols >= rows - window + 1)
+    mask = _attention_mask(q_offset + torch.arange(sq, device=q.device),
+                           kv_offset + torch.arange(skv, device=q.device),
+                           causal, window)
     s = s.masked_fill(~mask, -1e30)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
     l = p.sum(dim=-1).clamp_min(1e-20)                 # [B, H, Sq]
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)[..., None]
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    if not with_lse:
+        return out
+    if skv == 0:
+        return out, torch.full((b, h, sq), -1e30, dtype=acc, device=q.device)
+    return out, m[..., 0] + torch.log(l)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor,
+                            dout: torch.Tensor, *, causal: bool,
+                            window: int = 0, q_offset: int = 0,
+                            kv_offset: int = 0, scale: Optional[float] = None,
+                            q_chunk: int = 2048, kv_chunk: int = 1024
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`flash_attention_ref` — the
+    custom VJP's ``bwd`` of ``_make_flash`` (``repro/models/layers.py``),
+    over the same chunk loop: for each key chunk, each query chunk in turn.
+
+    ``out`` and ``lse`` are the forward's output and log-sum-exp, ``dout``
+    the output's gradient. With ``delta = Σ dout·out`` per row, ``p =
+    exp(s·scale − lse)`` on the kept pairs (0 elsewhere, so a row with no
+    kept key gives exactly 0), ``dV = pᵀ dO``, ``dS = p (dO Vᵀ − delta)
+    scale``, ``dQ = dS K``, ``dK = dSᵀ Q``; dK and dV of a kv head summed
+    over its ``H / Hkv`` query heads. Float32 sums (float64 for float64
+    inputs); the gradients come back in the inputs' dtypes.
+    """
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    acc = _acc_dtype(q)
+    qf = q.to(acc).reshape(b, sq, hkv, rep, d)
+    dof = dout.to(acc).reshape(b, sq, hkv, rep, d)
+    kf, vf = k.to(acc), v.to(acc)
+    lsef = lse.to(acc).reshape(b, hkv, rep, sq)
+    delta = torch.einsum("bqgrv,bqgrv->bgrq", dof,
+                         out.to(acc).reshape(b, sq, hkv, rep, d))
+    rows_all = q_offset + torch.arange(sq, device=q.device)
+    cols_all = kv_offset + torch.arange(skv, device=q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for k0 in range(0, skv, kv_chunk):
+        kb, vb = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
+        cols = cols_all[k0:k0 + kv_chunk]
+        for q0 in range(0, sq, q_chunk):
+            sl = slice(q0, q0 + q_chunk)
+            qb, dob = qf[:, sl], dof[:, sl]
+            mask = _attention_mask(rows_all[sl], cols, causal, window)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qb, kb) * scale
+            p = torch.exp(s - lsef[..., sl, None])
+            p = torch.where(mask, p, torch.zeros((), dtype=acc,
+                                                 device=q.device))
+            dv[:, k0:k0 + kv_chunk] += torch.einsum("bgrqk,bqgrv->bkgv", p,
+                                                    dob)
+            dp = torch.einsum("bqgrv,bkgv->bgrqk", dob, vb)
+            ds = p * (dp - delta[..., sl, None]) * scale
+            dq[:, sl] += torch.einsum("bgrqk,bkgd->bqgrd", ds, kb)
+            dk[:, k0:k0 + kv_chunk] += torch.einsum("bgrqk,bqgrd->bkgd", ds,
+                                                    qb)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

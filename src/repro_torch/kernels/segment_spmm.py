@@ -92,9 +92,12 @@ _SIGNATURES = {
                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "dense_aggregate_scratch_ints": ("dense_aggregate", [_I, _I]),
     "flash_attention": ("flash_attention",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P] * 10 + [_I] * 7 + [ctypes.c_float]
+                            + [_I] * 4 + [_P]),
     "ssd_scan_smem": ("ssd_scan", [_I, _I, _I, _I]),
     "ssd_scan_occupancy": ("ssd_scan", [_I, _I, _I, _I, _P]),
     "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -115,10 +118,12 @@ _GRAD_ENTRY = {
     "segment_scatter": "ops.segment_scatter",
     "segment_gather": "ops.segment_gather",
     "dense_aggregate": "ops.dense_aggregate",
-    "flash_attention": "nothing: it is inference only; LM training waits "
-                       "for ROADMAP A14b",
-    "ssd_scan": "nothing: it is inference only; LM training waits for "
-                "ROADMAP A14b",
+    "flash_attention": "ops.flash_attention_train (ops.flash_attention is "
+                       "inference only)",
+    "flash_attention_bwd": "nothing: it is the gradient of "
+                           "ops.flash_attention_train, which records none",
+    "ssd_scan": "nothing: it is inference only; its backward is ROADMAP "
+                "A14b-2",
 }
 _bind_lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -14,8 +14,9 @@ through :func:`repro_torch.kernels.ops.flash_attention` and
 launch ``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu`` on a CUDA
 tensor and take their plain versions on a CPU one. The one-token SSD
 decode step stays plain on every device (the JAX package has no kernel
-for it either). Inference only: LM training is ROADMAP A14b; MLA,
-mixture-of-experts and cross-attention are A14c.
+for it either). Attention trains through the flash kernel's backward
+(``ops.flash_attention_train``); the SSD scan's backward is ROADMAP
+A14b-2; MLA, mixture-of-experts and cross-attention are A14c.
 
 On the meta device (a trace by ``repro_torch.core.tracer``, which the
 dataset factory's LM entries take) the steps run as the JAX package's
@@ -118,16 +119,22 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Sq, H, D] over k, v [B, Skv, Hkv, D] → [B, Sq, H, D]: the
     function of the JAX package's ``blockwise_attention``, on the flash
-    kernel. Offsets are Python ints (a decode step's cache index). On a
-    trace it is the JAX package's jnp form instead (the card launches
-    B8)."""
+    kernel. Offsets are Python ints (a decode step's cache index). With
+    grad mode on and an input that requires grad it is the differentiable
+    call (``ops.flash_attention_train``: the kernel's forward with its
+    log-sum-exp, the backward kernel — the reference's custom VJP);
+    otherwise the inference call. On a trace it is the JAX package's jnp
+    form instead (the card launches B8)."""
     if G.is_trace(q):
         return G.blockwise_attention(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, kv_offset=kv_offset,
                                      scale=scale)
-    return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=int(q_offset),
-                               kv_offset=int(kv_offset), scale=scale)
+    kw = dict(causal=causal, window=window, q_offset=int(q_offset),
+              kv_offset=int(kv_offset), scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return ops.flash_attention_train(q, k, v, **kw)
+    return ops.flash_attention(q, k, v, **kw)
 
 
 def attention_init(gen: torch.Generator, cfg: ArchConfig,

@@ -1,5 +1,5 @@
-"""Model assembly of the LM stack for serving: embeddings, layer stacks,
-head, decode caches.
+"""Model assembly of the LM stack: embeddings, layer stacks, head, decode
+caches, and the training loss.
 
 The port of ``repro/models/lm.py`` for three block patterns:
 
@@ -15,9 +15,17 @@ the packages as a plain map over leaves (:func:`params_from_numpy`,
 :func:`params_to_numpy`); the JAX package's ``lax.scan`` over a stack is
 a Python loop over its index here. Mixture-of-experts, MLA,
 cross-attention (``cross_attn_every``) and the audio frontend raise
-``NotImplementedError`` naming ROADMAP A14c; training (``loss_fn``) is
-A14b. Every function runs on one device, as the JAX package does with no
-mesh.
+``NotImplementedError`` naming ROADMAP A14c. Every function runs on one
+device, as the JAX package does with no mesh.
+
+Training: :func:`loss_fn` is the reference's mean token cross-entropy;
+its gradient runs the flash kernel's backward (``ops.flash_attention_train``)
+and, with ``remat=True``, recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``). A stack
+is read with ``unbind`` (:func:`_unstack`) on that path too, so its
+backward stacks the layers' gradients once. The SSD scan has no backward
+yet: asking for a gradient through a Mamba2 or hybrid config raises
+``NotImplementedError`` naming ROADMAP A14b-2 (:func:`check_trainable`).
 
 :func:`decode_step` updates the cache that :func:`init_cache` made IN
 PLACE (the JAX package's update is functional) and returns it.
@@ -34,15 +42,18 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import nn
 from ..core.gnn import resolve_device
+from ..optim.optimizers import tree_leaves
 from . import graph_form as G
 from . import layers as L
 from .config import ArchConfig
 
 Params = Dict[str, Any]
 Device = Union[None, str, torch.device]
+A14B2 = "ROADMAP A14b-2"
 #: leaves the JAX tree keeps in float32 whatever ``param_dtype`` is
 _F32_LEAVES = frozenset({"dt_bias", "A_log", "D"})
 
@@ -64,6 +75,22 @@ def check_supported(cfg: ArchConfig) -> None:
                                   f"ported yet ({L.A14C})")
     if cfg.block not in ("attn", "mamba2", "hybrid"):
         raise ValueError(f"unknown block {cfg.block!r}")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a config whose gradient the port
+    cannot take yet: an SSD block (mamba2, hybrid; A14b-2) or an unported
+    block (A14c, :func:`check_supported`)."""
+    check_supported(cfg)
+    if cfg.block != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: training through the SSD scan ({cfg.block} "
+            f"blocks) needs its backward kernel, not ported yet ({A14B2})")
+
+
+def _wants_grad(params: Params) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------
@@ -217,35 +244,70 @@ def _head(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ArchConfig,
-            inputs: Dict[str, torch.Tensor]
+            inputs: Dict[str, torch.Tensor], *, remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (logits [B, S, V] float32, aux loss 0), in
     the JAX package's steps: int32 positions, each stack read as
     ``lax.scan`` reads it (:func:`_unstack`), and on a trace ``jnp.take``
     of the tokens and the aux loss of every attention stack, which the
-    jaxpr keeps though it is zero."""
+    jaxpr keeps though it is zero. ``remat`` recomputes each layer in the
+    backward instead of keeping its activations (the reference's
+    ``ParallelCtx(remat=True)``); it changes no value. A gradient through
+    an SSD block raises (:func:`check_trainable`)."""
     check_supported(cfg)
+    if _wants_grad(params):
+        check_trainable(cfg)
     x = _embed(params, inputs)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(apply, lp, x, **kw):
+        if not remat:
+            return apply(lp, cfg, x, **kw)[0]
+        return checkpoint(lambda h: apply(lp, cfg, h, **kw)[0], x,
+                          use_reentrant=False)
+
     if cfg.block == "attn":
         for lp in _unstack(params["blocks"]):
-            x, _ = decoder_layer_apply(lp, cfg, x, positions=positions)
+            x = layer(decoder_layer_apply, lp, x, positions=positions)
         aux = G.scan_aux(aux, cfg.n_layers)
     elif cfg.block == "mamba2":
         for lp in _unstack(params["blocks"]):
-            x, _ = mamba_layer_apply(lp, cfg, x)
+            x = layer(mamba_layer_apply, lp, x)
     else:
         groups = _unstack(params["groups"])
         for gp in groups:
             for lp in _unstack(gp):
-                x, _ = mamba_layer_apply(lp, cfg, x)
-            x, _ = decoder_layer_apply(params["shared_attn"], cfg, x,
-                                       positions=positions)
+                x = layer(mamba_layer_apply, lp, x)
+            x = layer(decoder_layer_apply, params["shared_attn"], x,
+                      positions=positions)
         aux = G.scan_aux(aux, len(groups))
     return _head(params, cfg, x), aux
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01, *, remat: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean token cross-entropy (+ ``aux_weight`` × the aux loss) →
+    ``(total, {"ce", "aux"})``, the reference's ``loss_fn``: float32
+    logits, ``logsumexp`` minus the gold logit of ``batch["labels"]``, and
+    with ``batch["loss_mask"]`` the masked sum over ``max(Σ mask, 1)``."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    logits = logits.float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    total = loss + aux_weight * aux
+    return total, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,7 @@ from ..core.gnn import (PMGNS, PMGNSConfig, check_supported, decode_targets,
                         params_to_numpy, pmgns_apply, pmgns_init,
                         resolve_device)
 from ..optim import adam, constant
-from ..optim.optimizers import tree_leaves, tree_map
+from ..optim.optimizers import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -410,7 +410,7 @@ def train_pmgns(
         if group is not None:
             grads = _all_reduce_flat(grads, group)
         with torch.no_grad():
-            grad_tree = _unflatten(params, iter(grads))
+            grad_tree = tree_unflatten(params, grads)
             new, opt_state = opt.update(step, opt_state, params, grad_tree)
             for p, v in zip(leaves, tree_leaves(new)):
                 p.copy_(v)
@@ -511,11 +511,3 @@ def train_pmgns(
     with torch.no_grad():
         folded = _fold_stats(params, model_cfg, t_mean, t_std)
     return tree_map(lambda t: t.detach().cpu().numpy(), folded), history
-
-
-def _unflatten(tree: Params, it) -> Params:
-    """The leaves that iterator ``it`` yields, in :func:`tree_leaves`
-    order, placed in the structure of ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
-    return next(it)
