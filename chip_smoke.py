@@ -213,25 +213,7 @@ Phases, each printing one JSON line:
    9 × 64, the scan 54); finite logits and caches; prefill ms, decode ms
    per step, tokens/s, peak device memory, parameter and cache bytes, and
    the device time of one prefill and one decode step by kernel.
-
-15. ``accuracy`` — the paper's accuracy protocol on the card, the JAX
-   package's CI gate (``benchmarks/accuracy_mape.py``) run by the port: the
-   gate's plan (320 zoo graphs, convnext held out, qwen2.5-3b and
-   mamba2-370m traced, shards of 64; its hash ``ACCURACY_PLAN_HASH``,
-   checked) built by the port's factory with ``min(8, cpu_count)`` spawned
-   workers, coverage at least 0.95, a second build that reuses every
-   shard; ``run_accuracy`` with the default ``AccuracyProtocol``
-   (GraphSAGE-512, 30 epochs in chunks of 15) on the card, twice, the same
-   report and parameters bit for bit; every head of
-   the test and unseen splits at most ``max(base × rel, base + abs)`` of
-   ``benchmarks/baselines/accuracy_mape.json`` (read, never written), but
-   a head that the JAX package's own run of the plan misses
-   (``ACCURACY_REF_CPU``: the unseen latency) is held to that tolerance
-   around the reference's value, and the baseline's verdict is printed
-   beside it. It prints the splits, epochs, best epoch, convergence, each
-   head beside its baseline, bounds and the reference, the unseen family's
-   MAPE per head, and the build and train seconds.
-16. ``lm_train`` — LM training through the flash kernels: (a)
+15. ``lm_train`` — LM training through the flash kernels: (a)
    ``flash_attention_bwd`` and the forward's log-sum-exp against their
    plain versions on the card (qwen2.5-3b's heads at 4 × 1024 causal,
    h2o-danube's 32 over 8 at D = 120 with window 256, a padded length, a
@@ -246,11 +228,30 @@ Phases, each printing one JSON line:
    tokens: ms per step, tokens/s, peak memory, the device-busy share, the
    backward's µs per launch, and the flash launches held to
    ``lm_train_launch_rule``.
+16. ``accuracy`` — run last, after the ``kernels`` and ``nvidia-smi``
+   lines: the paper's accuracy protocol on the card, the JAX package's CI
+   gate (``benchmarks/accuracy_mape.py``) run by the port: the
+   gate's plan (320 zoo graphs, convnext held out, qwen2.5-3b and
+   mamba2-370m traced, shards of 64; its hash ``ACCURACY_PLAN_HASH``,
+   checked) built by the port's factory with ``min(8, cpu_count)`` spawned
+   workers, coverage at least 0.95, a second build that reuses every
+   shard; ``run_accuracy`` with the default ``AccuracyProtocol``
+   (GraphSAGE-512, 30 epochs in chunks of 15) on the card at each seed of
+   ``ACCURACY_SEEDS``, the first seed twice with the same report and
+   parameters bit for bit. At the protocol's 100x learning rate one run
+   is one draw of a wide spread (the unseen split holds 6 graphs), so the
+   gate reads the median over the seeds: each head's median on the test
+   and unseen splits at most ``max(base × rel, base + abs)`` of
+   ``benchmarks/baselines/accuracy_mape.json`` (read, never written). It
+   prints the splits, epochs, best epoch, convergence, every seed's heads,
+   each median beside its baseline and bound, the unseen family's MAPE per
+   head, and the build and train seconds.
 
-Then it prints ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
-limit, and, as the last line, ``{"ok": true, "device": {...}}``. Any failed
-check raises, so the script exits non-zero and prints no result; it also
-exits non-zero without a CUDA device. It imports nothing of JAX.
+After ``lm_train`` it prints ``{"kernels": [...]}`` and the ``nvidia-smi``
+name and power limit, runs ``accuracy``, and prints, as the last line,
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+exits non-zero and prints no result; it also exits non-zero without a
+CUDA device. It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -402,21 +403,9 @@ ACCURACY_MIN_COVERAGE, ACCURACY_MAX_WORKERS = 0.95, 8
 ACCURACY_PLAN_HASH = ("0b66d35b68ff5427f1d7fb1174f2b2d55c8928b0dd6fc16252f0"
                       "4974c235fab7")
 ACCURACY_BASELINE = "benchmarks/baselines/accuracy_mape.json"
-#: the JAX package's own run of that plan at the default protocol on an
-#: x86-64 CPU host (``scripts/accuracy_cpu_parity.py --runs jax``), copied
-#: in by hand: its unseen latency head misses the baseline's bound (0.5337)
-#: as well. The protocol's 100x learning rate makes training chaotic: from
-#: the same initial tree at dropout 0 the two packages agree to 1.6e-6 over
-#: two epochs at the paper's rate but part within the first epoch at the
-#: boosted one (the script's --trajectory), so each host's float32 rounding
-#: gives another model and the baseline's single draw is not reproduced.
-#: A head the reference misses here is held to the baseline's tolerance
-#: around the reference's value (``gate_mape``)
-ACCURACY_REF_CPU = {
-    "test": {"mape_latency": 0.448497, "mape_energy": 0.724069,
-             "mape_memory": 0.07297, "mape": 0.415179},
-    "unseen": {"mape_latency": 0.581415, "mape_energy": 0.465891,
-               "mape_memory": 0.127273, "mape": 0.391527}}
+#: the protocol's seeds (split, initial draw, shuffle and dropout); the
+#: gate holds each head's median over them to the baseline's bound
+ACCURACY_SEEDS = (0, 1, 2, 3, 4)
 ACCURACY_HEADS = ("mape_latency", "mape_energy", "mape_memory", "mape")
 #: lm_train: the model it trains (full width; LM_SMOKE_WIDTH swaps in the
 #: smoke config), the full run (batch × sequence, measured steps after one
@@ -5158,34 +5147,34 @@ def accuracy_config(factory):
                                  lm_archs=ACCURACY_LM_ARCHS)
 
 
-def gate_mape(measured: dict, baseline: dict, tol: dict,
-              reference: dict) -> dict:
-    """Per head: the JAX gate's bound max(base · rel, base + abs)
-    (``_gate_mape`` of ``benchmarks/accuracy_mape.py``) and whether the
-    port meets it (``ok_baseline``). A head that the JAX package itself
-    misses on this plan (``reference``: ``ACCURACY_REF_CPU``) is held to
-    the same tolerance around the reference's own value (``held_bound``);
-    every other head to the baseline's bound. ``ok`` is the held gate."""
+def gate_mape(measured: dict, baseline: dict, tol: dict) -> dict:
+    """Per head: measured ≤ max(base · rel, base + abs), the JAX gate's
+    bound (``_gate_mape`` of ``benchmarks/accuracy_mape.py``)."""
     rel, add = float(tol["rel"]), float(tol["abs"])
     out = {}
     for head in ACCURACY_HEADS:
-        base, ref = float(baseline[head]), float(reference[head])
+        base, got = float(baseline[head]), float(measured[head])
         bound = max(base * rel, base + add)
-        held = bound if ref <= bound else max(ref * rel, ref + add)
-        got = float(measured[head])
         out[head] = {"measured": got, "baseline": base, "bound": bound,
-                     "ok_baseline": got <= bound, "reference_cpu": ref,
-                     "reference_misses": ref > bound, "held_bound": held,
-                     "ok": got <= held}
+                     "ok": got <= bound}
     return out
+
+
+def median_heads(reports: list, split: str) -> dict:
+    """Each head's median over ``reports`` (one ``run_accuracy`` report a
+    seed) on ``split``."""
+    return {head: statistics.median(float(r[split][head]) for r in reports)
+            for head in ACCURACY_HEADS}
 
 
 def phase_accuracy(torch, name_limit: str) -> dict:
     """The JAX package's accuracy gate run by the port: the gate's plan
     built by the port's factory (spawned workers), a second build reusing
-    every shard, ``run_accuracy`` on the card at the default protocol, and
-    every head of the test and unseen splits within the checked-in
-    baseline's bound."""
+    every shard, ``run_accuracy`` on the card at the default protocol for
+    each seed of ``ACCURACY_SEEDS``, and each head's median over the seeds
+    on the test and unseen splits within the checked-in baseline's
+    bound."""
+    import dataclasses
     import os
     import tempfile
     from repro_torch.dataset import factory
@@ -5199,6 +5188,7 @@ def phase_accuracy(torch, name_limit: str) -> dict:
     workers = min(ACCURACY_MAX_WORKERS, os.cpu_count() or 1)
     baseline = json.loads((ROOT / ACCURACY_BASELINE).read_text())
     kernels = all_wrappers()
+    reports, train_s = [], []
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = str(Path(tmp) / "ds")
         res, build_s = timed(factory.build, out_dir, cfg, workers=workers)
@@ -5213,36 +5203,41 @@ def phase_accuracy(torch, name_limit: str) -> dict:
                                  f"{ACCURACY_MIN_COVERAGE}; skips "
                                  f"{res.skips_by_family}")
         zero_counts(kernels)
-        report, train_s = timed(run_accuracy, out_dir, AccuracyProtocol())
+        for seed in ACCURACY_SEEDS:
+            proto = dataclasses.replace(AccuracyProtocol(), seed=seed)
+            report, secs = timed(run_accuracy, out_dir, proto)
+            reports.append(report)
+            train_s.append(secs)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, (fn, _) in kernels.items()}
-        # the protocol again: the card's training is deterministic, so the
-        # gate reads the same report every run
-        again = run_accuracy(out_dir, AccuracyProtocol())
-    if not same_params(again.pop("params"), report["params"]) or \
+        # the first seed again: the card's training is deterministic, so
+        # the gate reads the same reports every run
+        again = run_accuracy(out_dir, dataclasses.replace(
+            AccuracyProtocol(), seed=ACCURACY_SEEDS[0]))
+    first = reports[0]
+    if not same_params(again.pop("params"), first["params"]) or \
             json.dumps(again, sort_keys=True) != json.dumps(
-                {k: v for k, v in report.items() if k != "params"},
+                {k: v for k, v in first.items() if k != "params"},
                 sort_keys=True):
         raise AssertionError("accuracy: a second run of the protocol gave "
                              "another report")
     if launches["dense_aggregate"] <= 0:
         raise AssertionError(f"accuracy: the dense GraphSAGE trainer "
                              f"launched no B7 ({launches})")
+    for report in reports:
+        unseen = report["per_family"].get("unseen", {})
+        if not unseen or any(h not in m for m in unseen.values()
+                             for h in ("mape_latency", "mape_energy",
+                                       "mape_memory")):
+            raise AssertionError(f"accuracy: per-family holdout MAPE "
+                                 f"missing: {unseen}")
+        report.pop("params")
     tol = baseline["tolerance"]
-    gates = {split: gate_mape(report[split], baseline[split], tol,
-                              ACCURACY_REF_CPU[split])
+    gates = {split: gate_mape(median_heads(reports, split), baseline[split],
+                              tol)
              for split in ("test", "unseen")}
-    unseen = report["per_family"].get("unseen", {})
-    if not unseen or any(h not in m for m in unseen.values()
-                         for h in ("mape_latency", "mape_energy",
-                                   "mape_memory")):
-        raise AssertionError(f"accuracy: per-family holdout MAPE missing: "
-                             f"{unseen}")
     failed = [f"{split}.{head}" for split, checks in gates.items()
               for head, c in checks.items() if not c["ok"]]
-    baseline_misses = [f"{split}.{head}" for split, checks in gates.items()
-                       for head, c in checks.items() if not c["ok_baseline"]]
-    report.pop("params")
     out = {"phase": "accuracy", "card": name_limit, "plan_hash": ph,
            "workers": workers,
            "dataset": {"n_planned": res.n_planned, "n_built": res.n_built,
@@ -5251,25 +5246,27 @@ def phase_accuracy(torch, name_limit: str) -> dict:
                        "skips_by_family": res.skips_by_family,
                        "shards_reused_on_resume": res2.shards_reused},
            "build_s": build_s, "rebuild_s": rebuild_s, "train_s": train_s,
-           "splits": report["splits"],
-           "epochs_trained": report["epochs_trained"],
-           "best_epoch": report["best_epoch"],
-           "best_val_mape": report["best_val_mape"],
-           "converged": report["converged"],
-           "history_val_mape": report["history_val_mape"],
+           "seeds": [{"seed": seed, "splits": r["splits"],
+                      "epochs_trained": r["epochs_trained"],
+                      "best_epoch": r["best_epoch"],
+                      "best_val_mape": r["best_val_mape"],
+                      "converged": r["converged"],
+                      "history_val_mape": r["history_val_mape"],
+                      "val": r.get("val"), "test": r["test"],
+                      "unseen": r["unseen"],
+                      "unseen_per_family": r["per_family"]["unseen"]}
+                     for seed, r in zip(ACCURACY_SEEDS, reports)],
            "gates": gates, "gates_failed": failed,
-           "baseline_misses": baseline_misses,
-           "reference_misses": [f"{split}.{head}" for split, checks in
-                                gates.items() for head, c in checks.items()
-                                if c["reference_misses"]],
-           "val": report.get("val"),
-           "unseen_per_family": unseen,
            "launches": launches, "second_run_same_bits": True,
            "seconds": time.perf_counter() - t0}
     emit(out)
     if failed:
-        raise AssertionError(f"accuracy: MAPE above the held bound: "
-                             f"{failed}")
+        raise AssertionError(
+            f"accuracy: median MAPE over seeds {list(ACCURACY_SEEDS)} above "
+            f"the baseline's bound: " + ", ".join(
+                f"{split}.{head} {gates[split][head]['measured']:.4f} > "
+                f"{gates[split][head]['bound']:.4f}"
+                for split, head in (f.split(".") for f in failed)))
     return out
 
 
@@ -5665,7 +5662,6 @@ def main() -> int:
     phase_train_dp(torch, name_limit)
     phase_zoo(torch, name_limit)
     fac = phase_factory(torch, name_limit)
-    phase_accuracy(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
     lm_train, bwd_entry = phase_lm_train(torch, dev, name_limit)
     entries.append(bwd_entry)
@@ -5711,6 +5707,7 @@ def main() -> int:
         per_launch(e)
     emit({"kernels": entries})
     print(smi(), flush=True)
+    phase_accuracy(torch, name_limit)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -65,6 +65,16 @@ def _jax_init(cfg: PMGNSConfig, seed: int):
         np.asarray, jinit(key, JCfg(**dataclasses.asdict(cfg))))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: hidden 32 on a few dozen graphs, and test workers
+    that share the host's cores otherwise oversubscribe it many times."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def runs():
     jax = pytest.importorskip("jax")
@@ -220,7 +230,7 @@ def _chip_smoke():
 def test_chip_smoke_accuracy_plan_is_the_gate_plan():
     """``chip_smoke.py``'s accuracy phase builds the JAX gate's CI plan
     (``benchmarks/accuracy_mape.py``): the same config, the same hash in
-    both packages, and its baseline file's heads."""
+    both packages, and the gate's bounds and verdicts per head."""
     import json
     from benchmarks import accuracy_mape
     from repro.dataset import factory as jf
@@ -236,26 +246,150 @@ def test_chip_smoke_accuracy_plan_is_the_gate_plan():
     baseline = json.loads((cs.ROOT / cs.ACCURACY_BASELINE).read_text())
     tol = baseline["tolerance"]
     for split in ("test", "unseen"):
-        gates = cs.gate_mape(baseline[split], baseline[split], tol,
-                             baseline[split])
-        assert set(gates) == set(cs.ACCURACY_HEADS)
-        assert all(c["ok"] and c["ok_baseline"] for c in gates.values())
+        for scale in (1.0, 1.9, 2.5):
+            got = {h: v * scale for h, v in baseline[split].items()}
+            gates = cs.gate_mape(got, baseline[split], tol)
+            ref = accuracy_mape._gate_mape(got, baseline[split], tol)
+            assert set(gates) == set(ref) == set(cs.ACCURACY_HEADS)
+            for head, c in gates.items():
+                assert c["ok"] == ref[head]["ok"], (split, scale, head)
+                assert round(c["bound"], 4) == ref[head]["bound"]
 
 
-def test_chip_smoke_accuracy_gate_holds_reference_misses_near_the_reference():
-    """The baseline's bound for every head the reference meets; a head the
-    reference misses is held to the same tolerance around its value."""
+def test_chip_smoke_accuracy_gate_reads_the_median_over_seeds():
+    """Each head's median over the seeds' reports, held to the baseline's
+    bound: one seed's miss does not decide, a miss in most of them does."""
     cs = _chip_smoke()
+    assert len(set(cs.ACCURACY_SEEDS)) == len(cs.ACCURACY_SEEDS) >= 5
+    assert cs.ACCURACY_SEEDS[0] == ta.AccuracyProtocol().seed
     tol = {"rel": 1.75, "abs": 0.25}
     base = dict.fromkeys(cs.ACCURACY_HEADS, 0.3)          # bound 0.55
-    ref = dict(base, mape_latency=0.6)                    # held 1.05
-    got = dict(base, mape_latency=0.9, mape_energy=0.56)
-    gates = cs.gate_mape(got, base, tol, ref)
-    assert gates["mape_latency"]["reference_misses"]
-    assert math.isclose(gates["mape_latency"]["held_bound"], 1.05)
-    assert gates["mape_latency"]["ok"] and \
-        not gates["mape_latency"]["ok_baseline"]
-    assert not gates["mape_energy"]["ok"]                 # 0.56 > 0.55
-    assert gates["mape_memory"]["ok"] and gates["mape"]["ok"]
-    for split in ("test", "unseen"):                     # every head given
-        assert set(cs.ACCURACY_REF_CPU[split]) == set(cs.ACCURACY_HEADS)
+    lat = [0.9, 0.5, 0.4, 0.52, 0.6]
+    reports = [{"unseen": dict(base, mape_latency=v)} for v in lat]
+    med = cs.median_heads(reports, "unseen")
+    assert med == dict(base, mape_latency=0.52)
+    assert all(c["ok"] for c in cs.gate_mape(med, base, tol).values())
+    reports[1]["unseen"]["mape_latency"] = 0.7            # 3 of 5 miss
+    med = cs.median_heads(reports, "unseen")
+    gates = cs.gate_mape(med, base, tol)
+    assert not gates["mape_latency"]["ok"] and \
+        math.isclose(gates["mape_latency"]["bound"], 0.55)
+    assert all(gates[h]["ok"] for h in cs.ACCURACY_HEADS
+               if h != "mape_latency")
+
+
+#: the protocol's 100x rate: one epoch on the first records of the train
+#: split, three steps on 8 and five on 12
+BOOST_AGREE, BOOST_PARTED = 8, 12
+
+
+@pytest.fixture(scope="module")
+def boosted(runs):
+    """One epoch of ``train_to_convergence`` at the protocol's own rate
+    (lr 2.754e-5 x lr_boost 100, grad clip 1.0, GraphSAGE-512, batch 32)
+    from the JAX initial tree at dropout 0: the JAX package on the first
+    ``BOOST_AGREE`` and ``BOOST_PARTED`` train records, the port on the
+    first ``BOOST_AGREE``."""
+    import jax
+    from repro.dataset.builder import records_to_samples as jsamples
+    from repro.dataset.builder import split_dataset as jsplit
+    ja = runs["ja"]
+
+    class JProto(ja.AccuracyProtocol):
+        def model_config(self):
+            return dataclasses.replace(super().model_config(), dropout=0.0)
+
+    kw = dict(max_epochs=1, chunk_epochs=1)
+    jproto, proto = JProto(**kw), _Proto(**kw)
+    jsp = jsplit(runs["ref_records"], seed=SEED)
+    tsp = tb.split_dataset(runs["records"], seed=SEED)
+    out = {"proto": proto, "jproto": jproto}
+    for n in (BOOST_AGREE, BOOST_PARTED):
+        samples = jsamples(jsp["train"][:n])
+        jp, jh, _ = ja.train_to_convergence(
+            jproto.model_config(), samples, jsamples(jsp["val"]), jproto)
+        out[n] = dict(samples=samples, hist=jh,
+                      params=jax.tree_util.tree_map(np.asarray, jp),
+                      port_samples=tb.records_to_samples(tsp["train"][:n]))
+    init = _jax_init(proto.model_config(), proto.seed)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gnn_trainer, "pmgns_init", lambda seed, cfg: init)
+        tp, th, _ = ta.train_to_convergence(
+            proto.model_config(),
+            tb.records_to_samples(tsp["train"][:BOOST_AGREE]),
+            tb.records_to_samples(tsp["val"]), proto, device="cpu")
+    out["port"] = dict(params=tp, hist=th)
+    return out
+
+
+def test_boosted_rate_first_steps_match_reference(boosted):
+    """At the protocol's rate, the first three steps: the train loss within
+    1e-4 relative and every parameter within 1e-4 + 1e-3 relative, the
+    trainer's bar (a hundred times the rate makes it a hundred times
+    harder to meet: a parameter moves up to 2.8e-3 a step)."""
+    proto = boosted["proto"]
+    assert proto.lr * proto.lr_boost == pytest.approx(2.754e-3)
+    assert (proto.hidden, proto.grad_clip, proto.batch_size) == \
+        (512, 1.0, 32)
+    ref, port = boosted[BOOST_AGREE], boosted["port"]
+    assert [h["steps"] for h in port["hist"]] == \
+        [h["steps"] for h in ref["hist"]] == [3]
+    _close(port["hist"][0]["train_loss"], ref["hist"][0]["train_loss"],
+           "train loss")
+    got, want = _leaves(port["params"]), _leaves(ref["params"])
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-3)
+
+
+def test_boosted_rate_gradients_match_where_trajectories_part(boosted):
+    """Five steps at the protocol's rate, two more than the test above
+    holds the parameters over: at the point the reference reaches, the
+    port's loss and gradient on every batch of the epoch are the
+    reference's within 1e-5 of each leaf's largest. Where the two
+    trajectories part further on, it is the steps amplifying float32
+    rounding, not another gradient."""
+    import jax
+    import jax.numpy as jnp
+    from repro.train.gnn_trainer import _loss_terms as jloss
+    from repro.train.gnn_trainer import _target_stats as jstats
+    from repro_torch.core.batching import stack_epoch_segments
+    from repro_torch.core.gnn import params_from_numpy
+    ref = boosted[BOOST_PARTED]
+    assert [h["steps"] for h in ref["hist"]] == [5]
+    cfg, jcfg = boosted["proto"].model_config(), \
+        boosted["jproto"].model_config()
+    mean, std = (np.asarray(a) for a in jstats(ref["samples"]))
+    tree = jax.tree_util.tree_map(np.array, ref["params"])
+    head = tree["fc"][f"b{cfg.n_fc_blocks - 1}"]     # unfold the stats
+    head["w"], head["b"] = head["w"] / std, (head["b"] - mean) / std
+    segs = stack_epoch_segments(ref["port_samples"], 32,
+                                rng=np.random.default_rng(0), layout="dense")
+    model = params_from_numpy(tree, cfg, "cpu", requires_grad=True)
+    leaves = gnn_trainer.tree_leaves(model.tree())
+
+    def jfn(p, batch):
+        wl, wn = jloss(p, jcfg, batch, None, 1.0, jnp.asarray(mean),
+                       jnp.asarray(std))
+        return wl / jnp.maximum(wn, 1.0)
+    jgrad = jax.jit(jax.value_and_grad(jfn))
+    jtree = jax.tree_util.tree_map(jnp.asarray, tree)
+    n_batches = 0
+    for seg in segs:
+        for i in range(seg["wt"].shape[0]):
+            batch = {k: v[i] for k, v in seg.items()}
+            jl, jg = jgrad(jtree, {k: jnp.asarray(v)
+                                   for k, v in batch.items()})
+            wl, wn = gnn_trainer._loss_terms(
+                model.tree(), cfg, {k: torch.as_tensor(v)
+                                    for k, v in batch.items()},
+                None, 1.0, torch.from_numpy(mean.copy()),
+                torch.from_numpy(std.copy()))
+            loss = wl / torch.clamp_min(wn, 1.0)
+            _close(float(loss.detach()), float(jl), "loss")
+            for g, w in zip(torch.autograd.grad(loss, leaves),
+                            _leaves(jax.tree_util.tree_map(np.asarray, jg))):
+                scale = max(float(np.abs(w).max()), 1e-30)
+                assert float(np.abs(g.numpy() - w).max()) <= 1e-5 * scale
+            n_batches += 1
+    assert n_batches == 5

@@ -50,6 +50,16 @@ FLASH_CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the smoke shapes are tiny, and test workers
+    that share the host's cores otherwise oversubscribe it many times."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     jax = pytest.importorskip("jax")

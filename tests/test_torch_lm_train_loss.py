@@ -17,7 +17,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from test_torch_lm_train import (ATTN_ARCHS, _batch,  # noqa: E402,F401
-                                 _close_scaled, jx)
+                                 _close_scaled, jx, one_thread)
 
 #: loss and gradients: float32 through two layers and a vocabulary head
 LOSS_RTOL = 1e-4

@@ -17,14 +17,18 @@ the sliding window (h2o-danube) and partial RoPE (chatglm3).
 Adam and Adafactor normalize a gradient's size away, so an element whose
 gradient is zero in exact arithmetic takes steps whose signs float32 noise
 decides: chatglm3 rotates half of each head, and a key bias in the
-unrotated half only shifts every score of a row, so its gradient is about
-1e-11 against the rotated half's 1e-4, of either sign in either package.
-As ROADMAP §C's bar for the trainer, an element whose first-step gradient
-(the port's, within 1e-4 of the reference's by
-``tests/test_torch_lm_train.py``) is below 1e-4 of its leaf's largest may
-leave the bar by at most 5e-4 more; under Adafactor, whose RMS clip
-scales a whole leaf by that noise, a leaf holding such an element is
-held to being finite.
+unrotated half only shifts every score of a row, so its gradient is 0 in
+the port and about ±1e-11 in the reference. As ROADMAP §C's bar for the
+trainer, an element whose first-step gradient (the port's, within 1e-4 of
+the reference's by ``tests/test_torch_lm_train_loss.py``) is below 1e-4 of
+its leaf's largest is *quiet*. Under Adam a quiet element may leave the
+bar by at most 5e-4 more. Adafactor's step for an element is its gradient
+over its factored row's and column's second moments: where a whole row or
+column of a leaf of rank ≥ 2 is quiet (a rank-1 leaf: an element), that
+factor is noise, and so are the steps, which are held to being finite;
+every other element of the leaf, live rows and columns, is held to the
+bar. Which leaves need the rule is asserted: none for qwen2.5-3b and
+yi-34b, chatglm3's key bias under Adafactor only.
 """
 import numpy as np
 import pytest
@@ -36,6 +40,7 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim import adafactor, adamw, constant  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
+from test_torch_lm_train import one_thread  # noqa: E402,F401
 
 #: three optimizer steps: the trainer's bar (tests/test_trainer.py)
 STEP_ATOL, STEP_RTOL = 1e-4, 1e-3
@@ -102,6 +107,11 @@ def _optimizers(jx, name):
     return adafactor(LR), jo.adafactor(LR)
 
 
+#: (arch, optimizer) → the leaves in which an element outside the bar is
+#: admitted by the noise rule; every other run needs it nowhere
+NOISE_LEAVES = {("chatglm3-6b", "adafactor"): {"blocks/attn/bk"}}
+
+
 @pytest.mark.parametrize("opt", OPTIMIZERS)
 @pytest.mark.parametrize("arch,microbatches", RUNS[:2])
 def test_three_train_steps_match_jax(jx, arch, microbatches, opt):
@@ -109,7 +119,8 @@ def test_three_train_steps_match_jax(jx, arch, microbatches, opt):
 
 
 def three_steps(jx, arch, microbatches, opt):
-    """Three steps of each package from the JAX tree; the bar above."""
+    """Three steps of each package from the JAX tree; the bar above, and
+    the leaves that needed the noise rule are ``NOISE_LEAVES``'."""
     jax, jnp = jx["jax"], jx["jnp"]
     jtree, np_tree = _jax_tree(jx, arch)
     cfg = get_smoke_config(arch)
@@ -134,22 +145,38 @@ def three_steps(jx, arch, microbatches, opt):
                                        atol=STEP_ATOL, rtol=STEP_RTOL,
                                        err_msg=f"step {i} {key}")
     assert step_i == int(jstep_i) == 3
-    noise = _noise_elements(cfg, np_tree)
-    for i, (g, w, quiet) in enumerate(zip(_leaves_np(params), _leaves_np(jp),
-                                          noise)):
-        assert np.isfinite(g).all()
-        if opt == "adafactor" and quiet.any():
-            continue
-        bar = STEP_ATOL + STEP_RTOL * np.abs(w) + NOISE_ATOL * quiet
-        assert (np.abs(g - w) <= bar).all(), \
-            f"param leaf {i}: max excess {float((np.abs(g - w) - bar).max())}"
+    admitted = {}
+    for path, g, w, noise in zip(_paths(np_tree), _leaves_np(params),
+                                 _leaves_np(jp),
+                                 _noise_elements(cfg, np_tree, opt)):
+        assert np.isfinite(g).all(), path
+        bar = STEP_ATOL + STEP_RTOL * np.abs(w)
+        if opt != "adafactor":
+            bar = bar + NOISE_ATOL * noise
+        out = np.abs(g - w) > bar
+        assert not (out & ~noise).any(), \
+            f"{path}: max excess {float((np.abs(g - w) - bar)[~noise].max())}"
+        if out.any():
+            admitted[path] = int(out.sum())
+    assert set(admitted) == NOISE_LEAVES.get((arch, opt), set()), admitted
     assert all(a.dtype == b.dtype for a, b in
                zip(tree_leaves(state), tree_leaves(port_opt.init(params))))
 
 
-def _noise_elements(cfg, np_tree):
-    """Per leaf, the elements whose first-step gradient (on the first
-    step's batch) is below NOISE_FLOOR of the leaf's largest."""
+def _paths(tree, prefix=""):
+    """The leaves' paths, in ``_leaves_np``'s order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _noise_elements(cfg, np_tree, opt):
+    """Per leaf, the elements whose steps float noise decides: under Adam
+    those whose first-step gradient (on the first step's batch) is below
+    NOISE_FLOOR of the leaf's largest (quiet); under Adafactor, in a leaf
+    of rank ≥ 2, every element of a row or column (the last two axes)
+    that is quiet throughout, in a rank-1 leaf the quiet elements."""
     params = lm.params_from_numpy(np_tree, cfg, device="cpu")
     leaves = tree_leaves(params)
     for p in leaves:
@@ -159,5 +186,10 @@ def _noise_elements(cfg, np_tree):
     out = []
     for g in torch.autograd.grad(loss, leaves):
         a = g.abs().numpy()
-        out.append(a < NOISE_FLOOR * max(float(a.max()), 1e-30))
+        quiet = a < NOISE_FLOOR * max(float(a.max()), 1e-30)
+        if opt == "adafactor" and quiet.ndim >= 2:
+            quiet = np.broadcast_to(quiet.all(axis=-1, keepdims=True)
+                                    | quiet.all(axis=-2, keepdims=True),
+                                    quiet.shape)
+        out.append(quiet)
     return out

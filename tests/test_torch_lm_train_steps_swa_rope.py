@@ -1,13 +1,15 @@
 """Three LM train steps of the PyTorch port against the JAX package's, on
 the CPU, for the archs with a sliding window (h2o-danube-3-4b) and partial
 RoPE (chatglm3-6b): ``tests/test_torch_lm_train_steps.py``'s runs and bar
-(and its rule for gradients that are float noise).
+(and its rule for gradients that are float noise, with the leaves that
+need it asserted) and its one intra-op thread.
 """
 import pytest
 
 pytest.importorskip("torch")
 
-from test_torch_lm_train_steps import OPTIMIZERS, RUNS, jx, three_steps  # noqa: E402,F401
+from test_torch_lm_train_steps import (OPTIMIZERS, RUNS, jx,  # noqa: E402,F401
+                                       one_thread, three_steps)
 
 
 @pytest.mark.parametrize("opt", OPTIMIZERS)
