@@ -257,8 +257,9 @@ def test_chip_smoke_accuracy_plan_is_the_gate_plan():
 
 
 def test_chip_smoke_accuracy_gate_reads_the_median_over_seeds():
-    """Each head's median over the seeds' reports, held to the baseline's
-    bound: one seed's miss does not decide, a miss in most of them does."""
+    """Each head's median over the seeds' reports, held to the bound
+    around a base: one seed's miss does not decide, a miss in most of them
+    does."""
     cs = _chip_smoke()
     assert len(set(cs.ACCURACY_SEEDS)) == len(cs.ACCURACY_SEEDS) >= 5
     assert cs.ACCURACY_SEEDS[0] == ta.AccuracyProtocol().seed
@@ -276,6 +277,38 @@ def test_chip_smoke_accuracy_gate_reads_the_median_over_seeds():
         math.isclose(gates["mape_latency"]["bound"], 0.55)
     assert all(gates[h]["ok"] for h in cs.ACCURACY_HEADS
                if h != "mape_latency")
+
+
+def test_chip_smoke_accuracy_reference_is_the_jax_package_run(tmp_path):
+    """The gate's base, ``chip_smoke.ACCURACY_REFERENCE``, is the JAX
+    package's default protocol at every seed of ``ACCURACY_SEEDS`` on the
+    gate's plan (all 341 records), its medians its reports' medians, and
+    ``accuracy_reference`` refuses a file that is not."""
+    import json
+    ja = pytest.importorskip("repro.train.accuracy")
+    cs = _chip_smoke()
+    proto = ja.AccuracyProtocol().to_json()
+    assert json.loads(json.dumps(proto)) == json.loads(json.dumps(
+        ta.AccuracyProtocol().to_json()))
+    ref = cs.accuracy_reference(proto)
+    assert ref["platform"] == "cpu" and ref["n_built"] == 341
+    assert [r["seed"] for r in ref["reports"]] == list(cs.ACCURACY_SEEDS)
+    for r in ref["reports"]:
+        assert sum(r["splits"].values()) == ref["n_built"]
+        assert r["splits"]["unseen"] == r["unseen"]["n"] > 0
+        for split in ("test", "unseen"):
+            assert set(cs.ACCURACY_HEADS) <= set(r[split])
+    for key, bad in (("seeds", [0, 1, 2]),
+                     ("protocol", dict(proto, lr_boost=1.0)),
+                     ("median", {"test": ref["median"]["test"],
+                                 "unseen": dict(ref["median"]["unseen"],
+                                                mape_latency=0.01)})):
+        path = tmp_path / f"{key}.json"
+        path.write_text(json.dumps(dict(ref, **{key: bad})))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cs, "ACCURACY_REFERENCE", str(path))
+            with pytest.raises(AssertionError, match="accuracy"):
+                cs.accuracy_reference(proto)
 
 
 #: the protocol's 100x rate: one epoch on the first records of the train
