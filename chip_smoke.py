@@ -427,6 +427,22 @@ LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = (
 LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ = 2, 2, 128
 LM_TRAIN_PARITY_STEPS, LM_TRAIN_PARITY_LR = 3, 1e-4
 BWD_F32_TOL, BWD_BF16_TOL, LM_TRAIN_LOSS_RTOL = 1e-5, 2e-2, 1e-4
+#: lm_train's SSD archs: the full run (mamba2-370m, the accuracy plan's
+#: other LM tracing: batch × sequence, LM_TRAIN_STEPS measured steps after
+#: one warm-up), the parity runs against the CPU ((arch, depth): zamba2 at
+#: 6, one shared-block application; batch × sequence: three chunks of 128,
+#: the last one padded), the backward kernel's timed shapes (each arch's
+#: heads and widths at batch × sequence, the model's chunk) and its bars
+#: against the plain twin, of each gradient's largest magnitude (float32:
+#: sums in another order; bf16: dx, dB and dC round to 8 bits at the end)
+LM_SSD_TRAIN_ARCH, LM_SSD_TRAIN_BATCH, LM_SSD_TRAIN_SEQ = (
+    "mamba2-370m", 8, 2048)
+LM_SSD_PARITY = (("mamba2-370m", 2), ("zamba2-2.7b", 6))
+LM_SSD_PARITY_BATCH, LM_SSD_PARITY_SEQ = 2, 320
+SSD_BWD_ARCHS, SSD_BWD_BATCH, SSD_BWD_SEQ = (
+    ("mamba2-370m", "zamba2-2.7b"), 8, 2048)
+SSD_BWD_F32_TOL, SSD_BWD_BF16_TOL = 1e-4, 1e-2
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "ds0")
 #: (B, Sq, Skv, H, Hkv, D, causal, window, q_offset, kv_offset)
 BWD_CASES = [
     (4, 1024, 1024, 16, 2, 128, True, 0, 0, 0),      # qwen2.5-3b
@@ -4578,6 +4594,59 @@ def sweep_ssd(torch, dev) -> dict:
     return worst
 
 
+def check_ssd_grads(what: str, got, want, tol: float) -> tuple:
+    """The backward kernel's gradients against the twin's, each within
+    ``tol`` of its largest magnitude (and in the twin's dtype): (max
+    |diff| by gradient, the same over its scale)."""
+    errs, rels = {}, {}
+    for gname, u, v in zip(SSD_GRADS, got, want):
+        if (u is None) != (v is None):
+            raise AssertionError(f"{what} {gname}: given by one side only")
+        if u is None:
+            continue
+        if u.dtype != v.dtype:
+            raise AssertionError(f"{what} {gname}: {u.dtype} != the twin's "
+                                 f"{v.dtype}")
+        scale = max(float(v.float().abs().max()), 1e-30)
+        errs[gname] = check_close(f"{what} {gname}", u.float(), v.float(),
+                                  tol * scale, tol)
+        rels[gname] = errs[gname] / scale
+    return errs, rels
+
+
+def sweep_ssd_bwd(torch, dev) -> dict:
+    """ssd_scan_bwd_cuda against its plain twin on SSD_SWEEP (its ragged
+    chunks, S < 64, G = 2, N and P that are not multiples of 8, dt = 0
+    inside S across a chunk edge, the state at 100x), x / B / C in
+    float32 and bfloat16, from a zero state without a last-state gradient
+    and from a given state with one: each gradient within its bar of its
+    scale; the worst share of the scale by dtype and sweep kind."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    worst = {}
+    for i, (bt, s, h, p, n, g, chunk, kind) in enumerate(SSD_SWEEP):
+        for name, tol in (("float32", SSD_BWD_F32_TOL),
+                          ("bfloat16", SSD_BWD_BF16_TOL)):
+            x, dt, a, b, c, s0 = ssd_inputs(torch, dev, bt, s, h, p, n, g,
+                                            getattr(torch, name), 8000 + i,
+                                            kind)
+            rng = np.random.default_rng(8100 + i)
+            dy, dl = (torch.as_tensor(rng.standard_normal(shape)
+                                      .astype(np.float32), device=dev)
+                      for shape in ((bt, s, h, p), (bt, h, n, p)))
+            for init, last in ((None, None), (s0, dl)):
+                kw = dict(chunk=chunk, s0=init, d_last=last)
+                got = ssd_scan_bwd_cuda(x, dt, a, b, c, dy, **kw)
+                want = ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, **kw)
+                torch.cuda.synchronize()
+                _, rels = check_ssd_grads(
+                    f"ssd_scan_bwd {name} case {SSD_SWEEP[i]} "
+                    f"s0={init is not None}", got, want, tol)
+                key = f"{name} {kind or 'plain'}"
+                worst[key] = max(worst.get(key, 0.0), *rels.values())
+    return worst
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """Registers, spills and static shared memory per kernel from a
     ``-Xptxas -v`` build log, keyed by the kernel's demangled name
@@ -5311,12 +5380,12 @@ def phase_accuracy(torch, name_limit: str) -> dict:
 # lm_train: the flash backward, then LM training on the card
 # ---------------------------------------------------------------------------
 
-def lm_train_config(**overrides):
-    """``LM_TRAIN_ARCH``'s config (its smoke config under
-    ``LM_SMOKE_WIDTH``) with ``overrides``."""
+def lm_train_config(arch: str = LM_TRAIN_ARCH, **overrides):
+    """``arch``'s config (its smoke config under ``LM_SMOKE_WIDTH``) with
+    ``overrides``."""
     import dataclasses
     from repro_torch.configs import get_config, get_smoke_config
-    cfg = (get_smoke_config if LM_SMOKE_WIDTH else get_config)(LM_TRAIN_ARCH)
+    cfg = (get_smoke_config if LM_SMOKE_WIDTH else get_config)(arch)
     return dataclasses.replace(cfg, **overrides)
 
 
@@ -5457,12 +5526,33 @@ def flash_bwd_entry(torch, dev) -> dict:
 
 
 def lm_train_launch_rule(cfg, steps: int, remat: bool) -> dict:
-    """The flash launches of ``steps`` training steps: the forward once
-    per attention layer, again in the backward under ``remat`` (each
-    layer recomputed), and the backward kernel once per layer."""
-    n = cfg.n_layers
-    return {"flash_attention": steps * n * (2 if remat else 1),
-            "flash_attention_bwd": steps * n}
+    """The flash and SSD launches of ``steps`` training steps: each
+    forward kernel once per layer that runs it (attention: every layer of
+    a dense decoder, the shared block once per group of a hybrid; the
+    scan: every Mamba2 layer), again in the backward under ``remat`` (each
+    layer recomputed), and each backward kernel once per such layer."""
+    n_attn = n_ssd = 0
+    if cfg.block == "attn":
+        n_attn = cfg.n_layers
+    elif cfg.block == "mamba2":
+        n_ssd = cfg.n_layers
+    else:
+        n_attn = cfg.n_layers // cfg.hybrid_attn_every
+        n_ssd = n_attn * cfg.hybrid_attn_every
+    k = 2 if remat else 1
+    return {"flash_attention": steps * n_attn * k,
+            "flash_attention_bwd": steps * n_attn,
+            "ssd_scan": steps * n_ssd * k, "ssd_scan_bwd": steps * n_ssd}
+
+
+def lm_train_wrappers() -> dict:
+    """The wrappers ``lm_train_launch_rule`` counts, by name."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+    return {"flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
+            "ssd_scan": ssd_scan_cuda, "ssd_scan_bwd": ssd_scan_bwd_cuda}
 
 
 def lm_train_batch(torch, cfg, b: int, s: int, dev, seed: int) -> dict:
@@ -5472,28 +5562,28 @@ def lm_train_batch(torch, cfg, b: int, s: int, dev, seed: int) -> dict:
             for k in ("tokens", "labels")}
 
 
-def lm_train_parity(torch, dev) -> dict:
-    """qwen2.5-3b at full width, depth cut, float32: three train steps on
-    the card against the same steps on the CPU's plain versions; losses
-    within LM_TRAIN_LOSS_RTOL, parameters on ROADMAP §C's bar (an element
-    whose first-step CPU gradient is below TRAIN_NOISE_FLOOR of its
-    leaf's largest may leave it by TRAIN_NOISE_ATOL)."""
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_cuda)
+def lm_train_parity(torch, dev, arch: str = LM_TRAIN_ARCH,
+                    layers: int = LM_TRAIN_PARITY_LAYERS,
+                    batch: int = LM_TRAIN_PARITY_BATCH,
+                    seq: int = LM_TRAIN_PARITY_SEQ) -> dict:
+    """``arch`` at full width, depth cut to ``layers``, float32: three
+    train steps on the card against the same steps on the CPU's plain
+    versions; losses within LM_TRAIN_LOSS_RTOL, parameters on ROADMAP §C's
+    bar (an element whose first-step CPU gradient is below
+    TRAIN_NOISE_FLOOR of its leaf's largest may leave it by
+    TRAIN_NOISE_ATOL), the card's launches on ``lm_train_launch_rule``."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import adamw, constant
     from repro_torch.optim.optimizers import tree_leaves
     t0 = time.perf_counter()
-    cfg = lm_train_config(n_layers=LM_TRAIN_PARITY_LAYERS,
-                          param_dtype="float32")
+    cfg = lm_train_config(arch, n_layers=layers, param_dtype="float32")
     opt = adamw(constant(LM_TRAIN_PARITY_LR), b1=0.9, b2=0.95,
                 weight_decay=0.1, state_dtype=torch.float32,
                 grad_clip_norm=1.0)
     step_fn = make_train_step(cfg, opt)
     cpu = lm.init_params(cfg, seed=LM_SEED, device="cpu")
-    batches = [lm_train_batch(torch, cfg, LM_TRAIN_PARITY_BATCH,
-                              LM_TRAIN_PARITY_SEQ, "cpu", LM_SEED + 10 + i)
+    batches = [lm_train_batch(torch, cfg, batch, seq, "cpu", LM_SEED + 10 + i)
                for i in range(LM_TRAIN_PARITY_STEPS)]
     # the first step's CPU gradient: which elements are float noise
     leaves = tree_leaves(cpu)
@@ -5506,32 +5596,32 @@ def lm_train_parity(torch, dev) -> dict:
              for gr in grads0]
     del grads0
     runs = {}
+    wrappers = lm_train_wrappers()
     for where in ("card", "cpu"):
         params = tree_to(cpu, dev) if where == "card" else cpu
         pd = params["embed"].device
         state, step, losses = opt.init(params), 0, []
-        wrappers = (flash_attention_cuda, flash_attention_bwd_cuda)
-        before = [w.launches for w in wrappers]
-        for batch in batches:
+        before = {k: w.launches for k, w in wrappers.items()}
+        for b in batches:
             params, state, step, m = step_fn(
-                params, state, step, {k: v.to(pd) for k, v in batch.items()})
+                params, state, step, {k: v.to(pd) for k, v in b.items()})
             losses.append(float(m["loss"]))
         if where == "card":
             torch.cuda.synchronize()
-            launches = dict(zip(("flash_attention", "flash_attention_bwd"),
-                                (w.launches - n for w, n in
-                                 zip(wrappers, before))))
+            launches = {k: w.launches - before[k]
+                        for k, w in wrappers.items()}
             want = lm_train_launch_rule(cfg, LM_TRAIN_PARITY_STEPS, True)
             if launches != want:
-                raise AssertionError(f"lm_train parity: launches {launches} "
-                                     f"!= the rule's {want}")
+                raise AssertionError(f"lm_train parity {arch}: launches "
+                                     f"{launches} != the rule's {want}")
         runs[where] = (losses, [t.detach().cpu().numpy()
                                 for t in tree_leaves(params)])
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][0],
                                                          runs["cpu"][0]))
     if loss_rel > LM_TRAIN_LOSS_RTOL:
-        raise AssertionError(f"lm_train parity: losses {runs['card'][0]} vs "
-                             f"the CPU's {runs['cpu'][0]}")
+        raise AssertionError(f"lm_train parity {arch}: losses "
+                             f"{runs['card'][0]} vs the CPU's "
+                             f"{runs['cpu'][0]}")
     outside, worst_noise, worst = 0, 0.0, 0.0
     for a, w, q in zip(runs["card"][1], runs["cpu"][1], quiet):
         excess = np.abs(a - w) - (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL
@@ -5539,14 +5629,15 @@ def lm_train_parity(torch, dev) -> dict:
         worst = max(worst, float(np.abs(a - w).max()))
         out_el = excess > 0
         if (out_el & ~q).any() or (excess > TRAIN_NOISE_ATOL).any():
-            raise AssertionError(f"lm_train parity: parameters outside the "
-                                 f"bar (max excess {excess.max():.3e})")
+            raise AssertionError(f"lm_train parity {arch}: parameters "
+                                 f"outside the bar (max excess "
+                                 f"{excess.max():.3e})")
         outside += int(out_el.sum())
         if out_el.any():
             worst_noise = max(worst_noise, float(excess[out_el].max()))
     return {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
                        "d_model": cfg.d_model, "dtype": cfg.param_dtype},
-            "batch": [LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ],
+            "batch": [batch, seq],
             "steps": LM_TRAIN_PARITY_STEPS, "lr": LM_TRAIN_PARITY_LR,
             "losses": runs["card"][0], "cpu_losses": runs["cpu"][0],
             "loss_max_rel_err": loss_rel, "param_max_abs_err": worst,
@@ -5555,56 +5646,154 @@ def lm_train_parity(torch, dev) -> dict:
             "launches": launches, "seconds": time.perf_counter() - t0}
 
 
-def phase_lm_train(torch, dev, name_limit: str) -> tuple:
-    """The flash backward against its plain version, the parity run, then
-    the full model trained on the card with its launches on
-    ``lm_train_launch_rule``. Returns (phase line, the backward's kernels
-    entry)."""
+def ssd_bwd_work(b: int, s: int, h: int, g: int, p: int, n: int,
+                 esize: int, lc: int) -> tuple:
+    """The backward kernel's operations and bytes for one call: per (b,
+    chunk of ``lc`` rows, h) ``2 T (3N + 2P)`` flops over the ``T = Lc
+    (Lc + 1) / 2`` pairs i ≥ j that the causal mask keeps (C Bᵀ, dy xᵀ
+    and the three intra-chunk products; the forward's count in
+    ``lm_kernel_entries``) and ``12 Lc N P`` (six state products), the
+    same for every input; the bytes of x, B, C (``esize`` each), dt, A, s0, dy and
+    d_last read once and of dx, dB, dC, ddt, dA and ds0 written once."""
+    tri = lc * (lc + 1) // 2
+    flops = b * (-(-s // lc)) * h * (2 * tri * (3 * n + 2 * p)
+                                     + 12 * lc * n * p)
+    nbytes = (esize * (2 * b * s * h * p + 4 * b * s * g * n)
+              + 4 * (b * s * h * p + 2 * b * s * h + 3 * b * h * n * p
+                     + 2 * h))
+    return flops, nbytes
+
+
+def ssd_bwd_entry(torch, dev) -> dict:
+    """ssd_scan_bwd at each SSD arch's training shape (x [SSD_BWD_BATCH,
+    SSD_BWD_SEQ, H, P], B/C [.., G, N], the model's chunk, from a given
+    state and with a gradient on the last state) in float32 and bf16:
+    each gradient against the plain twin on the card within its bar of
+    its scale, twice with the same bits, the device time of one call (a
+    CUDA graph of 20 calls, median of 50) beside its bound and the twin's
+    time; the SASS free of float atomics. The bound is the larger of the
+    bytes at ``PEAK_BYTES`` and the operations at the card's rate for the
+    type, as the forward's and the flash backward's: bf16 at the bf16
+    tensor-core peak, float32 as three TF32 products (the split that
+    keeps float32's precision on the tensor cores, as ``fused_mp_layer``
+    is bounded). The entry's own numbers are mamba2-370m's in bf16, the
+    full training run's; ``sweep`` is :func:`sweep_ssd_bwd`'s."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_spmm import _entry
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    shapes = []
+    for arch in SSD_BWD_ARCHS:
+        cfg = lm_train_config(arch)
+        sc = cfg.ssm
+        h, p, n, g = (sc.n_heads(cfg.d_model), sc.head_dim, sc.d_state,
+                      sc.n_groups)
+        b, s = SSD_BWD_BATCH, SSD_BWD_SEQ
+        for name, tol in (("float32", SSD_BWD_F32_TOL),
+                          ("bfloat16", SSD_BWD_BF16_TOL)):
+            seed = 7000 + len(shapes)
+            x, dt, a, bm, cm, s0 = ssd_inputs(torch, dev, b, s, h, p, n, g,
+                                              getattr(torch, name), seed)
+            rng = np.random.default_rng(seed + 100)
+            dy = torch.as_tensor(rng.standard_normal((b, s, h, p))
+                                 .astype(np.float32), device=dev)
+            dl = torch.as_tensor(rng.standard_normal((b, h, n, p))
+                                 .astype(np.float32), device=dev)
+            args = (x, dt, a, bm, cm, dy)
+            kw = dict(chunk=sc.chunk, s0=s0, d_last=dl)
+            kern = lambda: ssd_scan_bwd_cuda(*args, **kw)  # noqa: E731
+            plain = lambda: ref.ssd_scan_bwd_ref(*args, **kw)  # noqa: E731
+            got, again = kern(), kern()
+            want = plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"ssd_scan_bwd {arch} {name}: two runs "
+                                     f"differ")
+            errs, rels = check_ssd_grads(f"ssd_scan_bwd {arch} {name}",
+                                         got, want, tol)
+            del got, again, want
+            ms = time_graph_ms(torch, kern)
+            plain_ms = time_eager_ms(torch, plain, calls=1, reps=3)
+            us = device_breakdown_us(torch, {"bwd": kern}, reps=5)["bwd"]
+            flops, nbytes = ssd_bwd_work(b, s, h, g, p, n, x.element_size(),
+                                         _entry("ssd_scan_bwd_chunk")())
+            bound = bound_ms(flops, nbytes, PEAK_BF16_FLOPS) if (
+                name == "bfloat16") else bound_ms(3.0 * flops, nbytes,
+                                                  PEAK_TF32_FLOPS)
+            shapes.append({"arch": arch, "dtype": name,
+                           "unit": f"x [{b}, {s}, {h}, {p}], B/C [{b}, {s}, "
+                                   f"{g}, {n}], chunk {sc.chunk}",
+                           "rel_err": rels, "max_abs_err": max(errs.values()),
+                           "bar": tol, "same_bits": True, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound[0],
+                           "bound_by": bound[1], "gflop": flops / 1e9,
+                           "mbytes": nbytes / 1e6,
+                           "device_us_by_kernel": us})
+            del x, dt, a, bm, cm, s0, dy, dl, args, kw
+            torch.cuda.empty_cache()
+    main = next(e for e in shapes if e["arch"] == LM_SSD_TRAIN_ARCH
+                and e["dtype"] == "bfloat16")
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/models/layers.py:739",
+            "replaces_note": "no Pallas kernel: jax.grad of the plain-jnp "
+                             "_ssd_chunked, which XLA compiles",
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "library_note": "none: no single PyTorch call computes the "
+                            "chunked SSD scan's gradient",
+            "bound_note": "bound_ms: the larger of the bytes at 3.35 TB/s "
+                          "and the kept (i >= j) intra-chunk and the state "
+                          "products at the bf16 tensor-core peak",
+            "unit": f"{main['arch']} bf16: {main['unit']}",
+            "launches_per_unit": 1, "shapes": shapes,
+            "sweep": sweep_ssd_bwd(torch, dev),
+            "build": segment_build_facts("ssd_scan_bwd")}
+
+
+def lm_train_full(torch, dev, cfg, batch: int, seq: int, seed: int,
+                  bwd_kernels: tuple) -> dict:
+    """``cfg`` trained on the card from seeded random weights:
+    ``default_optimizer()``, remat, one warm-up step and LM_TRAIN_STEPS
+    measured ones (ms a step, tokens/s, peak memory, finite losses and
+    parameters, launches on ``lm_train_launch_rule``), then one more step
+    under the profiler (the device's busy share and ms by kernel;
+    ``bwd_kernels``: the backward kernel's launches by name)."""
     from repro_torch import nn as tnn
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_cuda)
     from repro_torch.launch.steps import default_optimizer, make_train_step
     from repro_torch.models import lm
     from repro_torch.optim.optimizers import tree_leaves
-    t0 = time.perf_counter()
-    entry = flash_bwd_entry(torch, dev)
-    torch.cuda.empty_cache()
-    parity = lm_train_parity(torch, dev)
-    torch.cuda.empty_cache()
-
-    cfg = lm_train_config()
     params = lm.init_params(cfg, seed=LM_SEED)
     opt = default_optimizer()
     state, step = opt.init(params), 0
     train_step = make_train_step(cfg, opt, remat=True)
-    batches = [lm_train_batch(torch, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev,
-                              LM_SEED + 20 + i)
+    batches = [lm_train_batch(torch, cfg, batch, seq, dev, seed + i)
                for i in range(LM_TRAIN_STEPS + 2)]
     params, state, step, m = train_step(params, state, step, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = {"flash_attention": flash_attention_cuda,
-                "flash_attention_bwd": flash_attention_bwd_cuda}
+    wrappers = lm_train_wrappers()
     for w in wrappers.values():
         w.launches = 0
     losses, step_ms = [float(m["loss"])], []
-    for batch in batches[1:LM_TRAIN_STEPS + 1]:
+    for b in batches[1:LM_TRAIN_STEPS + 1]:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        params, state, step, m = train_step(params, state, step, batch)
+        params, state, step, m = train_step(params, state, step, b)
         losses.append(float(m["loss"]))      # waits for the step
         step_ms.append(1e3 * (time.perf_counter() - t1))
     launches = {k: w.launches for k, w in wrappers.items()}
     want = lm_train_launch_rule(cfg, LM_TRAIN_STEPS, True)
     if launches != want:
-        raise AssertionError(f"lm_train: launches {launches} != the rule's "
-                             f"{want}")
+        raise AssertionError(f"lm_train {cfg.name}: launches {launches} != "
+                             f"the rule's {want}")
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"lm_train: losses {losses}")
+        raise AssertionError(f"lm_train {cfg.name}: losses {losses}")
     if not all(bool(torch.isfinite(t.float()).all())
                for t in tree_leaves(params)):
-        raise AssertionError("lm_train: non-finite parameters")
+        raise AssertionError(f"lm_train {cfg.name}: non-finite parameters")
 
     # where a step's device time goes: one more step under the profiler
     holder = {}
@@ -5616,38 +5805,73 @@ def phase_lm_train(torch, dev, name_limit: str) -> tuple:
     holder.clear()
     busy = sum(rows.values())
     top = dict(sorted(rows.items(), key=lambda kv: -kv[1])[:12])
-    bwd_ms = {k: rows.get(k, 0.0)
-              for k in ("delta_kernel", "dkdv_kernel", "dq_kernel")}
+    bwd_ms = {k: rows.get(k, 0.0) for k in bwd_kernels}
+    bwd_name = ("flash_attention_bwd" if cfg.block == "attn"
+                else "ssd_scan_bwd")
+    per_step = lm_train_launch_rule(cfg, 1, True)[bwd_name]
     med = statistics.median(step_ms)
-    entry["launches"] = launches["flash_attention_bwd"]
-    out = {"phase": "lm_train", "card": name_limit,
-           "kernel_sweep": entry["sweep"]["worst_rel_err"],
-           "parity": parity,
-           "train": {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
-                                "d_model": cfg.d_model,
-                                "dtype": cfg.param_dtype},
-                     "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
-                     "optimizer": "default_optimizer() (AdamW, bf16 states)",
-                     "remat": True, "steps": LM_TRAIN_STEPS,
-                     "losses": losses, "step_ms": step_ms,
-                     "ms_per_step": med,
-                     "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ
-                     / (med / 1e3),
-                     "max_memory_allocated": peak,
-                     "param_bytes": tnn.tree_bytes(params),
-                     "param_count": tnn.tree_size(params),
-                     "launches": launches,
-                     "step_device_busy_ms": busy,
-                     "device_busy_share": busy / med,
-                     "step_device_ms_by_kernel": top,
-                     "bwd_device_ms_by_kernel": bwd_ms,
-                     "bwd_us_per_launch": 1e3 * sum(bwd_ms.values())
-                     / cfg.n_layers},
-           "seconds": time.perf_counter() - t0}
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "dtype": cfg.param_dtype},
+           "batch": [batch, seq],
+           "optimizer": "default_optimizer() (AdamW, bf16 states)",
+           "remat": True, "steps": LM_TRAIN_STEPS,
+           "losses": losses, "step_ms": step_ms, "ms_per_step": med,
+           "tokens_per_s": batch * seq / (med / 1e3),
+           "max_memory_allocated": peak,
+           "param_bytes": tnn.tree_bytes(params),
+           "param_count": tnn.tree_size(params),
+           "launches": launches,
+           "step_device_busy_ms": busy,
+           "device_busy_share": busy / med,
+           "step_device_ms_by_kernel": top,
+           "bwd_device_ms_by_kernel": bwd_ms,
+           "bwd_us_per_launch": 1e3 * sum(bwd_ms.values()) / per_step}
     del params, state
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(torch, dev, name_limit: str) -> tuple:
+    """The flash and SSD backwards against their plain versions, the
+    parity runs (qwen2.5-3b, mamba2-370m, zamba2-2.7b), then qwen2.5-3b
+    and mamba2-370m trained on the card at full size with their launches
+    on ``lm_train_launch_rule``. Returns (phase line, the flash backward's
+    kernels entry, the SSD backward's)."""
+    t0 = time.perf_counter()
+    entry = flash_bwd_entry(torch, dev)
+    torch.cuda.empty_cache()
+    ssd_entry = ssd_bwd_entry(torch, dev)
+    torch.cuda.empty_cache()
+    parity = lm_train_parity(torch, dev)
+    torch.cuda.empty_cache()
+    ssd_parity = []
+    for arch, layers in LM_SSD_PARITY:
+        ssd_parity.append(lm_train_parity(torch, dev, arch, layers,
+                                          LM_SSD_PARITY_BATCH,
+                                          LM_SSD_PARITY_SEQ))
+        torch.cuda.empty_cache()
+    train = lm_train_full(torch, dev, lm_train_config(), LM_TRAIN_BATCH,
+                          LM_TRAIN_SEQ, LM_SEED + 20,
+                          ("delta_kernel", "dkdv_kernel", "dq_kernel"))
+    ssd_train = lm_train_full(
+        torch, dev, lm_train_config(LM_SSD_TRAIN_ARCH), LM_SSD_TRAIN_BATCH,
+        LM_SSD_TRAIN_SEQ, LM_SEED + 30,
+        ("ssd_bwd_chunk_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_grad_kernel",
+         "ssd_bwd_group_kernel", "ssd_bwd_da_kernel"))
+    entry["launches"] = train["launches"]["flash_attention_bwd"]
+    ssd_entry["launches"] = ssd_train["launches"]["ssd_scan_bwd"]
+    out = {"phase": "lm_train", "card": name_limit,
+           "kernel_sweep": entry["sweep"]["worst_rel_err"],
+           "ssd_bwd_sweep": ssd_entry["sweep"],
+           "ssd_bwd": {f"{e['arch']} {e['dtype']}":
+                       {k: e[k] for k in ("rel_err", "same_bits", "ms",
+                                          "plain_ms", "bound_ms")}
+                       for e in ssd_entry["shapes"]},
+           "parity": parity, "ssd_parity": ssd_parity,
+           "train": train, "ssd_train": ssd_train,
+           "seconds": time.perf_counter() - t0}
     emit(out)
-    return out, entry
+    return out, entry, ssd_entry
 
 
 def per_launch(e: dict) -> None:
@@ -5700,9 +5924,9 @@ def main() -> int:
     phase_zoo(torch, name_limit)
     fac = phase_factory(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
-    lm_train, bwd_entry = phase_lm_train(torch, dev, name_limit)
+    lm_train, bwd_entry, ssd_bwd = phase_lm_train(torch, dev, name_limit)
     phase_accuracy(torch, name_limit)
-    entries.append(bwd_entry)
+    entries.extend((bwd_entry, ssd_bwd))
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],
         "dense_aggregate": train["runs"]["dense"]["launches"],
@@ -5712,14 +5936,15 @@ def main() -> int:
         "flash_attention": lm_run["serve"]["launches"],
         "ssd_scan": lm_run["serve"]["launches"],
         "flash_attention_bwd": lm_train["train"]["launches"],
+        "ssd_scan_bwd": lm_train["ssd_train"]["launches"],
     }
     for e in entries:
         # each kernel's count from the path that carries it: GraphSAGE
         # for the first two, GAT for the edge softmax and the aggregate,
         # the training run that carries each of the next five (the packed
         # GraphSAGE run for the readout's gradient), the full serving run
-        # of lm_path for the LM stack's two, lm_train's full run for the
-        # flash backward (and, beside it, the flash forward's training
+        # of lm_path for the LM stack's two, lm_train's full runs for the
+        # flash and SSD backwards (and, beside them, the forwards' training
         # launches)
         name = e["name"]
         if name in path_launches:
@@ -5736,6 +5961,9 @@ def main() -> int:
         if name == "flash_attention":
             e["train_launches"] = \
                 lm_train["train"]["launches"]["flash_attention"]
+        if name == "ssd_scan":
+            e["train_launches"] = \
+                lm_train["ssd_train"]["launches"]["ssd_scan"]
         if name in layouts["kernels_at_chunk"]:
             # the bucketed engines' full chunk, and their launches there
             e["inference_chunk"] = {

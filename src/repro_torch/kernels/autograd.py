@@ -27,6 +27,10 @@ therefore gets a ``torch.autograd.Function`` here:
   each row's log-sum-exp, and the backward (``flash_attention_bwd``, a
   kernel of its own) recomputes p from it: the JAX package's custom VJP
   of ``_make_flash``, so residuals stay O(S), not O(S²).
+* :class:`SsdScan` (``ssd_scan``, B9) — the backward (``ssd_scan_bwd``, a
+  kernel of its own) is the closed form of autodiff through the chunked
+  scan: it recomputes the chunks' entry states from the saved inputs, so
+  nothing but the inputs is kept.
 
 Every formula is written once, over :func:`repro_torch.kernels.ops.kernel`:
 the CUDA kernels for a CUDA tensor and their plain versions for a CPU
@@ -217,3 +221,29 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = ops.kernel("flash_attention_bwd", q)(
             q, k, v, out, lse, _c(g.to(q.dtype)), **ctx.kw)
         return dq, dk, dv, None, None, None, None, None
+
+
+class SsdScan(torch.autograd.Function):
+    """The chunked SSD scan of x [Bt, S, H, P], dt [Bt, S, H], A [H] and
+    B, C [Bt, S, G, N] from s0 [Bt, H, N, P] or zero (``ssd_scan``) → (y,
+    last state); the chunk is a Python int."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, s0, chunk):
+        x, dt, A, B, C = (_c(t) for t in (x, dt, A, B, C))
+        s0 = None if s0 is None else _c(s0)
+        y, last = ops.kernel("ssd_scan", x)(x, dt, A, B, C, chunk=chunk,
+                                             s0=s0)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, B, C, s0)
+        return y, last
+
+    @staticmethod
+    def backward(ctx, gy, glast):
+        x, dt, A, B, C, s0 = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, ddt, da, db, dc, ds0 = ops.kernel("ssd_scan_bwd", x)(
+            x, dt, A, B, C, _c(gy.float()), chunk=ctx.chunk, s0=s0,
+            d_last=None if glast is None else _c(glast.float()))
+        return dx, ddt, da, db, dc, ds0, None

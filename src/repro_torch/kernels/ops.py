@@ -18,8 +18,9 @@ inference only: training runs the composed layers. So are the LM stack's
 ``flash_attention`` and ``ssd_scan``: on either device they refuse an
 input that requires grad. LM training takes :func:`flash_attention_train`
 (``autograd.FlashAttention``: the forward with its log-sum-exp and the
-backward kernel ``flash_attention_bwd``); the SSD scan's backward is
-ROADMAP A14b-2.
+backward kernel ``flash_attention_bwd``) and :func:`ssd_scan_train`
+(``autograd.SsdScan``: the scan, then the backward kernel
+``ssd_scan_bwd``).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ _KERNELS = {
     "flash_attention": (_flash, _ref),
     "flash_attention_bwd": (_flash, _ref),
     "ssd_scan": (_ssd, _ref),
+    "ssd_scan_bwd": (_ssd, _ref),
 }
 
 
@@ -194,3 +196,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     :func:`repro_torch.kernels.ref.ssd_scan_ref`. Inference only."""
     _cuda.refuse_grad("ssd_scan", x, dt, A, B, C, s0)
     return kernel("ssd_scan", x)(x, dt, A, B, C, chunk=chunk, s0=s0)
+
+
+def ssd_scan_train(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+                   s0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan`, differentiable in x, dt, A, B, C and s0: the scan
+    forward, ``ssd_scan_bwd`` backward (see
+    :class:`repro_torch.kernels.autograd.SsdScan`)."""
+    return _ag.SsdScan.apply(x, dt, A, B, C, s0, chunk)

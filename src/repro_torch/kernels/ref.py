@@ -584,6 +584,114 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor, *,
+                     chunk: int, s0: Optional[torch.Tensor] = None,
+                     d_last: Optional[torch.Tensor] = None):
+    """The gradients of :func:`ssd_scan_ref`, in closed form per chunk.
+
+    Shapes as :func:`ssd_scan_ref`; dy: [Bt, S, H, P], the gradient on y;
+    d_last: [Bt, H, N, P] on the last state, or None (zero). Returns
+    (dx, ddt, dA, dB, dC, ds0): dx in x's dtype, dB and dC [Bt, S, G, N]
+    in B's dtype (a group's heads summed), ddt, dA and ds0 in float32
+    (float64 for float64 inputs); ds0 is None when s0 is. Per chunk, with
+    ``K_ij = (C_i·B_j) e^(cum_i − cum_j)`` and ``Q_ij = dy_i·x_j`` for
+    i ≥ j, ``w_j = e^(tot − cum_j) dt_j``, ``Sin`` the entry state and
+    ``Gout`` the gradient on the exit state (``d_last`` after the last
+    chunk, else the next chunk's ``Gin``)::
+
+        dx_j = dt_j Σ_i K_ij dy_i + w_j (B_j Gout)
+        dB_j = dt_j Σ_i Q_ij e^(cum_i − cum_j) C_i + w_j (Gout x_j)
+        dC_i = Σ_j Q_ij e^(cum_i − cum_j) dt_j B_j + e^(cum_i) (Sin dy_i)
+        gcum = Σ_j t_kj − Σ_i t_ik + v − u  (t_ij = K_ij dt_j Q_ij,
+               u_j = w_j (B_j Gout)·x_j, v_i = e^(cum_i) (C_i Sin)·dy_i),
+               and at the last row also Σ u + e^tot ⟨Gout, Sin⟩
+        ddt_j = Σ_i K_ij Q_ij + e^(tot − cum_j) (B_j Gout)·x_j
+                + A Σ_(k ≥ j) gcum_k ;   dA = Σ_j dt_j Σ_(k ≥ j) gcum_k
+        Gin = e^tot Gout + Σ_i e^(cum_i) C_iᵀ dy_i   (after chunk 0: ds0)
+
+    No term divides by dt, so the padded steps (dt = 0, as the forward
+    pads) add nothing. This is the oracle of ``csrc/ssd_scan_bwd.cu``, not
+    autograd of :func:`ssd_scan_ref`.
+    """
+    bt, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hpg = h // g
+    acc = _acc_dtype(x)
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    nc = (s + pad) // chunk
+
+    def rows(t: torch.Tensor, heads: bool = False) -> torch.Tensor:
+        """[Bt, S, …] → [Bt, nc, chunk, …] in ``acc``, padded with 0."""
+        t = t.to(acc)
+        if heads and g != h:
+            t = t.repeat_interleave(hpg, dim=2)
+        if pad:
+            t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((bt, nc, chunk) + tuple(t.shape[2:]))
+
+    xc, dyc, dtc = rows(x), rows(dy), rows(dt)
+    bc, cc = rows(B, True), rows(C, True)
+    cum = torch.cumsum(dtc * A.to(acc), dim=2)                # [Bt,nc,Lc,H]
+    tot = cum[:, :, -1]                                       # [Bt,nc,H]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # [.., i, j, H]
+    decay = torch.exp(diff.masked_fill(~tri, 0.0)).masked_fill(~tri, 0.0)
+    kk = torch.einsum("bnihd,bnjhd->bnijh", cc, bc) * decay
+    qq = torch.einsum("bnihp,bnjhp->bnijh", dyc, xc)
+    qdt = qq * decay * dtc[:, :, None]                        # Q D dt_j
+    ecum = torch.exp(cum)
+    ew = torch.exp(tot[:, :, None] - cum)
+    w = ew * dtc
+
+    # entry states forward, exit gradients backward, over the chunks
+    cs = torch.einsum("bnlh,bnlhd,bnlhp->bnhdp", w, bc, xc)
+    ls = torch.einsum("bnlh,bnlhd,bnlhp->bnhdp", ecum, cc, dyc)
+    decay_tot = torch.exp(tot)[..., None, None]               # [Bt,nc,H,1,1]
+    state = (torch.zeros((bt, h, n, p), dtype=acc, device=x.device)
+             if s0 is None else s0.to(acc))
+    sin = []
+    for c in range(nc):
+        sin.append(state)
+        state = state * decay_tot[:, c] + cs[:, c]
+    grad = (torch.zeros((bt, h, n, p), dtype=acc, device=x.device)
+            if d_last is None else d_last.to(acc))
+    gout = [grad] * nc
+    for c in reversed(range(nc)):
+        gout[c] = grad
+        grad = grad * decay_tot[:, c] + ls[:, c]
+    sin, gout = torch.stack(sin, dim=1), torch.stack(gout, dim=1)
+
+    bg = torch.einsum("bnjhd,bnhdp->bnjhp", bc, gout)         # B_j Gout
+    dx = torch.einsum("bnijh,bnihp->bnjhp", kk * dtc[:, :, None], dyc) \
+        + w[..., None] * bg
+    db = torch.einsum("bnijh,bnihd->bnjhd", qdt, cc) \
+        + w[..., None] * torch.einsum("bnjhp,bnhdp->bnjhd", xc, gout)
+    dc = torch.einsum("bnijh,bnjhd->bnihd", qdt, bc) \
+        + ecum[..., None] * torch.einsum("bnihp,bnhdp->bnihd", dyc, sin)
+    t = kk * dtc[:, :, None] * qq
+    r = (bg * xc).sum(-1)                                     # (B_j Gout)·x_j
+    u = w * r
+    v = ecum * (torch.einsum("bnihd,bnhdp->bnihp", cc, sin) * dyc).sum(-1)
+    gcum = t.sum(3) - t.sum(2) + v - u
+    gcum[:, :, -1] += u.sum(2) + torch.exp(tot) * (gout * sin).sum((-2, -1))
+    suffix = torch.flip(torch.cumsum(torch.flip(gcum, [2]), 2), [2])
+    ddt = (kk * qq).sum(2) + ew * r + A.to(acc) * suffix
+    da = (dtc * suffix).sum((0, 1, 2))
+
+    def out_rows(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape((bt, nc * chunk) + tuple(t.shape[3:]))[:, :s]
+
+    if g != h:
+        db = db.reshape(bt, nc, chunk, g, hpg, n).sum(4)
+        dc = dc.reshape(bt, nc, chunk, g, hpg, n).sum(4)
+    return (out_rows(dx).to(x.dtype), out_rows(ddt), da,
+            out_rows(db).to(B.dtype), out_rows(dc).to(C.dtype),
+            None if s0 is None else grad)
+
+
 def ssd_decode_ref(state: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
                    A: torch.Tensor, B_t: torch.Tensor, C_t: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

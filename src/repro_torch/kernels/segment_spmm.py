@@ -102,6 +102,9 @@ _SIGNATURES = {
     "ssd_scan_occupancy": ("ssd_scan", [_I, _I, _I, _I, _P]),
     "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P]),
+    "ssd_scan_bwd_smem": ("ssd_scan_bwd", [_I, _I]),
+    "ssd_scan_bwd_chunk": ("ssd_scan_bwd", []),
+    "ssd_scan_bwd": ("ssd_scan_bwd", [_P] * 20 + [_I] * 7 + [_P]),
 }
 #: what each wrapper's autograd refusal tells the caller to use instead
 _GRAD_ENTRY = {
@@ -122,8 +125,9 @@ _GRAD_ENTRY = {
                        "inference only)",
     "flash_attention_bwd": "nothing: it is the gradient of "
                            "ops.flash_attention_train, which records none",
-    "ssd_scan": "nothing: it is inference only; its backward is ROADMAP "
-                "A14b-2",
+    "ssd_scan": "ops.ssd_scan_train (ops.ssd_scan is inference only)",
+    "ssd_scan_bwd": "nothing: it is the gradient of ops.ssd_scan_train, "
+                    "which records none",
 }
 _bind_lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -9,12 +9,17 @@ on the tensor cores (``mma.sync`` with float32 operands split into bf16
 hi + lo); in float32 on the FMA pipes. :func:`ssd_plan` picks the chunk
 the kernel runs and its shared memory.
 
-The wrapper follows :mod:`repro_torch.kernels.segment_spmm`: CUDA tensors
+:func:`ssd_scan_bwd_cuda` runs ``csrc/ssd_scan_bwd.cu``, its gradient
+(:func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`): dx, ddt, dA, dB, dC
+and ds0 from the gradients on y and on the last state.
+
+The wrappers follow :mod:`repro_torch.kernels.segment_spmm`: CUDA tensors
 only, checked for device, dtype, shape, contiguity and alignment; outputs
-allocated with ``torch.empty``; one launch on the current stream, counted
-in ``ssd_scan_cuda.launches``; a non-zero ``cudaError_t`` raises, and so
-does an input that requires grad while grad mode is on (the kernel has no
-backward; LM training is ROADMAP A14b).
+and scratch allocated with ``torch.empty``; one C call on the current
+stream, counted in the wrapper's ``launches``; a non-zero ``cudaError_t``
+raises, and so does an input that requires grad while grad mode is on:
+training takes ``ops.ssd_scan_train`` (``autograd.SsdScan``: this
+forward, then the backward kernel).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .segment_spmm import (_call, _check, _check_dims, _count, _cuda_device,
-                           _ptr, refuse_grad)
+                           _entry, _ptr, refuse_grad)
 
 #: gridDim.y carries the batch row
 _MAX_BATCH = 65535
@@ -147,3 +152,91 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan_cuda.launches = 0
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor, *,
+                      chunk: int,  # ignored: blocks in ssd_scan_bwd_chunk()
+                      s0: Optional[torch.Tensor] = None,
+                      d_last: Optional[torch.Tensor] = None):
+    """The gradients of :func:`ssd_scan_cuda` on the card
+    (``csrc/ssd_scan_bwd.cu``).
+
+    x, B, C, dt, A and s0 as :func:`ssd_scan_cuda`; dy: [Bt, S, H, P] and
+    d_last: [Bt, H, N, P] (or None: zero) float32, the gradients on y and
+    on the last state. Returns (dx, ddt, dA, dB, dC, ds0): dx in x's dtype,
+    dB and dC [Bt, S, G, N] in B's (a group's heads summed in ascending
+    order), ddt, dA and ds0 float32; ds0 is None when s0 is. ``chunk``
+    selects nothing here: it is taken only so that this wrapper and
+    ``ref.ssd_scan_bwd_ref`` take the same arguments under ``ops.kernel``. The kernel blocks the sequence in the
+    library's ``ssd_scan_bwd_chunk()`` rows (64) whatever ``chunk`` (the
+    same function, blocked otherwise); it raises where N and P are not
+    multiples of 4 or its gradient kernel's shared memory (the library's
+    ``ssd_scan_bwd_smem``: 189,184 bytes at N = 128, P = 64) exceeds
+    227 KB. ``launches`` counts calls (each launches five kernels: the
+    chunks' own terms, the scan over chunks, the gradients, the sums over
+    a group's heads and over chunks).
+    """
+    refuse_grad("ssd_scan_bwd", x, dt, A, B, C, dy, s0, d_last)
+    dev = _cuda_device(x)
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"x and B must be 4-d, got {tuple(x.shape)} and "
+                         f"{tuple(B.shape)}")
+    bt, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if p % 4 or n % 4 or p == 0 or n == 0:
+        raise ValueError(f"P={p} and N={n} must be positive multiples of 4")
+    if g == 0 or h % g:
+        raise ValueError(f"H={h} is not a multiple of the groups G={g}")
+    if bt > _MAX_BATCH or bt * h > _MAX_BATCH:
+        raise ValueError(f"Bt={bt}, H={h}: Bt and Bt·H must be at most "
+                         f"{_MAX_BATCH} (the kernel's grid)")
+    smem = _entry("ssd_scan_bwd_smem")(n, p)
+    if smem > MAX_SMEM:
+        raise ValueError(f"N={n}, P={p}: the backward's block needs {smem} "
+                         f"bytes of shared memory, over {MAX_SMEM}")
+    lc = _entry("ssd_scan_bwd_chunk")()
+    nc = -(-s // lc)
+    if nc > _MAX_BATCH:
+        raise ValueError(f"S={s} exceeds the kernel's grid limit "
+                         f"{_MAX_BATCH * lc}")
+    _check_dims(BSHP=bt * s * h * p, BSHN=bt * s * h * n,
+                BCHNP=bt * nc * h * n * p)
+    f32 = torch.float32
+    _check(x, "x", x.dtype, (bt, s, h, p), dev)
+    _check(dt, "dt", f32, (bt, s, h), dev)
+    _check(A, "A", f32, (h,), dev)
+    _check(B, "B", x.dtype, (bt, s, g, n), dev)
+    _check(C, "C", x.dtype, (bt, s, g, n), dev)
+    _check(dy, "dy", f32, (bt, s, h, p), dev)
+    for t, name in ((s0, "s0"), (d_last, "d_last")):
+        if t is not None:
+            _check(t, name, f32, (bt, h, n, p), dev)
+    with torch.cuda.device(dev):
+        dx = torch.empty_like(x)
+        ddt = torch.empty((bt, s, h), dtype=f32, device=dev)
+        da = torch.empty((h,), dtype=f32, device=dev)
+        db, dc = torch.empty_like(B), torch.empty_like(C)
+        ds0 = None if s0 is None else torch.empty_like(s0)
+        if bt * h * s == 0:
+            da.zero_()
+            return dx, ddt, da, db, dc, None if ds0 is None else ds0.zero_()
+        sin = torch.empty((bt, nc, h, n, p), dtype=f32, device=dev)
+        gout = torch.empty_like(sin)
+        tot = torch.empty((bt, nc, h), dtype=f32, device=dev)
+        dah = torch.empty_like(tot)
+        dbh = torch.empty((bt, s, h, n), dtype=f32, device=dev)
+        dch = torch.empty_like(dbh)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _call("ssd_scan_bwd", _ptr(x), _ptr(dt), _ptr(A), _ptr(B), _ptr(C),
+              _ptr(s0), _ptr(dy), _ptr(d_last), _ptr(sin), _ptr(gout),
+              _ptr(tot), _ptr(dx), _ptr(ddt), _ptr(dbh), _ptr(dch),
+              _ptr(dah), _ptr(da), _ptr(db), _ptr(dc), _ptr(ds0),
+              _DTYPES[x.dtype], bt, s, h, p, g, n, stream)
+    _count(ssd_scan_bwd_cuda)
+    return dx, ddt, da, db, dc, ds0
+
+
+ssd_scan_bwd_cuda.launches = 0

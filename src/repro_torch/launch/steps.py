@@ -42,14 +42,15 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
     microbatch the gradients come in the parameters' dtype, as
     ``jax.value_and_grad`` gives them. ``metrics["loss"]`` is the loss.
     The parameters and optimizer state are returned as new trees; the
-    inputs are not written. Mamba2 and hybrid configs raise naming ROADMAP
-    A14b-2, ``compress_grads=True`` names A14d.
+    inputs are not written. Every block the port runs trains (attention
+    through the flash backward, Mamba2 and hybrid through the SSD scan's);
+    an unported one raises naming A14c, ``compress_grads=True`` A14d.
     """
     if compress_grads:
         raise NotImplementedError(
             "compress_grads sums int8 gradients over a 'pod' mesh axis; "
             "sharding and launch are not ported yet (ROADMAP A14d)")
-    lm.check_trainable(cfg)
+    lm.check_supported(cfg)
     optimizer = optimizer or default_optimizer()
 
     def value_and_grad(params, batch):

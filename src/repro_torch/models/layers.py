@@ -15,8 +15,9 @@ launch ``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu`` on a CUDA
 tensor and take their plain versions on a CPU one. The one-token SSD
 decode step stays plain on every device (the JAX package has no kernel
 for it either). Attention trains through the flash kernel's backward
-(``ops.flash_attention_train``); the SSD scan's backward is ROADMAP
-A14b-2; MLA, mixture-of-experts and cross-attention are A14c.
+(``ops.flash_attention_train``), the SSD scan through its own
+(``ops.ssd_scan_train``); a decode step and a prefill from a cache stay
+inference only. MLA, mixture-of-experts and cross-attention are A14c.
 
 On the meta device (a trace by ``repro_torch.core.tracer``, which the
 dataset factory's LM entries take) the steps run as the JAX package's
@@ -333,8 +334,12 @@ def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
         dt = F.softplus(dt_raw.float() + p["dt_bias"])
         a = -torch.exp(p["A_log"])
         if cache is None:
-            y, last_state = ops.ssd_scan(x_ssd, dt, a, bmat, cmat,
-                                         chunk=s.chunk)
+            # under grad the differentiable call (ops.ssd_scan_train: the
+            # scan, then its backward kernel), else the inference call
+            scan = ops.ssd_scan_train if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x_ssd, dt, a, bmat, cmat)) \
+                else ops.ssd_scan
+            y, last_state = scan(x_ssd, dt, a, bmat, cmat, chunk=s.chunk)
         elif sl == 1:
             hpg = nh // g
             bh = bmat[:, 0].repeat_interleave(hpg, dim=1)

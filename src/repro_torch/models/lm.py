@@ -23,9 +23,8 @@ its gradient runs the flash kernel's backward (``ops.flash_attention_train``)
 and, with ``remat=True``, recomputes each layer in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``). A stack
 is read with ``unbind`` (:func:`_unstack`) on that path too, so its
-backward stacks the layers' gradients once. The SSD scan has no backward
-yet: asking for a gradient through a Mamba2 or hybrid config raises
-``NotImplementedError`` naming ROADMAP A14b-2 (:func:`check_trainable`).
+backward stacks the layers' gradients once. Mamba2 and hybrid configs
+train through the SSD scan's backward kernel (``ops.ssd_scan_train``).
 
 :func:`decode_step` updates the cache that :func:`init_cache` made IN
 PLACE (the JAX package's update is functional) and returns it.
@@ -46,14 +45,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import nn
 from ..core.gnn import resolve_device
-from ..optim.optimizers import tree_leaves
 from . import graph_form as G
 from . import layers as L
 from .config import ArchConfig
 
 Params = Dict[str, Any]
 Device = Union[None, str, torch.device]
-A14B2 = "ROADMAP A14b-2"
 #: leaves the JAX tree keeps in float32 whatever ``param_dtype`` is
 _F32_LEAVES = frozenset({"dt_bias", "A_log", "D"})
 
@@ -75,22 +72,6 @@ def check_supported(cfg: ArchConfig) -> None:
                                   f"ported yet ({L.A14C})")
     if cfg.block not in ("attn", "mamba2", "hybrid"):
         raise ValueError(f"unknown block {cfg.block!r}")
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose gradient the port
-    cannot take yet: an SSD block (mamba2, hybrid; A14b-2) or an unported
-    block (A14c, :func:`check_supported`)."""
-    check_supported(cfg)
-    if cfg.block != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: training through the SSD scan ({cfg.block} "
-            f"blocks) needs its backward kernel, not ported yet ({A14B2})")
-
-
-def _wants_grad(params: Params) -> bool:
-    return torch.is_grad_enabled() and any(
-        t.requires_grad for t in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------
@@ -252,11 +233,8 @@ def forward(params: Params, cfg: ArchConfig,
     of the tokens and the aux loss of every attention stack, which the
     jaxpr keeps though it is zero. ``remat`` recomputes each layer in the
     backward instead of keeping its activations (the reference's
-    ``ParallelCtx(remat=True)``); it changes no value. A gradient through
-    an SSD block raises (:func:`check_trainable`)."""
+    ``ParallelCtx(remat=True)``); it changes no value."""
     check_supported(cfg)
-    if _wants_grad(params):
-        check_trainable(cfg)
     x = _embed(params, inputs)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,

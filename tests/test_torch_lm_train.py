@@ -9,8 +9,10 @@
   key (their gradient exactly 0). ``gradcheck`` of
   ``autograd.FlashAttention`` in float64, and the forward's log-sum-exp
   against ``_flash_fwd_chunks``'.
-* Mamba2 and zamba2 refuse training naming ROADMAP A14b-2;
-  ``compress_grads`` names A14d; ``remat`` changes no gradient.
+* A Mamba2 block takes ``ops.ssd_scan_train`` under grad and
+  ``ops.ssd_scan`` under ``no_grad``; ``compress_grads`` names A14d;
+  ``remat`` changes no gradient. The SSD scan's backward itself is
+  ``tests/test_torch_ssd_train.py``'s.
 
 ``lm.loss_fn`` against the reference's is in
 ``tests/test_torch_lm_train_loss.py``, the train steps in
@@ -18,6 +20,7 @@
 ``tests/test_torch_lm_train_steps_swa_rope.py``.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -72,6 +75,19 @@ def jx():
     from repro.models.parallel import ParallelCtx
     return dict(jax=jax, jnp=jnp, configs=jconfigs, optim=joptim,
                 steps=jsteps, layers=jlayers, lm=jlm, ctx=ParallelCtx)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tree(arch: str):
+    """The reference's ``init_params`` tree of ``arch``'s smoke config at
+    key 0, and the same as float32 numpy; made once a process, since the
+    reference builds it op by op (seconds for an SSD arch)."""
+    import jax
+    from repro.configs import get_smoke_config as jget
+    from repro.models import lm as jlm
+    tree = jlm.init_params(jax.random.PRNGKey(0), jget(arch))
+    return tree, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                        tree)
 
 
 def _qkvg(case, seed):
@@ -209,19 +225,27 @@ def test_remat_changes_no_gradient():
 
 
 @pytest.mark.parametrize("arch", SSD_ARCHS)
-def test_ssd_configs_refuse_training(arch):
+def test_mamba2_block_takes_the_train_call_under_grad(arch, monkeypatch):
+    """Under grad the block takes ``ops.ssd_scan_train``; under
+    ``no_grad`` the inference call ``ops.ssd_scan``, as before."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A14b-2"):
-        steps.make_train_step(cfg)
     params = lm.init_params(cfg, seed=0, device="cpu")
-    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg, 41, False).items()}
-    with torch.no_grad():                        # inference still runs
-        loss, _ = lm.loss_fn(params, cfg, batch)
-    assert torch.isfinite(loss)
-    for p in tree_leaves(params):
-        p.requires_grad_()
-    with pytest.raises(NotImplementedError, match="A14b-2"):
-        lm.loss_fn(params, cfg, batch)
+    lp = (lm._at(params["blocks"], 0) if cfg.block == "mamba2"
+          else lm._at(params["groups"], 0, 0))
+    calls = []
+    for name in ("ssd_scan", "ssd_scan_train"):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
+    x = torch.randn(2, 12, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    with torch.no_grad():
+        out, _ = layers.mamba2_apply(lp["mix"], cfg, x)
+    assert calls == ["ssd_scan"] and out.grad_fn is None
+    calls.clear()
+    out2, _ = layers.mamba2_apply(lp["mix"], cfg, x.requires_grad_())
+    assert calls == ["ssd_scan_train"] and out2.grad_fn is not None
+    torch.testing.assert_close(out2.detach(), out, rtol=0, atol=0)
 
 
 def test_compress_grads_and_unported_archs_refused():

@@ -2,12 +2,11 @@
 CPU: the loss, its cross-entropy and aux terms, and the gradient of every
 parameter against ``jax.value_and_grad`` of ``repro.models.lm.loss_fn``
 on the smoke configs of the four attention archs (qwen2.5-3b, yi-34b,
-h2o-danube-3-4b, chatglm3-6b), with and without ``loss_mask``, within
+h2o-danube-3-4b, chatglm3-6b) and the two SSD archs (mamba2-370m, zamba2-2.7b,
+through the SSD scan's backward), with and without ``loss_mask``, within
 1e-4 (each gradient within 1e-4 of its leaf's largest): float32 sums in
-another order through two layers and the head.
+another order through the layers and the head.
 """
-import functools
-
 import numpy as np
 import pytest
 
@@ -16,21 +15,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
-from test_torch_lm_train import (ATTN_ARCHS, _batch,  # noqa: E402,F401
-                                 _close_scaled, jx, one_thread)
+from test_torch_lm_train import (ATTN_ARCHS, SSD_ARCHS,  # noqa: E402,F401
+                                 _batch, _close_scaled, jax_tree, jx,
+                                 one_thread)
 
 #: loss and gradients: float32 through two layers and a vocabulary head
 LOSS_RTOL = 1e-4
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_tree(arch: str):
-    import jax
-    from repro.configs import get_smoke_config as jget
-    from repro.models import lm as jlm
-    tree = jlm.init_params(jax.random.PRNGKey(0), jget(arch))
-    return tree, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
-                                        tree)
 
 
 def _leaves_np(tree):
@@ -40,10 +30,10 @@ def _leaves_np(tree):
 
 
 @pytest.mark.parametrize("mask", [False, True], ids=["mean", "loss_mask"])
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + SSD_ARCHS)
 def test_loss_fn_and_grads_match_jax(jx, arch, mask):
     jax, jnp = jx["jax"], jx["jnp"]
-    jtree, np_tree = _jax_tree(arch)
+    jtree, np_tree = jax_tree(arch)
     cfg = get_smoke_config(arch)
     batch = _batch(cfg, 21, mask)
     (jl, jaux), jg = jax.value_and_grad(jx["lm"].loss_fn, has_aux=True)(

@@ -2,17 +2,19 @@
 ``make_train_step``, on the CPU.
 
 For each of the four attention archs' smoke configs (qwen2.5-3b, yi-34b,
-h2o-danube-3-4b, chatglm3-6b), from the JAX ``init_params`` tree, three
+h2o-danube-3-4b, chatglm3-6b) and the two SSD archs' (mamba2-370m,
+zamba2-2.7b), from the JAX ``init_params`` tree, three
 steps of ``repro_torch.launch.steps.make_train_step`` (``remat=True``)
 under each optimizer — ``adamw`` with float32 states,
 ``default_optimizer``'s bfloat16 states and ``adafactor`` — against the
 reference's jitted step on the same batches (the second with a
 ``loss_mask``): every metric and every parameter within 1e-4 absolute +
 1e-3 relative, the trainer's bar (``tests/test_trainer.py``). Each
-optimizer runs with one microbatch on two archs and with two on the other
-two, so every (optimizer, microbatches) pair is held twice. This file
-holds qwen2.5-3b and yi-34b; ``test_torch_lm_train_steps_swa_rope.py``
-the sliding window (h2o-danube) and partial RoPE (chatglm3).
+optimizer runs with one microbatch on three archs and with two on the
+other three, so every (optimizer, microbatches) pair is held three times.
+This file holds qwen2.5-3b, yi-34b and the SSD archs;
+``test_torch_lm_train_steps_swa_rope.py`` the sliding window (h2o-danube)
+and partial RoPE (chatglm3).
 
 Adam and Adafactor normalize a gradient's size away, so an element whose
 gradient is zero in exact arithmetic takes steps whose signs float32 noise
@@ -40,7 +42,7 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.optim import adafactor, adamw, constant  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
-from test_torch_lm_train import one_thread  # noqa: E402,F401
+from test_torch_lm_train import jax_tree, one_thread  # noqa: E402,F401
 
 #: three optimizer steps: the trainer's bar (tests/test_trainer.py)
 STEP_ATOL, STEP_RTOL = 1e-4, 1e-3
@@ -52,9 +54,10 @@ NOISE_FLOOR, NOISE_ATOL = 1e-4, 5e-4
 LR = 1e-3
 B, S = 4, 16
 #: (arch, microbatches): each optimizer runs on every arch; this file
-#: runs the first two, ``test_torch_lm_train_steps_swa_rope.py`` the others
+#: runs the first two and the SSD archs (the last two),
+#: ``test_torch_lm_train_steps_swa_rope.py`` the sliding window and RoPE
 RUNS = [("qwen2.5-3b", 2), ("yi-34b", 1), ("h2o-danube-3-4b", 2),
-        ("chatglm3-6b", 1)]
+        ("chatglm3-6b", 1), ("mamba2-370m", 1), ("zamba2-2.7b", 2)]
 OPTIMIZERS = ["adamw_f32", "default_bf16", "adafactor"]
 
 
@@ -69,14 +72,6 @@ def jx():
     from repro.models.parallel import ParallelCtx
     return dict(jax=jax, jnp=jnp, configs=jconfigs, optim=joptim,
                 steps=jsteps, lm=jlm, ctx=ParallelCtx)
-
-
-def _jax_tree(jx, arch: str):
-    jax = jx["jax"]
-    tree = jx["lm"].init_params(jax.random.PRNGKey(0),
-                                jx["configs"].get_smoke_config(arch))
-    return tree, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
-                                        tree)
 
 
 def _batch(cfg, seed, mask: bool):
@@ -113,7 +108,7 @@ NOISE_LEAVES = {("chatglm3-6b", "adafactor"): {"blocks/attn/bk"}}
 
 
 @pytest.mark.parametrize("opt", OPTIMIZERS)
-@pytest.mark.parametrize("arch,microbatches", RUNS[:2])
+@pytest.mark.parametrize("arch,microbatches", RUNS[:2] + RUNS[4:])
 def test_three_train_steps_match_jax(jx, arch, microbatches, opt):
     three_steps(jx, arch, microbatches, opt)
 
@@ -122,7 +117,7 @@ def three_steps(jx, arch, microbatches, opt):
     """Three steps of each package from the JAX tree; the bar above, and
     the leaves that needed the noise rule are ``NOISE_LEAVES``'."""
     jax, jnp = jx["jax"], jx["jnp"]
-    jtree, np_tree = _jax_tree(jx, arch)
+    jtree, np_tree = jax_tree(arch)
     cfg = get_smoke_config(arch)
     port_opt, jax_opt = _optimizers(jx, opt)
     jstep = jax.jit(jx["steps"].make_train_step(

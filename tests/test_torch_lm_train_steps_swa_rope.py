@@ -13,6 +13,6 @@ from test_torch_lm_train_steps import (OPTIMIZERS, RUNS, jx,  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("opt", OPTIMIZERS)
-@pytest.mark.parametrize("arch,microbatches", RUNS[2:])
+@pytest.mark.parametrize("arch,microbatches", RUNS[2:4])
 def test_three_train_steps_match_jax(jx, arch, microbatches, opt):  # noqa: F811
     three_steps(jx, arch, microbatches, opt)
