@@ -29,9 +29,10 @@ Phases, each printing one JSON line:
    state at 100x, steps with dt = 0, N and P not multiples of 8), every
    scan case at the float32 bar in both dtypes. The flash entry also
    carries each flash kernel's ptxas registers and spills, the counts of
-   wgmma (HGMMA) and TMA (UTMALDG) instructions in the built library (the
-   run fails if either is 0, or if no ptxas report or no ``cuobjdump`` is
-   found), the host µs of one decode call, the decode at shapes with more
+   wgmma (HGMMA), TMA (UTMALDG) and mma.sync (HMMA, the bf16 route past
+   D = 128) instructions in the built library (the run fails if any is 0,
+   or if no ptxas report or no ``cuobjdump`` is found), the host µs of one
+   decode call, the decode at shapes with more
    and with fewer CTAs than SMs under its split plan, under twice the
    plan's CTAs and under one split, and the same-function yardstick (SDPA's
    is_causal over the kept keys). The GAT kernels (``edge_softmax``,
@@ -213,7 +214,35 @@ Phases, each printing one JSON line:
    9 × 64, the scan 54); finite logits and caches; prefill ms, decode ms
    per step, tokens/s, peak device memory, parameter and cache bytes, and
    the device time of one prefill and one decode step by kernel.
-15. ``lm_train`` — LM training through the flash kernels: (a)
+15. ``lm_moe_path`` — the mixture-of-experts and MLA archs. Parity: the
+   smoke configs of deepseek-v2 (MLA, a dense layer 0, eight experts top-2
+   and a shared one) and grok-1 (GQA, four experts top-2) in float32, the
+   same weights on the card and the CPU: ``forward``'s logits and aux loss
+   within 1e-4 + 1e-4, a prefill and 12 greedy decode steps with every
+   step's logits within the same bar and the same tokens, and every MoE
+   layer's expert ids and keep mask equal (replicas are dropped, decode at
+   B = 2 runs deepseek's experts at capacity 1). B8 at MLA's head dims
+   against its plain version in both dtypes (``MLA_FLASH_SWEEP``: D / Dv
+   24 / 16, 40 / 32, 192 / 128, 576 / 512; one row and many; one latent kv
+   head under 128 query heads, GQA, query offsets, a part-filled decode
+   group), and grok-1's own prefill and decode calls of the full run (4 ×
+   512 queries over 528 cached rows, 48 heads over 8, D 128), each held
+   in both dtypes. Then deepseek-v2 cut
+   to 3 layers (the dense layer 0 and two MoE layers) and grok-1 cut to 2,
+   full width in bfloat16, weights drawn on the card, one after the other
+   with memory freed between: 4 prompts × 512 tokens through
+   ``make_prefill_step`` and 15 ``make_serve_step`` calls (16 new tokens),
+   the launch counts zeroed before and held to ``lm_launch_rule`` after (a
+   flash launch a layer a step; the prefill's alone read after it); finite
+   logits and caches, tokens in the vocabulary; prefill ms, decode ms per
+   step, peak memory and the device time of one prefill and one decode
+   step by kernel. Last, B8 at deepseek-v2's weight-absorbed prefill and
+   decode shapes (q [4, S, 128, 576] over the latent cache [4, 528, 1,
+   576], v its first 512 columns) against its plain version, timed beside
+   its bound, the plain version and SDPA with ``enable_gqa``: the
+   ``flash_attention_mla_prefill`` and ``flash_attention_mla_decode``
+   entries of the ``kernels`` line, with the full run's launches.
+16. ``lm_train`` — LM training through the flash kernels: (a)
    ``flash_attention_bwd`` and the forward's log-sum-exp against their
    plain versions on the card (qwen2.5-3b's heads at 4 × 1024 causal,
    h2o-danube's 32 over 8 at D = 120 with window 256, a padded length, a
@@ -228,7 +257,7 @@ Phases, each printing one JSON line:
    tokens: ms per step, tokens/s, peak memory, the device-busy share, the
    backward's µs per launch, and the flash launches held to
    ``lm_train_launch_rule``.
-16. ``accuracy`` — the paper's accuracy protocol on the card, the JAX
+17. ``accuracy`` — the paper's accuracy protocol on the card, the JAX
    package's CI gate (``benchmarks/accuracy_mape.py``) run by the port:
    the gate's plan (320 zoo graphs, convnext held out, qwen2.5-3b and
    mamba2-370m traced, shards of 64; its hash ``ACCURACY_PLAN_HASH``,
@@ -396,6 +425,42 @@ LM_ARCH, LM_SMOKE_WIDTH, LM_SEED = "zamba2-2.7b", False, 0
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
 LM_PARITY_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_STEPS = (
     12, 2, 128, 16)
+#: lm_moe_path: the MoE and MLA archs at full width in bfloat16, (arch,
+#: depth) cut to deepseek-v2's dense layer 0 and two MoE layers and to two
+#: of grok-1's MoE layers, one after the other (prompts × prompt length,
+#: new tokens); the parity run of both smoke configs in float32 against
+#: the CPU (prompts × prompt length, greedy steps after the prefill) and
+#: its bar (float32 sums in another order through 2–3 small layers)
+MOE_ARCHS = (("deepseek-v2-236b", 3), ("grok-1-314b", 2))
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 512, 16
+MOE_PARITY_BATCH, MOE_PARITY_PROMPT, MOE_PARITY_STEPS = 2, 40, 12
+MOE_PARITY_TOL = 1e-4
+#: B8 at the MoE archs' head dims, (B, Sq, Skv, H, Hkv, D, Dv, causal,
+#: q_offset[, scale]; the scale 1 / sqrt(3 D / 4) where none is given):
+#: the MLA smoke config's two forms (24 / 16, 40 / 32), deepseek's full
+#: sequence (192 / 128), its weight-absorbed cached form (576 / 512) over
+#: one latent kv head under 128 query heads, GQA, query offsets, a decode
+#: group of 5 rows (a part-filled 8-row group); and grok-1's own calls in
+#: the full run, the prefill over the cache of MOE_PROMPT + MOE_NEW rows
+#: and the last decode row, 6 query heads a kv head, scale 1 / sqrt(128)
+MLA_FLASH_SWEEP = [
+    (2, 1, 64, 4, 1, 40, 32, True, 41),
+    (2, 40, 64, 4, 1, 40, 32, True, 0),
+    (2, 40, 40, 4, 4, 24, 16, True, 0),
+    (2, 1, 40, 4, 2, 24, 16, True, 39),
+    (1, 77, 77, 8, 8, 192, 128, True, 0),
+    (1, 130, 130, 4, 4, 192, 128, False, 0),
+    (1, 1, 300, 16, 4, 192, 128, True, 299),
+    (1, 60, 120, 8, 2, 192, 128, True, 50),
+    (2, 1, 300, 128, 1, 576, 512, True, 290),
+    (1, 70, 96, 128, 1, 576, 512, True, 20),
+    (1, 1, 100, 8, 2, 576, 512, True, 99),
+    (2, 1, 200, 10, 2, 192, 128, True, 150),
+    (MOE_BATCH, MOE_PROMPT, MOE_PROMPT + MOE_NEW, 48, 8, 128, 128, True, 0,
+     1 / np.sqrt(128)),
+    (MOE_BATCH, 1, MOE_PROMPT + MOE_NEW, 48, 8, 128, 128, True,
+     MOE_PROMPT + MOE_NEW - 1, 1 / np.sqrt(128)),
+]
 
 
 #: accuracy: the JAX package's CI gate (``benchmarks/accuracy_mape.py``:
@@ -4723,8 +4788,10 @@ def build_facts(source: str, opcodes: tuple) -> dict:
     count of each SASS opcode of ``opcodes`` in its built library; the run
     fails if there is no ptxas report, no ``cuobjdump`` or a count of 0
     (flash: ``HGMMA`` and ``UTMALDG``, or its bf16 prefill is not on wgmma
-    and TMA; the SSD scan: ``HMMA``, or its bf16 path is not on the tensor
-    cores; fused_mp: ``HGMMA``, or its node phase is not on wgmma)."""
+    and TMA, and ``HMMA``, or its bf16 route past D = 128 is not on the
+    tensor cores; the SSD scan: ``HMMA``, or its bf16 path is not on the
+    tensor cores; fused_mp: ``HGMMA``, or its node phase is not on
+    wgmma)."""
     facts, sass = built_sass(source)
     counts = {op: len(re.findall(r"\b" + op + r"\b", sass))
               for op in opcodes}
@@ -5027,7 +5094,8 @@ def lm_kernel_entries(torch, dev) -> tuple:
                     / library["flash_decode"],
                     "host_us_per_call": host_us,
                     "split_plan": plans},
-         "build": build_facts("flash_attention", ("HGMMA", "UTMALDG")),
+         "build": build_facts("flash_attention",
+                              ("HGMMA", "UTMALDG", "HMMA")),
          "max_abs_err_by_dtype": sweep["flash_attention"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": src_root + "ssd_scan.cu",
@@ -5101,9 +5169,12 @@ def lm_parity(torch, dev) -> dict:
 
 def lm_launch_rule(cfg, new_tokens: int) -> dict:
     """The launches of one served batch: the flash kernel once per
-    attention block per step (the prefill and every decode step), the SSD
-    scan once per Mamba2 layer at prefill only (a one-token step takes
-    the plain decode update)."""
+    attention block per step (the prefill and every decode step: every
+    layer of an ``attn`` stack, the shared block once a group of a hybrid
+    one), the SSD scan once per Mamba2 layer at prefill only (a one-token
+    step takes the plain decode update)."""
+    if cfg.block == "attn":
+        return {"flash_attention": cfg.n_layers * new_tokens, "ssd_scan": 0}
     n_attn = cfg.n_layers // cfg.hybrid_attn_every
     n_mamba = n_attn * cfg.hybrid_attn_every
     return {"flash_attention": n_attn * new_tokens, "ssd_scan": n_mamba}
@@ -5206,6 +5277,338 @@ def phase_lm(torch, dev, name_limit: str) -> dict:
                "decode_step_device_ms_by_kernel": dec_top},
            "seconds": time.perf_counter() - t0}
     emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lm_moe_path: mixture-of-experts and MLA (deepseek-v2, grok-1)
+# ---------------------------------------------------------------------------
+
+def sweep_mla_flash(torch, dev) -> dict:
+    """flash_attention_cuda against its plain version on MLA_FLASH_SWEEP
+    (MLA's value head dims below the query's, grok-1's GQA calls), in
+    float32 and bfloat16; the worst |diff| per dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, case in enumerate(MLA_FLASH_SWEEP):
+        b, sq, skv, h, hkv, d, dv, causal, qo, *scale = case
+        rng = np.random.default_rng(8000 + i)
+        arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
+                  ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, dv))]
+        kw = dict(causal=causal, q_offset=qo,
+                  scale=scale[0] if scale else 1 / np.sqrt(0.75 * d))
+        for name in worst:
+            q, k, v = (torch.as_tensor(a, device=dev).to(getattr(torch, name))
+                       for a in arrays)
+            got = flash_attention_cuda(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = ((KERNEL_BF16_TOL,) * 2 if name == "bfloat16"
+                   else (KERNEL_ATOL, KERNEL_RTOL))
+            worst[name] = max(worst[name], check_close(
+                f"flash_attention at MLA's dims, {name}, case {case}",
+                got.float(), want.float(), *tol))
+    return worst
+
+
+def moe_route_recorder():
+    """Wrap ``layers.moe_apply_local`` so that each call also records its
+    route on the CPU: (expert ids, keep mask), as the block computes them
+    (``_route``, ``moe_slots``). Returns (the records, a restore call)."""
+    from repro_torch.models import layers as L
+    real = L.moe_apply_local
+    seen = []
+
+    def recording(p, cfg, x_flat):
+        _, ids, _ = L._route(p["router"], x_flat, cfg.moe)
+        keep, _, _ = L.moe_slots(ids, cfg.moe, x_flat.shape[0])
+        seen.append((ids.cpu(), keep.cpu()))
+        return real(p, cfg, x_flat)
+
+    L.moe_apply_local = recording
+    return seen, lambda: setattr(L, "moe_apply_local", real)
+
+
+def moe_parity(torch, dev, arch: str) -> dict:
+    """An MoE arch's smoke config in float32 on the card against the same
+    weights on the CPU: ``forward`` logits and aux loss, the prefill and
+    MOE_PARITY_STEPS greedy decode steps (every step's logits, the same
+    tokens), and every MoE layer's expert ids and keep mask (the same)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = get_smoke_config(arch)
+    cpu = lm.init_params(cfg, seed=LM_SEED, device="cpu")
+    card = tree_to(cpu, dev)
+    rng = np.random.default_rng(LM_SEED + 3)
+    prompts = rng.integers(0, cfg.vocab, (MOE_PARITY_BATCH,
+                                          MOE_PARITY_PROMPT))
+    max_len = MOE_PARITY_PROMPT + MOE_PARITY_STEPS
+    runs = {}
+    for where, params in (("card", card), ("cpu", cpu)):
+        pd = params["embed"].device
+        toks = torch.as_tensor(prompts, dtype=torch.int32, device=pd)
+        seen, restore = moe_route_recorder()
+        try:
+            fwd, aux = lm.forward(params, cfg, {"tokens": toks})
+            logits, cache = lm.prefill(params, cfg, {"tokens": toks}, max_len)
+            steps_l = [logits[:, -1].cpu()]
+            for i in range(MOE_PARITY_STEPS):
+                tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                logits, cache = lm.decode_step(params, cfg, cache,
+                                               {"tokens": tok[:, None]},
+                                               MOE_PARITY_PROMPT + i)
+                steps_l.append(logits[:, -1].cpu())
+        finally:
+            restore()
+        runs[where] = dict(fwd=fwd.cpu(), aux=aux.cpu(),
+                           steps=torch.stack(steps_l, 1), routes=seen)
+    card_r, cpu_r = runs["card"], runs["cpu"]
+    tok_card, tok_cpu = (r["steps"].argmax(-1) for r in (card_r, cpu_r))
+    if not torch.equal(tok_card, tok_cpu):
+        raise AssertionError(f"lm_moe_path parity {arch}: greedy tokens "
+                             f"differ {tok_card.tolist()} vs "
+                             f"{tok_cpu.tolist()}")
+    routes_equal = len(card_r["routes"]) == len(cpu_r["routes"]) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(card_r["routes"], cpu_r["routes"]))
+    if not routes_equal:
+        raise AssertionError(f"lm_moe_path parity {arch}: the MoE expert "
+                             f"ids or keep masks differ between the card "
+                             f"and the CPU")
+    tol = (MOE_PARITY_TOL, MOE_PARITY_TOL)
+    errs = {
+        "forward_logits": check_close(f"lm_moe_path {arch} forward logits",
+                                      card_r["fwd"], cpu_r["fwd"], *tol),
+        "aux_loss": check_close(f"lm_moe_path {arch} aux loss",
+                                card_r["aux"], cpu_r["aux"], *tol),
+        "step_logits": check_close(f"lm_moe_path {arch} decode logits",
+                                   card_r["steps"], cpu_r["steps"], *tol)}
+    dropped = sum(int((~k).sum()) for _, k in cpu_r["routes"])
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "dtype": cfg.param_dtype,
+            "prompts": [MOE_PARITY_BATCH, MOE_PARITY_PROMPT],
+            "decode_steps": MOE_PARITY_STEPS, "max_abs_err": errs,
+            "atol": MOE_PARITY_TOL, "rtol": MOE_PARITY_TOL,
+            "tokens_equal": True, "routes_equal": True,
+            "moe_calls": len(cpu_r["routes"]),
+            "replicas_dropped": dropped}
+
+
+def moe_full_run(torch, dev, arch: str, n_layers: int) -> dict:
+    """One MoE arch at full width in bfloat16, its depth cut to
+    ``n_layers``, weights drawn on the card: MOE_BATCH × MOE_PROMPT seeded
+    prompt tokens through ``make_prefill_step`` and MOE_NEW - 1
+    ``make_serve_step`` calls, the launch counts zeroed before and held
+    to ``lm_launch_rule`` after (and read after the prefill, which takes
+    the prefill's attention shape); finite logits and caches, tokens in
+    the vocabulary; prefill ms, decode ms a step, peak memory and the
+    device time of one prefill and one decode step by kernel."""
+    import dataclasses
+    from repro_torch import nn as tnn
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.lm import init_params
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(LM_SEED + 4)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (MOE_BATCH,
+                                                          MOE_PROMPT)),
+                              dtype=torch.int32, device=dev)
+    max_len = MOE_PROMPT + MOE_NEW
+    prefill, serve = make_prefill_step(cfg, max_len), make_serve_step(cfg)
+    _, cache = prefill(params, {"tokens": prompts})           # warm up
+    serve(params, cache, {"tokens": prompts[:, :1]}, MOE_PROMPT)
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {"flash_attention": flash_attention_cuda,
+                "ssd_scan": ssd_scan_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    prefill_launches = flash_attention_cuda.launches
+    idx, toks = MOE_PROMPT, [tok]
+    for _ in range(MOE_NEW - 1):
+        tok, cache, idx = serve(params, cache, {"tokens": tok[:, None]}, idx)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = lm_launch_rule(cfg, MOE_NEW)
+    if launches != want or prefill_launches != cfg.n_layers:
+        raise AssertionError(f"lm_moe_path {arch}: launches {launches} "
+                             f"({prefill_launches} at prefill) != the "
+                             f"rule's {want} ({cfg.n_layers})")
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.stack(toks, 1)
+    finite = {"prefill_logits": bool(torch.isfinite(logits).all()),
+              **{f"cache_{k}": bool(torch.isfinite(v.float()).all())
+                 for k, v in cache.items()}}
+    if not all(finite.values()) or logits.shape != (MOE_BATCH, 1,
+                                                    cfg.vocab):
+        raise AssertionError(f"lm_moe_path {arch}: logits "
+                             f"{tuple(logits.shape)}, finite {finite}")
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        raise AssertionError(f"lm_moe_path {arch}: a token outside the "
+                             f"vocabulary")
+    pre_busy, pre_top = device_busy_ms(torch, lambda: prefill(
+        params, {"tokens": prompts}))
+    dec_busy, dec_top = device_busy_ms(torch, lambda: serve(
+        params, cache, {"tokens": tok[:, None]}, max_len - 1))
+    prefill_ms = 1e3 * (t2 - t1)
+    decode_ms = 1e3 * (t3 - t2) / (MOE_NEW - 1)
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+                      "experts": [cfg.moe.n_experts, cfg.moe.top_k,
+                                  cfg.moe.n_shared],
+                      "mla": cfg.mla is not None},
+           "prompts": [MOE_BATCH, MOE_PROMPT], "new_tokens": MOE_NEW,
+           "max_len": max_len, "launches": launches,
+           "prefill_launches": prefill_launches,
+           "decode_launches": launches["flash_attention"] - prefill_launches,
+           "init_s": init_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "decode_tokens_per_s": MOE_BATCH / (decode_ms / 1e3),
+           "prefill_tokens_per_s": MOE_BATCH * MOE_PROMPT / (t2 - t1),
+           "max_memory_allocated": peak,
+           "param_bytes": tnn.tree_bytes(params),
+           "param_count": tnn.tree_size(params),
+           "cache_bytes": tnn.tree_bytes(cache),
+           "finite": finite, "first_tokens": gen[:2, :8].tolist(),
+           "prefill_device_busy_ms": pre_busy,
+           "prefill_device_ms_by_kernel": pre_top,
+           "decode_step_device_busy_ms": dec_busy,
+           "decode_step_device_ms_by_kernel": dec_top}
+    del params, cache, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_kernel_entries(torch, dev, sweep: dict, launches: dict) -> list:
+    """B8 at deepseek-v2's weight-absorbed shapes in lm_moe_path's full
+    run (bf16, D 576 = rank 512 + rope 64 over Dv 512, one latent kv head
+    under 128 query heads, MOE_PROMPT + MOE_NEW cached positions, scale
+    1 / sqrt(192)): the prefill (causal from position 0, the mma.sync
+    route) and the last decode step, each held to its plain version and
+    timed beside its bound, the plain version and SDPA (``enable_gqa``)
+    where SDPA takes the shape. ``launches``: the full run's, by entry."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    cfg = get_config("deepseek-v2-236b")
+    m = cfg.mla
+    b, s, t_max, h = MOE_BATCH, MOE_PROMPT, MOE_PROMPT + MOE_NEW, cfg.n_heads
+    d, dv = m.kv_lora_rank + m.qk_rope_dim, m.kv_lora_rank
+    scale = 1 / np.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    rng = np.random.default_rng(8100)
+    bt = lambda shape: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32),
+        device=dev).to(torch.bfloat16)
+    latent = bt((b, t_max, 1, d))            # the cache's [c ‖ r]
+    k, v = latent, latent[..., :dv].contiguous()
+    shapes = {"flash_attention_mla_prefill": (bt((b, s, h, d)), 0),
+              "flash_attention_mla_decode": (bt((b, 1, h, d)), t_max - 1)}
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    entries, kerns = [], {}
+    for name, (q, qo) in shapes.items():
+        kw = dict(causal=True, q_offset=qo, scale=scale)
+        kern = kerns[name] = lambda q=q, kw=kw: flash_attention_cuda(  # noqa: E731,E501
+            q, k, v, **kw)
+        plain = lambda q=q, kw=kw: ref.flash_attention_ref(  # noqa: E731
+            q, k, v, **kw)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = check_close(f"{name} at full width", got.float(), want.float(),
+                          KERNEL_BF16_TOL, KERNEL_BF16_TOL)
+        del got, want
+        sq = q.shape[1]
+        reps = dict(replays=5, calls=3) if sq > 1 else {}
+        # the same function in one library call: the keys after the last
+        # query row are never kept, so the prefill is is_causal over S
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        if sq > 1:
+            kt, vt = kt[:, :, :s], vt[:, :, :s]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=sq > 1, scale=scale, enable_gqa=True)
+        try:
+            library, library_note = time_graph_ms(torch, sdpa, **reps), (
+                "scaled_dot_product_attention, enable_gqa, on [B, H, S, D] "
+                "views of the same inputs" + (", is_causal over the first "
+                                              f"{s} keys" if sq > 1 else ""))
+        except Exception as e:                  # noqa: BLE001
+            library, library_note = None, f"none: SDPA refused ({e!r:.200})"
+        # bounds: q read once, the latent cache once (v is its first Dv
+        # columns), out written once; the kept pairs' products at the bf16
+        # peak (the prefill's route runs on the tensor cores, the decode's
+        # inputs are bf16)
+        kept = b * h * (sum(min(t_max, qo + i + 1) for i in range(sq)))
+        rows = min(t_max, qo + sq)               # cache rows the mask keeps
+        flops = 2.0 * kept * (d + dv)
+        nbytes = 2.0 * (q.numel() + b * rows * d + b * sq * h * dv)
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": "src/repro/kernels/flash_attention.py:93",
+                 "launches": launches[name], "max_abs_err": max(
+                     err, *sweep.values()),
+                 "ms": time_graph_ms(torch, kern, **reps),
+                 "plain_ms": time_graph_ms(torch, plain, **reps),
+                 "bound_ms": bound, "bound_by": by, "library_ms": library,
+                 "unit": f"q [{b}, {sq}, {h}, {d}] over k [{b}, {t_max}, 1, "
+                         f"{d}], v [{b}, {t_max}, 1, {dv}] bf16, causal, "
+                         f"q_offset {qo}",
+                 "route_taken": "mma.sync (bf16, D > 128), 2 column "
+                                "blocks of 256" if sq > 1
+                 else "split-KV decode + merge",
+                 "library_note": library_note, "kept_pairs": kept,
+                 "flops": flops, "bytes": nbytes,
+                 "max_abs_err_by_dtype": sweep}
+        entries.append(entry)
+    us = device_breakdown_us(torch, kerns, reps=3)
+    for e in entries:
+        e["device_us_by_kernel"] = us[e["name"]]
+    return entries
+
+
+def phase_lm_moe(torch, dev, name_limit: str) -> dict:
+    """Serve the MoE and MLA archs on the card: the parity runs of both
+    smoke configs against the CPU, B8 at MLA's head dims against its twin,
+    then deepseek-v2 and grok-1 at full width in bfloat16, one after the
+    other, with their launches held to ``lm_launch_rule``; B8's entries at
+    deepseek-v2's MLA prefill and decode shapes."""
+    t0 = time.perf_counter()
+    parity = {arch: moe_parity(torch, dev, arch) for arch, _ in MOE_ARCHS}
+    sweep = sweep_mla_flash(torch, dev)
+    torch.cuda.empty_cache()
+    serve = {arch: moe_full_run(torch, dev, arch, n)
+             for arch, n in MOE_ARCHS}
+    ds = serve["deepseek-v2-236b"]
+    launches = {"flash_attention_mla_prefill": ds["prefill_launches"],
+                "flash_attention_mla_decode": ds["decode_launches"]}
+    entries = mla_kernel_entries(torch, dev, sweep, launches)
+    torch.cuda.empty_cache()
+    out = {"phase": "lm_moe_path", "card": name_limit, "parity": parity,
+           "mla_flash_sweep_max_abs_err": sweep, "serve": serve,
+           "mla_kernels": {e["name"]: {k: e[k] for k in (
+               "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")} for e in entries},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    out["entries"] = entries
     return out
 
 
@@ -5924,9 +6327,10 @@ def main() -> int:
     phase_zoo(torch, name_limit)
     fac = phase_factory(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
+    moe = phase_lm_moe(torch, dev, name_limit)
     lm_train, bwd_entry, ssd_bwd = phase_lm_train(torch, dev, name_limit)
     phase_accuracy(torch, name_limit)
-    entries.extend((bwd_entry, ssd_bwd))
+    entries.extend((bwd_entry, ssd_bwd, *moe["entries"]))
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],
         "dense_aggregate": train["runs"]["dense"]["launches"],
@@ -5937,6 +6341,7 @@ def main() -> int:
         "ssd_scan": lm_run["serve"]["launches"],
         "flash_attention_bwd": lm_train["train"]["launches"],
         "ssd_scan_bwd": lm_train["ssd_train"]["launches"],
+        **{e["name"]: {e["name"]: e["launches"]} for e in moe["entries"]},
     }
     for e in entries:
         # each kernel's count from the path that carries it: GraphSAGE

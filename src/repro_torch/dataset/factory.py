@@ -38,11 +38,12 @@ byte-identical to an uninterrupted one.
 An LM entry traces ``lm.forward`` of the arch's smoke config at the
 entry's (batch, seq) on the meta device over ``lm.param_specs``, and
 gives the reference's graph, so its record too is the reference's. The
-archs whose blocks the port does not run yet (mixture-of-experts, MLA,
-cross-attention, the audio frontend: ROADMAP.md A14c) are refused by
-name, by :func:`build` and :func:`build_shard`, before anything is
-written. A v2 dataset the reference built with such records reads all
-the same: reading only loads arrays.
+archs whose layers have no graph form yet (mixture-of-experts and MLA,
+ROADMAP.md A14c-2) or that the port does not run yet (cross-attention,
+the audio frontend: A14c-3) are refused by name, by :func:`build` and
+:func:`build_shard`, before anything is written. A v2 dataset the
+reference built with such records reads all the same: reading only
+loads arrays.
 
 Consumption is streaming: :func:`iter_records` yields
 :class:`~repro_torch.dataset.builder.DatasetRecord` one shard at a time
@@ -259,7 +260,9 @@ def _trace_lm_entry(entry: Dict[str, Any], device_name: str,
 
 def _refuse_unported_lm(plan: FactoryPlan) -> None:
     """Raise before anything is written if the plan holds an LM entry
-    whose config ``lm.check_supported`` refuses (ROADMAP.md A14c)."""
+    whose config ``lm.check_traceable`` refuses: MoE and MLA (their graph
+    forms, ROADMAP.md A14c-2), cross-attention and the audio frontend
+    (A14c-3)."""
     from ..configs import get_smoke_config
     from ..models import lm
     refused = []
@@ -270,7 +273,7 @@ def _refuse_unported_lm(plan: FactoryPlan) -> None:
         except Exception:
             continue            # an unknown arch: a skip record, as ever
         try:
-            lm.check_supported(acfg)
+            lm.check_traceable(acfg)
         except NotImplementedError as e:
             refused.append(f"{arch}: {e}")
     if refused:
@@ -477,8 +480,9 @@ def build(out_dir: str, cfg: Optional[FactoryConfig] = None, *,
     ``cfg=None`` resumes whatever plan the directory holds. Passing a
     config whose plan hash differs from the committed one raises
     :class:`PlanMismatchError` (delete the directory to rebuild). A plan
-    with LM entries of an arch the port does not run yet raises
-    ``NotImplementedError`` before anything is written (ROADMAP.md A14c). ``workers > 1`` fans shard builds over
+    with LM entries of an arch the port cannot trace yet raises
+    ``NotImplementedError`` before anything is written (ROADMAP.md A14c-2,
+    A14c-3). ``workers > 1`` fans shard builds over
     spawned processes that re-read ``plan.json``; bytes are identical
     regardless of worker count. ``_stop_after_shards`` is a test hook
     simulating a mid-build kill.
@@ -639,8 +643,8 @@ def _cli() -> None:  # pragma: no cover — exercised via CI
                     help="comma-separated held-out families ('' for none)")
     ap.add_argument("--lm-archs", default="",
                     help="comma-separated configs arch names (a build "
-                         "refuses MoE, MLA, cross-attention and audio "
-                         "archs, ROADMAP.md A14c)")
+                         "refuses MoE and MLA archs, ROADMAP.md A14c-2, "
+                         "and cross-attention and audio archs, A14c-3)")
     ap.add_argument("--print-plan-hash", action="store_true",
                     help="print the plan hash and exit (no build)")
     args = ap.parse_args()

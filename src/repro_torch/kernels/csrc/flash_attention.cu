@@ -6,13 +6,15 @@
 // `blockwise_attention` (src/repro/models/layers.py), of which the Pallas
 // kernel is the case H == Hkv, kv_offset == 0 in a [B, H, S, D] layout;
 // semantics are those of `flash_attention_ref` (src/repro_torch/kernels/
-// ref.py). Over the model's layout q [B, Sq, H, D], k / v [B, Skv, Hkv, D]:
+// ref.py). Over the model's layout q [B, Sq, H, D], k [B, Skv, Hkv, D],
+// v [B, Skv, Hkv, Dv] (Dv <= D: MLA's heads are 192 / 128 over the full
+// sequence and 576 / 512 in its weight-absorbed cached form):
 //
 //   row i of q sits at position q_off + i, key j at position kv_off + j;
 //   (i, j) is kept when 0 <= kv_off + j, and, if causal, kv_off + j <= q_off
 //   + i, and, with window > 0, kv_off + j >= q_off + i - window + 1;
 //   out[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h / (H / Hkv)]
-//                  over the kept j) @ v[b, :, h / (H / Hkv)],
+//                  over the kept j) @ v[b, :, h / (H / Hkv)]  (Dv wide),
 //   and 0 for a row with no kept key (not NaN).
 //
 // The running max starts at -1e30 and the sum is divided by max(l, 1e-20),
@@ -23,11 +25,11 @@
 // range of key tiles that `tile_range` finds live. q_off and kv_off are
 // runtime ints, so a decode step builds nothing new.
 //
-// Three launch shapes, chosen by Sq and dtype. None falls back to another:
-// a launch that fails returns its error and the wrapper raises.
+// Four launch shapes, chosen by Sq, dtype and D. None falls back to
+// another: a launch that fails returns its error and the wrapper raises.
 //
-// 1. Sq > 1, bfloat16: tensor cores (`hop::flash_wgmma_kernel`). The
-//    prefill is bound by bytes on the H100 (q [8, 512, 32, 80] over 512
+// 1. Sq > 1, bfloat16, D <= 128: tensor cores (`hop::flash_wgmma_kernel`).
+//    The prefill is bound by bytes on the H100 (q [8, 512, 32, 80] over 512
 //    kept keys: 25 us of HBM traffic against 11 us of bf16 tensor-core
 //    work), so the design keeps every byte on chip once loaded and the
 //    tensor cores fed:
@@ -57,22 +59,39 @@
 //    16 (D = 16), 64 (D <= 64), 80 or 128 (the configs' D = 16, 64, 80,
 //    120, 128): Q K^T in DP / 16 k-steps, the last ones over the zeros, and
 //    P V as N = DP in n16, n64, n64 + n16 or n64 + n64 pieces, each inside
-//    one 64-column chunk of V.
-// 2. Sq > 1, float32: the FMA kernel (`fp32::flash_fma_kernel`). Float32
+//    one 64-column chunk of V. With Dv < D only V's first ceil(Dv / 64)
+//    chunks are loaded; the columns of O past Dv are never written.
+// 1b. Sq > 1, bfloat16, D > 128 (MLA: 192 / 128 over a full sequence,
+//    576 / 512 in its weight-absorbed prefill): `wide::flash_mma_kernel`.
+//    The wgmma kernel cannot hold D = 576 / Dv = 512: one warpgroup's
+//    64 x 512 float32 accumulator is 256 registers a thread, and the q, k
+//    and v tiles fill about 208 KB of shared memory. So a CTA of four warps
+//    takes 64 query rows and 128 or 256 columns of O (a grid dimension
+//    walks Dv in such blocks, each recomputing S = Q K^T: at 576 / 512 the
+//    products grow 1.5x, the accumulator is 128 registers); Q sits in
+//    shared memory, 32-key K and V tiles stream through two cp.async
+//    stages (183 KB at D = 576), and both products run as mma.sync
+//    m16n8k16 (bf16 in, float32 accumulators) from fragments read out of
+//    shared memory, rows padded by 16 bytes so that they hit 32 banks. The
+//    online softmax is the wgmma kernel's (the S accumulator layout is
+//    the P operand's, p rounded to bf16, l from the float32 p).
+// 2. Sq > 1, float32: the FMA kernel (`simt::flash_fma_kernel`). Float32
 //    is the parity dtype (lm_parity holds 12 float32 layers against the
-//    CPU), and
-//    tensor cores would compute it in TF32, about three decimal digits; so
-//    a float32 launch keeps the products on the FMA pipes: one block of
-//    128 threads per (16-row query tile, batch * head), 64-key K/V tiles
-//    in shared memory as float32, scores and p @ V with fmaf. It is bound
-//    by operations (about 7 flops per shared-memory load).
+//    CPU), and tensor cores would compute it in TF32, about three decimal
+//    digits; so a float32 launch keeps the products on the FMA pipes: one
+//    block of 128 threads per (16-row query tile, batch * head), 64-key
+//    K/V tiles (32 keys past D or Dv = 128) in shared memory, scores and
+//    p @ V with fmaf. It is bound by operations (about 7 flops per
+//    shared-memory load). A lane holds 4 of every 128 columns of O (Dv <=
+//    576 is at most five such pieces).
 // 3. Sq == 1, both dtypes: split-KV decode (`dec::flash_split_kernel`,
 //    then `dec::flash_merge_kernel`: two launches in one C call). Decode
 //    reads the whole K/V cache once for one query row per head and is
 //    bound by bytes, so no tensor cores:
 //    - one CTA per (batch, kv head, key split) holds the H / Hkv query
 //      rows of its kv head (up to 8 a CTA), so K and V are read once per
-//      kv head rather than once per query head;
+//      kv head rather than once per query head (MLA's one latent kv head
+//      under 128 query heads: 16 CTAs a batch row and split);
 //    - the live key range is cut into splits by the wrapper's
 //      `decode_split_plan` only as far as B * Hkv * splits covers every SM
 //      once: with fewer CTAs than SMs (qwen2.5-3b at B = 1 has 2) the
@@ -81,12 +100,19 @@
 //      merge (chip_smoke.py times both sides), and streams through shared
 //      memory in its own dtype in
 //      a two-stage cp.async ring (the next tile loads while this one is
-//      used);
+//      used), of half as many keys past D = 128 (shared memory is sized by
+//      the call's D and Dv);
+//    - p @ V: up to D = 128 the four warps split the keys of a tile and
+//      their sums are added at the end; past it (MLA) they split the
+//      columns, 128 each (and 128 more 512 on, to Dv = 640), a choice
+//      made at compile time, so that the narrow loop keeps its fixed
+//      stride;
 //    - each split writes its (m, l, unnormalised acc) to float32 scratch,
-//      and the merge takes the log-sum-exp over the splits. A split with
-//      no kept key holds (-1e30, 0, 0) and weighs 0 in the merge; with
-//      every split empty the row reads 0 / 1e-20 = 0. With one split the
-//      split kernel normalises and writes the output itself (no merge).
+//      and the merge takes the log-sum-exp over the splits, its threads
+//      looping over the Dv columns. A split with no kept key holds (-1e30,
+//      0, 0) and weighs 0 in the merge; with every split empty the row
+//      reads 0 / 1e-20 = 0. With one split the split kernel normalises and
+//      writes the output itself (no merge).
 //
 // With an `lse` pointer (training: the backward in flash_attention_bwd.cu
 // recomputes p from it) the two Sq > 1 kernels also write each row's
@@ -94,13 +120,15 @@
 // -1e30 for a row with no kept key, so the backward's p is its mask's 0. A
 // call with `lse` and Sq == 1 takes the Sq > 1 kernels, not the decode. A
 // null `lse` writes nothing more: the serving path launches what it did.
+// The lse, like the backward, takes only D <= 128 with Dv == D.
 //
-// Head dims: any D <= 128 with D % 8 == 0 (the configs use 16, 64, 80, 120,
-// 128); the wrapper checks it. Tolerance against the plain version: float32
-// sums in another order, 1e-4 absolute + 1e-4 relative in float32. In
-// bfloat16 2e-2: the output rounds to 8 bits of mantissa, and the tensor-
-// core path also rounds p to bf16 before P V (the Pallas kernel keeps p in
-// float32); l is summed from the float32 p.
+// Head dims: D <= 576 and Dv <= D, both multiples of 8 (the configs use 16,
+// 64, 80, 120, 128; MLA 192 / 128 and 576 / 512); the wrapper checks it.
+// Tolerance against the plain version: float32 sums in another order, 1e-4
+// absolute + 1e-4 relative in float32. In bfloat16 2e-2: the output rounds
+// to 8 bits of mantissa, and the tensor-core paths also round p to bf16
+// before P V (the Pallas kernel keeps p in float32); l is summed from the
+// float32 p.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -110,7 +138,8 @@
 
 namespace {
 
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 576;        // q / k head dim; v's is at most D
+constexpr int kMaxTensorCoreD = 128;  // the wgmma route, the lse
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -118,11 +147,11 @@ constexpr float kLn2 = 0.6931471805599453f;
 struct FlashArgs {
   const void* q;   // [B, Sq, H, D]
   const void* k;   // [B, Skv, Hkv, D]
-  const void* v;   // [B, Skv, Hkv, D]
-  void* out;       // [B, Sq, H, D]
-  float* scratch;  // decode with n_splits > 1: [B * H, n_splits, D + 2]
+  const void* v;   // [B, Skv, Hkv, Dv]
+  void* out;       // [B, Sq, H, Dv]
+  float* scratch;  // decode with n_splits > 1: [B * H, n_splits, Dv + 2]
   float* lse;      // null, or [B, H, Sq]: each row's log-sum-exp (Sq > 1)
-  int b, sq, skv, h, hkv, d;
+  int b, sq, skv, h, hkv, d, dv;
   float scale;
   int causal, window, q_off, kv_off;
   int key_lo, key_hi, split_len, n_splits;  // decode: the split plan
@@ -170,31 +199,53 @@ __device__ __forceinline__ void from_float(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// 16 bytes global -> shared, or 16 zero bytes when !ok (nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 // ---------------------------------------------------------------------------
-// 2. float32, Sq > 1: the FMA kernel
+// 2. Sq > 1, float32: the FMA kernel
 // ---------------------------------------------------------------------------
 
-namespace fp32 {
+namespace simt {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int BQ = 16, BK = 64;
-constexpr int kRowsPerGroup = BQ / (kThreads / BK);  // score rows a thread
+constexpr int BQ = 16;
 constexpr int kRowsPerWarp = BQ / kWarps;            // p @ V rows a warp
+constexpr int kWideD = 128;       // past it (D or Dv) the wide instance
 
-constexpr int smem_floats(int d) {
-  return BQ * d + 2 * BK * (d + 4) + BQ * BK + 3 * BQ;
+constexpr int smem_floats(int d, int dv, int bk) {
+  return BQ * d + bk * (d + 4) + bk * (dv + 4) + BQ * bk + 3 * BQ;
 }
 
+// BK keys a tile; NCH pieces of 128 columns of O a lane (4 columns each)
+template <int BK, int NCH>
 __global__ void __launch_bounds__(kThreads) flash_fma_kernel(FlashArgs a) {
+  constexpr int kRowsPerGroup = BQ / (kThreads / BK);  // score rows a thread
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
-  const int d = a.d, ld = d + 4, d4 = d / 4;
+  const int d = a.d, dv = a.dv, ldk = d + 4, ldv = dv + 4;
+  const int d4 = d / 4, dv4 = dv / 4;
   float* const qs = smem;                 // [BQ][d]
-  float* const ks = qs + BQ * d;          // [BK][ld]
-  float* const vs = ks + BK * ld;         // [BK][ld]
-  float* const ss = vs + BK * ld;         // [BQ][BK] scores, then p
+  float* const ks = qs + BQ * d;          // [BK][ldk]
+  float* const vs = ks + BK * ldk;        // [BK][ldv]
+  float* const ss = vs + BK * ldv;        // [BQ][BK] scores, then p
   float* const row_m = ss + BQ * BK;      // [BQ]
   float* const row_l = row_m + BQ;        // [BQ]
   float* const row_alpha = row_l + BQ;    // [BQ]
@@ -204,14 +255,17 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(FlashArgs a) {
   const int hk = hi / (a.h / a.hkv);
   const int q0 = blockIdx.x * BQ;
   const long long q_stride = static_cast<long long>(a.h) * d;
-  const long long kv_stride = static_cast<long long>(a.hkv) * d;
+  const long long k_stride = static_cast<long long>(a.hkv) * d;
+  const long long v_stride = static_cast<long long>(a.hkv) * dv;
   const float* const qb = static_cast<const float*>(a.q) +
                           static_cast<long long>(bi) * a.sq * q_stride +
                           static_cast<long long>(hi) * d;
-  const long long kv_base = static_cast<long long>(bi) * a.skv * kv_stride +
-                            static_cast<long long>(hk) * d;
-  const float* const kb = static_cast<const float*>(a.k) + kv_base;
-  const float* const vb = static_cast<const float*>(a.v) + kv_base;
+  const float* const kb = static_cast<const float*>(a.k) +
+                          static_cast<long long>(bi) * a.skv * k_stride +
+                          static_cast<long long>(hk) * d;
+  const float* const vb = static_cast<const float*>(a.v) +
+                          static_cast<long long>(bi) * a.skv * v_stride +
+                          static_cast<long long>(hk) * dv;
 
   for (int idx = tid; idx < BQ * d4; idx += kThreads) {
     const int r = idx / d4, c = (idx % d4) * 4;
@@ -225,12 +279,13 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(FlashArgs a) {
   }
 
   const int pv_row0 = warp * kRowsPerWarp;
-  const int c4 = lane * 4;
-  const bool lane_live = c4 < d;
-  float acc[kRowsPerWarp][4];
+  float acc[kRowsPerWarp][NCH][4];
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr)
-    acc[rr][0] = acc[rr][1] = acc[rr][2] = acc[rr][3] = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+      acc[rr][ch][0] = acc[rr][ch][1] = acc[rr][ch][2] = acc[rr][ch][3] =
+          0.0f;
 
   const int last_row = (q0 + BQ < a.sq ? q0 + BQ : a.sq) - 1;
   int t0, t1;
@@ -243,13 +298,15 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(FlashArgs a) {
 
     for (int idx = tid; idx < BK * d4; idx += kThreads) {
       const int j = idx / d4, c = (idx % d4) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (j < jn) {
-        kv = load4(kb + (j0 + j) * kv_stride + c);
-        vv = load4(vb + (j0 + j) * kv_stride + c);
-      }
-      store4(ks + j * ld + c, kv);
-      store4(vs + j * ld + c, vv);
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < jn) kv = load4(kb + (j0 + j) * k_stride + c);
+      store4(ks + j * ldk + c, kv);
+    }
+    for (int idx = tid; idx < BK * dv4; idx += kThreads) {
+      const int j = idx / dv4, c = (idx % dv4) * 4;
+      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < jn) vv = load4(vb + (j0 + j) * v_stride + c);
+      store4(vs + j * ldv + c, vv);
     }
     __syncthreads();
 
@@ -258,7 +315,7 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(FlashArgs a) {
       float s[kRowsPerGroup];
 #pragma unroll
       for (int r = 0; r < kRowsPerGroup; ++r) s[r] = 0.0f;
-      const float* kr = ks + j * ld;
+      const float* kr = ks + j * ldk;
       for (int c = 0; c < d; c += 4) {
         const float4 kk = load4(kr + c);
 #pragma unroll
@@ -306,39 +363,54 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(FlashArgs a) {
     }
     __syncthreads();
 
-    if (lane_live) {  // acc = acc * alpha + p @ V
+    // acc = acc * alpha + p @ V, columns 128 ch + 4 lane of this warp's rows
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float al = row_alpha[pv_row0 + rr];
-        acc[rr][0] *= al; acc[rr][1] *= al; acc[rr][2] *= al; acc[rr][3] *= al;
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const float al = row_alpha[pv_row0 + rr];
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        acc[rr][ch][0] *= al; acc[rr][ch][1] *= al;
+        acc[rr][ch][2] *= al; acc[rr][ch][3] *= al;
       }
-      for (int j = 0; j < jn; ++j) {
-        const float4 vv = load4(vs + j * ld + c4);
+    }
+    for (int j = 0; j < jn; ++j) {
+      float p[kRowsPerWarp];
+#pragma unroll
+      for (int rr = 0; rr < kRowsPerWarp; ++rr)
+        p[rr] = ss[(pv_row0 + rr) * BK + j];
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        const int c4 = 128 * ch + lane * 4;
+        if (c4 >= dv) break;
+        const float4 vv = load4(vs + j * ldv + c4);
 #pragma unroll
         for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          const float p = ss[(pv_row0 + rr) * BK + j];
-          acc[rr][0] = fmaf(p, vv.x, acc[rr][0]);
-          acc[rr][1] = fmaf(p, vv.y, acc[rr][1]);
-          acc[rr][2] = fmaf(p, vv.z, acc[rr][2]);
-          acc[rr][3] = fmaf(p, vv.w, acc[rr][3]);
+          acc[rr][ch][0] = fmaf(p[rr], vv.x, acc[rr][ch][0]);
+          acc[rr][ch][1] = fmaf(p[rr], vv.y, acc[rr][ch][1]);
+          acc[rr][ch][2] = fmaf(p[rr], vv.z, acc[rr][ch][2]);
+          acc[rr][ch][3] = fmaf(p[rr], vv.w, acc[rr][ch][3]);
         }
       }
     }
   }
 
   __syncthreads();
-  if (lane_live) {
-    float* const ob = static_cast<float*>(a.out) +
-                      static_cast<long long>(bi) * a.sq * q_stride +
-                      static_cast<long long>(hi) * d;
+  const long long o_stride = static_cast<long long>(a.h) * dv;
+  float* const ob = static_cast<float*>(a.out) +
+                    static_cast<long long>(bi) * a.sq * o_stride +
+                    static_cast<long long>(hi) * dv;
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = pv_row0 + rr;
-      if (q0 + r >= a.sq) continue;
-      const float l = fmaxf(row_l[r], 1e-20f);
-      store4(ob + (q0 + r) * q_stride + c4,
-             make_float4(acc[rr][0] / l, acc[rr][1] / l, acc[rr][2] / l,
-                         acc[rr][3] / l));
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = pv_row0 + rr;
+    if (q0 + r >= a.sq) continue;
+    const float l = fmaxf(row_l[r], 1e-20f);
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      const int c4 = 128 * ch + lane * 4;
+      if (c4 >= dv) break;
+      store4(ob + (q0 + r) * o_stride + c4,
+             make_float4(acc[rr][ch][0] / l, acc[rr][ch][1] / l,
+                         acc[rr][ch][2] / l, acc[rr][ch][3] / l));
     }
   }
   if (a.lse != nullptr && tid < BQ && q0 + tid < a.sq)
@@ -346,7 +418,7 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(FlashArgs a) {
         row_m[tid] + logf(fmaxf(row_l[tid], 1e-20f));
 }
 
-}  // namespace fp32
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // 1. bfloat16, Sq > 1: TMA + wgmma
@@ -441,11 +513,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // wgmma m64nNk16, bf16 in, f32 accumulate. mma_ss: A and B from shared
@@ -549,6 +616,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_e = smem_u32(&bars[2 + 2 * kStages]);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // V's 64-column chunks that hold a column < Dv: only those are loaded
+  const int v_chunks = (a.dv + 63) / 64;
   // persistent: CTA c takes work items c, c + gridDim.x, ...; item w is
   // query tile n_qt - 1 - w / (B * H) of head w % (B * H), so the tiles
   // with the most keys go first
@@ -594,8 +663,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int c = 0; c < S::kChunks; ++c)
             tma_load(k_s + s * S::kKVBytes + c * BK * kRowBytes, &tk,
                      bar_k + 8 * s, 64 * c, hk, t * BK, bi);
-          mbar_expect_tx(bar_v + 8 * s, S::kKVBytes);
-          for (int c = 0; c < S::kChunks; ++c)
+          mbar_expect_tx(bar_v + 8 * s, v_chunks * BK * kRowBytes);
+          for (int c = 0; c < v_chunks; ++c)
             tma_load(v_s + s * S::kKVBytes + c * BK * kRowBytes, &tv,
                      bar_v + 8 * s, 64 * c, hk, t * BK, bi);
         }
@@ -754,14 +823,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (qr < a.sq) lb[qr] = m0 * kLn2 + logf(fmaxf(l0, 1e-20f));
       if (qr + 8 < a.sq) lb[qr + 8] = m1 * kLn2 + logf(fmaxf(l1, 1e-20f));
     }
-    const long long rs = static_cast<long long>(a.h) * a.d;
+    const long long rs = static_cast<long long>(a.h) * a.dv;
     __nv_bfloat16* const ob = static_cast<__nv_bfloat16*>(a.out) +
                               (static_cast<long long>(bi) * a.sq + qr) * rs +
-                              static_cast<long long>(hi) * a.d;
+                              static_cast<long long>(hi) * a.dv;
 #pragma unroll
     for (int c8 = 0; c8 < DP / 8; ++c8) {
       const int c = 8 * c8 + 2 * (lane & 3);
-      if (c >= a.d) continue;
+      if (c >= a.dv) continue;
       if (qr < a.sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + c) =
             __floats2bfloat162_rn(o[4 * c8] * inv0, o[4 * c8 + 1] * inv0);
@@ -775,6 +844,225 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace hop
 
 // ---------------------------------------------------------------------------
+// 1b. bfloat16, Sq > 1, D > 128: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+constexpr int kThreads = 128;        // four warps of 16 query rows
+constexpr int BQ = 64;
+constexpr int BK = 32;               // keys a tile, two cp.async stages
+constexpr int kPad = 8;              // bf16 a shared row past its width
+
+__host__ __device__ constexpr int padded_d(int d) { return (d + 15) / 16 * 16; }
+
+// Q [BQ][DP + 8], then two stages of K [BK][DP + 8] and V [BK][DVT + 8]
+__host__ __device__ constexpr int smem_bytes(int d, int dvt) {
+  return 2 * (BQ * (padded_d(d) + kPad) +
+              2 * BK * (padded_d(d) + kPad) + 2 * BK * (dvt + kPad));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
+                                          __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One CTA per (64-row query tile, batch * head, DVT columns of O). Warp w
+// holds rows 16 w .. 16 w + 15; this thread rows g and g + 8 of them (g =
+// lane / 4), at key / column pairs 2 t, 2 t + 1 of each 8-wide n-tile (t =
+// lane % 4), the m16n8k16 accumulator layout.
+template <int DVT>
+__global__ void __launch_bounds__(kThreads) flash_mma_kernel(FlashArgs a) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* const sm = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int d = a.d, dp = padded_d(d), ldq = dp + kPad, ldv = DVT + kPad;
+  __nv_bfloat16* const qs = sm;                         // [BQ][ldq]
+  __nv_bfloat16* const ks = qs + BQ * ldq;              // [2][BK][ldq]
+  __nv_bfloat16* const vs = ks + 2 * BK * ldq;          // [2][BK][ldv]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bi = blockIdx.y / a.h, hi = blockIdx.y % a.h;
+  const int hk = hi / (a.h / a.hkv);
+  const int q0 = blockIdx.x * BQ, c0 = blockIdx.z * DVT;
+  const __nv_bfloat16* const qg = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* const kg = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* const vg = static_cast<const __nv_bfloat16*>(a.v);
+
+  const int cq = dp / 8, cv = DVT / 8;                   // 16-byte chunks
+  for (int idx = tid; idx < BQ * cq; idx += kThreads) {
+    const int r = idx / cq, c = (idx % cq) * 8;
+    const bool ok = q0 + r < a.sq && c < d;
+    const long long off =
+        ok ? ((static_cast<long long>(bi) * a.sq + q0 + r) * a.h + hi) * d + c
+           : 0;
+    cp_async16(qs + r * ldq + c, qg + off, ok);
+  }
+  auto load_tile = [&](int tile, int stage) {
+    const int j0 = tile * BK;
+    for (int idx = tid; idx < BK * cq; idx += kThreads) {
+      const int r = idx / cq, c = (idx % cq) * 8;
+      const bool ok = j0 + r < a.skv && c < d;
+      const long long off =
+          ok ? ((static_cast<long long>(bi) * a.skv + j0 + r) * a.hkv + hk) *
+                       d + c
+             : 0;
+      cp_async16(ks + (stage * BK + r) * ldq + c, kg + off, ok);
+    }
+    for (int idx = tid; idx < BK * cv; idx += kThreads) {
+      const int r = idx / cv, c = (idx % cv) * 8;
+      const bool ok = j0 + r < a.skv && c0 + c < a.dv;
+      const long long off =
+          ok ? ((static_cast<long long>(bi) * a.skv + j0 + r) * a.hkv + hk) *
+                       a.dv + c0 + c
+             : 0;
+      cp_async16(vs + (stage * BK + r) * ldv + c, vg + off, ok);
+    }
+  };
+
+  const int last_row = (q0 + BQ < a.sq ? q0 + BQ : a.sq) - 1;
+  int t0, t1;
+  tile_range(a, a.q_off + q0, a.q_off + last_row, BK, t0, t1);
+  if (t0 < t1) load_tile(t0, 0);
+  cp_async_commit();
+
+  const int row0 = a.q_off + q0 + warp * 16 + g;         // and row0 + 8
+  const float sl2 = a.scale * kLog2e;
+  const __nv_bfloat16* const qw = qs + (warp * 16 + g) * ldq + 2 * t4;
+  float o[DVT / 8][4];
+#pragma unroll
+  for (int n = 0; n < DVT / 8; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
+
+  for (int tile = t0; tile < t1; ++tile) {
+    const int stage = (tile - t0) & 1;
+    cp_async_wait_all();
+    __syncthreads();            // tile `tile` has landed; tile - 1 is read
+    if (tile + 1 < t1) load_tile(tile + 1, stage ^ 1);
+    cp_async_commit();
+    const __nv_bfloat16* const kt = ks + stage * BK * ldq;
+    const __nv_bfloat16* const vt = vs + stage * BK * ldv;
+
+    float sc[BK / 8][4];        // S = Q K^T, four 8-key n-tiles
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+    for (int k0 = 0; k0 < dp; k0 += 16) {
+      const uint32_t qa[4] = {ld32(qw + k0), ld32(qw + 8 * ldq + k0),
+                              ld32(qw + k0 + 8), ld32(qw + 8 * ldq + k0 + 8)};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        const __nv_bfloat16* const kr = kt + (n * 8 + g) * ldq + k0 + 2 * t4;
+        mma16816(sc[n], qa, ld32(kr), ld32(kr + 8));
+      }
+    }
+
+    // scale into log2 units and mask: a dropped score is -inf, so exp2
+    // sends it to 0 while the running max stays >= -1e30
+    const int j0 = tile * BK;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + n * 8 + 2 * t4 + e, col = a.kv_off + j;
+        const bool in = j < a.skv;
+        sc[n][e] = in && kept(row0, col, a) ? sc[n][e] * sl2 : -INFINITY;
+        sc[n][2 + e] =
+            in && kept(row0 + 8, col, a) ? sc[n][2 + e] * sl2 : -INFINITY;
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float al0 = exp2f(m0 - mx0), al1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      sc[n][0] = exp2f(sc[n][0] - m0);
+      sc[n][1] = exp2f(sc[n][1] - m0);
+      sc[n][2] = exp2f(sc[n][2] - m1);
+      sc[n][3] = exp2f(sc[n][3] - m1);
+      sum0 += sc[n][0] + sc[n][1];
+      sum1 += sc[n][2] + sc[n][3];
+    }
+    l0 = l0 * al0 + sum0;     // this thread's share; the quad sums at the end
+    l1 = l1 * al1 + sum1;
+#pragma unroll
+    for (int n = 0; n < DVT / 8; ++n) {
+      o[n][0] *= al0; o[n][1] *= al0; o[n][2] *= al1; o[n][3] *= al1;
+    }
+
+    // O += P V: P rounded to bf16 in the accumulator layout, which is the
+    // A operand's; V's pairs of keys packed from shared memory
+#pragma unroll
+    for (int ks2 = 0; ks2 < BK / 16; ++ks2) {
+      const float* const lo = sc[2 * ks2];         // keys 16 ks2 + 0..7
+      const float* const hi8 = sc[2 * ks2 + 1];    // and 8..15
+      const uint32_t pa[4] = {pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]),
+                              pack_bf16(hi8[0], hi8[1]),
+                              pack_bf16(hi8[2], hi8[3])};
+      const __nv_bfloat16* const vr = vt + (ks2 * 16 + 2 * t4) * ldv + g;
+#pragma unroll
+      for (int n = 0; n < DVT / 8; ++n) {
+        const __nv_bfloat16* const v = vr + n * 8;
+        mma16816(o[n], pa, pack2(v[0], v[ldv]), pack2(v[8 * ldv], v[9 * ldv]));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = 1.0f / fmaxf(l0, 1e-20f), inv1 = 1.0f / fmaxf(l1, 1e-20f);
+  const int qr = q0 + warp * 16 + g;
+  const long long rs = static_cast<long long>(a.h) * a.dv;
+  __nv_bfloat16* const ob = static_cast<__nv_bfloat16*>(a.out) +
+                            (static_cast<long long>(bi) * a.sq + qr) * rs +
+                            static_cast<long long>(hi) * a.dv + c0;
+#pragma unroll
+  for (int n = 0; n < DVT / 8; ++n) {
+    const int c = n * 8 + 2 * t4;
+    if (c0 + c >= a.dv) break;
+    if (qr < a.sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + c) =
+          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+    if (qr + 8 < a.sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * rs + c) =
+          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
+}  // namespace wide
+
+// ---------------------------------------------------------------------------
 // 3. Sq == 1: split-KV decode, then the log-sum-exp merge
 // ---------------------------------------------------------------------------
 
@@ -783,11 +1071,17 @@ namespace dec {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 8;     // query rows (heads of one kv head) a CTA
-// keys a tile: 16 KB or less of K and of V at D = 128 in either dtype (the
-// wrapper's `_DECODE_TILE` repeats these)
+// Two instances a dtype and row count. Narrow (D <= kNarrowD): keys a tile
+// 16 KB or less of K and of V at D = 128 in either dtype, and the four
+// warps split each tile's keys in p @ V, a lane 4 of its 128 columns. Wide
+// (D > kNarrowD: MLA's 576 / 512): half as many keys a tile, so that the
+// ring fits, and the warps split the columns instead, 128 each, a lane 4
+// of them and 4 more 512 columns on (Dv <= 640). The wrapper's
+// `decode_tile` repeats the tile sizes.
+constexpr int kNarrowD = 128;
 template <typename T>
-__host__ __device__ constexpr int tile_keys() {
-  return sizeof(T) == 2 ? 64 : 32;
+__host__ __device__ constexpr int tile_keys(bool wide) {
+  return (sizeof(T) == 2 ? 64 : 32) / (wide ? 2 : 1);
 }
 
 template <typename T>
@@ -796,24 +1090,11 @@ __host__ __device__ constexpr int pitch_bytes(int d) {
 }
 
 // K and V, two stages each, then q [GR][d], p [GR][BK], m, l, alpha [GR]
-template <typename T, int GR>
-__host__ __device__ constexpr int smem_bytes(int d) {
-  return 2 * 2 * tile_keys<T>() * pitch_bytes<T>(d) +
-         4 * (GR * d + GR * tile_keys<T>() + 3 * GR);
-}
-
-__device__ __forceinline__ void cp_async16(uint8_t* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+template <typename T, int GR, bool WIDE>
+__host__ __device__ constexpr int smem_bytes(int d, int dv) {
+  constexpr int BK = tile_keys<T>(WIDE);
+  return 2 * BK * (pitch_bytes<T>(d) + pitch_bytes<T>(dv)) +
+         4 * (GR * d + GR * BK + 3 * GR);
 }
 
 // eight values of a shared-memory row as float
@@ -850,17 +1131,22 @@ __device__ __forceinline__ float4 load4s(const uint8_t* p, __nv_bfloat16) {
 
 // One CTA per (key split, batch * kv head * row group): rows g0 .. g0 + GR
 // of the kv head's H / Hkv query heads, keys [j_begin, j_end) of the split.
-template <typename T, int GR>
+template <typename T, int GR, bool WIDE>
 __global__ void __launch_bounds__(kThreads) flash_split_kernel(FlashArgs a) {
-  constexpr int BK = tile_keys<T>();
+  constexpr int BK = tile_keys<T>(WIDE);
   constexpr int TPK = kThreads / BK;          // threads a key's dot product
+  // p @ V: kGroups groups of warps each own 128 columns (and, wide, the
+  // 128 columns 512 further on); the kStep warps of a group split the keys
+  constexpr int kGroups = WIDE ? kWarps : 1, kStep = kWarps / kGroups;
+  constexpr int kPieces = WIDE ? 2 : 1;
   extern __shared__ float4 smem4[];
   uint8_t* const sm = reinterpret_cast<uint8_t*>(smem4);
-  const int d = a.d;
-  const int pitch = pitch_bytes<T>(d), tile = BK * pitch;
-  uint8_t* const ks = sm;                      // [2][BK][pitch]
-  uint8_t* const vs = ks + 2 * tile;           // [2][BK][pitch]
-  float* const qs = reinterpret_cast<float*>(vs + 2 * tile);  // [GR][d]
+  const int d = a.d, dv = a.dv;
+  const int pk = pitch_bytes<T>(d), pv = pitch_bytes<T>(dv);
+  const int tile_k = BK * pk, tile_v = BK * pv;
+  uint8_t* const ks = sm;                      // [2][BK][pk]
+  uint8_t* const vs = ks + 2 * tile_k;         // [2][BK][pv]
+  float* const qs = reinterpret_cast<float*>(vs + 2 * tile_v);  // [GR][d]
   float* const ps = qs + GR * d;               // [GR][BK] scores, then p
   float* const st_m = ps + GR * BK;
   float* const st_l = st_m + GR;
@@ -889,34 +1175,43 @@ __global__ void __launch_bounds__(kThreads) flash_split_kernel(FlashArgs a) {
     st_l[tid] = 0.0f;
   }
 
-  const long long kv_stride = static_cast<long long>(a.hkv) * d;
-  const long long kv_base =
-      (static_cast<long long>(bi) * a.skv * a.hkv + hk) * d;
-  const T* const kb = static_cast<const T*>(a.k) + kv_base;
-  const T* const vb = static_cast<const T*>(a.v) + kv_base;
-  const int cpr = d * static_cast<int>(sizeof(T)) / 16;   // 16-byte copies
+  const long long k_stride = static_cast<long long>(a.hkv) * d;
+  const long long v_stride = static_cast<long long>(a.hkv) * dv;
+  const T* const kb = static_cast<const T*>(a.k) +
+                      (static_cast<long long>(bi) * a.skv * a.hkv + hk) * d;
+  const T* const vb = static_cast<const T*>(a.v) +
+                      (static_cast<long long>(bi) * a.skv * a.hkv + hk) * dv;
+  // 16-byte copies a key: K's cpr_k, V's the first cpr_v of them (Dv <= D)
+  const int cpr_k = d * static_cast<int>(sizeof(T)) / 16;
+  const int cpr_v = dv * static_cast<int>(sizeof(T)) / 16;
   auto load_tile = [&](int t, int stage) {
     const int j0 = j_begin + t * BK;
-    for (int idx = tid; idx < BK * cpr; idx += kThreads) {
-      const int r = idx / cpr, c = idx % cpr;
+    for (int idx = tid; idx < BK * cpr_k; idx += kThreads) {
+      const int r = idx / cpr_k, c = idx % cpr_k;
       const bool ok = j0 + r < j_end;         // past the split: zero-filled
-      const long long off = ok ? (j0 + r) * kv_stride : 0;
-      cp_async16(ks + stage * tile + r * pitch + c * 16,
-                 reinterpret_cast<const uint8_t*>(kb + off) + c * 16, ok);
-      cp_async16(vs + stage * tile + r * pitch + c * 16,
-                 reinterpret_cast<const uint8_t*>(vb + off) + c * 16, ok);
+      const long long row = ok ? j0 + r : 0;
+      cp_async16(ks + stage * tile_k + r * pk + c * 16,
+                 reinterpret_cast<const uint8_t*>(kb + row * k_stride) +
+                     c * 16, ok);
+      if (c < cpr_v)
+        cp_async16(vs + stage * tile_v + r * pv + c * 16,
+                   reinterpret_cast<const uint8_t*>(vb + row * v_stride) +
+                       c * 16, ok);
     }
   };
   if (n_tiles > 0) load_tile(0, 0);
   cp_async_commit();
 
   const float sl2 = a.scale * kLog2e;
-  const int c4 = lane * 4;
-  const bool live = c4 < d;
-  float acc[GR][4];
+  const int kpart = warp / kGroups;
+  const int c_lo = (warp % kGroups) * 128 + lane * 4;
+  const bool live = c_lo < dv;                // this lane holds columns
+  float acc[GR][kPieces][4];
 #pragma unroll
   for (int r = 0; r < GR; ++r)
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i)
+      acc[r][i][0] = acc[r][i][1] = acc[r][i][2] = acc[r][i][3] = 0.0f;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int stage = t & 1;
@@ -928,7 +1223,7 @@ __global__ void __launch_bounds__(kThreads) flash_split_kernel(FlashArgs a) {
 
     {  // scores: TPK threads a key, over interleaved 8-column chunks
       const int j = tid / TPK, part = tid % TPK;
-      const uint8_t* const kr = ks + stage * tile + j * pitch;
+      const uint8_t* const kr = ks + stage * tile_k + j * pk;
       float s[GR];
 #pragma unroll
       for (int r = 0; r < GR; ++r) s[r] = 0.0f;
@@ -984,77 +1279,95 @@ __global__ void __launch_bounds__(kThreads) flash_split_kernel(FlashArgs a) {
     }
     __syncthreads();
 
-    if (live) {  // acc = acc * alpha + p @ V over this warp's quarter of keys
+    if (live) {  // acc = acc * alpha + p @ V over this warp's keys, columns
       const uint8_t* const vt =
-          vs + stage * tile + c4 * static_cast<int>(sizeof(T));
+          vs + stage * tile_v + c_lo * static_cast<int>(sizeof(T));
 #pragma unroll
       for (int r = 0; r < GR; ++r) {
         const float al = st_a[r];
-        acc[r][0] *= al; acc[r][1] *= al; acc[r][2] *= al; acc[r][3] *= al;
-      }
-      for (int j = warp; j < BK; j += kWarps) {
-        const float4 vv = load4s(vt + j * pitch, T());
 #pragma unroll
-        for (int r = 0; r < GR; ++r) {
-          const float p = ps[r * BK + j];
-          acc[r][0] = fmaf(p, vv.x, acc[r][0]);
-          acc[r][1] = fmaf(p, vv.y, acc[r][1]);
-          acc[r][2] = fmaf(p, vv.z, acc[r][2]);
-          acc[r][3] = fmaf(p, vv.w, acc[r][3]);
+        for (int i = 0; i < kPieces; ++i) {
+          acc[r][i][0] *= al; acc[r][i][1] *= al;
+          acc[r][i][2] *= al; acc[r][i][3] *= al;
+        }
+      }
+      for (int j = kpart; j < BK; j += kStep) {
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i) {
+          if (i > 0 && c_lo + 512 * i >= dv) break;
+          const float4 vv = load4s(
+              vt + j * pv + 512 * i * static_cast<int>(sizeof(T)), T());
+#pragma unroll
+          for (int r = 0; r < GR; ++r) {
+            const float p = ps[r * BK + j];
+            acc[r][i][0] = fmaf(p, vv.x, acc[r][i][0]);
+            acc[r][i][1] = fmaf(p, vv.y, acc[r][i][1]);
+            acc[r][i][2] = fmaf(p, vv.z, acc[r][i][2]);
+            acc[r][i][3] = fmaf(p, vv.w, acc[r][i][3]);
+          }
         }
       }
     }
   }
 
-  // add the four warps' partial sums (over the K/V stages, now idle)
+  // add the key-splitting warps' partial sums (over the K/V stages, now
+  // idle: [kStep][GR][dv] floats, at most 128 * Dv bytes)
   cp_async_wait_all();
   __syncthreads();
-  float* const red = reinterpret_cast<float*>(sm);   // [kWarps][GR][d]
-  if (live) {
+  float* const red = reinterpret_cast<float*>(sm);
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    const int c4 = c_lo + 512 * i;
+    if (c4 >= dv) break;
 #pragma unroll
     for (int r = 0; r < GR; ++r)
-      store4(red + (warp * GR + r) * d + c4,
-             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+      store4(red + (kpart * GR + r) * dv + c4,
+             make_float4(acc[r][i][0], acc[r][i][1], acc[r][i][2],
+                         acc[r][i][3]));
   }
   __syncthreads();
-  for (int idx = tid; idx < gr * d; idx += kThreads) {
-    const int r = idx / d, c = idx % d;
+  for (int idx = tid; idx < gr * dv; idx += kThreads) {
+    const int r = idx / dv, c = idx % dv;
     float sum = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[(w * GR + r) * d + c];
+    for (int w = 0; w < kStep; ++w) sum += red[(w * GR + r) * dv + c];
     const long long row = static_cast<long long>(bi) * a.h + h0 + r;
     if (a.n_splits == 1) {
-      from_float(static_cast<T*>(a.out) + row * d + c,
+      from_float(static_cast<T*>(a.out) + row * dv + c,
                  sum / fmaxf(st_l[r], 1e-20f));
     } else {
-      float* const sc = a.scratch + (row * a.n_splits + split) * (d + 2);
+      float* const sc = a.scratch + (row * a.n_splits + split) * (dv + 2);
       sc[c] = sum;
       if (c == 0) {
-        sc[d] = st_m[r];
-        sc[d + 1] = st_l[r];
+        sc[dv] = st_m[r];
+        sc[dv + 1] = st_l[r];
       }
     }
   }
 }
 
 // One block per (batch, head) row: out = sum_s 2^(m_s - M) acc_s over
-// max(sum_s 2^(m_s - M) l_s, 1e-20), M the largest m_s (log2 units).
+// max(sum_s 2^(m_s - M) l_s, 1e-20), M the largest m_s (log2 units); the
+// block's threads loop over the Dv columns.
+constexpr int kMergeThreads = 128;
 template <typename T>
-__global__ void __launch_bounds__(kMaxD) flash_merge_kernel(FlashArgs a) {
+__global__ void __launch_bounds__(kMergeThreads)
+    flash_merge_kernel(FlashArgs a) {
   const long long row = blockIdx.x;
-  const int d = a.d, stride = d + 2;
+  const int dv = a.dv, stride = dv + 2;
   const float* const base = a.scratch + row * a.n_splits * stride;
   float mx = kNeg;
-  for (int s = 0; s < a.n_splits; ++s) mx = fmaxf(mx, base[s * stride + d]);
-  const int c = threadIdx.x;
-  if (c >= d) return;
-  float num = 0.0f, den = 0.0f;
-  for (int s = 0; s < a.n_splits; ++s) {
-    const float w = exp2f(base[s * stride + d] - mx);
-    den += w * base[s * stride + d + 1];
-    num += w * base[s * stride + c];
+  for (int s = 0; s < a.n_splits; ++s) mx = fmaxf(mx, base[s * stride + dv]);
+  for (int c = threadIdx.x; c < dv; c += kMergeThreads) {
+    float num = 0.0f, den = 0.0f;
+    for (int s = 0; s < a.n_splits; ++s) {
+      const float w = exp2f(base[s * stride + dv] - mx);
+      den += w * base[s * stride + dv + 1];
+      num += w * base[s * stride + c];
+    }
+    from_float(static_cast<T*>(a.out) + row * dv + c,
+               num / fmaxf(den, 1e-20f));
   }
-  from_float(static_cast<T*>(a.out) + row * d + c, num / fmaxf(den, 1e-20f));
 }
 
 }  // namespace dec
@@ -1134,7 +1447,7 @@ int launch_hopper(const FlashArgs& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int rc = encode(&tq, a.q, a.b, a.sq, a.h, a.d, hop::BQ);
   if (rc == 0) rc = encode(&tk, a.k, a.b, a.skv, a.hkv, a.d, hop::BK);
-  if (rc == 0) rc = encode(&tv, a.v, a.b, a.skv, a.hkv, a.d, hop::BK);
+  if (rc == 0) rc = encode(&tv, a.v, a.b, a.skv, a.hkv, a.dv, hop::BK);
   if (rc != 0) return rc;
   int dev = 0, sms = 0;      // one persistent CTA per SM
   err = cudaGetDevice(&dev);
@@ -1155,42 +1468,84 @@ int dispatch_hopper(const FlashArgs& a, cudaStream_t stream) {
   return launch_hopper<128>(a, stream);
 }
 
-int launch_fma(const FlashArgs& a, cudaStream_t stream) {
+// the FMA kernel's instance: 64-key tiles and one 128-column piece of O a
+// lane up to D = Dv = 128, else 32-key tiles and five pieces (Dv <= 640)
+template <int BK, int NCH>
+int launch_fma(const FlashArgs& a, int max_d, cudaStream_t stream) {
   static bool configured = false;
   const cudaError_t err = allow_smem(
-      fp32::flash_fma_kernel,
-      fp32::smem_floats(kMaxD) * static_cast<int>(sizeof(float)),
+      simt::flash_fma_kernel<BK, NCH>,
+      simt::smem_floats(max_d, max_d, BK) * static_cast<int>(sizeof(float)),
       configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.sq + fp32::BQ - 1) / fp32::BQ, a.b * a.h);
-  const size_t bytes = fp32::smem_floats(a.d) * sizeof(float);
-  fp32::flash_fma_kernel<<<grid, fp32::kThreads, bytes, stream>>>(a);
+  const dim3 grid((a.sq + simt::BQ - 1) / simt::BQ, a.b * a.h);
+  const size_t bytes = simt::smem_floats(a.d, a.dv, BK) * sizeof(float);
+  simt::flash_fma_kernel<BK, NCH>
+      <<<grid, simt::kThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bfloat16 past D = 128: DVT columns of O a CTA, ceil(Dv / DVT) CTAs a
+// query tile
+template <int DVT>
+int launch_wide(const FlashArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  const int bytes = wide::smem_bytes(kMaxD, DVT);
+  const cudaError_t err =
+      allow_smem(wide::flash_mma_kernel<DVT>, bytes, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.sq + wide::BQ - 1) / wide::BQ, a.b * a.h,
+                  (a.dv + DVT - 1) / DVT);
+  wide::flash_mma_kernel<DVT><<<grid, wide::kThreads,
+                                wide::smem_bytes(a.d, DVT), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Sq > 1: bfloat16 on the tensor cores (wgmma up to D = 128, mma.sync
+// past it), float32 on the FMA pipes (the header says why)
+int dispatch_rows(const FlashArgs& a, int dtype, cudaStream_t stream) {
+  constexpr int kW = simt::kWideD;
+  if (dtype == 1) {
+    if (a.d <= kMaxTensorCoreD) return dispatch_hopper(a, stream);
+    return a.dv <= 128 ? launch_wide<128>(a, stream)
+                       : launch_wide<256>(a, stream);
+  }
+  if (a.d <= kW && a.dv <= kW) return launch_fma<64, 1>(a, kW, stream);
+  return launch_fma<32, 5>(a, kMaxD, stream);
+}
+
+template <typename T, int GR, bool WIDE>
+int launch_decode(const FlashArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  const int max_d = WIDE ? kMaxD : dec::kNarrowD;
+  cudaError_t err =
+      allow_smem(dec::flash_split_kernel<T, GR, WIDE>,
+                 dec::smem_bytes<T, GR, WIDE>(max_d, max_d), configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int group = a.h / a.hkv;
+  const dim3 grid(a.n_splits, a.b * a.hkv * ((group + GR - 1) / GR));
+  dec::flash_split_kernel<T, GR, WIDE>
+      <<<grid, dec::kThreads, dec::smem_bytes<T, GR, WIDE>(a.d, a.dv),
+         stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_splits == 1) return static_cast<int>(err);
+  dec::flash_merge_kernel<T><<<a.b * a.h, dec::kMergeThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int GR>
-int launch_decode(const FlashArgs& a, cudaStream_t stream) {
-  static bool configured = false;
-  cudaError_t err = allow_smem(dec::flash_split_kernel<T, GR>,
-                               dec::smem_bytes<T, GR>(kMaxD), configured);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int group = a.h / a.hkv;
-  const dim3 grid(a.n_splits, a.b * a.hkv * ((group + GR - 1) / GR));
-  dec::flash_split_kernel<T, GR><<<grid, dec::kThreads,
-                             dec::smem_bytes<T, GR>(a.d), stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.n_splits == 1) return static_cast<int>(err);
-  dec::flash_merge_kernel<T><<<a.b * a.h, kMaxD, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+int dispatch_decode_tile(const FlashArgs& a, cudaStream_t stream) {
+  return a.d <= dec::kNarrowD ? launch_decode<T, GR, false>(a, stream)
+                              : launch_decode<T, GR, true>(a, stream);
 }
 
 template <typename T>
 int dispatch_decode(const FlashArgs& a, cudaStream_t stream) {
   const int group = a.h / a.hkv;
-  if (group <= 1) return launch_decode<T, 1>(a, stream);
-  if (group <= 2) return launch_decode<T, 2>(a, stream);
-  if (group <= 4) return launch_decode<T, 4>(a, stream);
-  return launch_decode<T, dec::kMaxRows>(a, stream);
+  if (group <= 1) return dispatch_decode_tile<T, 1>(a, stream);
+  if (group <= 2) return dispatch_decode_tile<T, 2>(a, stream);
+  if (group <= 4) return dispatch_decode_tile<T, 4>(a, stream);
+  return dispatch_decode_tile<T, dec::kMaxRows>(a, stream);
 }
 
 }  // namespace
@@ -1198,33 +1553,36 @@ int dispatch_decode(const FlashArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // One call. dtype 0: float32 q, k, v, out; 1: bfloat16. All four are
-// contiguous and 16-byte aligned; D % 8 == 0, D <= 128, H % Hkv == 0,
-// B * H <= 65535 (the wrapper checks each). With Sq == 1, the split plan
-// (key_lo, key_hi, split_len, n_splits) cuts the live keys into splits and
-// `scratch` holds B * H * n_splits * (D + 2) floats when n_splits > 1.
-// Returns 0, a cudaError_t, or -CUresult when a TMA descriptor could not
-// be encoded (-1000: no cuTensorMapEncodeTiled entry point was found).
-// `lse`: null, or [B, H, Sq] float32 for each row's log-sum-exp; with it
-// Sq == 1 takes the Sq > 1 kernels, and with Skv == 0 it is not written.
+// contiguous and 16-byte aligned; D % 8 == 0, D <= 576, Dv % 8 == 0, Dv <=
+// D, H % Hkv == 0, B * H <= 65535 (the wrapper checks each). q and k are D
+// wide, v and out Dv. With Sq == 1, the split plan (key_lo, key_hi,
+// split_len, n_splits) cuts the live keys into splits and `scratch` holds
+// B * H * n_splits * (Dv + 2) floats when n_splits > 1. Returns 0, a
+// cudaError_t, or -CUresult when a TMA descriptor could not be encoded
+// (-1000: no cuTensorMapEncodeTiled entry point was found).
+// `lse`: null, or [B, H, Sq] float32 for each row's log-sum-exp (D <= 128
+// and Dv == D only); with it Sq == 1 takes the Sq > 1 kernels, and with
+// Skv == 0 it is not written.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     void* scratch, void* lse, int dtype, int b, int sq,
-                    int skv, int h,
-                    int hkv, int d, float scale, int causal, int window,
-                    int q_off, int kv_off, int key_lo, int key_hi,
-                    int split_len, int n_splits, void* stream) {
+                    int skv, int h, int hkv, int d, int dv, float scale,
+                    int causal, int window, int q_off, int kv_off,
+                    int key_lo, int key_hi, int split_len, int n_splits,
+                    void* stream) {
   if (b <= 0 || sq <= 0 || h <= 0) return 0;
-  if (d <= 0 || d > kMaxD || d % 8 != 0 || hkv <= 0 || h % hkv != 0 ||
-      skv < 0)
+  if (d <= 0 || d > kMaxD || d % 8 != 0 || dv <= 0 || dv > d ||
+      dv % 8 != 0 || hkv <= 0 || h % hkv != 0 || skv < 0 ||
+      (lse != nullptr && (d > kMaxTensorCoreD || dv != d)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t elem = dtype == 1 ? 2 : 4;
   if (skv == 0)   // no key at all: every row reads 0
     return static_cast<int>(cudaMemsetAsync(
-        out, 0, static_cast<size_t>(b) * sq * h * d * elem, s));
+        out, 0, static_cast<size_t>(b) * sq * h * dv * elem, s));
   const FlashArgs a{q, k, v, out, static_cast<float*>(scratch),
-                    static_cast<float*>(lse), b, sq, skv, h, hkv, d, scale,
-                    causal, window, q_off, kv_off, key_lo, key_hi, split_len,
-                    n_splits};
+                    static_cast<float*>(lse), b, sq, skv, h, hkv, d, dv,
+                    scale, causal, window, q_off, kv_off, key_lo, key_hi,
+                    split_len, n_splits};
   if (sq == 1 && lse == nullptr) {
     if (n_splits < 1 || (n_splits > 1 && (scratch == nullptr ||
                                            split_len <= 0)))
@@ -1232,7 +1590,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     return dtype == 1 ? dispatch_decode<__nv_bfloat16>(a, s)
                       : dispatch_decode<float>(a, s);
   }
-  return dtype == 1 ? dispatch_hopper(a, s) : launch_fma(a, s);
+  return dispatch_rows(a, dtype, s);
 }
 
 }  // extern "C"

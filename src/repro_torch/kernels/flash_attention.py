@@ -3,22 +3,27 @@
 :func:`flash_attention_cuda` runs ``csrc/flash_attention.cu``, the port of
 ``flash_attention_pallas``: the function of ``blockwise_attention``
 (``repro/models/layers.py``) over the model's ``[B, S, H, D]`` layout,
-with grouped-query heads, causal and sliding-window masks, and the query
-and key offsets a decode step and the ring cache give. Semantics are
-those of :func:`repro_torch.kernels.ref.flash_attention_ref`.
+with grouped-query heads, causal and sliding-window masks, the query
+and key offsets a decode step and the ring cache give, and a value head
+dim ``Dv <= D`` (MLA: D 192 over Dv 128 over the full sequence, D 576
+over Dv 512 in its weight-absorbed cached form). Semantics are those of
+:func:`repro_torch.kernels.ref.flash_attention_ref`.
 
-The C entry picks one of three launch shapes by the query length and the
-dtype (the source's header says why):
+The C entry picks one of three launch shapes by the query length, the
+dtype and D (the source's header says why):
 
-* ``Sq > 1`` in bfloat16: TMA loads and ``wgmma`` on the tensor cores,
-  with p rounded to bf16 before ``p @ V``;
+* ``Sq > 1`` in bfloat16 with ``D <= 128``: TMA loads and ``wgmma`` on
+  the tensor cores, with p rounded to bf16 before ``p @ V``;
+* ``Sq > 1`` in bfloat16 with ``D > 128`` (MLA): ``mma.sync`` on the
+  tensor cores, a CTA a 64-row query tile and 128 or 256 columns of O;
 * ``Sq > 1`` in float32: products on the FMA pipes, so the parity dtype
   is not computed in TF32;
 * ``Sq == 1``, either dtype: split-KV decode over the plan of
   :func:`decode_split_plan`, then a log-sum-exp merge of the splits.
 
 ``with_lse=True`` (training) also returns each row's log-sum-exp, written
-by the two ``Sq > 1`` kernels (a one-row call then takes them too).
+by the two ``Sq > 1`` kernels (a one-row call then takes them too); it
+and the backward take ``D <= 128`` with ``Dv == D`` only.
 
 :func:`flash_attention_bwd_cuda` runs ``csrc/flash_attention_bwd.cu``,
 the gradient: the custom VJP's ``bwd`` of the JAX package's
@@ -49,13 +54,18 @@ import torch
 from .segment_spmm import (_check, _check_dims, _count, _cuda_device,
                            _entry, _ptr, refuse_grad)
 
-#: head dims the kernel takes: D % 8 == 0 and D <= _MAX_D
-_MAX_D = 128
+#: head dims the kernel takes: D % 8 == 0 and D <= _MAX_D, Dv % 8 == 0
+#: and Dv <= D
+_MAX_D = 576
+#: the log-sum-exp and the backward: D <= _MAX_D_TRAIN and Dv == D
+_MAX_D_TRAIN = 128
 #: gridDim.y carries batch × heads
 _MAX_BH = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: keys a decode tile by dtype (``dec::tile_keys`` in the source)
+#: keys a decode tile by dtype (``dec::tile_keys`` in the source), halved
+#: past D = _DECODE_NARROW_D (:func:`decode_tile`)
 _DECODE_TILE = {torch.float32: 32, torch.bfloat16: 64}
+_DECODE_NARROW_D = 128
 #: query rows (heads of one kv head) a decode CTA holds (``dec::kMaxRows``)
 _DECODE_ROWS = 8
 #: decode CTAs per SM the split plan aims for, at least: every CTA of a
@@ -71,6 +81,13 @@ _DECODE_WAVES = 1
 def _sm_count(index: int) -> int:
     """The SM count of CUDA device ``index``, asked once."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_tile(dtype: torch.dtype, d: int) -> int:
+    """Keys a decode tile holds for q / k head dim ``d``: the split plan's
+    ``tile``."""
+    tile = _DECODE_TILE[dtype]
+    return tile if d <= _DECODE_NARROW_D else tile // 2
 
 
 class SplitPlan(NamedTuple):
@@ -121,15 +138,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked streaming-softmax attention on the card
     (``csrc/flash_attention.cu``).
 
-    q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D], all float32 or all bfloat16,
-    contiguous; ``H % Hkv == 0``; ``D % 8 == 0`` and ``D <= 128``.
-    ``q_offset`` / ``kv_offset`` are the positions of the first query row
-    and the first key (``kv_offset`` may be negative: the ring cache).
-    Returns [B, Sq, H, D] in q's dtype; a row with no kept key is 0.
+    q: [B, Sq, H, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, Dv], all
+    float32 or all bfloat16, contiguous; ``H % Hkv == 0``; ``D`` and
+    ``Dv`` multiples of 8 with ``Dv <= D <= 576``. ``q_offset`` /
+    ``kv_offset`` are the positions of the first query row and the first
+    key (``kv_offset`` may be negative: the ring cache). Returns
+    [B, Sq, H, Dv] in q's dtype; a row with no kept key is 0.
     ``decode_waves`` is the split plan's target at ``Sq == 1``
     (:func:`decode_split_plan`'s ``waves``; 0 runs one split).
     ``with_lse`` returns ``(out, lse)``, lse [B, H, Sq] float32 as
-    :func:`~repro_torch.kernels.ref.flash_attention_ref` gives it.
+    :func:`~repro_torch.kernels.ref.flash_attention_ref` gives it
+    (``D <= 128`` and ``Dv == D`` only).
 
     ``launches`` counts calls: one per call that reaches the card, also a
     decode call whose C entry launches the split pass and the merge.
@@ -139,13 +158,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be [B, S, H, D], got {tuple(q.shape)} "
                          f"and {tuple(k.shape)}")
+    if v.dim() != 4:
+        raise ValueError(f"v must be [B, S, H, Dv], got {tuple(v.shape)}")
     b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if d % 8 or not 0 < d <= _MAX_D:
         raise ValueError(f"head dim {d} is not a multiple of 8 in [8, "
                          f"{_MAX_D}]")
+    if dv % 8 or not 0 < dv <= d:
+        raise ValueError(f"v's head dim {dv} is not a multiple of 8 in "
+                         f"[8, {d}] (q's head dim)")
+    if with_lse and (d > _MAX_D_TRAIN or dv != d):
+        raise ValueError(f"with_lse takes D <= {_MAX_D_TRAIN} with Dv == D, "
+                         f"got D={d}, Dv={dv} (ROADMAP A14b-3)")
     if hkv == 0 or h % hkv:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     if b * h > _MAX_BH:
@@ -154,14 +181,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_dims(BSHD=b * sq * h * d, BSKD=b * skv * hkv * d)
     _check(q, "q", q.dtype, (b, sq, h, d), dev)
     _check(k, "k", q.dtype, (b, skv, hkv, d), dev)
-    _check(v, "v", q.dtype, (b, skv, hkv, d), dev)
+    _check(v, "v", q.dtype, (b, skv, hkv, dv), dev)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     _check_offsets(sq, skv, q_offset, kv_offset, window)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     plan = SplitPlan(0, 0, 0, 1)
     with torch.cuda.device(dev):
-        out = torch.empty_like(q)
+        out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
         lse = None
         if with_lse:   # with no key at all, the running maximum's -1e30
             lse = (torch.full((b, h, sq), -1e30, device=dev) if skv == 0
@@ -175,14 +202,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_offset=kv_offset,
                 ctas=b * hkv * -(-(h // hkv) // _DECODE_ROWS),
                 sm_count=_sm_count(dev.index),
-                tile=_DECODE_TILE[q.dtype], waves=decode_waves)
+                tile=decode_tile(q.dtype, d), waves=decode_waves)
             if plan.n_splits > 1:
-                scratch = torch.empty(b * h * plan.n_splits * (d + 2),
+                scratch = torch.empty(b * h * plan.n_splits * (dv + 2),
                                       dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry("flash_attention")(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(scratch), _ptr(lse),
-            _DTYPES[q.dtype], b, sq, skv, h, hkv, d, scale, int(causal),
+            _DTYPES[q.dtype], b, sq, skv, h, hkv, d, dv, scale, int(causal),
             int(window), q_offset, kv_offset, *plan, stream)
     if rc < 0:
         why = ("no cuTensorMapEncodeTiled entry point" if rc == -1000
@@ -233,9 +260,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if d % 8 or not 0 < d <= _MAX_D:
+    if d % 8 or not 0 < d <= _MAX_D_TRAIN:
         raise ValueError(f"head dim {d} is not a multiple of 8 in [8, "
-                         f"{_MAX_D}]")
+                         f"{_MAX_D_TRAIN}] (the backward at larger head "
+                         f"dims is ROADMAP A14b-3)")
     if hkv == 0 or h % hkv:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     if b * h > _MAX_BH:

@@ -370,15 +370,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Masked softmax attention, the function of ``blockwise_attention``
     (``repro/models/layers.py``) in one piece.
 
-    q: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D] with ``H % Hkv == 0`` (query
-    head h reads kv head ``h // (H / Hkv)``). Query row i sits at position
+    q: [B, Sq, H, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, Dv] (``Dv``
+    may differ from ``D``: MLA) with ``H % Hkv == 0`` (query head h reads
+    kv head ``h // (H / Hkv)``); ``scale`` defaults to ``1 / sqrt(D)``.
+    Query row i sits at position
     ``q_offset + i`` and key j at ``kv_offset + j``; a pair is kept when the
     key position is ``≥ 0`` and, if ``causal``, not after the query's, and,
     with ``window > 0``, within ``window`` of it (``_mask_for``). Scores
     and sums in float32, the masked maximum starting at -1e30 and the sum
     divided by ``max(l, 1e-20)``, so a row with no kept key reads 0 (not
-    NaN, as a softmax over -inf would). Returns [B, Sq, H, D] in q's dtype;
-    with ``with_lse`` also the log-sum-exp ``m + log(max(l, 1e-20))``
+    NaN, as a softmax over -inf would). Returns [B, Sq, H, Dv] in q's
+    dtype; with ``with_lse`` also the log-sum-exp ``m + log(max(l, 1e-20))``
     [B, H, Sq] (float32; float64 for float64 inputs) that the backward
     takes, ``_flash_fwd_chunks``' lse: about -1e30 for a row with no kept
     key.
@@ -475,7 +477,8 @@ def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_offset: int = 0,
                            scale: Optional[float] = None) -> torch.Tensor:
     """The split-KV decode of ``csrc/flash_attention.cu``, step by step:
-    one query row (q [B, 1, H, D]) over the keys of ``plan = (key_lo,
+    one query row (q [B, 1, H, D]; k [B, Skv, Hkv, D]; v [B, Skv, Hkv,
+    Dv]) over the keys of ``plan = (key_lo,
     key_hi, split_len, n_splits)`` (``decode_split_plan`` in
     :mod:`repro_torch.kernels.flash_attention`).
 
@@ -486,7 +489,7 @@ def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The merge weighs each split by ``exp(m − max m)`` and divides by
     ``max(Σ w·l, 1e-20)``, so a row with no kept key anywhere reads 0.
     Masks are those of :func:`flash_attention_ref`. Float32 inside; used by
-    the tests only. Returns [B, 1, H, D] in q's dtype.
+    the tests only. Returns [B, 1, H, Dv] in q's dtype.
     """
     b, sq, h, d = q.shape
     if sq != 1:

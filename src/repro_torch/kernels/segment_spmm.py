@@ -92,9 +92,8 @@ _SIGNATURES = {
                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "dense_aggregate_scratch_ints": ("dense_aggregate", [_I, _I]),
     "flash_attention": ("flash_attention",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P]),
+                        [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_I] * 8
+                        + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd",
                             [_P] * 10 + [_I] * 7 + [ctypes.c_float]
                             + [_I] * 4 + [_P]),

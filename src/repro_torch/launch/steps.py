@@ -42,15 +42,21 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
     microbatch the gradients come in the parameters' dtype, as
     ``jax.value_and_grad`` gives them. ``metrics["loss"]`` is the loss.
     The parameters and optimizer state are returned as new trees; the
-    inputs are not written. Every block the port runs trains (attention
-    through the flash backward, Mamba2 and hybrid through the SSD scan's);
-    an unported one raises naming A14c, ``compress_grads=True`` A14d.
+    inputs are not written. The dense attention, Mamba2 and hybrid blocks
+    train (attention through the flash backward, Mamba2 and hybrid
+    through the SSD scan's); an MoE or MLA config raises naming A14b-3, an
+    unported block A14c-3, ``compress_grads=True`` A14d.
     """
     if compress_grads:
         raise NotImplementedError(
             "compress_grads sums int8 gradients over a 'pod' mesh axis; "
             "sharding and launch are not ported yet (ROADMAP A14d)")
     lm.check_supported(cfg)
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training mixture-of-experts and MLA configs is not "
+            f"ported yet (the flash backward at MLA's head dims; ROADMAP "
+            f"A14b-3)")
     optimizer = optimizer or default_optimizer()
 
     def value_and_grad(params, batch):

@@ -24,7 +24,11 @@ in the layer, and the serving op runs on the card and the CPU:
 The graph forms compute the serving function on any device (the tests
 hold them against the JAX package and the kernels' plain versions, and
 ``chip_smoke.py`` holds B8 and B9 against them on the card); a meta
-tensor that reaches a kernel entry still raises.
+tensor that reaches a kernel entry still raises. The mixture-of-experts
+and MLA layers have no graph forms yet (ROADMAP A14c-2): ``lm.forward``
+and ``lm.param_specs`` refuse such a config on the meta device
+(``lm.check_traceable``) rather than trace a graph that is not the
+reference's.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Transformer and SSM building blocks of the LM stack, in PyTorch.
 
 The port of ``repro/models/layers.py`` for the blocks that serve dense
-decoders, Mamba2 and the zamba2 hybrid. Parameters are nested dicts of
+decoders, MLA, the capacity-dropping mixture-of-experts (local dispatch),
+Mamba2 and the zamba2 hybrid. Parameters are nested dicts of
 tensors under the JAX tree's keys, with ``w [d_in, d_out]`` and ``x @ w``;
 a stacked tree (``blocks``, ``groups``) keeps its leading axes, and the
 model code indexes one layer out of it. Activations run in
@@ -17,7 +18,12 @@ decode step stays plain on every device (the JAX package has no kernel
 for it either). Attention trains through the flash kernel's backward
 (``ops.flash_attention_train``), the SSD scan through its own
 (``ops.ssd_scan_train``); a decode step and a prefill from a cache stay
-inference only. MLA, mixture-of-experts and cross-attention are A14c.
+inference only. MLA runs both of its forms on the flash kernel (a value
+head dim below the query's). The mixture-of-experts block routes,
+dispatches and combines with torch ops, as the JAX package does outside
+any Pallas kernel; its expert products are batched matrix products.
+Training MoE and MLA is ROADMAP A14b-3, their expert- and
+tensor-parallel forms A14d, cross-attention A14c-3.
 
 On the meta device (a trace by ``repro_torch.core.tracer``, which the
 dataset factory's LM entries take) the steps run as the JAX package's
@@ -26,6 +32,7 @@ decision and those steps are :mod:`repro_torch.models.graph_form`'s.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -38,7 +45,7 @@ from . import graph_form as G
 from .config import ArchConfig
 
 Params = Dict[str, Any]
-A14C = "ROADMAP A14c"
+A14C3 = "ROADMAP A14c-3"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -118,9 +125,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int = 0, q_offset: int = 0,
                         kv_offset: int = 0,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, Sq, H, D] over k, v [B, Skv, Hkv, D] → [B, Sq, H, D]: the
-    function of the JAX package's ``blockwise_attention``, on the flash
-    kernel. Offsets are Python ints (a decode step's cache index). With
+    """q [B, Sq, H, D] over k [B, Skv, Hkv, D] and v [B, Skv, Hkv, Dv] →
+    [B, Sq, H, Dv] (``Dv <= D``: MLA's 192 / 128 over a full sequence,
+    576 / 512 weight-absorbed over its cache): the function of the JAX
+    package's ``blockwise_attention``, on the flash kernel; ``scale``
+    defaults to ``1 / sqrt(D)``. Offsets are Python ints (a decode step's
+    cache index). With
     grad mode on and an input that requires grad it is the differentiable
     call (``ops.flash_attention_train``: the kernel's forward with its
     log-sum-exp, the backward kernel — the reference's custom VJP);
@@ -143,7 +153,7 @@ def attention_init(gen: torch.Generator, cfg: ArchConfig,
                    ) -> Params:
     if cross:
         raise NotImplementedError(f"cross-attention is not ported yet "
-                                  f"({A14C})")
+                                  f"({A14C3})")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     dt = torch_dtype(cfg.param_dtype)
     p = {
@@ -181,11 +191,11 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
       tensors are returned. A write past Smax raises, where JAX would
       clamp the start.
 
-    Cross-attention (``memory``) is ROADMAP A14c and raises.
+    Cross-attention (``memory``) is ROADMAP A14c-3 and raises.
     """
     if memory is not None:
         raise NotImplementedError(f"cross-attention is not ported yet "
-                                  f"({A14C})")
+                                  f"({A14C3})")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -230,12 +240,104 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: Optional[torch.Generator], cfg: ArchConfig,
+             lead: Tuple[int, ...] = ()) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    dt = torch_dtype(cfg.param_dtype)
+    dev = gen_device(gen)
+    return {
+        "wq_a": normal(gen, lead + (d, m.q_lora_rank), 0.02, dt),
+        "wq_b": normal(gen, lead + (m.q_lora_rank, h * qk), 0.02, dt),
+        "wkv_a": normal(gen, lead + (d, m.kv_lora_rank + m.qk_rope_dim),
+                        0.02, dt),
+        "wkv_b": normal(gen, lead + (m.kv_lora_rank,
+                                     h * (m.qk_nope_dim + m.v_head_dim)),
+                        0.02, dt),
+        "wo": normal(gen, lead + (h * m.v_head_dim, d), 0.02, dt),
+        "q_norm": nn.rmsnorm_init(m.q_lora_rank, dt, dev, lead),
+        "kv_norm": nn.rmsnorm_init(m.kv_lora_rank, dt, dev, lead),
+    }
+
+
+def mla_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+              positions: torch.Tensor,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_index: Optional[int] = None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """MLA attention → (output, cache), the JAX package's two forms.
+
+    * ``cache=None`` (a full-sequence forward): the heads materialised, k
+      = [c_kv @ wkv_b's nope part ‖ k_rope on every head], v its value
+      part, scale ``1 / sqrt(nope + rope)``; returns (c_kv, k_rope).
+    * ``cache`` = (c [B, Smax, rank], r [B, Smax, 1, rope]): the new
+      tokens' compressed pair written IN PLACE at ``cache_index`` (a write
+      past Smax raises), then the weight-absorbed form: q_nope folded
+      into the latent through wkv_b's ``w_uk``, attention over k = [c ‖ r]
+      and v = c on ONE kv head shared by every query head (D = rank +
+      rope over Dv = rank on the flash kernel), the same scale, and the
+      result mapped back through ``w_uv``; returns the same two tensors.
+    """
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    qk_n, qk_r, dv, rank = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+                            m.kv_lora_rank)
+    scale = 1.0 / math.sqrt(qk_n + qk_r)
+
+    q = G.rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+    q = q.reshape(b, s, h, qk_n + qk_r)
+    q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
+    kv_a = x @ p["wkv_a"]                             # [B, S, rank + rope]
+    c_kv = G.rmsnorm(p["kv_norm"], kv_a[..., :rank])
+    k_rope = kv_a[..., rank:].reshape(b, s, 1, qk_r)
+    cos, sin = rope_cos_sin(positions, qk_r, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+
+    if cache is not None:
+        cc, cr = cache
+        end = cache_index + s
+        if end > cc.shape[1]:
+            raise ValueError(f"decode past the cache: positions up to {end} "
+                             f"in a cache of {cc.shape[1]}")
+        cc[:, cache_index:end] = c_kv.to(cc.dtype)
+        cr[:, cache_index:end] = k_rope.to(cr.dtype)
+        w = p["wkv_b"].reshape(rank, h, qk_n + dv)
+        w_uk, w_uv = w[..., :qk_n], w[..., qk_n:]
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+        qf = torch.cat([q_lat, q_rope], dim=-1)
+        k_lat = torch.cat([cc[:, :, None, :], cr.to(cc.dtype)], dim=-1)
+        out_lat = blockwise_attention(qf, k_lat, cc[:, :, None, :],
+                                      causal=cfg.causal,
+                                      q_offset=cache_index, scale=scale)
+        out = torch.einsum("bshr,rhd->bshd", out_lat, w_uv)
+        return out.reshape(b, s, h * dv) @ p["wo"], (cc, cr)
+
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, qk_n + dv)
+    k_nope, v = kv[..., :qk_n], kv[..., qk_n:]
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, qk_r)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    out = blockwise_attention(qf, k, v.contiguous(), causal=cfg.causal,
+                              scale=scale)
+    return out.reshape(b, s, h * dv) @ p["wo"], (c_kv, k_rope)
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig,
-             lead: Tuple[int, ...] = ()) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+             lead: Tuple[int, ...] = (), d_ff: Optional[int] = None
+             ) -> Params:
+    """SwiGLU of hidden width ``d_ff`` (default ``cfg.d_ff``): the dense
+    layers before the first MoE layer (``moe.dense_d_ff``) and the shared
+    experts (``n_shared × d_expert``) take their own."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = torch_dtype(cfg.param_dtype)
     return {"wg": normal(gen, lead + (d, f), 0.02, dt),
             "wu": normal(gen, lead + (d, f), 0.02, dt),
@@ -244,6 +346,114 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig,
 
 def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (G.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (local dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen: Optional[torch.Generator], cfg: ArchConfig,
+             lead: Tuple[int, ...] = ()) -> Params:
+    """Router (float32 whatever ``param_dtype`` is), the experts' stacked
+    SwiGLU weights and, with ``n_shared``, the shared experts' MLP. As in
+    the JAX package, ``wg`` and ``wu`` start equal (its ``moe_init`` draws
+    both from one key): one draw, copied."""
+    mo = cfg.moe
+    d = cfg.d_model
+    dt = torch_dtype(cfg.param_dtype)
+    wg = normal(gen, lead + (mo.n_experts, d, mo.d_expert), 0.02, dt)
+    p = {
+        "router": normal(gen, lead + (d, mo.n_experts), 0.006,
+                         torch.float32),
+        "experts": {
+            "wg": wg,
+            "wu": wg.clone(),
+            "wd": normal(gen, lead + (mo.n_experts, mo.d_expert, d), 0.02,
+                         dt),
+        },
+    }
+    if mo.n_shared:
+        p["shared"] = mlp_init(gen, cfg, lead, d_ff=mo.n_shared * mo.d_expert)
+    return p
+
+
+def _top_k(probs: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest in descending order,
+    the lower index first among equals (a stable sort; ``torch.topk``
+    promises no order of ties)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def _route(router_w: torch.Tensor, x_flat: torch.Tensor, mo
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ (probs [T, k], ids [T, k], aux loss): float32 router logits,
+    softmax, top-k renormalised by ``max(Σ, 1e-9)``, and the Switch
+    load-balance loss ``E · Σ_e mean_prob_e · share_of_replicas_e``."""
+    logits = x_flat.float() @ router_w
+    probs_all = torch.softmax(logits, dim=-1)
+    probs, ids = _top_k(probs_all, mo.top_k)
+    probs = probs / torch.clamp_min(probs.sum(-1, keepdim=True), 1e-9)
+    me = probs_all.mean(dim=0)
+    # replicas an expert, as integer counts (no float atomic, no host sync)
+    ce = F.one_hot(ids.reshape(-1), mo.n_experts).sum(0).float() \
+        / ids.numel()
+    aux = mo.n_experts * torch.sum(me * ce)
+    return probs, ids, aux
+
+
+def moe_slots(ids: torch.Tensor, mo, n_tokens: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The capacity dispatch of ``ids`` [T, k] → (keep [T·k], slot [T·k],
+    cap): ``cap = ceil(T·k / E · capacity_factor)``; a replica's position
+    in its expert is the count of earlier replicas routed there in
+    token-major order (a cumulative count), those at ``cap`` or past it are
+    dropped, and a kept one's slot is ``expert · cap + position`` (a
+    dropped one's ``E · cap``, one past the buffer)."""
+    cap = int(math.ceil(n_tokens * mo.top_k / mo.n_experts
+                        * mo.capacity_factor))
+    flat_ids = ids.reshape(-1)
+    onehot = F.one_hot(flat_ids, mo.n_experts)
+    pos = torch.cumsum(onehot, dim=0) - 1
+    pos = pos.gather(1, flat_ids[:, None])[:, 0]
+    keep = pos < cap
+    slot = torch.where(keep, flat_ids * cap + pos,
+                       torch.full_like(pos, mo.n_experts * cap))
+    return keep, slot, cap
+
+
+def moe_apply_local(p: Params, cfg: ArchConfig, x_flat: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capacity-dropping MoE on one device: x_flat [T, D] → ([T, D],
+    aux loss), the JAX package's ``moe_apply_local`` step for step.
+
+    Each token's k replicas go to their experts' buffers [E, cap, D] by
+    :func:`moe_slots` (kept slots are unique, so the dispatch is a copy,
+    the same bits every run; the dropped ones land in a row past the
+    buffer that is thrown away), the experts run as batched products
+    ``silu(buf @ wg) · (buf @ wu) @ wd``, each kept replica's output comes
+    back from its slot (a dropped one's is 0), weighted by its probability
+    cast to x's dtype and summed over the k replicas; the shared experts'
+    MLP is added."""
+    mo = cfg.moe
+    t, d = x_flat.shape
+    probs, ids, aux = _route(p["router"], x_flat, mo)
+    keep, slot, cap = moe_slots(ids, mo, t)
+    rows = mo.n_experts * cap
+    x_rep = x_flat.repeat_interleave(mo.top_k, dim=0)
+    buf = x_flat.new_zeros((rows + 1, d)).index_copy_(0, slot, x_rep)
+    buf = buf[:-1].reshape(mo.n_experts, cap, d)
+    e = p["experts"]
+    hid = G.silu(torch.bmm(buf, e["wg"])) * torch.bmm(buf, e["wu"])
+    y_buf = torch.bmm(hid, e["wd"])
+    y_rep = y_buf.reshape(rows, d)[torch.clamp_max(slot, rows - 1)]
+    y_rep = y_rep * keep[:, None].to(y_rep.dtype)
+    w = probs.reshape(-1)[:, None].to(x_flat.dtype)
+    y = (y_rep.to(x_flat.dtype) * w).reshape(t, mo.top_k, d).sum(dim=1)
+    if mo.n_shared:
+        y = y + mlp_apply(p["shared"], x_flat)
+    return y.to(x_flat.dtype), aux
 
 
 # ---------------------------------------------------------------------------
@@ -360,13 +570,3 @@ def mamba2_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     new_cache = ((ns_x, ns_b, ns_c), last_state) if s.d_conv > 1 else None
     return out, new_cache
 
-
-def _not_ported(what: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet ({A14C})")
-    fn.__name__ = what
-    return fn
-
-
-mla_init = mla_apply = _not_ported("MLA (multi-head latent attention)")
-moe_init = moe_apply_local = _not_ported("the mixture-of-experts block")

@@ -4,7 +4,10 @@ caches, and the training loss.
 The port of ``repro/models/lm.py`` for three block patterns:
 
 * ``block="attn"`` — dense decoders (qwen2.5, h2o-danube with its sliding
-  window, chatglm3 with partial RoPE, yi);
+  window, chatglm3 with partial RoPE, yi) and mixture-of-experts decoders
+  (deepseek-v2: MLA, shared experts and a dense layer 0 in a ``pre``
+  stack; grok-1: GQA, 8 experts top-2), the MoE layers on one device
+  (the reference's local dispatch, flattened to ``[B·S, D]``);
 * ``block="mamba2"`` — pure Mamba2 / SSD (mamba2-370m);
 * ``block="hybrid"`` — zamba2: groups of Mamba2 layers, each followed by
   ONE weight-tied attention + MLP block.
@@ -13,9 +16,10 @@ The parameter tree has the JAX tree's keys and its stacked leading axes
 (``blocks`` [L, ...], ``groups`` [G, per, ...]), so a tree crosses between
 the packages as a plain map over leaves (:func:`params_from_numpy`,
 :func:`params_to_numpy`); the JAX package's ``lax.scan`` over a stack is
-a Python loop over its index here. Mixture-of-experts, MLA,
-cross-attention (``cross_attn_every``) and the audio frontend raise
-``NotImplementedError`` naming ROADMAP A14c. Every function runs on one
+a Python loop over its index here. Cross-attention
+(``cross_attn_every``) and the audio frontend raise
+``NotImplementedError`` naming ROADMAP A14c-3; a trace of an MoE or MLA
+config (their graph forms) names A14c-2. Every function runs on one
 device, as the JAX package does with no mesh.
 
 Training: :func:`loss_fn` is the reference's mean token cross-entropy;
@@ -25,6 +29,10 @@ and, with ``remat=True``, recomputes each layer in the backward
 is read with ``unbind`` (:func:`_unstack`) on that path too, so its
 backward stacks the layers' gradients once. Mamba2 and hybrid configs
 train through the SSD scan's backward kernel (``ops.ssd_scan_train``).
+:func:`forward` sums each layer's MoE load-balance loss as the reference
+does, and :func:`loss_fn` adds ``aux_weight`` times it; training MoE and
+MLA configs is ROADMAP A14b-3 (``launch.steps.make_train_step``
+refuses them).
 
 :func:`decode_step` updates the cache that :func:`init_cache` made IN
 PLACE (the JAX package's update is functional) and returns it.
@@ -52,51 +60,90 @@ from .config import ArchConfig
 Params = Dict[str, Any]
 Device = Union[None, str, torch.device]
 #: leaves the JAX tree keeps in float32 whatever ``param_dtype`` is
-_F32_LEAVES = frozenset({"dt_bias", "A_log", "D"})
+_F32_LEAVES = frozenset({"dt_bias", "A_log", "D", "router"})
+A14C2 = "ROADMAP A14c-2"
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` (naming ROADMAP A14c) for a config
+    """Raise ``NotImplementedError`` (naming ROADMAP A14c-3) for a config
     whose blocks or frontend the port does not run yet."""
     unported = []
-    if cfg.moe is not None:
-        unported.append("mixture-of-experts blocks")
-    if cfg.mla is not None:
-        unported.append("MLA attention")
     if cfg.cross_attn_every:
         unported.append("cross-attention layers")
     if cfg.frontend != "tokens":
         unported.append(f"the {cfg.frontend!r} frontend")
     if unported:
         raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not "
-                                  f"ported yet ({L.A14C})")
+                                  f"ported yet ({L.A14C3})")
     if cfg.block not in ("attn", "mamba2", "hybrid"):
         raise ValueError(f"unknown block {cfg.block!r}")
+
+
+def check_traceable(cfg: ArchConfig) -> None:
+    """:func:`check_supported`, and raise ``NotImplementedError`` (naming
+    ROADMAP A14c-2) for an MoE or MLA config: their layers have no graph
+    forms yet, and a trace must be the reference's graph or nothing."""
+    check_supported(cfg)
+    what = [name for name, on in (("mixture-of-experts", cfg.moe),
+                                  ("MLA", cfg.mla)) if on is not None]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: the graph forms of {' and '.join(what)} layers are "
+            f"not ported yet, so a trace would not be the reference's graph "
+            f"({A14C2})")
 
 
 # ---------------------------------------------------------------------------
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 
+def _ffn_init(gen: Optional[torch.Generator], cfg: ArchConfig,
+              layer_kind: str, lead: Tuple[int, ...]) -> Params:
+    if layer_kind == "moe":
+        return L.moe_init(gen, cfg, lead)
+    if layer_kind == "dense_pre_moe":
+        return L.mlp_init(gen, cfg, lead, d_ff=cfg.moe.dense_d_ff)
+    return L.mlp_init(gen, cfg, lead)
+
+
+def _ffn_apply(p: Params, cfg: ArchConfig, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] → (y, aux loss): an MoE layer over the flattened
+    ``[B·S, D]`` tokens (its capacity counts them all), else the MLP and
+    a zero aux loss."""
+    if "experts" in p:
+        b, s, d = x.shape
+        y, aux = L.moe_apply_local(p, cfg, x.reshape(b * s, d))
+        return y.reshape(b, s, d), aux
+    return L.mlp_apply(p, x), torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
+
+
 def decoder_layer_init(gen: Optional[torch.Generator], cfg: ArchConfig,
-                       lead: Tuple[int, ...] = ()) -> Params:
+                       lead: Tuple[int, ...] = (),
+                       layer_kind: str = "dense") -> Params:
+    """``layer_kind``: "dense", "dense_pre_moe" (``moe.dense_d_ff``) or
+    "moe"; the attention is MLA when the config has it."""
     dt = L.torch_dtype(cfg.param_dtype)
     dev = L.gen_device(gen)
+    attn = L.mla_init if cfg.mla is not None else L.attention_init
     return {"ln1": nn.rmsnorm_init(cfg.d_model, dt, dev, lead),
             "ln2": nn.rmsnorm_init(cfg.d_model, dt, dev, lead),
-            "ffn": L.mlp_init(gen, cfg, lead),
-            "attn": L.attention_init(gen, cfg, lead)}
+            "ffn": _ffn_init(gen, cfg, layer_kind, lead),
+            "attn": attn(gen, cfg, lead)}
 
 
 def decoder_layer_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                         positions: torch.Tensor, cache=None,
                         cache_index: Optional[int] = None):
-    """→ (x, attention cache)."""
-    a, new_cache = L.attention_apply(p["attn"], cfg, G.rmsnorm(p["ln1"], x),
-                                     positions=positions, cache=cache,
-                                     cache_index=cache_index)
+    """→ (x, attention cache, aux loss)."""
+    attn = L.mla_apply if cfg.mla is not None else L.attention_apply
+    a, new_cache = attn(p["attn"], cfg, G.rmsnorm(p["ln1"], x),
+                        positions=positions, cache=cache,
+                        cache_index=cache_index)
     x = x + a
-    return x + L.mlp_apply(p["ffn"], G.rmsnorm(p["ln2"], x)), new_cache
+    f, aux = _ffn_apply(p["ffn"], cfg, G.rmsnorm(p["ln2"], x))
+    return x + f, new_cache, aux
 
 
 def mamba_layer_init(gen: Optional[torch.Generator], cfg: ArchConfig,
@@ -152,8 +199,9 @@ def init_params(cfg: ArchConfig, *, seed: int, device: Device = None
 def param_specs(cfg: ArchConfig) -> Params:
     """The parameter tree as ``(shape, dtype)`` pairs, nothing allocated:
     ``repro.models.lm.param_specs`` (the same keys, stacked leading axes
-    and dtypes), the spec ``core.tracer.trace_graph`` takes."""
-    check_supported(cfg)
+    and dtypes), the spec ``core.tracer.trace_graph`` takes. An MoE or MLA
+    config raises (:func:`check_traceable`)."""
+    check_traceable(cfg)
 
     def spec(tree):
         if isinstance(tree, dict):
@@ -169,7 +217,13 @@ def _init_tree(cfg: ArchConfig, gen: Optional[torch.Generator]) -> Params:
     dt = L.torch_dtype(cfg.param_dtype)
     p: Params = {"embed": L.normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)}
     if cfg.block == "attn":
-        p["blocks"] = decoder_layer_init(gen, cfg, (cfg.n_layers,))
+        n_pre = cfg.moe.first_moe_layer if cfg.moe is not None else 0
+        if n_pre:
+            p["pre"] = decoder_layer_init(gen, cfg, (n_pre,),
+                                          "dense_pre_moe")
+        p["blocks"] = decoder_layer_init(
+            gen, cfg, (cfg.n_layers - n_pre,),
+            "moe" if cfg.moe is not None else "dense")
     elif cfg.block == "mamba2":
         p["blocks"] = mamba_layer_init(gen, cfg, (cfg.n_layers,))
     else:
@@ -186,7 +240,8 @@ def params_from_numpy(tree: Params, cfg: ArchConfig,
                       device: Device = None) -> Params:
     """A JAX parameter tree (numpy leaves; a bfloat16 leaf arrives as
     float32) as the port's tree on ``device``: every float leaf cast to
-    ``cfg.param_dtype``, but those the JAX tree keeps in float32."""
+    ``cfg.param_dtype``, but those the JAX tree keeps in float32 (the SSD
+    leaves, the MoE router)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = L.torch_dtype(cfg.param_dtype)
@@ -227,30 +282,46 @@ def _head(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params: Params, cfg: ArchConfig,
             inputs: Dict[str, torch.Tensor], *, remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits [B, S, V] float32, aux loss 0), in
+    """Full-sequence forward → (logits [B, S, V] float32, aux loss), in
     the JAX package's steps: int32 positions, each stack read as
-    ``lax.scan`` reads it (:func:`_unstack`), and on a trace ``jnp.take``
-    of the tokens and the aux loss of every attention stack, which the
-    jaxpr keeps though it is zero. ``remat`` recomputes each layer in the
-    backward instead of keeping its activations (the reference's
+    ``lax.scan`` reads it (:func:`_unstack`), the MoE layers' load-balance
+    losses summed a stack at a time (0 without MoE), and on a trace
+    ``jnp.take`` of the tokens and the aux loss of every attention stack,
+    which the jaxpr keeps though it is zero (an MoE or MLA config refuses
+    a trace, :func:`check_traceable`). ``remat`` recomputes each layer in
+    the backward instead of keeping its activations (the reference's
     ``ParallelCtx(remat=True)``); it changes no value."""
     check_supported(cfg)
+    if G.is_trace(inputs["tokens"]):
+        check_traceable(cfg)
     x = _embed(params, inputs)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def layer(apply, lp, x, **kw):
-        if not remat:
-            return apply(lp, cfg, x, **kw)[0]
-        return checkpoint(lambda h: apply(lp, cfg, h, **kw)[0], x,
-                          use_reentrant=False)
+    def layer(apply, lp, x, with_aux=False, **kw):
+        """The layer's x, and with ``with_aux`` (a decoder layer's
+        (x, cache, aux)) its aux loss."""
+        def run(h):
+            out = apply(lp, cfg, h, **kw)
+            return (out[0], out[2]) if with_aux else out[0]
+        return run(x) if not remat else checkpoint(run, x,
+                                                   use_reentrant=False)
 
     if cfg.block == "attn":
-        for lp in _unstack(params["blocks"]):
-            x = layer(decoder_layer_apply, lp, x, positions=positions)
-        aux = G.scan_aux(aux, cfg.n_layers)
+        for stack in ("pre", "blocks"):
+            if stack not in params:
+                continue
+            auxs = []
+            for lp in _unstack(params[stack]):
+                x, a = layer(decoder_layer_apply, lp, x, with_aux=True,
+                             positions=positions)
+                auxs.append(a)
+            if cfg.moe is not None:
+                aux = aux + torch.stack(auxs).sum()
+            else:
+                aux = G.scan_aux(aux, len(auxs))
     elif cfg.block == "mamba2":
         for lp in _unstack(params["blocks"]):
             x = layer(mamba_layer_apply, lp, x)
@@ -295,9 +366,11 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: Device = None) -> Params:
     """Zeroed decode caches with the JAX package's keys, shapes and dtypes
-    (attention K/V in ``resolved_kv_cache_dtype``, conv states in
-    ``param_dtype``, SSD states in float32); a sliding-window config keeps
-    a ring of ``min(max_len, window)`` positions."""
+    (attention K/V in ``resolved_kv_cache_dtype``, MLA's compressed pair
+    ``c`` [n, B, Smax, rank] and ``r`` [n, B, Smax, 1, rope] in the same,
+    conv states in ``param_dtype``, SSD states in float32); a
+    sliding-window config keeps a ring of ``min(max_len, window)``
+    positions."""
     check_supported(cfg)
     dev = resolve_device(device)
     kv_dt = L.torch_dtype(cfg.resolved_kv_cache_dtype)
@@ -311,6 +384,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         n = cfg.n_layers
         if cfg.window > 0:
             max_len = min(max_len, cfg.window)
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"c": mk((n, batch, max_len, m.kv_lora_rank)),
+                    "r": mk((n, batch, max_len, 1, m.qk_rope_dim))}
         return {"k": mk((n, batch, max_len, cfg.n_kv_heads, hd)),
                 "v": mk((n, batch, max_len, cfg.n_kv_heads, hd))}
     s = cfg.ssm
@@ -349,11 +426,13 @@ def _mamba_cached(p: Params, cfg: ArchConfig, x: torch.Tensor,
 def _attn_cached(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
                  i: int, positions: torch.Tensor, cache_index: int
                  ) -> torch.Tensor:
-    ck, cv = cache["k"][i], cache["v"][i]
-    x, (nk, nv) = decoder_layer_apply(p, cfg, x, positions=positions,
-                                      cache=(ck, cv), cache_index=cache_index)
-    _store(ck, nk)
-    _store(cv, nv)
+    """Decoder layer ``i`` over its cache: K/V, or MLA's (c, r)."""
+    slots = tuple(cache[k][i] for k in (("c", "r") if cfg.mla is not None
+                                        else ("k", "v")))
+    x, new, _ = decoder_layer_apply(p, cfg, x, positions=positions,
+                                    cache=slots, cache_index=cache_index)
+    for slot, value in zip(slots, new):
+        _store(slot, value)
     return x
 
 
@@ -369,9 +448,11 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Params,
     b, s, _ = x.shape
     positions = ci + torch.arange(s, device=x.device).expand(b, s)
     if cfg.block == "attn":
-        for i in range(cfg.n_layers):
-            x = _attn_cached(_at(params["blocks"], i), cfg, x, cache, i,
-                             positions, ci)
+        # the pre-MoE layers take the cache's first entries, then the blocks
+        layers = [lp for stack in ("pre", "blocks") if stack in params
+                  for lp in _unstack(params[stack])]
+        for i, lp in enumerate(layers):
+            x = _attn_cached(lp, cfg, x, cache, i, positions, ci)
     elif cfg.block == "mamba2":
         for i in range(cfg.n_layers):
             x = _mamba_cached(_at(params["blocks"], i), cfg, x, cache, (i,))

@@ -551,29 +551,35 @@ class PredictionService:
         try:
             pred = make_prediction(np.asarray(y), meta=w.meta)
         except Exception as e:
-            w.future._reject(e)
             with self._state:
                 self._failed += 1
+            w.future._reject(e)
             return
-        w.future._resolve(pred, lat_ms)
+        # counted before the future resolves: a caller it wakes (or its
+        # done callback) reads ``stats`` with this request in them
         with self._state:
             self._completed += 1
             self._latencies.append(lat_ms)
+        w.future._resolve(pred, lat_ms)
 
     def _fail_request(self, r: Request, e: BaseException) -> None:
         """Reject a queued request AND settle its cache flight: abort
         the fingerprint (next duplicate becomes a fresh leader) and
         reject any followers riding on it. The abort is scoped to this
         request's flight token, so it can never tear down a successor
-        flight a retry has since opened. Idempotent."""
+        flight a retry has since opened. Idempotent. Each rejection is
+        counted under ``failed`` before its future settles, as a
+        completion is counted before its future resolves."""
         if not r.future.done():
+            with self._state:
+                self._failed += 1
             r.future._reject(e)
         if self._cache is not None and r.fp is not None:
             for w in self._cache.abort(r.fp, r.flight):
                 if not w.future.done():
-                    w.future._reject(e)
                     with self._state:
                         self._failed += 1
+                    w.future._reject(e)
 
     def _expire_request(self, r: Request,
                         e: Optional[BaseException] = None,
@@ -881,8 +887,7 @@ class PredictionService:
 
     def _process(self, batch: List[Request]) -> None:
         from ..core.predictor import make_prediction
-        lats: List[float] = []
-        done = failed = n_bins = 0
+        n_bins = 0
         try:
             # deadline sweep at drain time: requests that expired while
             # queued never cost a bin slot
@@ -945,17 +950,19 @@ class PredictionService:
                         self._expire_request(r, err)
                     else:
                         self._fail_request(r, err)
-                        failed += 1
                     continue
                 lat_ms = (t_done - r.t_submit) * 1e3
                 try:
                     pred = make_prediction(y, meta=r.meta)
                 except Exception as e:          # a bad row fails one future
                     self._fail_request(r, e)
-                    failed += 1
                     continue
-                lats.append(lat_ms)
-                done += 1
+                # counted before the future resolves: a caller it wakes
+                # (or its done callback) reads ``stats`` with it in them
+                with self._state:
+                    self._completed += 1
+                    self._engine_done += 1
+                    self._latencies.append(lat_ms)
                 r.future._resolve(pred, lat_ms)
                 if self._cache is not None and r.fp is not None:
                     # populate the cache and release this fingerprint's
@@ -967,12 +974,7 @@ class PredictionService:
             for r in batch:
                 if not r.future.done():
                     self._fail_request(r, e)
-                    failed += 1
         finally:
             with self._state:
-                self._completed += done
-                self._engine_done += done
-                self._failed += failed
                 self._batches += 1
                 self._bins += n_bins
-                self._latencies.extend(lats)

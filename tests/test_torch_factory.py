@@ -12,8 +12,9 @@
 * Kill and resume, a corrupt shard and ``workers=2`` give the same bytes;
   a changed config raises ``PlanMismatchError``; failed traces become
   the reference's skip records.
-* A plan with LM entries of an arch whose blocks the port does not run
-  (ROADMAP A14c) is refused by name before anything is written.
+* A plan with LM entries of an arch whose layers the port cannot trace
+  yet (mixture-of-experts: ROADMAP A14c-2) is refused by name before
+  anything is written.
 """
 import hashlib
 import json
@@ -51,7 +52,7 @@ LM_ARCHS = ("qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
 LM_SIX = dict(n_graphs=2, seed=0, shard_size=3, fractions={"vgg": 0.5},
               lm_archs=LM_ARCHS, lm_fraction=0.5)
 
-#: an arch whose blocks the port does not run yet (mixture-of-experts)
+#: an arch whose layers have no graph form yet (mixture-of-experts)
 A14C_ARCH = "grok-1-314b"
 LM_A14C = dict(LM_MIX, lm_archs=(A14C_ARCH,))
 
@@ -226,11 +227,11 @@ def test_reference_dataset_with_lm_records_loads(tmp_path):
     assert sum(r.meta.get("kind") == "lm" for r in got) == 1
     for r, q in zip(got, want):
         assert np.array_equal(r.x, q.x) and np.array_equal(r.y, q.y)
-    # its arch is not run by the port: resuming it is refused by name,
-    # and writes nothing
+    # its arch has no graph form in the port yet: resuming it is refused
+    # by name, and writes nothing
     before = {f: os.path.getmtime(os.path.join(path, f))
               for f in ("plan.json", "manifest.json")}
-    with pytest.raises(NotImplementedError, match=f"{A14C_ARCH}.*A14c"):
+    with pytest.raises(NotImplementedError, match=f"{A14C_ARCH}.*A14c-2"):
         tf.build(path)
     assert before == {f: os.path.getmtime(os.path.join(path, f))
                       for f in before}
@@ -341,7 +342,7 @@ def test_failed_traces_are_the_reference_skip_records(tmp_path):
 def test_lm_plan_is_refused_before_anything_is_written(tmp_path):
     out = str(tmp_path / "ds")
     cfg = tf.FactoryConfig(**dict(CFG, lm_archs=("mamba2-370m", A14C_ARCH)))
-    with pytest.raises(NotImplementedError, match="A14c"):
+    with pytest.raises(NotImplementedError, match="A14c-2"):
         tf.build(out, cfg)
     assert not os.path.exists(out)
     with pytest.raises(NotImplementedError, match=A14C_ARCH) as e:

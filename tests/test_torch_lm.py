@@ -10,8 +10,10 @@ absolute + 1e-4 relative — float32 sums in another order (XLA's CPU
 products against torch's) through 2–4 layers and a vocabulary-wide head
 — and the greedy tokens of ``make_prefill_step`` + ``make_serve_step``
 must equal JAX's. Also: every config and its ``param_count()`` equal the
-JAX package's, the unported blocks raise naming ROADMAP A14c, and
-``init_params`` wants a card unless asked for the CPU.
+JAX package's, the unported blocks (cross-attention, the audio frontend)
+raise naming ROADMAP A14c-3, and ``init_params`` wants a card unless asked
+for the CPU. The MoE and MLA archs (deepseek-v2, grok-1) are held to the
+JAX package in ``tests/test_torch_lm_moe_mla.py``.
 
 JAX is imported only inside the fixtures that compare with it; the card's
 test runs where JAX is not installed:
@@ -33,8 +35,7 @@ from repro_torch.models import lm  # noqa: E402
 
 PORTED = ["qwen2.5-3b", "h2o-danube-3-4b", "chatglm3-6b", "yi-34b",
           "mamba2-370m", "zamba2-2.7b"]
-UNPORTED = ["deepseek-v2-236b", "grok-1-314b", "hubert-xlarge",
-            "llama-3.2-vision-11b"]
+UNPORTED = ["hubert-xlarge", "llama-3.2-vision-11b"]
 #: float32 sums in another order through 2–4 layers and the head
 ATOL = RTOL = 1e-4
 PROMPT, MAX_LEN, STEPS = 40, 64, 12
@@ -167,11 +168,11 @@ def test_init_params_needs_a_card_unless_asked(monkeypatch):
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_blocks_raise(arch):
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A14c"):
+    with pytest.raises(NotImplementedError, match="A14c-3"):
         lm.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14c"):
+    with pytest.raises(NotImplementedError, match="A14c-3"):
         lm.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14c"):
+    with pytest.raises(NotImplementedError, match="A14c-3"):
         lm.forward({}, cfg, {})
 
 
@@ -272,15 +273,11 @@ def test_unported_layers_raise():
     from repro_torch.models import layers
     cfg = get_smoke_config("qwen2.5-3b")
     gen = torch.Generator().manual_seed(0)
-    for fn in (layers.mla_init, layers.mla_apply, layers.moe_init,
-               layers.moe_apply_local):
-        with pytest.raises(NotImplementedError, match="A14c"):
-            fn(gen, cfg)
-    with pytest.raises(NotImplementedError, match="A14c"):
+    with pytest.raises(NotImplementedError, match="A14c-3"):
         layers.attention_init(gen, cfg, cross=True)
     p = layers.attention_init(gen, cfg)
     x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A14c"):
+    with pytest.raises(NotImplementedError, match="A14c-3"):
         layers.attention_apply(p, cfg, x, positions=torch.zeros((1, 2)),
                                memory=x)
 

@@ -253,7 +253,7 @@ def test_compress_grads_and_unported_archs_refused():
     with pytest.raises(NotImplementedError, match="A14d"):
         steps.make_train_step(cfg, compress_grads=True)
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="A14c"):
+    with pytest.raises(NotImplementedError, match="A14b-3"):
         steps.make_train_step(get_config("deepseek-v2-236b"))
 
 

@@ -150,6 +150,53 @@ def test_burst_from_many_threads_conserves_and_matches_engine():
         first.setdefault(k, _pred_vec(p))
 
 
+def test_stats_count_a_request_before_its_future_resolves():
+    """A done callback (it runs on the batcher thread as the future
+    resolves) reads ``stats``: the request is already counted, on the
+    engine path and on the cache-hit path."""
+    d = _dippm()
+    g = _graph(9, seed=3)
+    seen = []
+    with d.serve(max_wait_ms=200.0) as svc:
+        def hook(f):
+            seen.append((threading.current_thread() is not main,
+                         svc.stats.completed))
+        main = threading.current_thread()
+        svc.submit(g).add_done_callback(hook)
+        svc.submit(g).result(timeout=TIMEOUT)     # coalesced or a hit
+        svc.submit(g).add_done_callback(hook)     # a hit: already done
+        st = svc.stats
+    assert seen[0] == (True, 1), seen       # on the batcher, counted
+    assert seen[1][1] == 3 == st.completed
+    assert st.submitted == st.completed + st.failed + st.deadline_expired \
+        + st.shed_count
+
+
+def test_stats_count_a_failure_before_its_future_rejects(packed_dippm,
+                                                         monkeypatch):
+    """A failed bin's leader and the cache follower riding on it: each
+    done callback reads ``stats`` with its own rejection counted."""
+    svc = packed_dippm.serve(max_wait_ms=30_000.0, max_batch_graphs=1024,
+                             quarantine_size=None)
+    seen = []
+    try:
+        monkeypatch.setattr(
+            svc.engine, "run_bin",
+            lambda chunk: (_ for _ in ()).throw(RuntimeError("boom")))
+        leader = svc.submit(_graph(9, seed=12))
+        follower = svc.submit(_graph(9, seed=12))
+        leader.add_done_callback(lambda f: seen.append(
+            ("leader", svc.stats.failed)))
+        follower.add_done_callback(lambda f: seen.append(
+            ("follower", svc.stats.failed)))
+        svc.flush()
+        assert isinstance(follower.exception(timeout=TIMEOUT), RuntimeError)
+        assert sorted(seen) == [("follower", 2), ("leader", 1)], seen
+        assert svc.stats.failed == 2
+    finally:
+        svc.close()
+
+
 # ---- FIFO resolution -------------------------------------------------------
 
 def test_futures_resolve_in_submission_order(packed_dippm):
