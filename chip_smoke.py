@@ -184,7 +184,8 @@ Phases, each printing one JSON line:
 13. ``factory`` — the dataset factory (``repro_torch.dataset.factory``)
    on the host, then its records on the card: a plan of 48 zoo graphs
    (shards of 16, seed 0, convnext held out) and one LM entry of each of
-   the six archs the port's LM stack runs (56 records, 4 shards), its
+   the eight archs the port traces (58 records, 4 shards; deepseek-v2 and
+   grok-1 through the MoE and MLA graph forms since PR 31), its
    hash ``FACTORY_PLAN_HASH``, built by two spawned worker processes;
    beside it, the same plan built again, stopped after one shard and
    resumed, every shard's sha256 equal to the first build's, and whether
@@ -193,15 +194,19 @@ Phases, each printing one JSON line:
    fingerprint; packed GraphSAGE at hidden 512 trained two epochs on the
    train split (losses within 1e-4 relative of the CPU's, launches on
    ``train_launch_rule``: B2 and its gradient once a step); the test
-   split, and apart the six LM records, predicted on the card against
+   split, and apart the eight LM records, predicted on the card against
    the CPU at 1e-3 + 1e-3, B1 and B2 launches on bins × layers; host ms
    of an LM entry's trace against a zoo entry's; at each LM entry's
    attention and SSD shapes, B8 and B9 on the card against the graph
    forms (the JAX package's jnp steps) run on the card, float32, 1e-4
-   relative. The line carries build seconds, records/s, the sidecars'
-   and the host's peak RSS, shards reused, the plan hash, each LM
-   record's arch, batch, seq, nodes and fingerprint, and the launch
-   counts.
+   relative (deepseek-v2's attention at MLA's full-sequence dims, D 24
+   over Dv 16); at each MoE entry's tokens, the MoE block's graph form
+   against its serving form on the card, at the config's capacity factor
+   and at 0.5, the same expert ids and keep masks, output and aux loss
+   within 1e-4 of their scale. The line carries build seconds,
+   records/s, the sidecars' and the host's peak RSS, shards reused, the
+   plan hash, each LM record's arch, batch, seq, nodes and fingerprint,
+   and the launch counts.
 14. ``lm_path`` — the LM stack serving zamba2-2.7b. Parity: at full width
    with the depth cut to 12 layers (2 groups), float32, weights from a
    seed, 2 prompts × 128 tokens through prefill and 16 greedy decode
@@ -290,6 +295,7 @@ CUDA device. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import statistics
@@ -401,18 +407,19 @@ FACTORY_EPOCHS = 2
 #: another host may differ, so the phase prints the comparison and does
 #: not require it
 FACTORY_LM_ARCHS = ("qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
-                    "h2o-danube-3-4b", "chatglm3-6b")
-FACTORY_PLAN_HASH = ("1f3df1d4f158a2f24684c22d9159af428f6bfb4af47c99aaeb66"
-                     "b228808075f5")
+                    "h2o-danube-3-4b", "chatglm3-6b", "deepseek-v2-236b",
+                    "grok-1-314b")
+FACTORY_PLAN_HASH = ("823709ca4fd64c2ed857399ab611ea296102c320f8dd505064"
+                     "af22a8845e5cf9")
 FACTORY_REF_SHA256 = {
     "shard00000.npz":
-        "c4c26f84fca1c94a056625589b9cd336635bd99542b2adcb2ac0941a0c54faa3",
+        "59d13e3182d0c93f820d25ade69769e03931461b224c0913ca1fb6bf0ffc50ce",
     "shard00001.npz":
-        "9b5ce6c125f2fb8ccc3ba11efa4ad5d8cbf20c30ad56c0f16337a633a3f4d78e",
+        "e91ea26d6a610a23c056f475dbb4767c563a98e24bc1f2e7929b342f1bfba4c1",
     "shard00002.npz":
-        "1667ea593c279c9d0f32d9d3fb3db655d81bffa8f27dbb638e96ac37894342f0",
+        "154296e13a2e4e63feb2291891be441a1ff871fedb0a3b22f101851cf41f507a",
     "shard00003.npz":
-        "004d5bb212b94961f4cb0d14f6628d43084a8715c25d6ec9ed2c658cbeeb0939"}
+        "0530dd4d8cbed9ef4b94f659d19160e186e7d7e68df9095b0a2549deba2feb61"}
 #: factory: the zoo entries whose trace it times beside the LM entries',
 #: and the bar of B8 / B9 against the graph forms on the card (float32,
 #: relative to the output's largest magnitude)
@@ -4329,7 +4336,9 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
     ``graph_form._ssd_chunked``: the JAX package's jnp steps) run on ``dev``,
     float32, at each LM entry's attention and SSD shapes (its smoke
     config at its batch and seq), on seeded inputs; the kernels'
-    launches counted."""
+    launches counted. An MLA arch's attention is its full-sequence call:
+    D = nope + rope over Dv = ``v_head_dim`` on every head, scale
+    ``1 / sqrt(D)``."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -4350,16 +4359,24 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
         b, s = int(e["cfg"]["batch"]), int(e["cfg"]["seq"])
         case = {"arch": e["family"], "batch": b, "seq": s}
         if cfg.block in ("attn", "hybrid"):
-            hd = cfg.resolved_head_dim
-            q = rnd(b, s, cfg.n_heads, hd)
-            k, v = rnd(b, s, cfg.n_kv_heads, hd), rnd(b, s, cfg.n_kv_heads, hd)
+            if cfg.mla is not None:
+                m = cfg.mla
+                d, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+                hkv, scale = cfg.n_heads, 1.0 / math.sqrt(d)
+            else:
+                d = dv = cfg.resolved_head_dim
+                hkv, scale = cfg.n_kv_heads, None
+            q = rnd(b, s, cfg.n_heads, d)
+            k, v = rnd(b, s, hkv, d), rnd(b, s, hkv, dv)
             got = ops.flash_attention(q, k, v, causal=cfg.causal,
-                                      window=cfg.window)
+                                      window=cfg.window, scale=scale)
             want = graph_form.blockwise_attention(q, k, v, causal=cfg.causal,
-                                                  window=cfg.window)
+                                                  window=cfg.window,
+                                                  scale=scale)
             out["flash_attention"]["cases"].append({
-                **case, "q": list(q.shape), "kv": list(k.shape),
-                "window": cfg.window, **graph_form_case(
+                **case, "q": list(q.shape), "k": list(k.shape),
+                "v": list(v.shape), "window": cfg.window,
+                **graph_form_case(
                     f"factory: B8 vs the graph form, {case}", got, want)})
         if cfg.block in ("mamba2", "hybrid"):
             ssm = cfg.ssm
@@ -4392,6 +4409,65 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
     return out
 
 
+def moe_graph_form_checks(torch, dev, entries: list) -> dict:
+    """The MoE block's graph form (``graph_form.moe_apply_local``: the JAX
+    package's jnp steps, which a trace of ``lm.forward`` records) against
+    its serving form (``layers.moe_apply_local``) on ``dev``, float32, at
+    each MoE entry's B·S tokens of its smoke config, at its capacity
+    factor and at 0.5 (replicas dropped), on seeded inputs and a seeded
+    router of unit scale (no near-ties): the same expert ids and keep
+    masks, the output and the aux loss within ``GRAPH_FORM_RTOL`` of
+    their scale."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(ZOO_SEED)
+    cases = []
+    for e in entries:
+        smoke = get_smoke_config(e["family"])
+        if smoke.moe is None:
+            continue
+        for factor in (smoke.moe.capacity_factor, 0.5):
+            mo = dataclasses.replace(smoke.moe, capacity_factor=factor)
+            cases.append(moe_graph_form_case(
+                torch, gen, dev, dataclasses.replace(smoke, moe=mo), e))
+    if not cases:
+        raise AssertionError("factory: no MoE entry in the plan")
+    return {"cases": cases, "rtol": GRAPH_FORM_RTOL}
+
+
+def moe_graph_form_case(torch, gen, dev, cfg, e) -> dict:
+    """One case of :func:`moe_graph_form_checks`."""
+    from repro_torch.models import graph_form
+    from repro_torch.models import layers as L
+    mo = cfg.moe
+    b, s = int(e["cfg"]["batch"]), int(e["cfg"]["seq"])
+    t = b * s
+    p = L.moe_init(gen, cfg)
+    p["router"] = torch.randn(p["router"].shape, generator=gen, device=dev)
+    x = torch.randn((t, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        y, aux = L.moe_apply_local(p, cfg, x)
+        gy, gaux = graph_form.moe_apply_local(p, mo, x)
+        _, ids, _ = L._route(p["router"], x, mo)
+        keep, _, cap = L.moe_slots(ids, mo, t)
+        _, gids, _ = graph_form.moe_route(p["router"], x, mo.n_experts,
+                                          mo.top_k)
+        gkeep, _ = graph_form.moe_slots(gids, mo.n_experts, cap)
+    case = {"arch": e["family"], "batch": b, "seq": s, "tokens": t,
+            "capacity_factor": mo.capacity_factor, "cap": cap,
+            "dropped": int((~keep).sum())}
+    if not (torch.equal(ids.to(torch.int32), gids)
+            and torch.equal(keep, gkeep)):
+        raise AssertionError(f"factory: the MoE graph form routes "
+                             f"otherwise than the serving form, {case}")
+    return {**case, "y": graph_form_case(
+        f"factory: MoE serving form vs the graph form, {case}", y, gy),
+        "aux": graph_form_case(
+            f"factory: MoE aux loss vs the graph form, {case}",
+            aux.reshape(1), gaux.reshape(1))}
+
+
 def factory_config(factory):
     """The factory phase's plan config, in ``factory``'s ``FactoryConfig``
     (the port's, or the JAX package's in a test)."""
@@ -4403,7 +4479,7 @@ def factory_config(factory):
 
 def phase_factory(torch, name_limit: str) -> dict:
     """The dataset factory on the card machine's host, then its records on
-    the card: a plan of zoo graphs and six LM entries built by
+    the card: a plan of zoo graphs and eight LM entries built by
     ``FACTORY_WORKERS`` spawned processes; beside it (a thread of its
     own, so the two builds share the host's cores) the same plan built
     again, stopped after one shard and resumed, its shards' sha256 equal
@@ -4412,7 +4488,8 @@ def phase_factory(torch, name_limit: str) -> dict:
     against the CPU; the test split and the LM records predicted on the
     card against the CPU, launches on bins × layers; the LM entries'
     trace ms beside the zoo's; B8 and B9 against the graph forms at the
-    LM entries' shapes."""
+    LM entries' shapes; the MoE block's graph form against its serving
+    form at the MoE entries' tokens."""
     import resource
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -4456,8 +4533,9 @@ def phase_factory(torch, name_limit: str) -> dict:
         raise AssertionError(f"factory: LM records "
                              f"{[r.family for r in lm_records]}")
     trace_ms = factory_trace_ms(factory, plan)
-    checks = lm_graph_form_checks(
-        torch, "cuda", [e for e in plan.entries if e["kind"] == "lm"])
+    lm_entries = [e for e in plan.entries if e["kind"] == "lm"]
+    checks = lm_graph_form_checks(torch, "cuda", lm_entries)
+    moe_checks = moe_graph_form_checks(torch, "cuda", lm_entries)
     splits = builder.split_dataset(records, seed=ZOO_SEED)
     if sum(len(v) for v in splits.values()) != len(records) \
             or not splits["train"] or not splits["test"]:
@@ -4504,6 +4582,7 @@ def phase_factory(torch, name_limit: str) -> dict:
                          for k, v in splits.items()},
            "train": train, "predict": predict, "predict_lm": predict_lm,
            "graph_form_checks": checks,
+           "moe_graph_form_checks": moe_checks,
            "launches": {"train": train["launches"],
                         "predict": predict["launches"],
                         "predict_lm": predict_lm["launches"],

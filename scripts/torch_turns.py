@@ -35,6 +35,11 @@ one BODY:
 * ``flash_host`` — the host µs of one ``flash_attention_cuda`` decode call
   at lm_path's last decode step (``chip_smoke.host_us_per_call``), and the
   card's time of the same call (``chip_smoke.time_graph_ms``).
+* ``factory`` — the ``factory`` phase of the turn's own checkout's
+  ``chip_smoke.py`` (its plan, its checks): the phase's seconds, the
+  build's, the records, whether the shards are the JAX package's bytes,
+  the LM entries' trace ms, and each graph-form check's error (B8, B9,
+  and the MoE block where the checkout has it).
 
 It prints one JSON line per turn. ``--pairs N`` runs N rounds of parent,
 this, this, parent. Two versions are compared only within one run of this
@@ -210,8 +215,45 @@ def body_train(torch, variants: str) -> dict:
     return out
 
 
+def body_factory(torch, _variants: str) -> dict:
+    import contextlib
+    import importlib.util
+    import io
+
+    import repro_torch
+    from repro_torch.core.gnn import resolve_device
+    tree = Path(repro_torch.__file__).resolve().parents[2]
+    spec = importlib.util.spec_from_file_location("chip_smoke_turn",
+                                                  tree / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    resolve_device("cuda")                 # TF32 off, as chip_smoke runs
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = cs.phase_factory(torch, cs.smi())
+    checks = out["graph_form_checks"]
+    return {
+        "seconds": time.perf_counter() - t, "build_s": out["build_s"],
+        "records": out["records"], "plan_hash": out["plan_hash"],
+        "reference_sha256_equal": out["reference_sha256_equal"],
+        "lm_trace_ms": out["trace_ms"]["lm"],
+        "zoo_trace_median_ms": out["trace_ms"]["zoo_median_ms"],
+        "flash": {"launches": checks["flash_attention"]["launches"],
+                  "cases": [(c["arch"], c.get("q"), c.get("v", c.get("kv")),
+                             c["max_rel_err"])
+                            for c in checks["flash_attention"]["cases"]]},
+        "ssd": [(c["arch"], c["y"]["max_rel_err"],
+                 c["last_state"]["max_rel_err"])
+                for c in checks["ssd_scan"]["cases"]],
+        "moe": [(c["arch"], c["capacity_factor"], c["dropped"],
+                 c["y"]["max_rel_err"], c["aux"]["max_rel_err"])
+                for c in out.get("moe_graph_form_checks",
+                                 {}).get("cases", [])]}
+
+
 BODIES = {"bulk": body_bulk, "lm": body_lm, "lm_host": body_lm_host,
-          "flash_host": body_flash_host, "train": body_train}
+          "flash_host": body_flash_host, "train": body_train,
+          "factory": body_factory}
 
 
 def turn(body: str, tree: str, variants: str) -> dict:

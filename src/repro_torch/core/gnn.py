@@ -178,7 +178,7 @@ def resolve_device(device: Union[None, str, torch.device] = None
 # ---------------------------------------------------------------------------
 
 def _layer_init(rng: np.random.Generator, variant: str, d_in: int,
-                d_out: int) -> Params:
+                d_out: int, heads: int = GAT_HEADS) -> Params:
     if variant == "graphsage":
         return {"self": nn.linear_init(rng, d_in, d_out),
                 "neigh": nn.linear_init(rng, d_in, d_out, bias=False)}
@@ -189,11 +189,37 @@ def _layer_init(rng: np.random.Generator, variant: str, d_in: int,
                         "l1": nn.linear_init(rng, d_out, d_out)},
                 "eps": np.zeros((), np.float32)}
     if variant == "gat":
-        dh = d_out // GAT_HEADS
+        dh = d_out // heads
         return {"proj": nn.linear_init(rng, d_in, d_out, bias=False),
-                "att_src": nn.normal_init(rng, (GAT_HEADS, dh)),
-                "att_dst": nn.normal_init(rng, (GAT_HEADS, dh))}
+                "att_src": nn.normal_init(rng, (heads, dh)),
+                "att_dst": nn.normal_init(rng, (heads, dh))}
     raise ValueError(f"unknown variant {variant!r}")
+
+
+# One layer's parameters, ``repro.core.gnn``'s ``*_layer_init``: the same
+# tree, shapes and dtypes, drawn by numpy from ``rng`` (a Generator or a
+# seed), not by ``jax.random``.
+
+def sage_layer_init(rng, d_in: int, d_out: int) -> Params:
+    return _layer_init(np.random.default_rng(rng), "graphsage", d_in, d_out)
+
+
+def gcn_layer_init(rng, d_in: int, d_out: int) -> Params:
+    return _layer_init(np.random.default_rng(rng), "gcn", d_in, d_out)
+
+
+def gat_layer_init(rng, d_in: int, d_out: int,
+                   heads: int = GAT_HEADS) -> Params:
+    return _layer_init(np.random.default_rng(rng), "gat", d_in, d_out,
+                       heads)
+
+
+def gin_layer_init(rng, d_in: int, d_out: int) -> Params:
+    return _layer_init(np.random.default_rng(rng), "gin", d_in, d_out)
+
+
+def mlp_layer_init(rng, d_in: int, d_out: int) -> Params:
+    return _layer_init(np.random.default_rng(rng), "mlp", d_in, d_out)
 
 
 def pmgns_init(seed: Union[int, np.random.Generator],

@@ -16,6 +16,12 @@ ATen:
   one dim of an N-D shape, which ``jnp.tri`` makes in one equation and
   ATen in an ``arange``, a view and an expand. The tracer records it as
   one layout raw node.
+* ``top_k`` — ``lax.top_k``: the k largest along the last dim in
+  descending order, the lower index first among equals, and their int32
+  indices. ``torch.topk`` promises no order of ties and gives int64
+  indices, which a conversion would add a node to. The tracer lowers it
+  to one ``reduce`` node whose bytes count both outputs, as the
+  reference's counts every outvar of an equation.
 * ``scan_ys`` — the stacked per-step outputs (ys) of a ``lax.scan``
   whose body the reference replicates once per step. The jaxpr's scan
   hands on the last replica's value and adds no equation for the stack,
@@ -23,12 +29,12 @@ ATen:
   ``aten.stack`` of a user's program stays a node with an edge from
   every operand.
 
-All three run on any device (the graph forms run on the CPU in the tests and
+All four run on any device (the graph forms run on the CPU in the tests and
 on the card in ``chip_smoke.py``) and have fake versions for tracing.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -94,6 +100,19 @@ def iota(shape: List[int], dimension: int, dtype: torch.dtype,
 @iota.register_fake
 def _(shape, dimension, dtype, device):
     return torch.empty(shape, dtype=dtype, device=device)
+
+
+@torch.library.custom_op(f"{_LIB}::top_k", mutates_args=())
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k(x, k)``: a stable descending sort, its first k."""
+    vals, ids = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k].contiguous(), ids[..., :k].to(torch.int32)
+
+
+@top_k.register_fake
+def _(x, k):
+    shape = tuple(x.shape[:-1]) + (k,)
+    return x.new_empty(shape), x.new_empty(shape, dtype=torch.int32)
 
 
 @torch.library.custom_op(f"{_LIB}::scan_ys", mutates_args=())

@@ -36,7 +36,7 @@ Lowering table (``_ATEN_MAP``, by ATen op name without overload):
 ``tanh``                                                    ``tanh``
 ``sigmoid``, ``erf``, ``gelu``                              ``gelu``
 ``sum``, ``amax``, ``amin``, ``mean``, ``argmax``,          ``reduce`` (3)
-``cumsum``, ``sort``, ``topk``
+``cumsum``, ``sort``, ``topk``, ``top_k`` (``core.prims``)
 ``max_pool2d_with_indices``, ``avg_pool2d``                 ``pool``
 ``index_select``, ``gather``, ``embedding``                 ``gather``
 ``scatter*``, ``index_add``, ``index_put``                  ``scatter``
@@ -53,10 +53,12 @@ the bias, as the reference's ``x @ w + b`` is ``dot_general`` + ``add``;
 its contracting dims, ``batch_dims`` the number of its batch dims;
 a ``convolution`` with a bias likewise emits ``conv`` + ``add``.
 (2) MACs = output elements × kernel area × ``weight.shape[1]`` (input
-channels per group). (3) ``sort`` and ``topk`` cost n·log₂n. A
-multi-output op (``max_pool2d_with_indices``) counts its first output's
-bytes and shape only. (4) No node: the result has its last operand's
-origin (the raw-node rule below); only the LM graph forms call it.
+channels per group). (3) ``sort``, ``topk`` and ``top_k`` cost n·log₂n.
+A multi-output op (``max_pool2d_with_indices``) counts its first output's
+bytes and shape only, but ``top_k`` counts the bytes of both outputs,
+as ``lax.top_k``'s one equation has both as outvars. (4) No
+node: the result has its last operand's origin (the raw-node rule
+below); only the LM graph forms call it.
 
 Raw-node rule. The reference keeps one raw node per jaxpr equation, at
 the equation's shape, and ``meta["n_raw_nodes"]`` and the shapes enter
@@ -86,9 +88,10 @@ own shape                                       returns its operand)
 ``select`` (an integer index)                   2: slice + squeeze
 ``index`` by rank-0 integer tensors (a          2: dynamic_slice +
 traced index)                                   squeeze
-``index_select``, ``embedding``                 +1 ``broadcast_in_dim``
-                                                of the index to [..., 1]
-                                                before the gather
+``index_select``, ``embedding``, ``gather``,     +1 ``broadcast_in_dim``
+``index_add`` (jnp's ``take``,                   of the index to [..., 1]
+``take_along_axis``, ``.at[i].add``)            before the gather or
+                                                scatter
 ``unbind`` (a ``lax.scan``'s per-step slices    0: each slice has its
 of its stacked xs: the layers' weights)         stack's origin, a
                                                 weight at its bytes
@@ -142,7 +145,7 @@ _ATEN_MAP: Dict[str, str] = {
     "sigmoid": "gelu", "erf": "gelu", "gelu": "gelu",
     "sum": "reduce", "amax": "reduce", "amin": "reduce", "mean": "reduce",
     "argmax": "reduce", "cumsum": "reduce", "sort": "reduce",
-    "topk": "reduce",
+    "topk": "reduce", "top_k": "reduce",
     "max_pool2d_with_indices": "pool", "avg_pool2d": "pool",
     "index_select": "gather", "gather": "gather", "embedding": "gather",
     "scatter": "scatter", "scatter_add": "scatter",
@@ -173,9 +176,14 @@ _REF_EQNS: Dict[str, int] = {
     "unbind": 0,             # a scan's per-step slices of its xs
 }
 
-#: gathers whose index operand jnp first broadcasts to [..., 1], with the
-#: index operand's position
-_GATHER_INDEX = {"index_select": 2, "embedding": 1}
+#: gathers and scatter-adds whose index operand jnp first broadcasts to
+#: [..., 1] (``take``, ``take_along_axis``, ``.at[i].add``), with the index
+#: operand's position
+_GATHER_INDEX = {"index_select": 2, "embedding": 1, "gather": 2,
+                 "index_add": 2}
+
+#: multi-output ops whose bytes count every output (``lax.top_k``)
+_ALL_OUTPUT_BYTES = {"top_k"}
 
 #: window ops a channels-last trace wraps in permutes (``_fold_window``)
 _WINDOW_ATEN = ("convolution", "max_pool2d_with_indices", "avg_pool2d")
@@ -297,7 +305,7 @@ def _node_costs(op: str, name: str, node, out) -> Tuple[float, float,
         x = _val(args[0]) if args and isinstance(args[0], torch.fx.Node) \
             else None
         in_elems = _prod(_shape(x)) if x is not None else out_elems
-        if name in ("sort", "topk"):
+        if name in ("sort", "topk", "top_k"):
             n = max(in_elems, 2)
             return float(n) * math.log2(n), 0.0, {}
         if op == "pool":
@@ -371,12 +379,14 @@ def _is_literal(node, literals: set) -> bool:
     return not args and name in _LAYOUT_ATEN
 
 
-def _emit(b: _Builder, op: str, out, costs, inputs, shape=None) -> int:
+def _emit(b: _Builder, op: str, out, costs, inputs, shape=None,
+          out_bytes=None) -> int:
     """One compute node from its ``(value, origin)`` inputs: bytes of
     the inputs and the output, bytes of the weight inputs, edges from the
     producers. A pointwise op's operand ranked below its output (and
     above 0) first goes through a ``broadcast_in_dim`` raw node, as jnp
-    broadcasts it; the bytes stay the operand's."""
+    broadcasts it; the bytes stay the operand's. ``out_bytes`` replaces
+    the output's bytes (a multi-output op's)."""
     flops, macs, attrs = costs
     known = [(v, og) for v, og in inputs if og is not None]
     in_bytes = sum(_bytes(v) for v, _ in known)
@@ -390,7 +400,8 @@ def _emit(b: _Builder, op: str, out, costs, inputs, shape=None) -> int:
             srcs.append(og)
     nid = b.new_node(op, _shape(out) if shape is None else shape,
                      _dtype_str(out.dtype), attrs, flops, macs,
-                     float(in_bytes + _bytes(out)), param_bytes)
+                     float(in_bytes + (_bytes(out) if out_bytes is None
+                                       else out_bytes)), param_bytes)
     for og in srcs:
         if og.node is not None:
             b.add_edge(og.node, nid)
@@ -632,8 +643,11 @@ def _process_graph(b: _Builder, graph: torch.fx.Graph,
                 inputs[ins.index(idx)] = (v, _broadcast(
                     b, env[idx], _shape(v) + (1,), _dtype_str(v.dtype)))
         if bias is None:
+            outs = _val(node) if name in _ALL_OUTPUT_BYTES else None
             nid = _emit(b, op, out, costs, inputs,
-                        shape=shape if kept is None else kept)
+                        shape=shape if kept is None else kept,
+                        out_bytes=None if outs is None
+                        else sum(_bytes(v) for v in outs))
         else:
             # product + bias: a dense/conv node, then an add of the bias
             pid = _emit(b, op, out, costs, [(_val(a), env.get(a))

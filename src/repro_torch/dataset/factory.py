@@ -37,11 +37,12 @@ byte-identical to an uninterrupted one.
 
 An LM entry traces ``lm.forward`` of the arch's smoke config at the
 entry's (batch, seq) on the meta device over ``lm.param_specs``, and
-gives the reference's graph, so its record too is the reference's. The
-archs whose layers have no graph form yet (mixture-of-experts and MLA,
-ROADMAP.md A14c-2) or that the port does not run yet (cross-attention,
-the audio frontend: A14c-3) are refused by name, by :func:`build` and
-:func:`build_shard`, before anything is written. A v2 dataset the
+gives the reference's graph, so its record too is the reference's: the
+dense, SSD and hybrid archs, and the mixture-of-experts and MLA archs
+(deepseek-v2, grok-1) through their graph forms. The archs the port does
+not run yet (cross-attention, the audio frontend: ROADMAP.md A14c-3) are
+refused by name, by :func:`build` and :func:`build_shard`, before
+anything is written. A v2 dataset the
 reference built with such records reads all the same: reading only
 loads arrays.
 
@@ -260,9 +261,9 @@ def _trace_lm_entry(entry: Dict[str, Any], device_name: str,
 
 def _refuse_unported_lm(plan: FactoryPlan) -> None:
     """Raise before anything is written if the plan holds an LM entry
-    whose config ``lm.check_traceable`` refuses: MoE and MLA (their graph
-    forms, ROADMAP.md A14c-2), cross-attention and the audio frontend
-    (A14c-3)."""
+    whose config ``lm.check_traceable`` refuses: cross-attention
+    (llama-3.2-vision) and the audio frontend (hubert), ROADMAP.md
+    A14c-3."""
     from ..configs import get_smoke_config
     from ..models import lm
     refused = []
@@ -481,7 +482,7 @@ def build(out_dir: str, cfg: Optional[FactoryConfig] = None, *,
     config whose plan hash differs from the committed one raises
     :class:`PlanMismatchError` (delete the directory to rebuild). A plan
     with LM entries of an arch the port cannot trace yet raises
-    ``NotImplementedError`` before anything is written (ROADMAP.md A14c-2,
+    ``NotImplementedError`` before anything is written (ROADMAP.md
     A14c-3). ``workers > 1`` fans shard builds over
     spawned processes that re-read ``plan.json``; bytes are identical
     regardless of worker count. ``_stop_after_shards`` is a test hook
@@ -643,8 +644,8 @@ def _cli() -> None:  # pragma: no cover — exercised via CI
                     help="comma-separated held-out families ('' for none)")
     ap.add_argument("--lm-archs", default="",
                     help="comma-separated configs arch names (a build "
-                         "refuses MoE and MLA archs, ROADMAP.md A14c-2, "
-                         "and cross-attention and audio archs, A14c-3)")
+                         "refuses cross-attention and audio archs, "
+                         "ROADMAP.md A14c-3)")
     ap.add_argument("--print-plan-hash", action="store_true",
                     help="print the plan hash and exit (no build)")
     args = ap.parse_args()

@@ -188,6 +188,10 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
                                     kv_offset, scale)
 
 
+#: one SSD decode step; the JAX package has no kernel for it either
+ssd_decode = _ref.ssd_decode_ref
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int,
              s0: Optional[torch.Tensor] = None

@@ -363,6 +363,30 @@ def _attention_mask(rows: torch.Tensor, cols: torch.Tensor, causal: bool,
     return mask
 
 
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = False, scale: Optional[float] = None,
+                  window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Naive softmax attention over ``[B, H, S, D]``
+    (``repro.kernels.ref.attention_ref``): float32 scores, masked to
+    ``-inf`` outside the causal and window bounds of query row
+    ``q_offset + i``, a softmax (a row with no key is NaN), the result in
+    q's dtype."""
+    sq, skv, d = q.shape[2], k.shape[2], q.shape[3]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    rows = q_offset + torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (cols <= rows)
+    if window > 0:
+        mask = mask & (cols >= rows - window + 1)
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int = 0, q_offset: int = 0,
                         kv_offset: int = 0, scale: Optional[float] = None,

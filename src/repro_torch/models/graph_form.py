@@ -12,23 +12,30 @@ the same work on the card, the layers run one form on every device
 ``unbind``; int32 positions). Where they do not, the step forks here or
 in the layer, and the serving op runs on the card and the CPU:
 
-* attention (:func:`blockwise_attention`) and the full-sequence SSD scan
+* attention (:func:`blockwise_attention`, MLA's full-sequence call at
+  Dv != D among them) and the full-sequence SSD scan
   (:func:`mamba2_scan`): the card launches kernels B8 and B9;
+* the mixture-of-experts block (:func:`moe_apply_local`: the router's
+  softmax, ``lax.top_k`` as :func:`prims.top_k`, the aux loss's and the
+  dispatch's scatter-adds, ``one_hot``, ``take_along_axis``, the experts
+  as ``dot_general``): the card sorts, counts with a one-hot sum and
+  copies to unique slots, with int64 ids;
 * :func:`silu`, :func:`rmsnorm`, :func:`take_rows`, :func:`pad`,
-  :func:`scan_aux` and RoPE's lanes (:func:`apply_rope`): the jnp step
-  launches more kernels (x · sigmoid(x) against ``F.silu``, a sum and a
-  division against a mean, the index wrapped, a dead conversion of the
-  pad value, the zero aux loss of every attention stack, gathers against
-  strided views).
+  :func:`scan_aux`, :func:`stack_aux` and RoPE's lanes
+  (:func:`apply_rope`): the jnp step launches more kernels (x · sigmoid(x)
+  against ``F.silu``, a sum and a division against a mean, the index
+  wrapped, a dead conversion of the pad value, the zero aux loss of every
+  attention stack, gathers against strided views).
 
 The graph forms compute the serving function on any device (the tests
 hold them against the JAX package and the kernels' plain versions, and
-``chip_smoke.py`` holds B8 and B9 against them on the card); a meta
-tensor that reaches a kernel entry still raises. The mixture-of-experts
-and MLA layers have no graph forms yet (ROADMAP A14c-2): ``lm.forward``
-and ``lm.param_specs`` refuse such a config on the meta device
-(``lm.check_traceable``) rather than trace a graph that is not the
-reference's.
+``chip_smoke.py`` holds B8 and B9 against them, and the MoE block's
+graph form against its serving form, on the card); a meta tensor that
+reaches a kernel entry still raises. MLA's full-sequence layer needs no
+function here: its norms, slices, broadcast and concatenations are one
+form on every device, and its attention forks in
+:func:`blockwise_attention`. A decode step and a prefill from a cache
+have no graph form (nothing traces them).
 """
 from __future__ import annotations
 
@@ -176,6 +183,15 @@ def scan_aux(aux: torch.Tensor, n: int) -> torch.Tensor:
     if not is_trace(aux):
         return aux
     return aux + prims.scan_ys([aux] * n).sum()
+
+
+def stack_aux(aux: torch.Tensor, auxs) -> torch.Tensor:
+    """The aux losses ``auxs`` of an MoE config's stack, one a layer, summed
+    and added to ``aux``: the jaxpr's ``aux_total += auxs.sum()`` of the
+    scan's ys on a trace (``torch.stack`` is an elementwise node there),
+    a stack and a sum otherwise."""
+    ys = prims.scan_ys(auxs) if is_trace(aux) else torch.stack(auxs)
+    return aux + ys.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -381,3 +397,100 @@ def mamba2_scan(p: Params, x_ssd: torch.Tensor, dt_raw: torch.Tensor,
     dt = softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["A_log"])
     return _ssd_chunked(x_ssd, dt, a, bh, ch, chunk)
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+def wrap_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """A traced index as jnp wraps it before a gather or a scatter:
+    ``idx + n`` where ``idx < 0``."""
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis step for step: the max with
+    ``initial=-inf``, kept and stopped from the gradient, the shifted
+    exponentials over their kept sum."""
+    m = torch.clamp_min(x.amax(-1), -math.inf)[..., None].detach()
+    e = torch.exp(x - m)
+    return e / e.sum(-1, keepdim=True)
+
+
+def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``layers.mlp_apply``: ``(silu(x @ wg) · (x @ wu)) @ wd``."""
+    return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def moe_route(router_w: torch.Tensor, x_flat: torch.Tensor, n_experts: int,
+              top_k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_route``: x_flat [T, D] → (probs [T, k], int32
+    ids [T, k], aux loss). The float32 router product, jnp's softmax,
+    ``lax.top_k`` (:func:`prims.top_k`), the renormalisation by
+    ``max(Σ, 1e-9)``, and the Switch loss from the mean probability and
+    the replicas an expert counted by a scatter-add of ones."""
+    logits = x_flat.float() @ router_w
+    probs_all = softmax(logits)
+    probs, ids = prims.top_k(probs_all, top_k)
+    probs = probs / torch.clamp_min(probs.sum(-1, keepdim=True), 1e-9)
+    me = probs_all.sum(0) / probs_all.shape[0]
+    counts = torch.zeros((n_experts,), dtype=torch.float32,
+                         device=x_flat.device)
+    flat = ids.reshape(-1)
+    idx = wrap_index(flat, n_experts)
+    ones = torch.ones(flat.shape, dtype=torch.float32, device=x_flat.device)
+    ce = counts.index_add(0, idx, ones) / flat.numel()
+    return probs, ids, torch.sum(me * ce) * n_experts
+
+
+def moe_slots(ids: torch.Tensor, n_experts: int, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply_local``'s dispatch in jnp's steps: ids [T, k] → (keep
+    [T·k], slot [T·k]). ``one_hot`` as an iota compared and converted to
+    int32, an int32 ``cumsum``, ``take_along_axis`` (the index wrapped,
+    then a gather), the kept slot ``expert · cap + position`` and the
+    dropped one ``E · cap``."""
+    flat = ids.reshape(-1)
+    onehot = torch.eq(flat[:, None], prims.iota(
+        [1, n_experts], 1, torch.int32, ids.device)).to(torch.int32)
+    pos = torch.cumsum(onehot, 0, dtype=torch.int32) - 1
+    pos = torch.gather(pos, 1, wrap_index(flat[:, None], n_experts))[:, 0]
+    keep = pos < cap
+    return keep, where(keep, flat * cap + pos, n_experts * cap)
+
+
+def moe_apply_local(p: Params, mo, x_flat: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``moe_apply_local`` equation for equation: x_flat
+    [T, D] → ([T, D], aux loss). ``mo`` is the config's ``MoEConfig``;
+    ``cap`` a Python int of T. The replicas (``jnp.repeat``: a tile and a
+    reshape), masked by ``keep``, are scatter-added into ``E · cap + 1``
+    rows; the experts are three ``dot_general``s; each replica's output
+    comes back by a gather of its slot clamped into the buffer, masked,
+    weighted by its probability and summed over k; the shared experts'
+    MLP is added."""
+    t, d = x_flat.shape
+    e_n, k = mo.n_experts, mo.top_k
+    dt = x_flat.dtype
+    probs, ids, aux = moe_route(p["router"], x_flat, e_n, k)
+    cap = int(math.ceil(t * k / e_n * mo.capacity_factor))
+    keep, slot = moe_slots(ids, e_n, cap)
+    rows = e_n * cap
+    x_rep = x_flat.repeat(1, k).view(t * k, d)
+    buf = torch.zeros((rows + 1, d), dtype=dt, device=x_flat.device)
+    x_rep = x_rep * keep[:, None].to(dt)
+    buf = buf.index_add(0, wrap_index(slot, rows + 1), x_rep)
+    buf = buf[:-1].view(e_n, cap, d)
+    e = p["experts"]
+    hid = silu(prims.dot_general(buf, e["wg"], [2], [1], [0], [0])) \
+        * prims.dot_general(buf, e["wu"], [2], [1], [0], [0])
+    y_buf = prims.dot_general(hid, e["wd"], [2], [1], [0], [0])
+    y_rep = take_rows(y_buf.view(rows, d), torch.clamp_max(slot, rows - 1))
+    y_rep = y_rep * keep[:, None].to(y_rep.dtype)
+    w = probs.reshape(-1)[:, None].to(dt)
+    y = (y_rep.to(dt) * w).view(t, k, d).sum(1)
+    if mo.n_shared:
+        y = y + swiglu(p["shared"], x_flat)
+    return y.to(dt), aux

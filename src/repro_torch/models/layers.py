@@ -345,7 +345,7 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig,
 
 
 def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (G.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return G.swiglu(p, x)
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +437,9 @@ def moe_apply_local(p: Params, cfg: ArchConfig, x_flat: torch.Tensor
     cast to x's dtype and summed over the k replicas; the shared experts'
     MLP is added."""
     mo = cfg.moe
+    if G.is_trace(x_flat):
+        # the JAX package's steps (the card sorts and copies instead)
+        return G.moe_apply_local(p, mo, x_flat)
     t, d = x_flat.shape
     probs, ids, aux = _route(p["router"], x_flat, mo)
     keep, slot, cap = moe_slots(ids, mo, t)

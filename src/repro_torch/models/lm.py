@@ -18,8 +18,7 @@ the packages as a plain map over leaves (:func:`params_from_numpy`,
 :func:`params_to_numpy`); the JAX package's ``lax.scan`` over a stack is
 a Python loop over its index here. Cross-attention
 (``cross_attn_every``) and the audio frontend raise
-``NotImplementedError`` naming ROADMAP A14c-3; a trace of an MoE or MLA
-config (their graph forms) names A14c-2. Every function runs on one
+``NotImplementedError`` naming ROADMAP A14c-3. Every function runs on one
 device, as the JAX package does with no mesh.
 
 Training: :func:`loss_fn` is the reference's mean token cross-entropy;
@@ -61,7 +60,6 @@ Params = Dict[str, Any]
 Device = Union[None, str, torch.device]
 #: leaves the JAX tree keeps in float32 whatever ``param_dtype`` is
 _F32_LEAVES = frozenset({"dt_bias", "A_log", "D", "router"})
-A14C2 = "ROADMAP A14c-2"
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -80,17 +78,11 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 def check_traceable(cfg: ArchConfig) -> None:
-    """:func:`check_supported`, and raise ``NotImplementedError`` (naming
-    ROADMAP A14c-2) for an MoE or MLA config: their layers have no graph
-    forms yet, and a trace must be the reference's graph or nothing."""
+    """Whether a trace of ``cfg`` is the reference's graph: every layer
+    the port runs has its graph form (MoE and MLA since A14c-2), so this
+    is :func:`check_supported`, which refuses the cross-attention and
+    audio archs (ROADMAP A14c-3) by name."""
     check_supported(cfg)
-    what = [name for name, on in (("mixture-of-experts", cfg.moe),
-                                  ("MLA", cfg.mla)) if on is not None]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: the graph forms of {' and '.join(what)} layers are "
-            f"not ported yet, so a trace would not be the reference's graph "
-            f"({A14C2})")
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +191,9 @@ def init_params(cfg: ArchConfig, *, seed: int, device: Device = None
 def param_specs(cfg: ArchConfig) -> Params:
     """The parameter tree as ``(shape, dtype)`` pairs, nothing allocated:
     ``repro.models.lm.param_specs`` (the same keys, stacked leading axes
-    and dtypes), the spec ``core.tracer.trace_graph`` takes. An MoE or MLA
-    config raises (:func:`check_traceable`)."""
+    and dtypes, the MoE router in float32), the spec
+    ``core.tracer.trace_graph`` takes. A config the port does not run
+    raises (:func:`check_traceable`)."""
     check_traceable(cfg)
 
     def spec(tree):
@@ -287,13 +280,11 @@ def forward(params: Params, cfg: ArchConfig,
     ``lax.scan`` reads it (:func:`_unstack`), the MoE layers' load-balance
     losses summed a stack at a time (0 without MoE), and on a trace
     ``jnp.take`` of the tokens and the aux loss of every attention stack,
-    which the jaxpr keeps though it is zero (an MoE or MLA config refuses
-    a trace, :func:`check_traceable`). ``remat`` recomputes each layer in
-    the backward instead of keeping its activations (the reference's
-    ``ParallelCtx(remat=True)``); it changes no value."""
+    which the jaxpr keeps though it is zero, and an MoE stack's as the
+    scan's ys (:func:`graph_form.stack_aux`). ``remat`` recomputes each
+    layer in the backward instead of keeping its activations (the
+    reference's ``ParallelCtx(remat=True)``); it changes no value."""
     check_supported(cfg)
-    if G.is_trace(inputs["tokens"]):
-        check_traceable(cfg)
     x = _embed(params, inputs)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -318,10 +309,8 @@ def forward(params: Params, cfg: ArchConfig,
                 x, a = layer(decoder_layer_apply, lp, x, with_aux=True,
                              positions=positions)
                 auxs.append(a)
-            if cfg.moe is not None:
-                aux = aux + torch.stack(auxs).sum()
-            else:
-                aux = G.scan_aux(aux, len(auxs))
+            aux = G.stack_aux(aux, auxs) if cfg.moe is not None \
+                else G.scan_aux(aux, len(auxs))
     elif cfg.block == "mamba2":
         for lp in _unstack(params["blocks"]):
             x = layer(mamba_layer_apply, lp, x)

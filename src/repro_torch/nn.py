@@ -94,6 +94,23 @@ def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
     return torch.where(kept, x / keep, 0.0)
 
 
+def layernorm_init(d: int, dtype: torch.dtype = torch.float32,
+                   device: Optional[torch.device] = None,
+                   lead: Tuple[int, ...] = ()) -> Params:
+    """``repro.nn.layernorm_init``: unit scale, zero bias; ``lead``
+    prepends stacked layer axes."""
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
+            "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``repro.nn.layernorm``: the mean and the biased variance over the
+    last axis, in x's dtype."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+
+
 def rmsnorm_init(d: int, dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device] = None,
                  lead: Tuple[int, ...] = ()) -> Params:

@@ -6,14 +6,17 @@
   same sha256, and manifests equal but for the workers' peak RSS.
 * v2 datasets load both ways through ``load_dataset``, with equal arrays
   and metas; a reference-built dataset with LM records loads in the port.
-* A plan with LM entries of the six archs the port runs, around a zoo
-  record, built by each package: the same shard sha256 and manifests;
-  killed and resumed on two workers, the same bytes again.
+* A plan with LM entries of the six dense, SSD and hybrid archs, around a
+  zoo record, built by each package: the same shard sha256 and manifests;
+  killed and resumed on two workers, the same bytes again. A plan with
+  one deepseek-v2 (MLA, mixture-of-experts) and one grok-1 (mixture-of-
+  experts) entry beside a vgg record: the same shard sha256 and
+  manifests.
 * Kill and resume, a corrupt shard and ``workers=2`` give the same bytes;
   a changed config raises ``PlanMismatchError``; failed traces become
   the reference's skip records.
-* A plan with LM entries of an arch whose layers the port cannot trace
-  yet (mixture-of-experts: ROADMAP A14c-2) is refused by name before
+* A plan with LM entries of an arch whose blocks the port does not run
+  yet (cross-attention: ROADMAP A14c-3) is refused by name before
   anything is written.
 """
 import hashlib
@@ -52,12 +55,19 @@ LM_ARCHS = ("qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
 LM_SIX = dict(n_graphs=2, seed=0, shard_size=3, fractions={"vgg": 0.5},
               lm_archs=LM_ARCHS, lm_fraction=0.5)
 
-#: an arch whose layers have no graph form yet (mixture-of-experts)
-A14C_ARCH = "grok-1-314b"
+#: the mixture-of-experts and MLA archs around a vgg record: three records
+#: in two shards
+MOE_ARCHS = ("deepseek-v2-236b", "grok-1-314b")
+LM_MOE = dict(n_graphs=2, seed=0, shard_size=2, fractions={"vgg": 0.5},
+              lm_archs=MOE_ARCHS, lm_fraction=0.5)
+
+#: an arch whose blocks the port does not run yet (cross-attention), which
+#: the JAX package's factory builds
+A14C_ARCH = "llama-3.2-vision-11b"
 LM_A14C = dict(LM_MIX, lm_archs=(A14C_ARCH,))
 
 PLAN_CFGS = {"reference_test": CFG, "zoo": ZOO, "lm_mix": LM_MIX,
-             "lm_six": LM_SIX,
+             "lm_six": LM_SIX, "lm_moe": LM_MOE,
              "default": {}, "paper_320": dict(n_graphs=320, seed=1),
              "zoo_held_out": dict(n_graphs=64, seed=5, shard_size=16,
                                   extra_families=("convnext",),
@@ -143,7 +153,8 @@ def _chip_smoke():
 
 def test_chip_smoke_plan_is_the_reference_plan():
     """``chip_smoke.py``'s factory plan: its hash is the JAX package's
-    plan of the same config, and one entry of each of the six LM archs."""
+    plan of the same config, and one entry of each of the eight LM archs
+    the port traces."""
     cs = _chip_smoke()
     want = jf.make_plan(cs.factory_config(jf))
     plan = tf.make_plan(cs.factory_config(tf))
@@ -227,11 +238,11 @@ def test_reference_dataset_with_lm_records_loads(tmp_path):
     assert sum(r.meta.get("kind") == "lm" for r in got) == 1
     for r, q in zip(got, want):
         assert np.array_equal(r.x, q.x) and np.array_equal(r.y, q.y)
-    # its arch has no graph form in the port yet: resuming it is refused
-    # by name, and writes nothing
+    # the port does not run its arch yet: resuming it is refused by name,
+    # and writes nothing
     before = {f: os.path.getmtime(os.path.join(path, f))
               for f in ("plan.json", "manifest.json")}
-    with pytest.raises(NotImplementedError, match=f"{A14C_ARCH}.*A14c-2"):
+    with pytest.raises(NotImplementedError, match=f"{A14C_ARCH}.*A14c-3"):
         tf.build(path)
     assert before == {f: os.path.getmtime(os.path.join(path, f))
                       for f in before}
@@ -261,6 +272,20 @@ def test_lm_shards_are_the_reference_bytes(lm_built):
                for r in lm)
     assert all(set(r.meta) == {"batch", "seq", "kind", "fingerprint",
                                "plan_index"} for r in lm)
+
+
+def test_moe_and_mla_shards_are_the_reference_bytes(tmp_path):
+    ref, port = str(tmp_path / "ref"), str(tmp_path / "port")
+    ref_res = jf.build(ref, jf.FactoryConfig(**LM_MOE))
+    port_res = tf.build(port, tf.FactoryConfig(**LM_MOE))
+    assert port_res.n_built == ref_res.n_built == 3
+    assert port_res.n_skipped == ref_res.n_skipped == 0
+    assert port_res.n_shards == 2
+    assert _shas(port) == _shas(ref)
+    assert _manifest(port) == _manifest(ref)
+    lm = [r for r in tf.load_factory_dataset(port, verify=True)
+          if r.meta.get("kind") == "lm"]
+    assert sorted(r.family for r in lm) == sorted(MOE_ARCHS)
 
 
 def test_lm_plan_killed_and_resumed_on_two_workers(lm_built, tmp_path):
@@ -342,7 +367,7 @@ def test_failed_traces_are_the_reference_skip_records(tmp_path):
 def test_lm_plan_is_refused_before_anything_is_written(tmp_path):
     out = str(tmp_path / "ds")
     cfg = tf.FactoryConfig(**dict(CFG, lm_archs=("mamba2-370m", A14C_ARCH)))
-    with pytest.raises(NotImplementedError, match="A14c-2"):
+    with pytest.raises(NotImplementedError, match="A14c-3"):
         tf.build(out, cfg)
     assert not os.path.exists(out)
     with pytest.raises(NotImplementedError, match=A14C_ARCH) as e:

@@ -20,8 +20,9 @@ top-2), seeded numpy inputs go through ``repro.models`` and the port:
   against ``blockwise_attention`` at small chunks, at D = Dv = 192
   against ``flash_attention_pallas`` in interpret mode, and the
   split-decode twin at Dv != D;
-* the trace path and training refuse an MoE or MLA config (ROADMAP A14c-2,
-  A14b-3).
+* the trace path takes an MoE or MLA config (their graph forms, held to
+  the reference by ``tests/test_torch_lm_trace.py``) and training
+  refuses it (ROADMAP A14b-3).
 
 On a card (marked ``cuda``): B8's kernel at MLA's head dims (D 24 to 576,
 Dv below D) against its twin, in float32 (1e-4) and bfloat16 (2e-2).
@@ -657,12 +658,12 @@ def test_greedy_serving_matches_jax(jx, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_traces_and_training_refuse_moe_and_mla(arch):
-    """The serving entry points take both archs; a trace names A14c-2 (the
-    graph forms) and training A14b-3, at the smoke and the full config."""
+    """The serving entry points and a trace take both archs (the trace
+    refused them, naming A14c-2, until their graph forms were ported);
+    training names A14b-3, at the smoke and the full config."""
     for cfg in (get_smoke_config(arch), get_config(arch)):
         lm.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="A14c-2"):
-            lm.check_traceable(cfg)
+        lm.check_traceable(cfg)
         with pytest.raises(NotImplementedError, match="A14b-3"):
             steps.make_train_step(cfg)
     steps.make_prefill_step(cfg, 8)

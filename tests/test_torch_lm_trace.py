@@ -1,7 +1,9 @@
 """The port's LM graphs against the JAX package's.
 
 * ``lm.param_specs`` is ``repro.models.lm.param_specs`` leaf for leaf
-  (path, shape, dtype) for the six archs the port runs.
+  (path, shape, dtype) for the eight archs the port runs (the
+  mixture-of-experts and MLA archs deepseek-v2 and grok-1 among them, the
+  router a float32 leaf).
 * ``lm.forward`` traced on the meta device is the reference's graph of
   its ``lm.forward`` for each of them, at the dataset factory's smallest
   and largest shapes (batch 1, seq 64; batch 8, seq 256): every node
@@ -11,17 +13,27 @@
   factory's noise, bit for bit.
 * The new rows of the tracer's raw-node rule and the jnp steps of the
   graph forms (a scan's xs and ys, a literal bound to a jitted function,
-  a dynamic index, jnp's gathers, ``dot_general``, ``jnp.tri``), each on
-  a small program written both ways.
+  a dynamic index, jnp's gathers, ``dot_general``, ``jnp.tri``,
+  ``lax.top_k``, ``take_along_axis``, ``.at[i].add``, jnp's softmax),
+  each on a small program written both ways.
+* The MoE block's graph form (``_route`` and ``moe_apply_local``) and the
+  full-sequence MLA layer trace to the reference's jaxpr of that
+  function alone, node for node.
 * The graph forms compute the serving function: ``_flash_fwd_chunks`` /
-  ``blockwise_attention`` and ``_ssd_chunked`` on seeded float32
-  CPU tensors against the reference's jnp functions and against the
-  kernels' plain versions, at 1e-5 relative.
-* An arch whose layers have no graph form yet (MoE, MLA) raises naming
-  ROADMAP A14c-2 on the meta device, one whose blocks the port does not
-  run (cross-attention, the audio frontend) A14c-3, and a meta tensor
-  that reaches a kernel entry raises.
+  ``blockwise_attention`` (also at MLA's Dv != D) and ``_ssd_chunked`` on
+  seeded float32 CPU tensors against the reference's jnp functions and
+  against the kernels' plain versions, at 1e-5 relative; the MoE graph
+  form against the reference's ``_route`` / ``moe_apply_local`` (a router
+  of unit scale, so no near-ties; replicas dropped at a capacity factor
+  of 0.5), its ids, keep masks and slots equal to the serving form's.
+* An arch whose blocks the port does not run (cross-attention, the audio
+  frontend) raises naming ROADMAP A14c-3 on the meta device, and a meta
+  tensor that reaches a kernel entry raises.
+
+torch runs one intra-op thread while the file runs, as the other LM
+test files do.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -51,20 +63,30 @@ from repro_torch.core.static_features import static_features as t_static  # noqa
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models import graph_form as G  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.perfmodel.cost_model import estimate as t_estimate  # noqa: E402,E501
 from repro_torch.perfmodel.devices import DEVICES as T_DEVICES  # noqa: E402
 
+MOE_ARCHS = ["deepseek-v2-236b", "grok-1-314b"]
 PORTED = ["qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
-          "h2o-danube-3-4b", "chatglm3-6b"]
+          "h2o-danube-3-4b", "chatglm3-6b"] + MOE_ARCHS
 #: arch → the ROADMAP item its refusal names on the meta device
-UNPORTED = {"deepseek-v2-236b": "A14c-2", "grok-1-314b": "A14c-2",
-            "llama-3.2-vision-11b": "A14c-3", "hubert-xlarge": "A14c-3"}
+UNPORTED = {"llama-3.2-vision-11b": "A14c-3", "hubert-xlarge": "A14c-3"}
 #: the factory's smallest and largest (batch, seq)
 SHAPES = [(1, 64), (8, 256)]
 #: the factory's device and noise
 DEVICE, SIGMA = "a100-40gb", 0.01
 RTOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the file's float32 sums in one order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _nodes(g):
@@ -136,6 +158,20 @@ def test_lm_graph_and_record_match_reference(arch, shape):
     yr = j_estimate(gj, J_DEVICES[DEVICE], noise_sigma=SIGMA).as_targets()
     assert np.asarray(y).dtype == np.asarray(yr).dtype
     assert np.array_equal(y, yr)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_and_mla_archs_are_traceable(arch):
+    """``check_traceable`` takes the MoE and MLA archs at the smoke and the
+    full config; ``param_specs`` keeps the router in float32 whatever
+    ``param_dtype`` is."""
+    from repro_torch.configs import get_config
+    for cfg in (get_smoke_config(arch), get_config(arch)):
+        lm.check_traceable(cfg)
+        specs = lm.param_specs(cfg)
+        assert specs["blocks"]["ffn"]["router"][1] == torch.float32
+        assert specs["blocks"]["ffn"]["experts"]["wg"][1] == \
+            getattr(torch, cfg.param_dtype)
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
@@ -232,13 +268,36 @@ def _rule_cases():
         "rmsnorm_mean": (lambda p, x: G.rmsnorm(p, x),
                          lambda p, x: jnn.rmsnorm(p, x),
                          {"scale": ((8,), f32)}, [((2, 3, 8), f32)]),
+        "top_k": (lambda p, x: _top_k_both(prims.top_k(x, 2)),
+                  lambda p, x: _top_k_both(lax.top_k(x, 2)), {},
+                  [((3, 5), f32)]),
+        "take_along_axis": (
+            lambda p, x, i: torch.gather(
+                x, 1, G.wrap_index(i[:, None], 5))[:, 0] * 2,
+            lambda p, x, i: jnp.take_along_axis(x, i[:, None], axis=1)[:, 0]
+            * 2, {}, [((4, 5), i32), ((4,), i32)]),
+        "scatter_add": (
+            lambda p, x, i: torch.zeros((6, 3), device=x.device).index_add(
+                0, G.wrap_index(i, 6), x) * 2.0,
+            lambda p, x, i: jnp.zeros((6, 3), f32).at[i].add(x) * 2.0, {},
+            [((4, 3), f32), ((4,), i32)]),
+        "softmax": (lambda p, x: G.softmax(x) * 2.0,
+                    lambda p, x: jax.nn.softmax(x, axis=-1) * 2.0, {},
+                    [((3, 4, 5), f32)]),
     }
     return cases
 
 
+def _top_k_both(vi):
+    """Both outputs of a top-k on: the values doubled, the indices +1."""
+    v, i = vi
+    return v * 2.0, i + 1
+
+
 RULE_CASES = ["scan_xs", "scan_ys", "scan_literal_ys", "jit_literal_arg",
               "dynamic_index", "strided_gather", "take_rows", "dot_general",
-              "tri_where", "rmsnorm_mean"]
+              "tri_where", "rmsnorm_mean", "top_k", "take_along_axis",
+              "scatter_add", "softmax"]
 
 
 def _tspec(spec):
@@ -391,3 +450,155 @@ def test_ssd_graph_form_computes_the_scan(case):
         scale = float(np.abs(want).max())
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
                                    atol=RTOL * scale)
+
+
+def test_flash_graph_form_at_mla_dims():
+    """The graph form at MLA's full-sequence dims (D = nope + rope over
+    Dv = v_head_dim, scale 1 / sqrt(D)), in one chunk and in padded
+    chunks, against the reference and the flash twin."""
+    rng = np.random.default_rng(5)
+    b, s, h, d, dv = 2, 40, 4, 24, 16
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, h, dv)).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+    T = torch.tensor
+    plain = kref.flash_attention_ref(T(q), T(k), T(v), causal=True,
+                                     scale=scale).numpy()
+    for qc, kc in ((2048, 1024), (16, 16)):
+        got = G.blockwise_attention(T(q), T(k), T(v), causal=True,
+                                    q_chunk=qc, kv_chunk=kc,
+                                    scale=scale).numpy()
+        want = np.asarray(JL.blockwise_attention(q, k, v, causal=True,
+                                                 q_chunk=qc, kv_chunk=kc,
+                                                 scale=scale))
+        assert got.shape == (b, s, h, dv)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-6)
+        np.testing.assert_allclose(got, plain, rtol=RTOL, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA: the graph forms against the reference
+# ---------------------------------------------------------------------------
+
+#: tokens of the MoE graph-form tests
+MOE_TOKENS = 48
+
+
+def _moe_cfgs(arch, capacity_factor=None):
+    from repro.configs import get_smoke_config as jget
+    jcfg, tcfg = jget(arch), get_smoke_config(arch)
+    if capacity_factor is not None:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+            jcfg.moe, capacity_factor=capacity_factor))
+        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+            tcfg.moe, capacity_factor=capacity_factor))
+    return jcfg, tcfg
+
+
+def _layer_specs(jcfg, part):
+    """One MoE layer's ``ffn`` or ``attn`` tree (the stack's axis cut): the
+    reference's specs and the port's ``(shape, dtype)`` pairs."""
+    tree = jlm.param_specs(jcfg)["blocks"][part]
+    jspec = jax.tree_util.tree_map(
+        lambda x: jax.ShapeDtypeStruct(x.shape[1:], x.dtype), tree)
+    tspec = jax.tree_util.tree_map(
+        lambda x: (tuple(x.shape[1:]), getattr(torch, str(x.dtype))), tree)
+    return jspec, tspec
+
+
+def _moe_params(jcfg, seed):
+    """Seeded numpy weights for one MoE layer: experts at 0.1, the router
+    at unit scale (the top-k has no near-ties)."""
+    jspec, _ = _layer_specs(jcfg, "ffn")
+    rng = np.random.default_rng(seed)
+    p = jax.tree_util.tree_map(
+        lambda x: (0.1 * rng.standard_normal(x.shape)).astype(np.float32),
+        jspec)
+    p["router"] = rng.standard_normal(jspec["router"].shape).astype(
+        np.float32)
+    return p
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree))
+
+
+@pytest.mark.parametrize("factor", [None, 0.5], ids=["default", "drops"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_graph_form_computes_the_reference(arch, factor):
+    jcfg, tcfg = _moe_cfgs(arch, factor)
+    mo = tcfg.moe
+    p = _moe_params(jcfg, 1)
+    x = np.random.default_rng(2).standard_normal(
+        (MOE_TOKENS, jcfg.d_model)).astype(np.float32)
+    tp, tx = _torch_tree(p), torch.tensor(x)
+    probs, ids, aux = G.moe_route(tp["router"], tx, mo.n_experts, mo.top_k)
+    wprobs, wids, waux = JL._route(p["router"], x, jcfg.moe)
+    assert ids.dtype == torch.int32
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(wids))
+    np.testing.assert_allclose(probs.numpy(), np.asarray(wprobs), rtol=RTOL,
+                               atol=1e-7)
+    np.testing.assert_allclose(float(aux), float(waux), rtol=RTOL)
+    # the dispatch: the serving form's (held to the reference by
+    # tests/test_torch_lm_moe_mla.py)
+    keep, slot = G.moe_slots(ids, mo.n_experts, int(math.ceil(
+        MOE_TOKENS * mo.top_k / mo.n_experts * mo.capacity_factor)))
+    skeep, sslot, _ = TL.moe_slots(ids.long(), mo, MOE_TOKENS)
+    assert torch.equal(keep, skeep) and torch.equal(slot.long(), sslot)
+    if factor is not None:
+        assert bool((~keep).any())
+    y, yaux = G.moe_apply_local(tp, mo, tx)
+    wy, wyaux = JL.moe_apply_local(p, jcfg, x)
+    wy = np.asarray(wy)
+    np.testing.assert_allclose(y.numpy(), wy, rtol=RTOL,
+                               atol=RTOL * float(np.abs(wy).max()))
+    assert float(yaux) == float(aux)
+    sy, saux = TL.moe_apply_local(tp, tcfg, tx)
+    np.testing.assert_allclose(y.numpy(), sy.numpy(), rtol=RTOL,
+                               atol=RTOL * float(np.abs(wy).max()))
+    np.testing.assert_allclose(float(saux), float(aux), rtol=RTOL)
+
+
+def _part_fns(arch, part):
+    """(torch fn, jnp fn, param specs both ways, data specs) of one layer
+    part traced alone."""
+    jcfg, tcfg = _moe_cfgs(arch)
+    f32, i32 = jnp.float32, jnp.int32
+    x = ((2, 32, jcfg.d_model), f32)
+    if part == "route":
+        jspec, tspec = _layer_specs(jcfg, "ffn")
+        mo = tcfg.moe
+        return (lambda p, x: G.moe_route(p["router"], x, mo.n_experts,
+                                         mo.top_k),
+                lambda p, x: JL._route(p["router"], x, jcfg.moe),
+                jspec, tspec, [((64, jcfg.d_model), f32)])
+    if part == "block":
+        jspec, tspec = _layer_specs(jcfg, "ffn")
+        return (lambda p, x: TL.moe_apply_local(p, tcfg, x),
+                lambda p, x: JL.moe_apply_local(p, jcfg, x),
+                jspec, tspec, [((64, jcfg.d_model), f32)])
+    jspec, tspec = _layer_specs(jcfg, "attn")
+    return (lambda p, x, pos: TL.mla_apply(p, tcfg, x, positions=pos)[0],
+            lambda p, x, pos: JL.mla_apply(p, jcfg, x, positions=pos)[0],
+            jspec, tspec, [x, ((2, 32), i32)])
+
+
+@pytest.mark.parametrize("arch,part", [
+    ("grok-1-314b", "route"), ("grok-1-314b", "block"),
+    ("deepseek-v2-236b", "route"), ("deepseek-v2-236b", "block"),
+    ("deepseek-v2-236b", "mla")])
+def test_moe_and_mla_graph_forms_are_the_reference_jaxpr(arch, part):
+    """``_route``, ``moe_apply_local`` (routing, dispatch, experts and the
+    shared MLP) and MLA's full-sequence form, each traced alone on the
+    meta device: the reference's jaxpr of the same function, node for
+    node, with edges and the raw node count."""
+    tfn, jfn, jspec, tspec, data = _part_fns(arch, part)
+    g = tt.trace_graph(tfn, tspec, *[_tspec(d) for d in data])
+    g_ref = jt.trace_graph(jfn, jspec,
+                           *[jax.ShapeDtypeStruct(*d) for d in data])
+    assert _nodes(g) == _nodes(g_ref)
+    assert g.edges == g_ref.edges
+    assert g.meta == g_ref.meta
