@@ -21,7 +21,9 @@ Phases, each printing one JSON line:
    bfloat16: grouped heads, windows, the ring cache's negative key
    offset, fully masked rows, head dims 16 to 128, query tiles around
    the tensor-core path's 64 and 128 rows, one-row decode over one and
-   several key splits and with no kept key; ragged chunks, sequences
+   several key splits and with no kept key, the non-causal calls of a
+   cross layer (text rows over vision keys, a one-row step over 1,600
+   keys) and of an encoder (a ragged last key tile); ragged chunks, sequences
    shorter than a chunk, an initial state, B/C per group, a d_state whose
    shared memory makes the float32 scan halve its chunk, and the edges of
    the scan's bf16 tensor-core kernel (S < 16, a last chunk that is not a
@@ -184,11 +186,14 @@ Phases, each printing one JSON line:
 13. ``factory`` — the dataset factory (``repro_torch.dataset.factory``)
    on the host, then its records on the card: a plan of 48 zoo graphs
    (shards of 16, seed 0, convnext held out) and one LM entry of each of
-   the eight archs the port traces (58 records, 4 shards; deepseek-v2 and
-   grok-1 through the MoE and MLA graph forms since PR 31), its
+   nine archs the port traces (59 records, 4 shards; deepseek-v2 and
+   grok-1 through the MoE and MLA graph forms, llama-3.2-vision with its
+   vision memory spec; hubert-xlarge, which the JAX package's factory
+   cannot trace, is left out), its
    hash ``FACTORY_PLAN_HASH``, built by two spawned worker processes;
-   beside it, the same plan built again, stopped after one shard and
-   resumed, every shard's sha256 equal to the first build's, and whether
+   a copy of it that lost its last shard and the manifest resumed in the
+   script's process (one shard built, the rest reused), every shard's
+   sha256 equal to the first build's, and whether
    they equal the JAX package's (``FACTORY_REF_SHA256``) printed, not
    required; the records streamed with ``verify=True`` and split by
    fingerprint; packed GraphSAGE at hidden 512 trained two epochs on the
@@ -200,7 +205,8 @@ Phases, each printing one JSON line:
    attention and SSD shapes, B8 and B9 on the card against the graph
    forms (the JAX package's jnp steps) run on the card, float32, 1e-4
    relative (deepseek-v2's attention at MLA's full-sequence dims, D 24
-   over Dv 16); at each MoE entry's tokens, the MoE block's graph form
+   over Dv 16; llama-3.2-vision's cross layer, not causal, over its 16
+   vision keys); at each MoE entry's tokens, the MoE block's graph form
    against its serving form on the card, at the config's capacity factor
    and at 0.5, the same expert ids and keep masks, output and aux loss
    within 1e-4 of their scale. The line carries build seconds,
@@ -247,7 +253,33 @@ Phases, each printing one JSON line:
    its bound, the plain version and SDPA with ``enable_gqa``: the
    ``flash_attention_mla_prefill`` and ``flash_attention_mla_decode``
    entries of the ``kernels`` line, with the full run's launches.
-16. ``lm_train`` — LM training through the flash kernels: (a)
+16. ``lm_vision_audio_path`` — cross-attention and the audio frontend.
+   Parity: the smoke configs of llama-3.2-vision (two groups of a self
+   layer and a cross layer over a 16-row vision memory) and hubert-xlarge
+   (two bidirectional layers over audio frames) in float32, the same
+   weights and inputs on the card and the CPU: llama's ``forward``, a
+   prefill (which seeds the cross K / V from the memory) and 12 greedy
+   decode steps, every step's logits within 1e-4 + 1e-4 and the same
+   tokens; hubert's ``make_encode_step`` logits within the same bar.
+   Then llama-3.2-vision-11b at full width and depth (40 layers, 8 of them
+   cross layers over a [4, 1600, 4096] seeded memory) in bfloat16,
+   weights drawn on the card, 4 prompts × 512 tokens through
+   ``make_prefill_step`` and 15 ``make_serve_step`` calls, the launches
+   zeroed before and held to ``lm_launch_rule`` after and counted by shape
+   (the cross layers' prefill and decode calls apart); finite logits and
+   caches; prefill ms, decode ms a step, peak memory, the device time of
+   one prefill and one step by kernel. hubert-xlarge at full width and
+   depth (48 layers) in bfloat16 encodes 4 clips of 1,500 frames through
+   ``make_encode_step``: 48 launches, finite logits [4, 1500, 504], encode
+   ms and device ms by kernel. Last, B8 at the three new shapes, none
+   causal (``VISION_AUDIO_FLASH``: q [4, 512, 32, 128] over 1,600 vision
+   keys of 8 heads, its one-row decode, and hubert's [4, 1500, 16, 80]),
+   held to its plain version in bfloat16 and, at batch 1, in float32,
+   timed beside its bound, the plain version and SDPA with ``enable_gqa``:
+   the ``flash_attention_cross_prefill``, ``flash_attention_cross_decode``
+   and ``flash_attention_encoder`` entries of the ``kernels`` line, with
+   the full runs' launches.
+17. ``lm_train`` — LM training through the flash kernels: (a)
    ``flash_attention_bwd`` and the forward's log-sum-exp against their
    plain versions on the card (qwen2.5-3b's heads at 4 × 1024 causal,
    h2o-danube's 32 over 8 at D = 120 with window 256, a padded length, a
@@ -255,14 +287,14 @@ Phases, each printing one JSON line:
    within 2e-2 of each gradient's largest magnitude, every case twice with
    the same bits; timed beside its bound, its plain version and SDPA's
    forward + backward (``is_causal``; measured only, never on the path);
-   (b) qwen2.5-3b at full width, depth 2, float32, 2 × 128 tokens, three
+   (b) qwen2.5-3b at full width, depth 2, float32, 2 × 128 tokens, two
    ``make_train_step`` steps on the card against the CPU's plain versions
    (losses within 1e-4 relative, parameters on ROADMAP §C's bar); (c) the
    full model, bf16, ``default_optimizer()``, ``remat=True``, 4 × 1024
    tokens: ms per step, tokens/s, peak memory, the device-busy share, the
    backward's µs per launch, and the flash launches held to
    ``lm_train_launch_rule``.
-17. ``accuracy`` — the paper's accuracy protocol on the card, the JAX
+18. ``accuracy`` — the paper's accuracy protocol on the card, the JAX
    package's CI gate (``benchmarks/accuracy_mape.py``) run by the port:
    the gate's plan (320 zoo graphs, convnext held out, qwen2.5-3b and
    mamba2-370m traced, shards of 64; its hash ``ACCURACY_PLAN_HASH``,
@@ -408,18 +440,18 @@ FACTORY_EPOCHS = 2
 #: not require it
 FACTORY_LM_ARCHS = ("qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
                     "h2o-danube-3-4b", "chatglm3-6b", "deepseek-v2-236b",
-                    "grok-1-314b")
-FACTORY_PLAN_HASH = ("823709ca4fd64c2ed857399ab611ea296102c320f8dd505064"
-                     "af22a8845e5cf9")
+                    "grok-1-314b", "llama-3.2-vision-11b")
+FACTORY_PLAN_HASH = ("9dd36e6cb46d7d62ea5ae1e8721dcf07e50fbe672a9688e895"
+                     "1fdd787d528bab")
 FACTORY_REF_SHA256 = {
     "shard00000.npz":
-        "59d13e3182d0c93f820d25ade69769e03931461b224c0913ca1fb6bf0ffc50ce",
+        "66b8362487218b5d9f1a3a7cd113e5fa2a9d746f45f88eb85ed950ff73a7d467",
     "shard00001.npz":
-        "e91ea26d6a610a23c056f475dbb4767c563a98e24bc1f2e7929b342f1bfba4c1",
+        "5db074b5ecd7fdb07878bf465b1f2f2635670a27eacc7490b8a4d2135b41e0ba",
     "shard00002.npz":
-        "154296e13a2e4e63feb2291891be441a1ff871fedb0a3b22f101851cf41f507a",
+        "7bdc4b17ca89f00c70d2a5ee0971013966ab7c1ccfaca2b1ae680c645434516f",
     "shard00003.npz":
-        "0530dd4d8cbed9ef4b94f659d19160e186e7d7e68df9095b0a2549deba2feb61"}
+        "44571da2880970c806307beac84e8b428d134da28b720c173bd7c3f25aa1cbf0"}
 #: factory: the zoo entries whose trace it times beside the LM entries',
 #: and the bar of B8 / B9 against the graph forms on the card (float32,
 #: relative to the output's largest magnitude)
@@ -468,6 +500,25 @@ MLA_FLASH_SWEEP = [
     (MOE_BATCH, 1, MOE_PROMPT + MOE_NEW, 48, 8, 128, 128, True,
      MOE_PROMPT + MOE_NEW - 1, 1 / np.sqrt(128)),
 ]
+#: lm_vision_audio_path: llama-3.2-vision-11b at full width and depth in
+#: bfloat16 (every fifth layer a cross layer over the vision memory;
+#: VISION_LAYERS of its 40), prompts × prompt length with a seeded memory
+#: [B, vision_tokens, vision_dim], new tokens; hubert-xlarge at full width
+#: and depth encoding a 30 s clip at 50 frames a second (clips × frames);
+#: the parity runs of both smoke configs reuse lm_moe_path's sizes and bar
+VISION_ARCH, VISION_LAYERS = "llama-3.2-vision-11b", 40
+VISION_BATCH, VISION_PROMPT, VISION_NEW = 4, 512, 16
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_FRAMES = "hubert-xlarge", 4, 1500
+#: B8's entries at the two archs' full-run calls: name → (B, Sq, Skv, H,
+#: Hkv, D, q_offset), none causal; the float32 check cuts B to 1
+VISION_AUDIO_FLASH = {
+    "flash_attention_cross_prefill": (VISION_BATCH, VISION_PROMPT, 1600, 32,
+                                      8, 128, 0),
+    "flash_attention_cross_decode": (VISION_BATCH, 1, 1600, 32, 8, 128,
+                                     VISION_PROMPT + VISION_NEW - 1),
+    "flash_attention_encoder": (AUDIO_BATCH, AUDIO_FRAMES, AUDIO_FRAMES, 16,
+                                16, 80, 0),
+}
 
 
 #: accuracy: the JAX package's CI gate (``benchmarks/accuracy_mape.py``:
@@ -497,12 +548,12 @@ ACCURACY_HEADS = ("mape_latency", "mape_energy", "mape_memory", "mape")
 LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = (
     "qwen2.5-3b", 4, 1024, 3)
 LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ = 2, 2, 128
-LM_TRAIN_PARITY_STEPS, LM_TRAIN_PARITY_LR = 3, 1e-4
+LM_TRAIN_PARITY_STEPS, LM_TRAIN_PARITY_LR = 2, 1e-4
 BWD_F32_TOL, BWD_BF16_TOL, LM_TRAIN_LOSS_RTOL = 1e-5, 2e-2, 1e-4
 #: lm_train's SSD archs: the full run (mamba2-370m, the accuracy plan's
 #: other LM tracing: batch × sequence, LM_TRAIN_STEPS measured steps after
 #: one warm-up), the parity runs against the CPU ((arch, depth): zamba2 at
-#: 6, one shared-block application; batch × sequence: three chunks of 128,
+#: 6, one shared-block application; batch × sequence: two chunks of 128,
 #: the last one padded), the backward kernel's timed shapes (each arch's
 #: heads and widths at batch × sequence, the model's chunk) and its bars
 #: against the plain twin, of each gradient's largest magnitude (float32:
@@ -510,7 +561,7 @@ BWD_F32_TOL, BWD_BF16_TOL, LM_TRAIN_LOSS_RTOL = 1e-5, 2e-2, 1e-4
 LM_SSD_TRAIN_ARCH, LM_SSD_TRAIN_BATCH, LM_SSD_TRAIN_SEQ = (
     "mamba2-370m", 8, 2048)
 LM_SSD_PARITY = (("mamba2-370m", 2), ("zamba2-2.7b", 6))
-LM_SSD_PARITY_BATCH, LM_SSD_PARITY_SEQ = 2, 320
+LM_SSD_PARITY_BATCH, LM_SSD_PARITY_SEQ = 2, 192
 SSD_BWD_ARCHS, SSD_BWD_BATCH, SSD_BWD_SEQ = (
     ("mamba2-370m", "zamba2-2.7b"), 8, 2048)
 SSD_BWD_F32_TOL, SSD_BWD_BF16_TOL = 1e-4, 1e-2
@@ -4338,7 +4389,8 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
     config at its batch and seq), on seeded inputs; the kernels'
     launches counted. An MLA arch's attention is its full-sequence call:
     D = nope + rope over Dv = ``v_head_dim`` on every head, scale
-    ``1 / sqrt(D)``."""
+    ``1 / sqrt(D)``. A cross-attention arch adds its cross layer's call:
+    the seq's queries over ``vision_tokens`` keys, not causal."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -4378,6 +4430,19 @@ def lm_graph_form_checks(torch, dev, entries: list) -> dict:
                 "v": list(v.shape), "window": cfg.window,
                 **graph_form_case(
                     f"factory: B8 vs the graph form, {case}", got, want)})
+        if cfg.cross_attn_every:
+            hd = cfg.resolved_head_dim
+            q = rnd(b, s, cfg.n_heads, hd)
+            k, v = (rnd(b, cfg.vision_tokens, cfg.n_kv_heads, hd)
+                    for _ in range(2))
+            got = ops.flash_attention(q, k, v, causal=False)
+            want = graph_form.blockwise_attention(q, k, v, causal=False)
+            cross = {**case, "cross": True}
+            out["flash_attention"]["cases"].append({
+                **cross, "q": list(q.shape), "k": list(k.shape),
+                "v": list(v.shape), "window": 0,
+                **graph_form_case(
+                    f"factory: B8 vs the graph form, {cross}", got, want)})
         if cfg.block in ("mamba2", "hybrid"):
             ssm = cfg.ssm
             nh, g = ssm.n_heads(cfg.d_model), ssm.n_groups
@@ -4479,20 +4544,19 @@ def factory_config(factory):
 
 def phase_factory(torch, name_limit: str) -> dict:
     """The dataset factory on the card machine's host, then its records on
-    the card: a plan of zoo graphs and eight LM entries built by
-    ``FACTORY_WORKERS`` spawned processes; beside it (a thread of its
-    own, so the two builds share the host's cores) the same plan built
-    again, stopped after one shard and resumed, its shards' sha256 equal
-    to the first build's; the records streamed with ``verify=True`` and
-    split by fingerprint; packed GraphSAGE trained on the train split
-    against the CPU; the test split and the LM records predicted on the
+    the card: a plan of zoo graphs and nine LM entries built by
+    ``FACTORY_WORKERS`` spawned processes; a copy of the build that lost
+    its last shard and the manifest (a build killed before its last
+    shard) resumed in this process, every other shard reused and the
+    sha256 equal to the first build's; the records streamed with
+    ``verify=True`` and split by fingerprint; packed GraphSAGE trained on
+    the train split against the CPU; the test split and the LM records predicted on the
     card against the CPU, launches on bins × layers; the LM entries'
     trace ms beside the zoo's; B8 and B9 against the graph forms at the
     LM entries' shapes; the MoE block's graph form against its serving
     form at the MoE entries' tokens."""
     import resource
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.core import DIPPM
     from repro_torch.core.gnn import PMGNSConfig
     from repro_torch.dataset import builder, factory
@@ -4504,25 +4568,25 @@ def phase_factory(torch, name_limit: str) -> dict:
                              f"{FACTORY_PLAN_HASH}")
     with tempfile.TemporaryDirectory() as tmp:
         full, cut = str(Path(tmp) / "full"), str(Path(tmp) / "cut")
-        with ThreadPoolExecutor(1) as pool:
-            first = pool.submit(timed, factory.build, full, cfg,
-                                workers=FACTORY_WORKERS)
-            part, stop_s = timed(factory.build, cut, cfg,
-                                 workers=FACTORY_WORKERS,
-                                 _stop_after_shards=1)
-            if part.shards_built != 1 or part.manifest_path:
-                raise AssertionError(f"factory: the stopped build built "
-                                     f"{part.shards_built} shards")
-            resumed, resume_s = timed(factory.build, cut,
-                                      workers=FACTORY_WORKERS)
-            res, build_s = first.result()
+        res, build_s = timed(factory.build, full, cfg,
+                             workers=FACTORY_WORKERS)
         if res.n_skipped or res.n_built != res.n_planned \
                 or not res.manifest_path:
             raise AssertionError(f"factory: built {res.n_built} of "
                                  f"{res.n_planned}, skips "
                                  f"{res.skips_by_family}")
-        shas, cut_shas = factory_shas(full), factory_shas(cut)
-        if resumed.shards_reused != 1 or cut_shas != shas \
+        shas = factory_shas(full)
+        # a build killed before its last shard: that shard, its sidecar
+        # and the manifest missing
+        shutil.copytree(full, cut)
+        last = sorted(shas)[-1]
+        for name in (last, last.replace(".npz", ".json")):
+            (Path(cut) / "shards" / name).unlink()
+        (Path(cut) / "manifest.json").unlink()
+        resumed, resume_s = timed(factory.build, cut)
+        cut_shas = factory_shas(cut)
+        if resumed.shards_reused != len(shas) - 1 \
+                or resumed.shards_built != 1 or cut_shas != shas \
                 or resumed.plan_hash != res.plan_hash:
             raise AssertionError(f"factory: the resumed build reused "
                                  f"{resumed.shards_reused} shards; its "
@@ -4566,7 +4630,7 @@ def phase_factory(torch, name_limit: str) -> dict:
            "sidecar_max_rss_kb": res.max_rss_kb,
            "host_peak_rss_kb": int(resource.getrusage(
                resource.RUSAGE_SELF).ru_maxrss),
-           "resume": {"stopped_build_s": stop_s,
+           "resume": {"shards_removed": 1,
                       "shards_reused": resumed.shards_reused,
                       "shards_built": resumed.shards_built,
                       "seconds": resume_s, "same_sha256": True},
@@ -4643,6 +4707,12 @@ FLASH_SWEEP = [
     (1, 1, 300, 8, 2, 120, True, 40, 250, -30),
     (1, 1, 24, 4, 1, 64, True, 0, 23, 0),
     (2, 1, 20, 4, 1, 80, True, 0, 5, 10),
+    # cross-attention and the encoder, none causal: text rows over vision
+    # keys at D 128, GQA 4; frames at D 80 with a ragged last key tile
+    # (150 = 2 × 64 + 22); a one-row step over 1,600 vision keys
+    (2, 40, 100, 8, 2, 128, False, 0, 0, 0),
+    (2, 150, 150, 4, 4, 80, False, 0, 0, 0),
+    (2, 1, 1600, 8, 2, 128, False, 0, 530, 0),
 ]
 #: SSD sweep: (Bt, S, H, P, N, G, chunk, kind); kind "s0x100" scales the
 #: initial state by 100 (the bf16 kernel splits it into three bf16 terms),
@@ -5692,6 +5762,361 @@ def phase_lm_moe(torch, dev, name_limit: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# lm_vision_audio_path: cross-attention and the audio frontend
+# ---------------------------------------------------------------------------
+
+def vision_audio_inputs(torch, cfg, b: int, s: int, dev, seed: int) -> dict:
+    """Seeded model inputs on ``dev``: int32 tokens and a float32 vision
+    memory [b, vision_tokens, vision_dim], or float32 frames [b, s, d]."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if cfg.frontend == "audio_frames":
+        return {"features": torch.randn((b, s, cfg.d_model), generator=gen,
+                                        device=dev)}
+    return {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                    device=dev, dtype=torch.int32),
+            "vision_embeds": torch.randn(
+                (b, cfg.vision_tokens, cfg.vision_dim), generator=gen,
+                device=dev)}
+
+
+def vision_audio_parity(torch, dev, arch: str) -> dict:
+    """A smoke config in float32 on the card against the same weights and
+    inputs on the CPU: llama-3.2-vision's ``forward``, prefill and
+    MOE_PARITY_STEPS greedy decode steps (every step's logits, the same
+    tokens); hubert's ``make_encode_step``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_encode_step
+    from repro_torch.models import lm
+    cfg = get_smoke_config(arch)
+    cpu = lm.init_params(cfg, seed=LM_SEED, device="cpu")
+    card = tree_to(cpu, dev)
+    inputs = vision_audio_inputs(torch, cfg, MOE_PARITY_BATCH,
+                                 MOE_PARITY_PROMPT, "cpu", LM_SEED + 5)
+    max_len = MOE_PARITY_PROMPT + MOE_PARITY_STEPS
+    runs = {}
+    for where, params in (("card", card), ("cpu", cpu)):
+        x = tree_to(inputs, dev if where == "card" else "cpu")
+        if cfg.is_encoder_only:
+            runs[where] = {"encode": make_encode_step(cfg)(params, x).cpu()}
+            continue
+        fwd, _ = lm.forward(params, cfg, x)
+        logits, cache = lm.prefill(params, cfg, x, max_len)
+        steps_l = [logits[:, -1].cpu()]
+        for i in range(MOE_PARITY_STEPS):
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            logits, cache = lm.decode_step(params, cfg, cache,
+                                           {"tokens": tok[:, None]},
+                                           MOE_PARITY_PROMPT + i)
+            steps_l.append(logits[:, -1].cpu())
+        runs[where] = {"forward": fwd.cpu(), "steps": torch.stack(steps_l, 1)}
+    tol = (MOE_PARITY_TOL, MOE_PARITY_TOL)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.param_dtype, "atol": MOE_PARITY_TOL,
+           "rtol": MOE_PARITY_TOL}
+    if cfg.is_encoder_only:
+        out.update(frames=[MOE_PARITY_BATCH, MOE_PARITY_PROMPT],
+                   max_abs_err={"encode_logits": check_close(
+                       f"lm_vision_audio_path {arch} encode logits",
+                       runs["card"]["encode"], runs["cpu"]["encode"], *tol)})
+        return out
+    tok_card, tok_cpu = (r["steps"].argmax(-1) for r in runs.values())
+    if not torch.equal(tok_card, tok_cpu):
+        raise AssertionError(f"lm_vision_audio_path parity {arch}: greedy "
+                             f"tokens differ {tok_card.tolist()} vs "
+                             f"{tok_cpu.tolist()}")
+    out.update(prompts=[MOE_PARITY_BATCH, MOE_PARITY_PROMPT],
+               decode_steps=MOE_PARITY_STEPS, tokens_equal=True,
+               max_abs_err={k: check_close(
+                   f"lm_vision_audio_path {arch} {k} logits",
+                   runs["card"][k], runs["cpu"][k], *tol)
+                   for k in ("forward", "steps")})
+    return out
+
+
+def flash_shape_recorder():
+    """Wrap ``ops.flash_attention`` so that each call also records its
+    (Sq, Skv, causal); the wrapper's launch counts are untouched. Returns
+    (the records, a restore call)."""
+    from repro_torch.kernels import ops
+    real = ops.flash_attention
+    seen = []
+
+    def recording(q, k, v, *, causal, **kw):
+        seen.append((q.shape[1], k.shape[1], bool(causal)))
+        return real(q, k, v, causal=causal, **kw)
+
+    ops.flash_attention = recording
+    return seen, lambda: setattr(ops, "flash_attention", real)
+
+
+def vision_serve_run(torch, dev) -> dict:
+    """llama-3.2-vision-11b at full width, VISION_LAYERS deep, bfloat16,
+    weights drawn on the card: VISION_BATCH × VISION_PROMPT seeded tokens
+    and their vision memory through ``make_prefill_step`` (which seeds the
+    cross K / V) and VISION_NEW - 1 ``make_serve_step`` calls; launches
+    zeroed before and held to ``lm_launch_rule`` after (every layer once a
+    step, the cross layers among them), and counted by shape; finite
+    logits and caches, tokens in the vocabulary; prefill ms, decode ms a
+    step, peak memory and one prefill's and one step's device ms by
+    kernel."""
+    import dataclasses
+    from repro_torch import nn as tnn
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.lm import init_params
+    cfg = dataclasses.replace(get_config(VISION_ARCH), n_layers=VISION_LAYERS,
+                              param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    inputs = vision_audio_inputs(torch, cfg, VISION_BATCH, VISION_PROMPT, dev,
+                                 LM_SEED + 6)
+    max_len = VISION_PROMPT + VISION_NEW
+    prefill, serve = make_prefill_step(cfg, max_len), make_serve_step(cfg)
+    _, cache = prefill(params, inputs)                        # warm up
+    serve(params, cache, {"tokens": inputs["tokens"][:, :1]}, VISION_PROMPT)
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    seen, restore = flash_shape_recorder()
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = prefill(params, inputs)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        prefill_calls = list(seen)
+        idx, toks = VISION_PROMPT, [tok]
+        for _ in range(VISION_NEW - 1):
+            tok, cache, idx = serve(params, cache, {"tokens": tok[:, None]},
+                                    idx)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        restore()
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "ssd_scan": 0}
+    want = lm_launch_rule(cfg, VISION_NEW)
+    if launches != want or len(seen) != launches["flash_attention"]:
+        raise AssertionError(f"lm_vision_audio_path: launches {launches} "
+                             f"({len(seen)} calls seen) != the rule's {want}")
+    vt = cfg.vision_tokens
+    by_shape = {
+        "flash_attention_cross_prefill": sum(
+            c == (VISION_PROMPT, vt, False) for c in prefill_calls),
+        "flash_attention_cross_decode": sum(
+            c == (1, vt, False) for c in seen[len(prefill_calls):]),
+        "self": sum(c[2] for c in seen)}
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    if by_shape != {"flash_attention_cross_prefill": n_cross,
+                    "flash_attention_cross_decode": n_cross * (VISION_NEW - 1),
+                    "self": (cfg.n_layers - n_cross) * VISION_NEW}:
+        raise AssertionError(f"lm_vision_audio_path: launches by shape "
+                             f"{by_shape}")
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.stack(toks, 1)
+    finite = {"prefill_logits": bool(torch.isfinite(logits).all()),
+              **{f"cache_{k}": bool(torch.isfinite(v.float()).all())
+                 for k, v in cache.items()}}
+    if not all(finite.values()) or logits.shape != (VISION_BATCH, 1,
+                                                    cfg.vocab):
+        raise AssertionError(f"lm_vision_audio_path: logits "
+                             f"{tuple(logits.shape)}, finite {finite}")
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        raise AssertionError("lm_vision_audio_path: a token outside the "
+                             "vocabulary")
+    pre_busy, pre_top = device_busy_ms(torch, lambda: prefill(params, inputs))
+    dec_busy, dec_top = device_busy_ms(torch, lambda: serve(
+        params, cache, {"tokens": tok[:, None]}, max_len - 1))
+    prefill_ms = 1e3 * (t2 - t1)
+    decode_ms = 1e3 * (t3 - t2) / (VISION_NEW - 1)
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "cross_layers": n_cross, "d_model": cfg.d_model,
+                      "vision": [cfg.vision_tokens, cfg.vision_dim],
+                      "dtype": cfg.param_dtype},
+           "prompts": [VISION_BATCH, VISION_PROMPT], "new_tokens": VISION_NEW,
+           "max_len": max_len, "launches": launches,
+           "launches_by_shape": by_shape, "init_s": init_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "decode_tokens_per_s": VISION_BATCH / (decode_ms / 1e3),
+           "prefill_tokens_per_s": VISION_BATCH * VISION_PROMPT / (t2 - t1),
+           "max_memory_allocated": peak,
+           "param_bytes": tnn.tree_bytes(params),
+           "param_count": tnn.tree_size(params),
+           "cache_bytes": tnn.tree_bytes(cache),
+           "finite": finite, "first_tokens": gen[:2, :8].tolist(),
+           "prefill_device_busy_ms": pre_busy,
+           "prefill_device_ms_by_kernel": pre_top,
+           "decode_step_device_busy_ms": dec_busy,
+           "decode_step_device_ms_by_kernel": dec_top}
+    del params, cache, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def audio_encode_run(torch, dev) -> dict:
+    """hubert-xlarge at full width and depth, bfloat16, weights drawn on
+    the card: ``make_encode_step`` over AUDIO_BATCH × AUDIO_FRAMES seeded
+    frames, one launch a layer; finite logits [B, frames, vocab]; encode
+    ms, peak memory, device busy ms and ms by kernel."""
+    import dataclasses
+    from repro_torch import nn as tnn
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.steps import make_encode_step
+    from repro_torch.models.lm import init_params
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH), param_dtype="bfloat16")
+    params = init_params(cfg, seed=LM_SEED)
+    inputs = vision_audio_inputs(torch, cfg, AUDIO_BATCH, AUDIO_FRAMES, dev,
+                                 LM_SEED + 7)
+    encode = make_encode_step(cfg)
+    encode(params, inputs)                                    # warm up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    t1 = time.perf_counter()
+    logits = encode(params, inputs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = flash_attention_cuda.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"lm_vision_audio_path: hubert launched flash "
+                             f"{launches} times for {cfg.n_layers} layers")
+    if logits.shape != (AUDIO_BATCH, AUDIO_FRAMES, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_vision_audio_path: hubert logits "
+                             f"{tuple(logits.shape)} not finite")
+    peak = torch.cuda.max_memory_allocated()
+    busy, top = device_busy_ms(torch, lambda: encode(params, inputs))
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "heads": cfg.n_heads,
+                      "head_dim": cfg.resolved_head_dim,
+                      "dtype": cfg.param_dtype},
+           "frames": [AUDIO_BATCH, AUDIO_FRAMES],
+           "launches": {"flash_attention": launches, "ssd_scan": 0},
+           "encode_ms": 1e3 * (t2 - t1),
+           "frames_per_s": AUDIO_BATCH * AUDIO_FRAMES / (t2 - t1),
+           "max_memory_allocated": peak,
+           "param_bytes": tnn.tree_bytes(params),
+           "param_count": tnn.tree_size(params),
+           "logits": list(logits.shape), "finite": True,
+           "device_busy_ms": busy, "device_ms_by_kernel": top}
+    del params, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_audio_kernel_entries(torch, dev, launches: dict) -> tuple:
+    """B8 at VISION_AUDIO_FLASH's shapes, none causal: each held to its
+    plain version in bfloat16 at full size and in float32 at batch 1,
+    and the bfloat16 call timed beside its bound (every pair kept: the
+    products at the bf16 peak, or q, k, v and out once at the memory
+    rate), the plain version and SDPA (``enable_gqa``) on the same
+    inputs. ``launches``: the full runs', by entry. Returns (entries,
+    the worst |diff| per dtype)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    entries, kerns = [], {}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (name, (b, sq, skv, h, hkv, d, qo)) in enumerate(
+            VISION_AUDIO_FLASH.items()):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(8200 + i)
+        qkv = [torch.randn(shape, generator=gen, device=dev) for shape in
+               ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+        kw = dict(causal=False, q_offset=qo)
+        err = {}
+        for dname, cut in (("bfloat16", b), ("float32", 1)):
+            q, k, v = (t[:cut].to(getattr(torch, dname)) for t in qkv)
+            got = flash_attention_cuda(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = ((KERNEL_BF16_TOL,) * 2 if dname == "bfloat16"
+                   else (KERNEL_ATOL, KERNEL_RTOL))
+            err[dname] = check_close(f"{name} {dname} at batch {cut}",
+                                     got.float(), want.float(), *tol)
+            worst[dname] = max(worst[dname], err[dname])
+            del got, want
+        q, k, v = (t.to(torch.bfloat16) for t in qkv)
+        kern = kerns[name] = lambda q=q, k=k, v=v: flash_attention_cuda(  # noqa: E731,E501
+            q, k, v, **kw)
+        plain = lambda q=q, k=k, v=v: ref.flash_attention_ref(  # noqa: E731
+            q, k, v, **kw)
+        reps = dict(replays=5, calls=3) if sq > 1 else {}
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        sdpa = lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(  # noqa: E731,E501
+            qt, kt, vt, enable_gqa=True)
+        try:
+            library, library_note = time_graph_ms(torch, sdpa, **reps), (
+                "scaled_dot_product_attention, enable_gqa, on [B, H, S, D] "
+                "views of the same inputs")
+        except Exception as e:                  # noqa: BLE001
+            library, library_note = None, f"none: SDPA refused ({e!r:.200})"
+        flops = 2.0 * b * h * sq * skv * (d + d)
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "src/repro/kernels/flash_attention.py:93",
+            "launches": launches[name], "max_abs_err": max(err.values()),
+            "ms": time_graph_ms(torch, kern, **reps),
+            "plain_ms": time_graph_ms(torch, plain, **reps),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": library,
+            "unit": f"q [{b}, {sq}, {h}, {d}] over k / v [{b}, {skv}, "
+                    f"{hkv}, {d}] bf16, not causal, q_offset {qo}",
+            "route_taken": "TMA + wgmma (bf16, Sq > 1)" if sq > 1
+            else "split-KV decode + merge",
+            "library_note": library_note, "float32_batch": 1,
+            "max_abs_err_by_dtype": err,
+            "flops": flops, "bytes": nbytes})
+    us = device_breakdown_us(torch, kerns, reps=3)
+    for e in entries:
+        e["device_us_by_kernel"] = us[e["name"]]
+    return entries, worst
+
+
+def phase_lm_vision_audio(torch, dev, name_limit: str) -> dict:
+    """Serve llama-3.2-vision and encode with hubert on the card: the
+    parity runs of both smoke configs against the CPU, then each arch at
+    full width and depth in bfloat16 with its launches held to its rule,
+    then B8's entries at their three new shapes (a cross prefill, its
+    one-row decode, the encoder's self-attention) against the twin."""
+    t0 = time.perf_counter()
+    parity = {arch: vision_audio_parity(torch, dev, arch)
+              for arch in (VISION_ARCH, AUDIO_ARCH)}
+    serve = vision_serve_run(torch, dev)
+    encode = audio_encode_run(torch, dev)
+    launches = {**{k: serve["launches_by_shape"][k] for k in (
+        "flash_attention_cross_prefill", "flash_attention_cross_decode")},
+        "flash_attention_encoder": encode["launches"]["flash_attention"]}
+    entries, worst = vision_audio_kernel_entries(torch, dev, launches)
+    torch.cuda.empty_cache()
+    out = {"phase": "lm_vision_audio_path", "card": name_limit,
+           "parity": parity, "serve": serve, "encode": encode,
+           "flash_max_abs_err": worst,
+           "flash_kernels": {e["name"]: {k: e[k] for k in (
+               "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "max_abs_err_by_dtype")} for e in entries},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    out["entries"] = entries
+    return out
+
+
+# ---------------------------------------------------------------------------
 # accuracy: the paper's protocol, gated on the JAX package's baseline
 # ---------------------------------------------------------------------------
 
@@ -6048,9 +6473,9 @@ def lm_train_parity(torch, dev, arch: str = LM_TRAIN_ARCH,
                     layers: int = LM_TRAIN_PARITY_LAYERS,
                     batch: int = LM_TRAIN_PARITY_BATCH,
                     seq: int = LM_TRAIN_PARITY_SEQ) -> dict:
-    """``arch`` at full width, depth cut to ``layers``, float32: three
-    train steps on the card against the same steps on the CPU's plain
-    versions; losses within LM_TRAIN_LOSS_RTOL, parameters on ROADMAP §C's
+    """``arch`` at full width, depth cut to ``layers``, float32:
+    LM_TRAIN_PARITY_STEPS train steps on the card against the same steps
+    on the CPU's plain versions; losses within LM_TRAIN_LOSS_RTOL, parameters on ROADMAP §C's
     bar (an element whose first-step CPU gradient is below
     TRAIN_NOISE_FLOOR of its leaf's largest may leave it by
     TRAIN_NOISE_ATOL), the card's launches on ``lm_train_launch_rule``."""
@@ -6407,9 +6832,11 @@ def main() -> int:
     fac = phase_factory(torch, name_limit)
     lm_run = phase_lm(torch, dev, name_limit)
     moe = phase_lm_moe(torch, dev, name_limit)
+    vision_audio = phase_lm_vision_audio(torch, dev, name_limit)
     lm_train, bwd_entry, ssd_bwd = phase_lm_train(torch, dev, name_limit)
     phase_accuracy(torch, name_limit)
-    entries.extend((bwd_entry, ssd_bwd, *moe["entries"]))
+    entries.extend((bwd_entry, ssd_bwd, *moe["entries"],
+                    *vision_audio["entries"]))
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],
         "dense_aggregate": train["runs"]["dense"]["launches"],
@@ -6420,7 +6847,8 @@ def main() -> int:
         "ssd_scan": lm_run["serve"]["launches"],
         "flash_attention_bwd": lm_train["train"]["launches"],
         "ssd_scan_bwd": lm_train["ssd_train"]["launches"],
-        **{e["name"]: {e["name"]: e["launches"]} for e in moe["entries"]},
+        **{e["name"]: {e["name"]: e["launches"]}
+           for e in (*moe["entries"], *vision_audio["entries"])},
     }
     for e in entries:
         # each kernel's count from the path that carries it: GraphSAGE

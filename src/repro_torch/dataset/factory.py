@@ -38,13 +38,14 @@ byte-identical to an uninterrupted one.
 An LM entry traces ``lm.forward`` of the arch's smoke config at the
 entry's (batch, seq) on the meta device over ``lm.param_specs``, and
 gives the reference's graph, so its record too is the reference's: the
-dense, SSD and hybrid archs, and the mixture-of-experts and MLA archs
-(deepseek-v2, grok-1) through their graph forms. The archs the port does
-not run yet (cross-attention, the audio frontend: ROADMAP.md A14c-3) are
-refused by name, by :func:`build` and :func:`build_shard`, before
-anything is written. A v2 dataset the
-reference built with such records reads all the same: reading only
-loads arrays.
+dense, SSD and hybrid archs, the mixture-of-experts and MLA archs
+(deepseek-v2, grok-1) through their graph forms, and llama-3.2-vision
+with a float32 ``vision_embeds`` spec beside the tokens, as the
+reference traces it. An audio-frame arch (hubert-xlarge) is refused by
+name, by :func:`build` and :func:`build_shard`, before anything is
+written: the reference's factory passes it only ``tokens`` where its
+frontend reads ``features``, so it has no record to equal (ROADMAP.md
+§C).
 
 Consumption is streaming: :func:`iter_records` yields
 :class:`~repro_torch.dataset.builder.DatasetRecord` one shard at a time
@@ -239,12 +240,19 @@ def _trace_lm_entry(entry: Dict[str, Any], device_name: str,
     batch = int(entry["cfg"]["batch"])
     seq = int(entry["cfg"]["seq"])
     acfg = get_smoke_config(arch)
+    data_specs = [((batch, seq), torch.int32)]
+    if acfg.frontend == "tokens+vision":
+        data_specs.append(((batch, acfg.vision_tokens, acfg.vision_dim),
+                           torch.float32))
 
-    def fwd(params, tokens):
-        logits, _ = lm.forward(params, acfg, {"tokens": tokens})
+    def fwd(params, tokens, *rest):
+        inputs = {"tokens": tokens}
+        if rest:
+            inputs["vision_embeds"] = rest[0]
+        logits, _ = lm.forward(params, acfg, inputs)
         return logits
 
-    g = from_torch(fwd, lm.param_specs(acfg), ((batch, seq), torch.int32),
+    g = from_torch(fwd, lm.param_specs(acfg), *data_specs,
                    meta={"family": arch, "batch": batch, "seq": seq})
     est = estimate(g, DEVICES[device_name], noise_sigma=noise_sigma)
     return DatasetRecord(
@@ -259,13 +267,13 @@ def _trace_lm_entry(entry: Dict[str, Any], device_name: str,
     )
 
 
-def _refuse_unported_lm(plan: FactoryPlan) -> None:
-    """Raise before anything is written if the plan holds an LM entry
-    whose config ``lm.check_traceable`` refuses: cross-attention
-    (llama-3.2-vision) and the audio frontend (hubert), ROADMAP.md
-    A14c-3."""
+def _refuse_audio_lm(plan: FactoryPlan) -> None:
+    """Raise before anything is written if the plan holds an LM entry of
+    an audio-frame arch (hubert-xlarge): the reference's
+    ``_trace_lm_entry`` passes only ``tokens``, while its frontend reads
+    ``inputs["features"]``, so the JAX package writes a skip record where
+    the port would write a graph."""
     from ..configs import get_smoke_config
-    from ..models import lm
     refused = []
     for arch in sorted({e["family"] for e in plan.entries
                         if e["kind"] == "lm"}):
@@ -273,14 +281,14 @@ def _refuse_unported_lm(plan: FactoryPlan) -> None:
             acfg = get_smoke_config(arch)
         except Exception:
             continue            # an unknown arch: a skip record, as ever
-        try:
-            lm.check_traceable(acfg)
-        except NotImplementedError as e:
-            refused.append(f"{arch}: {e}")
+        if acfg.frontend == "audio_frames":
+            refused.append(arch)
     if refused:
-        raise NotImplementedError(
-            f"the plan holds LM entries of archs the port does not run "
-            f"yet ({'; '.join(refused)}); leave them out of lm_archs")
+        raise ValueError(
+            f"the plan holds LM entries of {', '.join(refused)}, whose "
+            f"audio-frame frontend reads inputs['features']; the reference "
+            f"factory traces an LM entry with tokens only, so it has no "
+            f"record for the port's to equal; leave them out of lm_archs")
 
 
 # ---------------------------------------------------------------------------
@@ -341,10 +349,10 @@ def build_shard(plan: FactoryPlan, shard_index: int,
 
     Returns the sidecar dict. At most ``shard_size`` records are ever
     held in memory; a failed trace becomes a structured skip record. A
-    plan with LM entries of an arch the port does not run is refused
-    before anything is written.
+    plan with LM entries of an audio-frame arch is refused before
+    anything is written.
     """
-    _refuse_unported_lm(plan)
+    _refuse_audio_lm(plan)
     a, b = plan.shard_range(shard_index)
     device = plan.config["device_name"]
     sigma = float(plan.config["noise_sigma"])
@@ -481,12 +489,11 @@ def build(out_dir: str, cfg: Optional[FactoryConfig] = None, *,
     ``cfg=None`` resumes whatever plan the directory holds. Passing a
     config whose plan hash differs from the committed one raises
     :class:`PlanMismatchError` (delete the directory to rebuild). A plan
-    with LM entries of an arch the port cannot trace yet raises
-    ``NotImplementedError`` before anything is written (ROADMAP.md
-    A14c-3). ``workers > 1`` fans shard builds over
-    spawned processes that re-read ``plan.json``; bytes are identical
-    regardless of worker count. ``_stop_after_shards`` is a test hook
-    simulating a mid-build kill.
+    with LM entries of an audio-frame arch raises ``ValueError`` before
+    anything is written (:func:`_refuse_audio_lm`). ``workers > 1`` fans
+    shard builds over spawned processes that re-read ``plan.json``; bytes
+    are identical regardless of worker count. ``_stop_after_shards`` is a
+    test hook simulating a mid-build kill.
     """
     plan_path = os.path.join(out_dir, "plan.json")
     if os.path.exists(plan_path):
@@ -499,13 +506,13 @@ def build(out_dir: str, cfg: Optional[FactoryConfig] = None, *,
                     f"{plan.plan_hash[:12]}…, requested config hashes to "
                     f"{want.plan_hash[:12]}… — delete the directory or "
                     f"point the build elsewhere")
-        _refuse_unported_lm(plan)
+        _refuse_audio_lm(plan)
     else:
         if cfg is None:
             raise FileNotFoundError(
                 f"{plan_path} does not exist and no FactoryConfig given")
         plan = make_plan(cfg)
-        _refuse_unported_lm(plan)
+        _refuse_audio_lm(plan)
         os.makedirs(out_dir, exist_ok=True)
         _atomic_write(plan_path,
                       json.dumps(plan.to_json(), sort_keys=True).encode())
@@ -644,8 +651,8 @@ def _cli() -> None:  # pragma: no cover — exercised via CI
                     help="comma-separated held-out families ('' for none)")
     ap.add_argument("--lm-archs", default="",
                     help="comma-separated configs arch names (a build "
-                         "refuses cross-attention and audio archs, "
-                         "ROADMAP.md A14c-3)")
+                         "refuses the audio-frame arch hubert-xlarge, which "
+                         "the reference factory cannot trace)")
     ap.add_argument("--print-plan-hash", action="store_true",
                     help="print the plan hash and exit (no build)")
     args = ap.parse_args()

@@ -1,7 +1,8 @@
 """Train and serve steps of the LM stack.
 
 The port of ``make_train_step``, ``default_optimizer``,
-``make_prefill_step`` and ``make_serve_step`` (``repro/launch/steps.py``).
+``make_prefill_step``, ``make_encode_step`` and ``make_serve_step``
+(``repro/launch/steps.py``).
 The JAX package jits these with sharding trees over a mesh; the port runs
 eagerly on one device, which is what the JAX package does with
 ``mesh=None``, so there is no ``ParallelCtx``: the train step takes its
@@ -44,8 +45,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
     The parameters and optimizer state are returned as new trees; the
     inputs are not written. The dense attention, Mamba2 and hybrid blocks
     train (attention through the flash backward, Mamba2 and hybrid
-    through the SSD scan's); an MoE or MLA config raises naming A14b-3, an
-    unported block A14c-3, ``compress_grads=True`` A14d.
+    through the SSD scan's); an MoE, MLA, cross-attention or audio
+    config raises naming A14b-3, ``compress_grads=True`` A14d.
     """
     if compress_grads:
         raise NotImplementedError(
@@ -57,6 +58,10 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
             f"{cfg.name}: training mixture-of-experts and MLA configs is not "
             f"ported yet (the flash backward at MLA's head dims; ROADMAP "
             f"A14b-3)")
+    if cfg.cross_attn_every or cfg.frontend == "audio_frames":
+        raise NotImplementedError(
+            f"{cfg.name}: training cross-attention and audio-frame configs "
+            f"is not ported yet (ROADMAP A14b-3)")
     optimizer = optimizer or default_optimizer()
 
     def value_and_grad(params, batch):
@@ -99,19 +104,45 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
     return train_step
 
 
+def _refuse_encoder(cfg: ArchConfig) -> None:
+    """An encoder-only config has no decode cache: the JAX package never
+    lowers a decode for one, and its encode step plays the prefill's
+    role (``repro/launch/input_specs.py:cell_for``)."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no prefill or "
+                         f"decode step; use make_encode_step")
+
+
 def make_prefill_step(cfg: ArchConfig, max_len: int) -> Callable:
     """→ ``prefill_step(params, inputs) → (logits [B, 1, V], cache)``: the
-    prompt through :func:`repro_torch.models.lm.prefill` into a fresh cache
-    of ``max_len`` positions."""
+    prompt (``tokens``, with ``vision_embeds`` for a cross-attention
+    config) through :func:`repro_torch.models.lm.prefill` into a fresh
+    cache of ``max_len`` positions. An encoder-only config raises."""
+    _refuse_encoder(cfg)
+
     def prefill_step(params, inputs):
         return lm.prefill(params, cfg, inputs, max_len)
     return prefill_step
 
 
+def make_encode_step(cfg: ArchConfig) -> Callable:
+    """→ ``encode_step(params, inputs) → logits [B, S, V]``: the
+    encoder-only forward (hubert: audio ``features`` [B, S, d_model] →
+    per-frame logits), :func:`repro_torch.models.lm.forward`."""
+    def encode_step(params, inputs):
+        logits, _ = lm.forward(params, cfg, inputs)
+        return logits
+    return encode_step
+
+
 def make_serve_step(cfg: ArchConfig) -> Callable:
     """→ ``serve_step(params, cache, inputs, cache_index) → (next token
     [B] int32, cache, cache_index + 1)``: one decode step and its greedy
-    token. The cache is updated in place and returned."""
+    token. The cache is updated in place and returned; a cross layer reads
+    the vision memory's K / V the prefill seeded there. An encoder-only
+    config raises."""
+    _refuse_encoder(cfg)
+
     def serve_step(params, cache, inputs, cache_index):
         logits, cache = lm.decode_step(params, cfg, cache, inputs,
                                        cache_index)

@@ -21,7 +21,7 @@ in the layer, and the serving op runs on the card and the CPU:
   as ``dot_general``): the card sorts, counts with a one-hot sum and
   copies to unique slots, with int64 ids;
 * :func:`silu`, :func:`rmsnorm`, :func:`take_rows`, :func:`pad`,
-  :func:`scan_aux`, :func:`stack_aux` and RoPE's lanes
+  :func:`scan_aux`, :func:`stack_aux`, :func:`group_aux` and RoPE's lanes
   (:func:`apply_rope`): the jnp step launches more kernels (x · sigmoid(x)
   against ``F.silu``, a sum and a division against a mean, the index
   wrapped, a dead conversion of the pad value, the zero aux loss of every
@@ -192,6 +192,14 @@ def stack_aux(aux: torch.Tensor, auxs) -> torch.Tensor:
     a stack and a sum otherwise."""
     ys = prims.scan_ys(auxs) if is_trace(aux) else torch.stack(auxs)
     return aux + ys.sum()
+
+
+def group_aux(auxs, aux_c: torch.Tensor) -> torch.Tensor:
+    """A cross-attention group's aux loss: its self layers' ``auxs``
+    summed (the inner scan's ys on a trace), plus its cross layer's
+    ``aux_c``, as the jaxpr's ``auxs.sum() + aux_c``."""
+    ys = prims.scan_ys(auxs) if is_trace(aux_c) else torch.stack(auxs)
+    return ys.sum() + aux_c
 
 
 # ---------------------------------------------------------------------------

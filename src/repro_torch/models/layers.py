@@ -22,8 +22,10 @@ inference only. MLA runs both of its forms on the flash kernel (a value
 head dim below the query's). The mixture-of-experts block routes,
 dispatches and combines with torch ops, as the JAX package does outside
 any Pallas kernel; its expert products are batched matrix products.
-Training MoE and MLA is ROADMAP A14b-3, their expert- and
-tensor-parallel forms A14d, cross-attention A14c-3.
+Cross-attention (llama-3.2-vision's every fifth layer) takes its keys
+and values from a vision memory, with no RoPE and no causal mask, on the
+same flash kernel. Training MoE, MLA and cross-attention is ROADMAP
+A14b-3, the expert- and tensor-parallel MoE forms A14d.
 
 On the meta device (a trace by ``repro_torch.core.tracer``, which the
 dataset factory's LM entries take) the steps run as the JAX package's
@@ -45,7 +47,6 @@ from . import graph_form as G
 from .config import ArchConfig
 
 Params = Dict[str, Any]
-A14C3 = "ROADMAP A14c-3"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -151,15 +152,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_init(gen: torch.Generator, cfg: ArchConfig,
                    lead: Tuple[int, ...] = (), *, cross: bool = False
                    ) -> Params:
-    if cross:
-        raise NotImplementedError(f"cross-attention is not ported yet "
-                                  f"({A14C3})")
+    """GQA attention weights; ``cross`` draws ``wk`` / ``wv`` from the
+    vision memory's width, ``[vision_dim, Hkv·hd]``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    kd = cfg.vision_dim if cross else d
     dt = torch_dtype(cfg.param_dtype)
     p = {
         "wq": normal(gen, lead + (d, cfg.n_heads * hd), 0.02, dt),
-        "wk": normal(gen, lead + (d, cfg.n_kv_heads * hd), 0.02, dt),
-        "wv": normal(gen, lead + (d, cfg.n_kv_heads * hd), 0.02, dt),
+        "wk": normal(gen, lead + (kd, cfg.n_kv_heads * hd), 0.02, dt),
+        "wv": normal(gen, lead + (kd, cfg.n_kv_heads * hd), 0.02, dt),
         "wo": normal(gen, lead + (cfg.n_heads * hd, d), 0.02, dt),
     }
     if cfg.qkv_bias:
@@ -176,7 +177,7 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                     memory: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor,
                                Tuple[torch.Tensor, torch.Tensor]]:
-    """Self-attention → (output, cache).
+    """Self- or cross-attention → (output, cache).
 
     * ``cache=None`` (a full-sequence forward): attention over x, and the
       fresh (k, v) returned.
@@ -191,20 +192,23 @@ def attention_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
       tensors are returned. A write past Smax raises, where JAX would
       clamp the start.
 
-    Cross-attention (``memory``) is ROADMAP A14c-3 and raises.
+    * ``memory`` [B, M, vision_dim] (a cross layer): k and v from
+      ``memory @ wk`` / ``@ wv``, no RoPE on q or k, attention over all M
+      rows (not causal); the cache is None.
     """
-    if memory is not None:
-        raise NotImplementedError(f"cross-attention is not ported yet "
-                                  f"({A14C3})")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, hkv = cfg.n_heads, cfg.n_kv_heads
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    kv_src = x if memory is None else memory
+    q, k, v = x @ p["wq"], kv_src @ p["wk"], kv_src @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    k = k.reshape(b, kv_src.shape[1], hkv, hd)
+    v = v.reshape(b, kv_src.shape[1], hkv, hd)
+    if memory is not None:
+        out = blockwise_attention(q, k, v, causal=False)
+        return out.reshape(b, s, h * hd) @ p["wo"], None
     if cfg.rope_fraction > 0:
         rd = int(hd * cfg.rope_fraction)
         cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)

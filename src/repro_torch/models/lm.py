@@ -4,10 +4,15 @@ caches, and the training loss.
 The port of ``repro/models/lm.py`` for three block patterns:
 
 * ``block="attn"`` — dense decoders (qwen2.5, h2o-danube with its sliding
-  window, chatglm3 with partial RoPE, yi) and mixture-of-experts decoders
+  window, chatglm3 with partial RoPE, yi), mixture-of-experts decoders
   (deepseek-v2: MLA, shared experts and a dense layer 0 in a ``pre``
   stack; grok-1: GQA, 8 experts top-2), the MoE layers on one device
-  (the reference's local dispatch, flattened to ``[B·S, D]``);
+  (the reference's local dispatch, flattened to ``[B·S, D]``), the
+  vision-language decoder llama-3.2-vision (``groups`` of
+  ``cross_attn_every - 1`` self layers and one cross-attention layer
+  over the ``vision_embeds`` memory) and the encoder hubert (the
+  ``audio_frames`` frontend: ``features @ frontend_proj``, no
+  embedding table, bidirectional attention);
 * ``block="mamba2"`` — pure Mamba2 / SSD (mamba2-370m);
 * ``block="hybrid"`` — zamba2: groups of Mamba2 layers, each followed by
   ONE weight-tied attention + MLP block.
@@ -16,10 +21,8 @@ The parameter tree has the JAX tree's keys and its stacked leading axes
 (``blocks`` [L, ...], ``groups`` [G, per, ...]), so a tree crosses between
 the packages as a plain map over leaves (:func:`params_from_numpy`,
 :func:`params_to_numpy`); the JAX package's ``lax.scan`` over a stack is
-a Python loop over its index here. Cross-attention
-(``cross_attn_every``) and the audio frontend raise
-``NotImplementedError`` naming ROADMAP A14c-3. Every function runs on one
-device, as the JAX package does with no mesh.
+a Python loop over its index here. Every function runs on one device, as
+the JAX package does with no mesh.
 
 Training: :func:`loss_fn` is the reference's mean token cross-entropy;
 its gradient runs the flash kernel's backward (``ops.flash_attention_train``)
@@ -29,12 +32,14 @@ is read with ``unbind`` (:func:`_unstack`) on that path too, so its
 backward stacks the layers' gradients once. Mamba2 and hybrid configs
 train through the SSD scan's backward kernel (``ops.ssd_scan_train``).
 :func:`forward` sums each layer's MoE load-balance loss as the reference
-does, and :func:`loss_fn` adds ``aux_weight`` times it; training MoE and
-MLA configs is ROADMAP A14b-3 (``launch.steps.make_train_step``
-refuses them).
+does, and :func:`loss_fn` adds ``aux_weight`` times it; training MoE,
+MLA, cross-attention and audio configs is ROADMAP A14b-3
+(``launch.steps.make_train_step`` refuses them).
 
 :func:`decode_step` updates the cache that :func:`init_cache` made IN
-PLACE (the JAX package's update is functional) and returns it.
+PLACE (the JAX package's update is functional) and returns it. A cross
+layer reads the ``cross_k`` / ``cross_v`` that :func:`prefill` seeded
+from the vision memory.
 
 :func:`param_specs` gives the tree's ``(shape, dtype)`` pairs without
 allocating. On meta tensors (a trace by ``repro_torch.core.tracer``, as
@@ -63,26 +68,11 @@ _F32_LEAVES = frozenset({"dt_bias", "A_log", "D", "router"})
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` (naming ROADMAP A14c-3) for a config
-    whose blocks or frontend the port does not run yet."""
-    unported = []
-    if cfg.cross_attn_every:
-        unported.append("cross-attention layers")
-    if cfg.frontend != "tokens":
-        unported.append(f"the {cfg.frontend!r} frontend")
-    if unported:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not "
-                                  f"ported yet ({L.A14C3})")
+    """Raise ``ValueError`` for a block pattern that no config of the JAX
+    package has. Every config the port runs also traces to the
+    reference's graph (each layer has its graph form)."""
     if cfg.block not in ("attn", "mamba2", "hybrid"):
         raise ValueError(f"unknown block {cfg.block!r}")
-
-
-def check_traceable(cfg: ArchConfig) -> None:
-    """Whether a trace of ``cfg`` is the reference's graph: every layer
-    the port runs has its graph form (MoE and MLA since A14c-2), so this
-    is :func:`check_supported`, which refuses the cross-attention and
-    audio archs (ROADMAP A14c-3) by name."""
-    check_supported(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -113,26 +103,35 @@ def _ffn_apply(p: Params, cfg: ArchConfig, x: torch.Tensor
 
 def decoder_layer_init(gen: Optional[torch.Generator], cfg: ArchConfig,
                        lead: Tuple[int, ...] = (),
-                       layer_kind: str = "dense") -> Params:
+                       layer_kind: str = "dense", cross: bool = False
+                       ) -> Params:
     """``layer_kind``: "dense", "dense_pre_moe" (``moe.dense_d_ff``) or
-    "moe"; the attention is MLA when the config has it."""
+    "moe"; the attention is MLA when the config has it, but a ``cross``
+    layer's is GQA attention over the vision memory."""
     dt = L.torch_dtype(cfg.param_dtype)
     dev = L.gen_device(gen)
-    attn = L.mla_init if cfg.mla is not None else L.attention_init
+    attn = (L.mla_init(gen, cfg, lead) if cfg.mla is not None and not cross
+            else L.attention_init(gen, cfg, lead, cross=cross))
     return {"ln1": nn.rmsnorm_init(cfg.d_model, dt, dev, lead),
             "ln2": nn.rmsnorm_init(cfg.d_model, dt, dev, lead),
             "ffn": _ffn_init(gen, cfg, layer_kind, lead),
-            "attn": attn(gen, cfg, lead)}
+            "attn": attn}
 
 
 def decoder_layer_apply(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                         positions: torch.Tensor, cache=None,
-                        cache_index: Optional[int] = None):
-    """→ (x, attention cache, aux loss)."""
-    attn = L.mla_apply if cfg.mla is not None else L.attention_apply
-    a, new_cache = attn(p["attn"], cfg, G.rmsnorm(p["ln1"], x),
-                        positions=positions, cache=cache,
-                        cache_index=cache_index)
+                        cache_index: Optional[int] = None,
+                        memory: Optional[torch.Tensor] = None):
+    """→ (x, attention cache, aux loss); with ``memory`` a cross layer."""
+    h = G.rmsnorm(p["ln1"], x)
+    if cfg.mla is not None and memory is None:
+        a, new_cache = L.mla_apply(p["attn"], cfg, h, positions=positions,
+                                   cache=cache, cache_index=cache_index)
+    else:
+        a, new_cache = L.attention_apply(p["attn"], cfg, h,
+                                         positions=positions, cache=cache,
+                                         cache_index=cache_index,
+                                         memory=memory)
     x = x + a
     f, aux = _ffn_apply(p["ffn"], cfg, G.rmsnorm(p["ln2"], x))
     return x + f, new_cache, aux
@@ -192,9 +191,8 @@ def param_specs(cfg: ArchConfig) -> Params:
     """The parameter tree as ``(shape, dtype)`` pairs, nothing allocated:
     ``repro.models.lm.param_specs`` (the same keys, stacked leading axes
     and dtypes, the MoE router in float32), the spec
-    ``core.tracer.trace_graph`` takes. A config the port does not run
-    raises (:func:`check_traceable`)."""
-    check_traceable(cfg)
+    ``core.tracer.trace_graph`` takes."""
+    check_supported(cfg)
 
     def spec(tree):
         if isinstance(tree, dict):
@@ -208,8 +206,19 @@ def _init_tree(cfg: ArchConfig, gen: Optional[torch.Generator]) -> Params:
     """The tree drawn from ``gen``, or on the meta device for None."""
     dev = L.gen_device(gen)
     dt = L.torch_dtype(cfg.param_dtype)
-    p: Params = {"embed": L.normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)}
-    if cfg.block == "attn":
+    d = cfg.d_model
+    p: Params = {}
+    if cfg.frontend == "audio_frames":
+        p["frontend_proj"] = L.normal(gen, (d, d), 0.02, dt)
+    else:
+        p["embed"] = L.normal(gen, (cfg.vocab, d), 0.02, dt)
+    if cfg.block == "attn" and cfg.cross_attn_every:
+        per = cfg.cross_attn_every
+        ng = cfg.n_layers // per
+        p["groups"] = {"self": decoder_layer_init(gen, cfg, (ng, per - 1)),
+                       "cross": decoder_layer_init(gen, cfg, (ng,),
+                                                   cross=True)}
+    elif cfg.block == "attn":
         n_pre = cfg.moe.first_moe_layer if cfg.moe is not None else 0
         if n_pre:
             p["pre"] = decoder_layer_init(gen, cfg, (n_pre,),
@@ -262,7 +271,12 @@ def params_to_numpy(params: Params) -> Params:
 # forward
 # ---------------------------------------------------------------------------
 
-def _embed(p: Params, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _embed(p: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor]
+           ) -> torch.Tensor:
+    """The token embeddings, or ``features @ frontend_proj`` (audio)."""
+    if cfg.frontend == "audio_frames":
+        x = inputs["features"].to(L.torch_dtype(cfg.param_dtype))
+        return x @ p["frontend_proj"]
     return G.take_rows(p["embed"], inputs["tokens"])
 
 
@@ -281,11 +295,15 @@ def forward(params: Params, cfg: ArchConfig,
     losses summed a stack at a time (0 without MoE), and on a trace
     ``jnp.take`` of the tokens and the aux loss of every attention stack,
     which the jaxpr keeps though it is zero, and an MoE stack's as the
-    scan's ys (:func:`graph_form.stack_aux`). ``remat`` recomputes each
-    layer in the backward instead of keeping its activations (the
-    reference's ``ParallelCtx(remat=True)``); it changes no value."""
+    scan's ys (:func:`graph_form.stack_aux`). A cross-attention config
+    runs its ``groups``: each group's self layers, then its cross layer
+    over ``inputs["vision_embeds"]`` (cast to the activations' dtype);
+    a group's aux loss is its self layers' sum plus the cross layer's.
+    ``remat`` recomputes each layer in the backward instead of keeping
+    its activations (the reference's ``ParallelCtx(remat=True)``); it
+    changes no value."""
     check_supported(cfg)
-    x = _embed(params, inputs)
+    x = _embed(params, cfg, inputs)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
@@ -300,7 +318,20 @@ def forward(params: Params, cfg: ArchConfig,
         return run(x) if not remat else checkpoint(run, x,
                                                    use_reentrant=False)
 
-    if cfg.block == "attn":
+    if cfg.block == "attn" and cfg.cross_attn_every:
+        memory = inputs["vision_embeds"].to(x.dtype)
+        group_auxs = []
+        for gp in _unstack(params["groups"]):
+            auxs = []
+            for lp in _unstack(gp["self"]):
+                x, a = layer(decoder_layer_apply, lp, x, with_aux=True,
+                             positions=positions)
+                auxs.append(a)
+            x, a = layer(decoder_layer_apply, gp["cross"], x, with_aux=True,
+                         positions=positions, memory=memory)
+            group_auxs.append(G.group_aux(auxs, a))
+        aux = G.stack_aux(aux, group_auxs)
+    elif cfg.block == "attn":
         for stack in ("pre", "blocks"):
             if stack not in params:
                 continue
@@ -357,9 +388,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Zeroed decode caches with the JAX package's keys, shapes and dtypes
     (attention K/V in ``resolved_kv_cache_dtype``, MLA's compressed pair
     ``c`` [n, B, Smax, rank] and ``r`` [n, B, Smax, 1, rope] in the same,
-    conv states in ``param_dtype``, SSD states in float32); a
-    sliding-window config keeps a ring of ``min(max_len, window)``
-    positions."""
+    a cross-attention config's self K/V [G, per - 1, B, Smax, Hkv, hd]
+    and cross K/V [G, B, vision_tokens, Hkv, hd], conv states in
+    ``param_dtype``, SSD states in float32); a sliding-window config
+    keeps a ring of ``min(max_len, window)`` positions."""
     check_supported(cfg)
     dev = resolve_device(device)
     kv_dt = L.torch_dtype(cfg.resolved_kv_cache_dtype)
@@ -377,6 +409,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             m = cfg.mla
             return {"c": mk((n, batch, max_len, m.kv_lora_rank)),
                     "r": mk((n, batch, max_len, 1, m.qk_rope_dim))}
+        if cfg.cross_attn_every:
+            per = cfg.cross_attn_every
+            ng = n // per
+            cross = (ng, batch, cfg.vision_tokens, cfg.n_kv_heads, hd)
+            return {"k": mk((ng, per - 1, batch, max_len, cfg.n_kv_heads, hd)),
+                    "v": mk((ng, per - 1, batch, max_len, cfg.n_kv_heads, hd)),
+                    "cross_k": mk(cross), "cross_v": mk(cross)}
         return {"k": mk((n, batch, max_len, cfg.n_kv_heads, hd)),
                 "v": mk((n, batch, max_len, cfg.n_kv_heads, hd))}
     s = cfg.ssm
@@ -413,16 +452,32 @@ def _mamba_cached(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _attn_cached(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
-                 i: int, positions: torch.Tensor, cache_index: int
+                 idx, positions: torch.Tensor, cache_index: int
                  ) -> torch.Tensor:
-    """Decoder layer ``i`` over its cache: K/V, or MLA's (c, r)."""
-    slots = tuple(cache[k][i] for k in (("c", "r") if cfg.mla is not None
-                                        else ("k", "v")))
+    """Decoder layer ``idx`` (an int, or a (group, layer) tuple) over its
+    cache: K/V, or MLA's (c, r)."""
+    slots = tuple(cache[k][idx] for k in (("c", "r") if cfg.mla is not None
+                                          else ("k", "v")))
     x, new, _ = decoder_layer_apply(p, cfg, x, positions=positions,
                                     cache=slots, cache_index=cache_index)
     for slot, value in zip(slots, new):
         _store(slot, value)
     return x
+
+
+def _cross_cached(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A cross layer over the K / V that :func:`prefill` seeded from the
+    vision memory: q only, attention over every memory row (not causal),
+    ``wo``, then the FFN."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (G.rmsnorm(p["ln1"], x) @ p["attn"]["wq"]).reshape(
+        b, s, cfg.n_heads, hd)
+    out = L.blockwise_attention(q, k, v, causal=False)
+    x = x + out.reshape(b, s, cfg.n_heads * hd) @ p["attn"]["wo"]
+    f, _ = _ffn_apply(p["ffn"], cfg, G.rmsnorm(p["ln2"], x))
+    return x + f
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Params,
@@ -433,10 +488,19 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Params,
     ``logits_mode="last"`` applies the head to the last position only."""
     check_supported(cfg)
     ci = int(cache_index)
-    x = _embed(params, inputs)
+    x = _embed(params, cfg, inputs)
     b, s, _ = x.shape
     positions = ci + torch.arange(s, device=x.device).expand(b, s)
-    if cfg.block == "attn":
+    if cfg.block == "attn" and cfg.cross_attn_every:
+        ng, n_self = cache["k"].shape[:2]
+        for g in range(ng):
+            gp = _at(params["groups"], g)
+            for i in range(n_self):
+                x = _attn_cached(_at(gp["self"], i), cfg, x, cache, (g, i),
+                                 positions, ci)
+            x = _cross_cached(gp["cross"], cfg, x, cache["cross_k"][g],
+                              cache["cross_v"][g])
+    elif cfg.block == "attn":
         # the pre-MoE layers take the cache's first entries, then the blocks
         layers = [lp for stack in ("pre", "blocks") if stack in params
                   for lp in _unstack(params[stack])]
@@ -460,8 +524,21 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Params,
 
 def prefill(params: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
             max_len: int) -> Tuple[torch.Tensor, Params]:
-    """A prompt through :func:`decode_step` from a fresh cache of
-    ``max_len`` positions → (logits of the last position [B, 1, V], cache)."""
-    b = inputs["tokens"].shape[0]
-    cache = init_cache(cfg, b, max_len, device=params["embed"].device)
+    """A prompt (``tokens``, or audio ``features``) through
+    :func:`decode_step` from a fresh cache of ``max_len`` positions →
+    (logits of the last position [B, 1, V], cache). A cross-attention
+    config first seeds every group's ``cross_k`` / ``cross_v`` from
+    ``inputs["vision_embeds"]`` (cast to ``param_dtype``) through the
+    cross layer's ``wk`` / ``wv``."""
+    b = (inputs["tokens"] if "tokens" in inputs
+         else inputs["features"]).shape[0]
+    cache = init_cache(cfg, b, max_len,
+                       device=params["final_norm"]["scale"].device)
+    if cfg.block == "attn" and cfg.cross_attn_every:
+        mem = inputs["vision_embeds"].to(L.torch_dtype(cfg.param_dtype))
+        shape = (b, cfg.vision_tokens, cfg.n_kv_heads, cfg.resolved_head_dim)
+        attn = params["groups"]["cross"]["attn"]
+        for g in range(cache["cross_k"].shape[0]):
+            cache["cross_k"][g] = (mem @ attn["wk"][g]).reshape(shape)
+            cache["cross_v"][g] = (mem @ attn["wv"][g]).reshape(shape)
     return decode_step(params, cfg, cache, inputs, 0, logits_mode="last")

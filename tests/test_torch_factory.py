@@ -5,7 +5,8 @@
 * Shards: a zoo-only plan built by each package gives shards with the
   same sha256, and manifests equal but for the workers' peak RSS.
 * v2 datasets load both ways through ``load_dataset``, with equal arrays
-  and metas; a reference-built dataset with LM records loads in the port.
+  and metas; a reference-built dataset with LM records (llama-3.2-vision)
+  loads in the port, which resumes it by verification alone.
 * A plan with LM entries of the six dense, SSD and hybrid archs, around a
   zoo record, built by each package: the same shard sha256 and manifests;
   killed and resumed on two workers, the same bytes again. A plan with
@@ -15,9 +16,10 @@
 * Kill and resume, a corrupt shard and ``workers=2`` give the same bytes;
   a changed config raises ``PlanMismatchError``; failed traces become
   the reference's skip records.
-* A plan with LM entries of an arch whose blocks the port does not run
-  yet (cross-attention: ROADMAP A14c-3) is refused by name before
-  anything is written.
+* A plan with LM entries of the audio-frame arch hubert-xlarge, which the
+  reference's factory traces with tokens where its frontend reads
+  ``features`` (ROADMAP §C), is refused by name before anything is
+  written.
 """
 import hashlib
 import json
@@ -61,10 +63,10 @@ MOE_ARCHS = ("deepseek-v2-236b", "grok-1-314b")
 LM_MOE = dict(n_graphs=2, seed=0, shard_size=2, fractions={"vgg": 0.5},
               lm_archs=MOE_ARCHS, lm_fraction=0.5)
 
-#: an arch whose blocks the port does not run yet (cross-attention), which
-#: the JAX package's factory builds
-A14C_ARCH = "llama-3.2-vision-11b"
-LM_A14C = dict(LM_MIX, lm_archs=(A14C_ARCH,))
+#: the cross-attention arch, which both factories build
+LM_VISION = dict(LM_MIX, lm_archs=("llama-3.2-vision-11b",))
+#: the audio-frame arch, which the JAX package's factory cannot trace
+A14C_ARCH = "hubert-xlarge"
 
 PLAN_CFGS = {"reference_test": CFG, "zoo": ZOO, "lm_mix": LM_MIX,
              "lm_six": LM_SIX, "lm_moe": LM_MOE,
@@ -153,8 +155,9 @@ def _chip_smoke():
 
 def test_chip_smoke_plan_is_the_reference_plan():
     """``chip_smoke.py``'s factory plan: its hash is the JAX package's
-    plan of the same config, and one entry of each of the eight LM archs
-    the port traces."""
+    plan of the same config, and one entry of each of the nine LM archs
+    it traces (all but hubert-xlarge, which the reference's factory
+    cannot trace)."""
     cs = _chip_smoke()
     want = jf.make_plan(cs.factory_config(jf))
     plan = tf.make_plan(cs.factory_config(tf))
@@ -230,7 +233,7 @@ def test_v2_datasets_load_both_ways(built, writer):
 
 def test_reference_dataset_with_lm_records_loads(tmp_path):
     path = str(tmp_path / "lm")
-    res = jf.build(path, jf.FactoryConfig(**LM_A14C))
+    res = jf.build(path, jf.FactoryConfig(**LM_VISION))
     assert res.n_built == 3 and res.n_skipped == 0
     got = tb.load_dataset(path)
     want = jb.load_dataset(path)
@@ -238,14 +241,11 @@ def test_reference_dataset_with_lm_records_loads(tmp_path):
     assert sum(r.meta.get("kind") == "lm" for r in got) == 1
     for r, q in zip(got, want):
         assert np.array_equal(r.x, q.x) and np.array_equal(r.y, q.y)
-    # the port does not run its arch yet: resuming it is refused by name,
-    # and writes nothing
-    before = {f: os.path.getmtime(os.path.join(path, f))
-              for f in ("plan.json", "manifest.json")}
-    with pytest.raises(NotImplementedError, match=f"{A14C_ARCH}.*A14c-3"):
-        tf.build(path)
-    assert before == {f: os.path.getmtime(os.path.join(path, f))
-                      for f in before}
+    # the port resumes it by verification: every shard kept, none traced
+    shas = _shas(path)
+    again = tf.build(path)
+    assert again.shards_built == 0 and again.n_built == res.n_built
+    assert _shas(path) == shas
 
 
 @pytest.fixture(scope="module")
@@ -367,10 +367,10 @@ def test_failed_traces_are_the_reference_skip_records(tmp_path):
 def test_lm_plan_is_refused_before_anything_is_written(tmp_path):
     out = str(tmp_path / "ds")
     cfg = tf.FactoryConfig(**dict(CFG, lm_archs=("mamba2-370m", A14C_ARCH)))
-    with pytest.raises(NotImplementedError, match="A14c-3"):
+    with pytest.raises(ValueError, match=f"{A14C_ARCH}.*features"):
         tf.build(out, cfg)
     assert not os.path.exists(out)
-    with pytest.raises(NotImplementedError, match=A14C_ARCH) as e:
+    with pytest.raises(ValueError, match=A14C_ARCH) as e:
         tf.build_shard(tf.make_plan(cfg), 0, out)
     assert "mamba2-370m" not in str(e.value)
     assert not os.path.exists(out)

@@ -10,10 +10,13 @@ absolute + 1e-4 relative — float32 sums in another order (XLA's CPU
 products against torch's) through 2–4 layers and a vocabulary-wide head
 — and the greedy tokens of ``make_prefill_step`` + ``make_serve_step``
 must equal JAX's. Also: every config and its ``param_count()`` equal the
-JAX package's, the unported blocks (cross-attention, the audio frontend)
-raise naming ROADMAP A14c-3, and ``init_params`` wants a card unless asked
-for the CPU. The MoE and MLA archs (deepseek-v2, grok-1) are held to the
-JAX package in ``tests/test_torch_lm_moe_mla.py``.
+JAX package's, the cross-attention and audio archs build, cache and run
+forward while their training raises naming ROADMAP A14b-3, the cross
+layer takes its keys from the vision memory, and ``init_params`` wants a
+card unless asked for the CPU. The MoE and MLA archs (deepseek-v2,
+grok-1) are held to the JAX package in ``tests/test_torch_lm_moe_mla.py``,
+the cross-attention and audio archs (llama-3.2-vision, hubert) in
+``tests/test_torch_lm_vision_audio.py``.
 
 JAX is imported only inside the fixtures that compare with it; the card's
 test runs where JAX is not installed:
@@ -35,7 +38,8 @@ from repro_torch.models import lm  # noqa: E402
 
 PORTED = ["qwen2.5-3b", "h2o-danube-3-4b", "chatglm3-6b", "yi-34b",
           "mamba2-370m", "zamba2-2.7b"]
-UNPORTED = ["hubert-xlarge", "llama-3.2-vision-11b"]
+#: the cross-attention and audio archs, whose training is not ported
+VISION_AUDIO = ["hubert-xlarge", "llama-3.2-vision-11b"]
 #: float32 sums in another order through 2–4 layers and the head
 ATOL = RTOL = 1e-4
 PROMPT, MAX_LEN, STEPS = 40, 64, 12
@@ -165,15 +169,31 @@ def test_init_params_needs_a_card_unless_asked(monkeypatch):
     assert torch.equal(a["embed"], b["embed"])
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", VISION_AUDIO)
 def test_unported_blocks_raise(arch):
+    """What stays unported of the cross-attention and audio archs is their
+    training, which raises naming ROADMAP A14b-3; their parameters, caches
+    and forward run (they raised naming A14c-3 until it was ported)."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A14c-3"):
-        lm.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14c-3"):
-        lm.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14c-3"):
-        lm.forward({}, cfg, {})
+    with pytest.raises(NotImplementedError, match="A14b-3"):
+        steps.make_train_step(cfg)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    assert ("frontend_proj" in params) == (cfg.frontend == "audio_frames")
+    assert ("embed" in params) != ("frontend_proj" in params)
+    cache = lm.init_cache(cfg, 1, 8, device="cpu")
+    assert ("cross_k" in cache) == bool(cfg.cross_attn_every)
+    rng = np.random.default_rng(0)
+    if cfg.frontend == "audio_frames":
+        inputs = {"features": torch.as_tensor(rng.standard_normal(
+            (1, 8, cfg.d_model)), dtype=torch.float32)}
+    else:
+        inputs = {"tokens": torch.as_tensor(_tokens(cfg, 1, 8, 0)),
+                  "vision_embeds": torch.as_tensor(rng.standard_normal(
+                      (1, cfg.vision_tokens, cfg.vision_dim)),
+                      dtype=torch.float32)}
+    logits, aux = lm.forward(params, cfg, inputs)
+    assert logits.shape == (1, 8, cfg.vocab) and float(aux) == 0.0
+    assert bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------------------
@@ -270,14 +290,23 @@ def test_greedy_serving_matches_jax(jx, arch):
 
 
 def test_unported_layers_raise():
+    """The cross layer, which raised naming A14c-3 until it was ported:
+    ``attention_init(cross=True)`` draws ``wk`` / ``wv`` from the memory's
+    width, and ``attention_apply(memory=)`` attends over every memory row
+    and returns no cache; a memory of the wrong width still raises."""
     from repro_torch.models import layers
-    cfg = get_smoke_config("qwen2.5-3b")
+    cfg = get_smoke_config("llama-3.2-vision-11b")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A14c-3"):
-        layers.attention_init(gen, cfg, cross=True)
-    p = layers.attention_init(gen, cfg)
-    x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A14c-3"):
+    p = layers.attention_init(gen, cfg, cross=True)
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    assert p["wk"].shape == p["wv"].shape == (cfg.vision_dim, kv)
+    assert p["wq"].shape == (cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
+    x = torch.randn((1, 2, cfg.d_model), generator=gen)
+    mem = torch.randn((1, 5, cfg.vision_dim), generator=gen)
+    out, cache = layers.attention_apply(p, cfg, x, memory=mem,
+                                        positions=torch.zeros((1, 2)))
+    assert out.shape == x.shape and cache is None
+    with pytest.raises(RuntimeError):
         layers.attention_apply(p, cfg, x, positions=torch.zeros((1, 2)),
                                memory=x)
 

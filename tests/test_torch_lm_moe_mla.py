@@ -663,7 +663,7 @@ def test_traces_and_training_refuse_moe_and_mla(arch):
     training names A14b-3, at the smoke and the full config."""
     for cfg in (get_smoke_config(arch), get_config(arch)):
         lm.check_supported(cfg)
-        lm.check_traceable(cfg)
+        lm.param_specs(cfg)
         with pytest.raises(NotImplementedError, match="A14b-3"):
             steps.make_train_step(cfg)
     steps.make_prefill_step(cfg, 8)

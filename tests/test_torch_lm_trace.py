@@ -26,9 +26,10 @@
   form against the reference's ``_route`` / ``moe_apply_local`` (a router
   of unit scale, so no near-ties; replicas dropped at a capacity factor
   of 0.5), its ids, keep masks and slots equal to the serving form's.
-* An arch whose blocks the port does not run (cross-attention, the audio
-  frontend) raises naming ROADMAP A14c-3 on the meta device, and a meta
-  tensor that reaches a kernel entry raises.
+* The cross-attention and audio archs (llama-3.2-vision, hubert) are
+  traceable: their specs and a meta-device forward (their graphs are held
+  to the reference's in ``tests/test_torch_lm_vision_audio.py``); and a
+  meta tensor that reaches a kernel entry raises.
 
 torch runs one intra-op thread while the file runs, as the other LM
 test files do.
@@ -71,8 +72,9 @@ from repro_torch.perfmodel.devices import DEVICES as T_DEVICES  # noqa: E402
 MOE_ARCHS = ["deepseek-v2-236b", "grok-1-314b"]
 PORTED = ["qwen2.5-3b", "mamba2-370m", "zamba2-2.7b", "yi-34b",
           "h2o-danube-3-4b", "chatglm3-6b"] + MOE_ARCHS
-#: arch → the ROADMAP item its refusal names on the meta device
-UNPORTED = {"llama-3.2-vision-11b": "A14c-3", "hubert-xlarge": "A14c-3"}
+#: the cross-attention and audio archs (refused on the meta device, naming
+#: ROADMAP A14c-3, until it was ported)
+VISION_AUDIO = ["hubert-xlarge", "llama-3.2-vision-11b"]
 #: the factory's smallest and largest (batch, seq)
 SHAPES = [(1, 64), (8, 256)]
 #: the factory's device and noise
@@ -162,26 +164,46 @@ def test_lm_graph_and_record_match_reference(arch, shape):
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_and_mla_archs_are_traceable(arch):
-    """``check_traceable`` takes the MoE and MLA archs at the smoke and the
+    """``check_supported`` takes the MoE and MLA archs at the smoke and the
     full config; ``param_specs`` keeps the router in float32 whatever
     ``param_dtype`` is."""
     from repro_torch.configs import get_config
     for cfg in (get_smoke_config(arch), get_config(arch)):
-        lm.check_traceable(cfg)
+        lm.check_supported(cfg)
         specs = lm.param_specs(cfg)
         assert specs["blocks"]["ffn"]["router"][1] == torch.float32
         assert specs["blocks"]["ffn"]["experts"]["wg"][1] == \
             getattr(torch, cfg.param_dtype)
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
+@pytest.mark.parametrize("arch", VISION_AUDIO)
 def test_unported_arch_raises_on_the_meta_device(arch):
+    """Both archs trace now: ``check_supported`` takes them, ``param_specs``
+    gives the reference's leaves, and ``lm.forward`` over meta tensors
+    gives meta logits; only an input the frontend needs, left out, still
+    raises."""
+    from repro.configs import get_smoke_config as jget
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        lm.param_specs(cfg)
-    tok = torch.empty((1, 64), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        lm.forward({}, cfg, {"tokens": tok})
+    lm.check_supported(cfg)
+    specs = lm.param_specs(cfg)
+    assert set(_paths(specs)) == set(_paths(jlm.param_specs(jget(arch))))
+    tree = {}
+    for path, (shape, dtype) in _paths(specs).items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.empty(shape, dtype=dtype, device="meta")
+    meta = dict(device="meta")
+    if cfg.frontend == "audio_frames":
+        inputs = {"features": torch.empty((1, 64, cfg.d_model), **meta)}
+    else:
+        inputs = {"tokens": torch.empty((1, 64), dtype=torch.int32, **meta),
+                  "vision_embeds": torch.empty(
+                      (1, cfg.vision_tokens, cfg.vision_dim), **meta)}
+    logits, _ = lm.forward(tree, cfg, inputs)
+    assert logits.is_meta and logits.shape == (1, 64, cfg.vocab)
+    with pytest.raises(KeyError):
+        lm.forward(tree, cfg, {})
 
 
 def test_meta_tensor_at_a_kernel_entry_raises():
