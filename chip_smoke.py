@@ -283,7 +283,10 @@ Phases, each printing one JSON line:
    ``flash_attention_bwd`` and the forward's log-sum-exp against their
    plain versions on the card (qwen2.5-3b's heads at 4 × 1024 causal,
    h2o-danube's 32 over 8 at D = 120 with window 256, a padded length, a
-   query offset, rows with no kept key), float32 within 1e-5 and bf16
+   query offset, rows with no kept key, not causal; and ``WIDE_BWD_CASES``:
+   MLA's D 24 / Dv 16 and D 192 / Dv 128, its rows with no kept key, D =
+   Dv = 192, a cross layer's 200 rows over 320 keys with GQA 4, an
+   encoder's ragged 150 rows at D 80), float32 within 1e-5 and bf16
    within 2e-2 of each gradient's largest magnitude, every case twice with
    the same bits; timed beside its bound, its plain version and SDPA's
    forward + backward (``is_causal``; measured only, never on the path);
@@ -293,8 +296,29 @@ Phases, each printing one JSON line:
    full model, bf16, ``default_optimizer()``, ``remat=True``, 4 × 1024
    tokens: ms per step, tokens/s, peak memory, the device-busy share, the
    backward's µs per launch, and the flash launches held to
-   ``lm_train_launch_rule``.
-18. ``accuracy`` — the paper's accuracy protocol on the card, the JAX
+   ``lm_train_launch_rule``. The parity runs' CPU reference steps skip
+   the recomputation (remat changes no value) and the bar is read on the
+   card.
+18. ``lm_train_wide`` — training MLA, MoE, cross-attention and the audio
+   frontend: the wide cases of ``lm_train``'s sweep; the smoke configs of
+   deepseek-v2, grok-1, llama-3.2-vision and hubert-xlarge in float32, two
+   AdamW steps on the card against the CPU (losses within 1e-4, parameters
+   on ROADMAP §C's bar, the first step's expert ids and keep masks equal,
+   launches on ``lm_train_launch_rule``); deepseek-v2 at full width cut to
+   2 layers (dense and MoE, both MLA; 5.36 B parameters), llama-3.2-vision
+   cut to one group of 4 self layers and a cross layer over a [2, 1600,
+   4096] memory, hubert-xlarge at full depth over [4, 1500, 1280] frames,
+   each bf16, ``default_optimizer()``, remat, one warm-up and two steps:
+   finite losses and aux losses, launches on the rule (llama's also by
+   shape), ms a step, tokens/s, peak memory, busy share, device ms by
+   kernel. grok-1 is held by its parity run only: at one layer, full
+   width, its parameters, gradients, states and the update's new
+   parameters and states need 91 GB. Last, the ``kernels`` entries of B8's
+   forward with lse at MLA's full-sequence shape and of 8′ at the three
+   new shapes (MLA's, the cross layer's, hubert's), bf16, against their
+   plain versions on the card, timed beside their bounds, the plain
+   versions and SDPA.
+19. ``accuracy`` — the paper's accuracy protocol on the card, the JAX
    package's CI gate (``benchmarks/accuracy_mape.py``) run by the port:
    the gate's plan (320 zoo graphs, convnext held out, qwen2.5-3b and
    mamba2-370m traced, shards of 64; its hash ``ACCURACY_PLAN_HASH``,
@@ -566,14 +590,51 @@ SSD_BWD_ARCHS, SSD_BWD_BATCH, SSD_BWD_SEQ = (
     ("mamba2-370m", "zamba2-2.7b"), 8, 2048)
 SSD_BWD_F32_TOL, SSD_BWD_BF16_TOL = 1e-4, 1e-2
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "ds0")
-#: (B, Sq, Skv, H, Hkv, D, causal, window, q_offset, kv_offset)
+#: (B, Sq, Skv, H, Hkv, D, Dv, causal, window, q_offset, kv_offset); the
+#: last six are lm_train_wide's (WIDE_BWD_CASES): MLA's head dims at smoke
+#: and full width, the opt-in ceiling D = Dv = 192, a cross layer's text
+#: rows over more vision keys, an encoder's ragged last tile
 BWD_CASES = [
-    (4, 1024, 1024, 16, 2, 128, True, 0, 0, 0),      # qwen2.5-3b
-    (2, 1024, 1024, 32, 8, 120, True, 256, 0, 0),    # h2o-danube, window
-    (2, 1000, 1000, 16, 2, 128, True, 0, 0, 0),      # a padded length
-    (1, 300, 700, 8, 2, 64, True, 0, 400, 0),        # a query offset
-    (1, 6, 8, 2, 1, 128, True, 0, 0, 3),             # rows 0-2: no key
-    (2, 77, 77, 4, 4, 80, False, 0, 0, 0),           # not causal
+    (4, 1024, 1024, 16, 2, 128, 128, True, 0, 0, 0),    # qwen2.5-3b
+    (2, 1024, 1024, 32, 8, 120, 120, True, 256, 0, 0),  # h2o-danube, window
+    (2, 1000, 1000, 16, 2, 128, 128, True, 0, 0, 0),    # a padded length
+    (1, 300, 700, 8, 2, 64, 64, True, 0, 400, 0),       # a query offset
+    (1, 6, 8, 2, 1, 128, 128, True, 0, 0, 3),           # rows 0-2: no key
+    (2, 77, 77, 4, 4, 80, 80, False, 0, 0, 0),          # not causal
+    (2, 256, 256, 4, 4, 24, 16, True, 0, 0, 0),         # MLA, smoke width
+    (1, 512, 512, 4, 4, 192, 128, True, 0, 0, 0),       # MLA, full width
+    (1, 6, 8, 2, 2, 192, 128, True, 0, 0, 3),           # MLA, rows 0-2 dead
+    (1, 130, 130, 2, 2, 192, 192, True, 0, 0, 0),       # D = Dv = 192
+    (2, 200, 320, 8, 2, 128, 128, False, 0, 0, 0),      # cross, GQA 4
+    (2, 150, 150, 4, 4, 80, 80, False, 0, 0, 0),        # encoder, ragged
+]
+WIDE_BWD_CASES = BWD_CASES[6:]
+#: lm_train_wide: the archs it trains (parity: their smoke configs in
+#: float32, LM_TRAIN_PARITY_STEPS AdamW steps at LM_TRAIN_PARITY_LR,
+#: batch × sequence), the full-width runs ((arch, depth or None for the
+#: config's, batch, sequence); bf16, default_optimizer(), remat, one
+#: warm-up and WIDE_TRAIN_STEPS measured steps; not grok-1: at one layer
+#: its 6.53 B parameters, their gradients, bf16 AdamW states and the
+#: update's new parameters and states come to 91 GB, past the card's 80 GB,
+#: so its training is held by its parity run only) and the kernels
+#: entries at their shapes (B, Sq,
+#: Skv, H, Hkv, D, Dv, causal, window, q_offset, kv_offset), each read
+#: from its arch's run
+WIDE_ARCHS = ("deepseek-v2-236b", "grok-1-314b", "llama-3.2-vision-11b",
+              "hubert-xlarge")
+WIDE_PARITY_BATCH, WIDE_PARITY_SEQ = 2, 64
+WIDE_TRAIN = (("deepseek-v2-236b", 2, 2, 1024),
+              ("llama-3.2-vision-11b", 5, 2, 1024),
+              ("hubert-xlarge", None, 4, 1500))
+WIDE_TRAIN_STEPS = 2
+_MLA = (2, 1024, 1024, 128, 128, 192, 128, True, 0, 0, 0)
+WIDE_FLASH = [
+    ("flash_attention_train_mla", "deepseek-v2-236b", _MLA),
+    ("flash_attention_bwd_mla", "deepseek-v2-236b", _MLA),
+    ("flash_attention_bwd_cross", "llama-3.2-vision-11b",
+     (2, 1024, 1600, 32, 8, 128, 128, False, 0, 0, 0)),
+    ("flash_attention_bwd_encoder", "hubert-xlarge",
+     (4, 1500, 1500, 16, 16, 80, 80, False, 0, 0, 0)),
 ]
 
 
@@ -1053,6 +1114,21 @@ def sweep_readout(torch, dev) -> dict:
                                        "backward_max_abs_err": berr,
                                        "bitwise_repeat": True}
     return {"max_abs_err": worst, "cases": cases}
+
+
+def check_close_card(what: str, got, want, atol: float, rtol: float) -> float:
+    """:func:`check_close` computed on the card, in float64, for tensors of
+    tens of millions of elements: |got - want| <= atol + rtol |want|
+    everywhere; the largest |diff|."""
+    got, want = got.detach().double(), want.detach().double()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    d = (got - want).abs()
+    if not bool((d <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"{what}: max |diff| {float(d.max()):.3e} "
+                             f"exceeds atol {atol} + rtol {rtol}")
+    return float(d.max()) if d.numel() else 0.0
 
 
 def check_close_nan(what: str, got, want, atol: float, rtol: float) -> float:
@@ -5465,13 +5541,15 @@ def moe_route_recorder():
     """Wrap ``layers.moe_apply_local`` so that each call also records its
     route on the CPU: (expert ids, keep mask), as the block computes them
     (``_route``, ``moe_slots``). Returns (the records, a restore call)."""
+    import torch
     from repro_torch.models import layers as L
     real = L.moe_apply_local
     seen = []
 
     def recording(p, cfg, x_flat):
-        _, ids, _ = L._route(p["router"], x_flat, cfg.moe)
-        keep, _, _ = L.moe_slots(ids, cfg.moe, x_flat.shape[0])
+        with torch.no_grad():   # the record takes no part in a gradient
+            _, ids, _ = L._route(p["router"], x_flat, cfg.moe)
+            keep, _, _ = L.moe_slots(ids, cfg.moe, x_flat.shape[0])
         seen.append((ids.cpu(), keep.cpu()))
         return real(p, cfg, x_flat)
 
@@ -6298,17 +6376,17 @@ def lm_train_config(arch: str = LM_TRAIN_ARCH, **overrides):
 
 def bwd_inputs(torch, dev, case, dtype, seed):
     """q, k, v and the output's gradient of a ``BWD_CASES`` case."""
-    b, sq, skv, h, hkv, d = case[:6]
+    b, sq, skv, h, hkv, d, dv = case[:7]
     rng = np.random.default_rng(seed)
     return [torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
                             device=dev).to(dtype)
-            for shape in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d),
-                          (b, sq, h, d))]
+            for shape in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                          (b, sq, h, dv))]
 
 
 def bwd_kw(case) -> dict:
-    return dict(causal=case[6], window=case[7], q_offset=case[8],
-                kv_offset=case[9])
+    return dict(causal=case[7], window=case[8], q_offset=case[9],
+                kv_offset=case[10])
 
 
 def sweep_flash_bwd(torch, dev) -> dict:
@@ -6347,8 +6425,8 @@ def sweep_flash_bwd(torch, dev) -> dict:
                             a.float(), w.float(), tol * scale, tol)
                 rels[gname] = float((a.float() - w.float()).abs().max()) \
                     / scale
-            if case[9] > 0 and case[6]:          # rows with no kept key
-                dead = got[0][:, :case[9]]
+            if case[10] > 0 and case[7]:         # rows with no kept key
+                dead = got[0][:, :case[10]]
                 if not torch.equal(dead, torch.zeros_like(dead)):
                     raise AssertionError(f"flash_attention_bwd {name}: a row "
                                          f"with no kept key has dq != 0")
@@ -6363,7 +6441,6 @@ def flash_bwd_entry(torch, dev) -> dict:
     """flash_attention_bwd at the full training run's shape (qwen2.5-3b's
     heads, bf16, causal) against its plain version, timed beside its
     bound, the plain version and SDPA's forward + backward; the sweep."""
-    import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
@@ -6371,7 +6448,7 @@ def flash_bwd_entry(torch, dev) -> dict:
     cfg = lm_train_config()
     b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    case = (b, s, s, h, hkv, d, True, 0, 0, 0)
+    case = (b, s, s, h, hkv, d, d, True, 0, 0, 0)
     kw = bwd_kw(case)
     q, k, v, g = bwd_inputs(torch, dev, case, torch.bfloat16, 6100)
     out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
@@ -6393,15 +6470,8 @@ def flash_bwd_entry(torch, dev) -> dict:
         q, k, v, *flash_attention_cuda(q, k, v, with_lse=True, **kw), g,
         **kw), calls=5, reps=5)
     # the yardstick: SDPA forward + backward, is_causal, grouped heads
-    qt, kt, vt = (z.transpose(1, 2).contiguous().requires_grad_()
-                  for z in (q, k, v))
-    gt = g.transpose(1, 2).contiguous()
-
-    def library():
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True)
-        return torch.autograd.grad(o, (qt, kt, vt), gt)
-    library_ms = time_eager_ms(torch, library, calls=5, reps=5)
+    library_ms, library_note = sdpa_train_ms(torch, q, k, v, g, True,
+                                             calls=5)
     us = device_breakdown_us(torch, {"bwd": kern}, reps=5)["bwd"]
     # bound: the five products of the custom VJP's backward (s, dout·v,
     # dv, dq, dk), 2·D flops each per kept (causal) pair, at the bf16
@@ -6419,10 +6489,7 @@ def flash_bwd_entry(torch, dev) -> dict:
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": library_ms,
-            "library_note": "scaled_dot_product_attention forward + "
-                            "backward, is_causal, enable_gqa, on [B, H, S, "
-                            "D] copies: measured only, never on the path",
-            "fwd_bwd_ms": fwd_bwd_ms,
+            "library_note": library_note, "fwd_bwd_ms": fwd_bwd_ms,
             "fwd_bwd_note": "this port's forward with lse + backward, the "
                             "like-for-like yardstick to library_ms",
             "unit": f"q, dout [{b}, {s}, {h}, {d}] over k/v [{b}, {s}, {hkv}, "
@@ -6435,9 +6502,11 @@ def flash_bwd_entry(torch, dev) -> dict:
 def lm_train_launch_rule(cfg, steps: int, remat: bool) -> dict:
     """The flash and SSD launches of ``steps`` training steps: each
     forward kernel once per layer that runs it (attention: every layer of
-    a dense decoder, the shared block once per group of a hybrid; the
-    scan: every Mamba2 layer), again in the backward under ``remat`` (each
-    layer recomputed), and each backward kernel once per such layer."""
+    an ``attn`` stack — dense, MLA (its full-sequence form), MoE, a
+    cross-attention config's self and cross layers, an encoder's — the
+    shared block once per group of a hybrid; the scan: every Mamba2
+    layer), again in the backward under ``remat`` (each layer
+    recomputed), and each backward kernel once per such layer."""
     n_attn = n_ssd = 0
     if cfg.block == "attn":
         n_attn = cfg.n_layers
@@ -6463,55 +6532,88 @@ def lm_train_wrappers() -> dict:
 
 
 def lm_train_batch(torch, cfg, b: int, s: int, dev, seed: int) -> dict:
+    """A seeded training batch on ``dev``: int32 ``tokens`` and ``labels``
+    [b, s], with a float32 ``vision_embeds`` [b, vision_tokens,
+    vision_dim] for a cross-attention config; an audio-frame encoder's
+    ``features`` [b, s, d_model] take the tokens' place (the reference's
+    ``input_specs``)."""
     rng = np.random.default_rng(seed)
-    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
-                               dtype=torch.int32, device=dev)
-            for k in ("tokens", "labels")}
+    keys = ("labels",) if cfg.frontend == "audio_frames" else ("tokens",
+                                                                 "labels")
+    out = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                              dtype=torch.int32, device=dev) for k in keys}
+    extra = {}
+    if cfg.frontend == "audio_frames":
+        extra["features"] = (b, s, cfg.d_model)
+    if cfg.cross_attn_every:
+        extra["vision_embeds"] = (b, cfg.vision_tokens, cfg.vision_dim)
+    for k, shape in extra.items():
+        out[k] = torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                 device=dev)
+    return out
 
 
-def lm_train_parity(torch, dev, arch: str = LM_TRAIN_ARCH,
-                    layers: int = LM_TRAIN_PARITY_LAYERS,
-                    batch: int = LM_TRAIN_PARITY_BATCH,
-                    seq: int = LM_TRAIN_PARITY_SEQ) -> dict:
-    """``arch`` at full width, depth cut to ``layers``, float32:
-    LM_TRAIN_PARITY_STEPS train steps on the card against the same steps
-    on the CPU's plain versions; losses within LM_TRAIN_LOSS_RTOL, parameters on ROADMAP §C's
-    bar (an element whose first-step CPU gradient is below
-    TRAIN_NOISE_FLOOR of its leaf's largest may leave it by
-    TRAIN_NOISE_ATOL), the card's launches on ``lm_train_launch_rule``."""
+def lm_train_parity(torch, dev, cfg, batch: int, seq: int) -> dict:
+    """``cfg`` in float32 (an arch at full width with its depth cut, or a
+    smoke config): LM_TRAIN_PARITY_STEPS train steps on the card against
+    the same steps on the CPU's plain versions; losses within
+    LM_TRAIN_LOSS_RTOL, parameters on ROADMAP §C's bar (an element whose
+    first-step CPU gradient is below TRAIN_NOISE_FLOOR of its leaf's
+    largest may leave it by TRAIN_NOISE_ATOL), the card's launches on
+    ``lm_train_launch_rule``; with MoE, every MoE call's expert ids and
+    keep mask in the first step equal on both. The card's steps recompute
+    each layer (``remat=True``, the launches the rule counts); the CPU's
+    reference steps do not: remat changes no value (the same bits on the
+    card machine's CPU for qwen2.5-3b and zamba2-2.7b, measured while
+    cutting this phase's time; ``tests/test_torch_lm_train.py`` holds the
+    gradients equal). The weights are drawn on the card and copied to the
+    CPU; the quiet elements come from the CPU's first step's own
+    gradient; the bar is read on the card."""
+    import dataclasses
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import adamw, constant
     from repro_torch.optim.optimizers import tree_leaves
     t0 = time.perf_counter()
-    cfg = lm_train_config(arch, n_layers=layers, param_dtype="float32")
+    arch = cfg.name
     opt = adamw(constant(LM_TRAIN_PARITY_LR), b1=0.9, b2=0.95,
                 weight_decay=0.1, state_dtype=torch.float32,
                 grad_clip_norm=1.0)
-    step_fn = make_train_step(cfg, opt)
-    cpu = lm.init_params(cfg, seed=LM_SEED, device="cpu")
+    quiet = []
+
+    def update_noting_quiet(step, state, params, grads):
+        """The CPU's update; its first gradient says which elements are
+        float noise."""
+        if not quiet:
+            quiet.extend(g.abs() < TRAIN_NOISE_FLOOR * g.abs().max()
+                         for g in tree_leaves(grads))
+        return opt.update(step, state, params, grads)
+    step_fns = {"card": make_train_step(cfg, opt),
+                "cpu": make_train_step(cfg, dataclasses.replace(
+                    opt, update=update_noting_quiet), remat=False)}
+    card_init = lm.init_params(cfg, seed=LM_SEED, device=dev)
+    cpu = tree_to(card_init, "cpu")
     batches = [lm_train_batch(torch, cfg, batch, seq, "cpu", LM_SEED + 10 + i)
                for i in range(LM_TRAIN_PARITY_STEPS)]
-    # the first step's CPU gradient: which elements are float noise
-    leaves = tree_leaves(cpu)
-    for t in leaves:
-        t.requires_grad_()
-    grads0 = torch.autograd.grad(lm.loss_fn(cpu, cfg, batches[0])[0], leaves)
-    for t in leaves:
-        t.requires_grad_(False)
-    quiet = [(gr.abs() < TRAIN_NOISE_FLOOR * gr.abs().max()).numpy()
-             for gr in grads0]
-    del grads0
-    runs = {}
+    runs, routes, secs = {}, {}, {"setup": time.perf_counter() - t0}
     wrappers = lm_train_wrappers()
     for where in ("card", "cpu"):
-        params = tree_to(cpu, dev) if where == "card" else cpu
-        pd = params["embed"].device
+        t1 = time.perf_counter()
+        step_fn = step_fns[where]
+        params = card_init if where == "card" else cpu
+        pd = dev if where == "card" else "cpu"
         state, step, losses = opt.init(params), 0, []
         before = {k: w.launches for k, w in wrappers.items()}
-        for b in batches:
-            params, state, step, m = step_fn(
-                params, state, step, {k: v.to(pd) for k, v in b.items()})
+        for i, b in enumerate(batches):
+            seen, restore = moe_route_recorder() if (
+                cfg.moe is not None and i == 0) else ([], lambda: None)
+            try:
+                params, state, step, m = step_fn(
+                    params, state, step, {k: v.to(pd) for k, v in b.items()})
+            finally:
+                restore()
+            if i == 0:
+                routes[where] = seen
             losses.append(float(m["loss"]))
         if where == "card":
             torch.cuda.synchronize()
@@ -6521,27 +6623,42 @@ def lm_train_parity(torch, dev, arch: str = LM_TRAIN_ARCH,
             if launches != want:
                 raise AssertionError(f"lm_train parity {arch}: launches "
                                      f"{launches} != the rule's {want}")
-        runs[where] = (losses, [t.detach().cpu().numpy()
-                                for t in tree_leaves(params)])
+        runs[where] = (losses, [t.detach() for t in tree_leaves(params)])
+        secs[where] = time.perf_counter() - t1
+    if cfg.moe is not None:
+        # the card's step routes each MoE layer again as the backward
+        # recomputes it, last layer first; the CPU's once
+        a, w = routes["card"], routes["cpu"]
+        if not w or len(a) != 2 * len(w) or not all(
+                torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+                for x, y in zip(a, w + w[::-1])):
+            raise AssertionError(f"lm_train parity {arch}: the first step's "
+                                 f"expert ids or keep masks differ between "
+                                 f"the card and the CPU")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][0],
                                                          runs["cpu"][0]))
     if loss_rel > LM_TRAIN_LOSS_RTOL:
         raise AssertionError(f"lm_train parity {arch}: losses "
                              f"{runs['card'][0]} vs the CPU's "
                              f"{runs['cpu'][0]}")
+    t1 = time.perf_counter()
     outside, worst_noise, worst = 0, 0.0, 0.0
     for a, w, q in zip(runs["card"][1], runs["cpu"][1], quiet):
-        excess = np.abs(a - w) - (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL
-                                  * np.abs(w))
-        worst = max(worst, float(np.abs(a - w).max()))
+        w, q = w.to(dev), q.to(dev)
+        diff = (a - w).abs()
+        excess = diff - (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * w.abs())
+        worst = max(worst, float(diff.max()))
         out_el = excess > 0
-        if (out_el & ~q).any() or (excess > TRAIN_NOISE_ATOL).any():
+        if bool((out_el & ~q).any()) or bool((excess > TRAIN_NOISE_ATOL)
+                                             .any()):
             raise AssertionError(f"lm_train parity {arch}: parameters "
                                  f"outside the bar (max excess "
-                                 f"{excess.max():.3e})")
+                                 f"{float(excess.max()):.3e})")
         outside += int(out_el.sum())
-        if out_el.any():
+        if bool(out_el.any()):
             worst_noise = max(worst_noise, float(excess[out_el].max()))
+    del a, w, q, diff, excess, out_el
+    secs["compare"] = time.perf_counter() - t1
     return {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
                        "d_model": cfg.d_model, "dtype": cfg.param_dtype},
             "batch": [batch, seq],
@@ -6550,7 +6667,13 @@ def lm_train_parity(torch, dev, arch: str = LM_TRAIN_ARCH,
             "loss_max_rel_err": loss_rel, "param_max_abs_err": worst,
             "params_outside_bar": outside,
             "outside_bar_max_excess": worst_noise,
-            "launches": launches, "seconds": time.perf_counter() - t0}
+            "launches": launches,
+            **({"moe_calls_step1": len(routes["cpu"]),
+                "routes_equal_step1": True,
+                "replicas_dropped_step1": sum(int((~k).sum())
+                                              for _, k in routes["cpu"])}
+               if cfg.moe is not None else {}),
+            "seconds_by_part": secs, "seconds": time.perf_counter() - t0}
 
 
 def ssd_bwd_work(b: int, s: int, h: int, g: int, p: int, n: int,
@@ -6659,14 +6782,49 @@ def ssd_bwd_entry(torch, dev) -> dict:
             "build": segment_build_facts("ssd_scan_bwd")}
 
 
+def flash_train_shape_recorder():
+    """Wrap ``ops.kernel`` so that each training call of the flash forward
+    and backward also records its (Sq, Skv, D, Dv); the wrappers' launch
+    counts are untouched. Returns (the records by kernel, a restore
+    call)."""
+    from repro_torch.kernels import ops
+    real = ops.kernel
+    seen = {"flash_attention": [], "flash_attention_bwd": []}
+
+    def recording(name, t):
+        fn = real(name, t)
+        if name not in seen:
+            return fn
+
+        def call(q, k, v, *args, **kw):
+            seen[name].append((q.shape[1], k.shape[1], q.shape[3],
+                               v.shape[3]))
+            return fn(q, k, v, *args, **kw)
+        return call
+
+    ops.kernel = recording
+    return seen, lambda: setattr(ops, "kernel", real)
+
+
+def by_shape(records: list) -> dict:
+    """Launch records counted by shape, keyed "Sq/Skv/D/Dv"."""
+    out = {}
+    for r in records:
+        key = "/".join(str(x) for x in r)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
 def lm_train_full(torch, dev, cfg, batch: int, seq: int, seed: int,
-                  bwd_kernels: tuple) -> dict:
+                  bwd_kernels: tuple, steps: int = LM_TRAIN_STEPS) -> dict:
     """``cfg`` trained on the card from seeded random weights:
-    ``default_optimizer()``, remat, one warm-up step and LM_TRAIN_STEPS
+    ``default_optimizer()``, remat, one warm-up step and ``steps``
     measured ones (ms a step, tokens/s, peak memory, finite losses and
-    parameters, launches on ``lm_train_launch_rule``), then one more step
-    under the profiler (the device's busy share and ms by kernel;
-    ``bwd_kernels``: the backward kernel's launches by name)."""
+    parameters, launches on ``lm_train_launch_rule``, the flash launches
+    also by shape), then one more step under the profiler (the device's
+    busy share and ms by kernel; ``bwd_kernels``: the backward kernel's
+    launches by name)."""
+    import gc
     from repro_torch import nn as tnn
     from repro_torch.launch.steps import default_optimizer, make_train_step
     from repro_torch.models import lm
@@ -6676,28 +6834,36 @@ def lm_train_full(torch, dev, cfg, batch: int, seq: int, seed: int,
     state, step = opt.init(params), 0
     train_step = make_train_step(cfg, opt, remat=True)
     batches = [lm_train_batch(torch, cfg, batch, seq, dev, seed + i)
-               for i in range(LM_TRAIN_STEPS + 2)]
+               for i in range(steps + 2)]
     params, state, step, m = train_step(params, state, step, batches[0])
     torch.cuda.synchronize()
+    gc.collect()             # what a first call's lazy imports left in cycles
+    after_warmup = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     wrappers = lm_train_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    losses, step_ms = [float(m["loss"])], []
-    for b in batches[1:LM_TRAIN_STEPS + 1]:
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        params, state, step, m = train_step(params, state, step, b)
-        losses.append(float(m["loss"]))      # waits for the step
-        step_ms.append(1e3 * (time.perf_counter() - t1))
+    losses, auxs, step_ms = [float(m["loss"])], [float(m["aux"])], []
+    shapes, restore = flash_train_shape_recorder()
+    try:
+        for b in batches[1:steps + 1]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, state, step, m = train_step(params, state, step, b)
+            losses.append(float(m["loss"]))      # waits for the step
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            auxs.append(float(m["aux"]))
+    finally:
+        restore()
     launches = {k: w.launches for k, w in wrappers.items()}
-    want = lm_train_launch_rule(cfg, LM_TRAIN_STEPS, True)
+    want = lm_train_launch_rule(cfg, steps, True)
     if launches != want:
         raise AssertionError(f"lm_train {cfg.name}: launches {launches} != "
                              f"the rule's {want}")
     peak = torch.cuda.max_memory_allocated()
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"lm_train {cfg.name}: losses {losses}")
+    if not all(np.isfinite(losses + auxs)):
+        raise AssertionError(f"lm_train {cfg.name}: losses {losses}, aux "
+                             f"{auxs}")
     if not all(bool(torch.isfinite(t.float()).all())
                for t in tree_leaves(params)):
         raise AssertionError(f"lm_train {cfg.name}: non-finite parameters")
@@ -6706,8 +6872,7 @@ def lm_train_full(torch, dev, cfg, batch: int, seq: int, seed: int,
     holder = {}
 
     def one_step():
-        holder["out"] = train_step(params, state, step,
-                                   batches[LM_TRAIN_STEPS + 1])
+        holder["out"] = train_step(params, state, step, batches[steps + 1])
     rows = device_ms_by_kernel(torch, one_step)
     holder.clear()
     busy = sum(rows.values())
@@ -6721,13 +6886,17 @@ def lm_train_full(torch, dev, cfg, batch: int, seq: int, seed: int,
                       "d_model": cfg.d_model, "dtype": cfg.param_dtype},
            "batch": [batch, seq],
            "optimizer": "default_optimizer() (AdamW, bf16 states)",
-           "remat": True, "steps": LM_TRAIN_STEPS,
-           "losses": losses, "step_ms": step_ms, "ms_per_step": med,
+           "remat": True, "steps": steps,
+           "losses": losses, "aux": auxs, "step_ms": step_ms,
+           "ms_per_step": med,
            "tokens_per_s": batch * seq / (med / 1e3),
            "max_memory_allocated": peak,
+           "allocated_after_warmup": after_warmup,
            "param_bytes": tnn.tree_bytes(params),
            "param_count": tnn.tree_size(params),
            "launches": launches,
+           "flash_launches_by_shape": {k: by_shape(v)
+                                       for k, v in shapes.items()},
            "step_device_busy_ms": busy,
            "device_busy_share": busy / med,
            "step_device_ms_by_kernel": top,
@@ -6736,6 +6905,221 @@ def lm_train_full(torch, dev, cfg, batch: int, seq: int, seed: int,
     del params, state
     torch.cuda.empty_cache()
     return out
+
+
+def cross_shapes(cfg, batch_seq: int) -> dict:
+    """A cross-attention config's flash calls in one training forward, by
+    "Sq/Skv/D/Dv": each group's self layers over the sequence, its cross
+    layer over the vision memory."""
+    groups = cfg.n_layers // cfg.cross_attn_every
+    d = cfg.resolved_head_dim
+    return {f"{batch_seq}/{batch_seq}/{d}/{d}":
+            groups * (cfg.cross_attn_every - 1),
+            f"{batch_seq}/{cfg.vision_tokens}/{d}/{d}": groups}
+
+
+def sdpa_train_ms(torch, q, k, v, g, causal: bool, calls: int = 3):
+    """``scaled_dot_product_attention`` forward + backward (``enable_gqa``)
+    on [B, H, S, D] copies of q, k, v and the output's gradient ``g``, ms
+    a call, and a note; (None, the refusal) where it refuses the shapes.
+    Measured only, never on the path."""
+    import torch.nn.functional as F
+    qt, kt, vt = (z.transpose(1, 2).contiguous().requires_grad_()
+                  for z in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+
+    def library():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), gt)
+    note = ("scaled_dot_product_attention forward + backward, enable_gqa"
+            + (", is_causal" if causal else "") + ", on [B, H, S, D] copies: "
+            "measured only, never on the path")
+    try:
+        library()
+        torch.cuda.synchronize()
+    except RuntimeError as err:     # SDPA takes no such shapes: no yardstick
+        return None, f"scaled_dot_product_attention refused: {err}"[:300]
+    return time_eager_ms(torch, library, calls=calls, reps=5), note
+
+
+def wide_flash_entries(torch, dev, launches: dict) -> list:
+    """B8's forward with lse at MLA's full-sequence shape and 8' at the
+    three shapes lm_train_wide's full runs give it (WIDE_FLASH), bf16,
+    each against its plain version, timed beside its bound (the kept
+    pairs' products at the bf16 peak, or the bytes read and written once)
+    and its plain version, with SDPA's time where it takes the shapes;
+    ``launches``: each shape's launches in the full runs, by entry. Their
+    device time by kernel is the full runs' profiled steps'."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    import torch.nn.functional as F
+    out = []
+    for name, arch, case in WIDE_FLASH:
+        kw = bwd_kw(case)
+        b, sq, skv, h, hkv, d, dv = case[:7]
+        q, k, v, g = bwd_inputs(torch, dev, case, torch.bfloat16,
+                                6200 + len(out))
+        kept = b * h * (sq * (sq + 1) // 2 if kw["causal"] else sq * skv)
+        o, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        train = name.startswith("flash_attention_train")
+        if train:
+            kern = lambda: flash_attention_cuda(  # noqa: E731
+                q, k, v, with_lse=True, **kw)
+            plain = lambda: ref.flash_attention_ref(  # noqa: E731
+                q, k, v, with_lse=True, **kw)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = check_close_card(f"{name} out", got[0], want[0],
+                                   KERNEL_BF16_TOL, KERNEL_BF16_TOL)
+            live = want[1] > -1e29
+            check_close_card(f"{name} lse", got[1][live], want[1][live],
+                             1e-3, 1e-4)
+            flops = 2.0 * (d + dv) * kept
+            nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + o.numel()) \
+                + 4.0 * lse.numel()
+            qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+            try:
+                lib()
+                torch.cuda.synchronize()
+                library_ms = time_eager_ms(torch, lib, calls=5, reps=5)
+                lib_note = ("scaled_dot_product_attention forward, "
+                            "enable_gqa, is_causal, on [B, H, S, D] copies: "
+                            "measured only")
+            except RuntimeError as e:   # SDPA takes no such shapes
+                library_ms, lib_note = None, f"SDPA refused: {e}"[:300]
+            calls = 5
+        else:
+            kern = lambda: flash_attention_bwd_cuda(  # noqa: E731
+                q, k, v, o, lse, g, **kw)
+            plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+                q, k, v, o, lse, g, **kw)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = max(check_close_card(
+                f"{name} {n}", a, w, BWD_BF16_TOL * float(w.abs().max()),
+                BWD_BF16_TOL) for n, a, w in zip(("dq", "dk", "dv"), got,
+                                                 want))
+            # 6 D + 4 Dv flops a kept pair: s and dq, dk over D, dout . v
+            # and dv over Dv
+            flops = (6.0 * d + 4.0 * dv) * kept
+            nbytes = 2.0 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                            + 2 * o.numel()) + 4.0 * lse.numel()
+            library_ms, lib_note = sdpa_train_ms(torch, q, k, v, g,
+                                                 kw["causal"])
+            calls = 3
+        del got, want
+        ms = time_eager_ms(torch, kern, calls=calls, reps=5)
+        plain_ms = time_eager_ms(torch, plain, calls=1, reps=3)
+        bound = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/flash_attention.cu"
+                       if train else
+                       "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
+            "replaces": ("src/repro/kernels/flash_attention.py:93" if train
+                         else "src/repro/models/layers.py:162"),
+            **({} if train else {
+                "replaces_note": "no Pallas kernel: the custom VJP's bwd "
+                                 "of _make_flash, jnp that XLA compiles"}),
+            "launches": launches.get(name, 0), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms,
+            "library_note": lib_note, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+            "unit": f"q [{b}, {sq}, {h}, {d}] over k [{b}, {skv}, {hkv}, "
+                    f"{d}], v [.., {dv}] bf16, "
+                    + ("causal" if kw["causal"] else "not causal")
+                    + (", with lse" if train else "") + f": {arch}'s layer",
+            "device_us_by_kernel_note": "in the full runs' profiled step "
+                                        "(the phase line's train entries)"})
+        del q, k, v, g, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def live_cuda_tensors(torch, top: int = 6) -> list:
+    """The largest CUDA tensors that the garbage collector can reach, as
+    [shape, dtype, MB], one per storage: what an earlier phase still
+    holds."""
+    import gc
+    seen = {}
+    for obj in gc.get_objects():
+        if (isinstance(obj, torch.Tensor) and obj.is_cuda
+                and obj.layout == torch.strided):
+            st = obj.untyped_storage()
+            seen[st.data_ptr()] = [list(obj.shape), str(obj.dtype),
+                                   st.nbytes() / 1e6]
+    return sorted(seen.values(), key=lambda r: -r[2])[:top]
+
+
+def phase_lm_train_wide(torch, dev, name_limit: str, sweep: dict) -> tuple:
+    """Training the archs of MLA, MoE, cross-attention and the audio
+    frontend: the flash backward's wide cases (``WIDE_BWD_CASES``, from
+    ``lm_train``'s ``sweep``), the four smoke configs' parity runs against the
+    CPU, the full-width runs of ``WIDE_TRAIN`` with their launches on
+    ``lm_train_launch_rule`` (llama's also by shape), and the
+    ``kernels`` entries at their shapes. Returns (phase line, entries)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config, get_smoke_config
+    t0 = time.perf_counter()
+    gc.collect()                  # deepseek-v2's step peaks near 76 GB
+    torch.cuda.empty_cache()
+    held = {"bytes": torch.cuda.memory_allocated(),
+            "largest_tensors": live_cuda_tensors(torch)}
+    parity = []
+    for arch in WIDE_ARCHS:
+        parity.append(lm_train_parity(torch, dev, get_smoke_config(arch),
+                                      WIDE_PARITY_BATCH, WIDE_PARITY_SEQ))
+        torch.cuda.empty_cache()
+    runs = {}
+    for arch, layers, batch, seq in WIDE_TRAIN:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        runs[arch] = lm_train_full(
+            torch, dev, cfg, batch, seq, LM_SEED + 40 + len(runs),
+            ("delta_kernel", "dkdv_kernel", "dq_kernel"),
+            steps=WIDE_TRAIN_STEPS)
+        if cfg.cross_attn_every:
+            got = runs[arch]["flash_launches_by_shape"]
+            rule = cross_shapes(cfg, seq)
+            for kname, k in (("flash_attention", 2), ("flash_attention_bwd",
+                                                       1)):
+                want = {s: n * k * WIDE_TRAIN_STEPS for s, n in rule.items()}
+                if got[kname] != want:
+                    raise AssertionError(f"lm_train_wide {arch}: {kname} "
+                                         f"launches by shape {got[kname]} "
+                                         f"!= the rule's {want}")
+        torch.cuda.empty_cache()
+    shapes = {arch: r["flash_launches_by_shape"] for arch, r in runs.items()}
+
+    def launched(arch, kname, case):
+        key = "/".join(str(x) for x in (case[1], case[2], case[5], case[6]))
+        return shapes[arch][kname].get(key, 0)
+    launches = {}
+    for name, arch, case in WIDE_FLASH:
+        kname = ("flash_attention" if name.startswith("flash_attention_train")
+                 else "flash_attention_bwd")
+        launches[name] = launched(arch, kname, case)
+    entries = wide_flash_entries(torch, dev, launches)
+    wide = [c for c in sweep["cases"] if tuple(c["case"]) in WIDE_BWD_CASES]
+    if len(wide) != 2 * len(WIDE_BWD_CASES):
+        raise AssertionError("lm_train_wide: the sweep lacks wide cases")
+    out = {"phase": "lm_train_wide", "card": name_limit,
+           "allocated_at_start": held,
+           "bwd_cases": wide, "parity": parity, "train": runs,
+           "entries": {e["name"]: {k: e[k] for k in
+                                   ("launches", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}
+                       for e in entries},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out, entries
 
 
 def phase_lm_train(torch, dev, name_limit: str) -> tuple:
@@ -6749,13 +7133,17 @@ def phase_lm_train(torch, dev, name_limit: str) -> tuple:
     torch.cuda.empty_cache()
     ssd_entry = ssd_bwd_entry(torch, dev)
     torch.cuda.empty_cache()
-    parity = lm_train_parity(torch, dev)
+    parity = lm_train_parity(
+        torch, dev, lm_train_config(n_layers=LM_TRAIN_PARITY_LAYERS,
+                                    param_dtype="float32"),
+        LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ)
     torch.cuda.empty_cache()
     ssd_parity = []
     for arch, layers in LM_SSD_PARITY:
-        ssd_parity.append(lm_train_parity(torch, dev, arch, layers,
-                                          LM_SSD_PARITY_BATCH,
-                                          LM_SSD_PARITY_SEQ))
+        ssd_parity.append(lm_train_parity(
+            torch, dev, lm_train_config(arch, n_layers=layers,
+                                        param_dtype="float32"),
+            LM_SSD_PARITY_BATCH, LM_SSD_PARITY_SEQ))
         torch.cuda.empty_cache()
     train = lm_train_full(torch, dev, lm_train_config(), LM_TRAIN_BATCH,
                           LM_TRAIN_SEQ, LM_SEED + 20,
@@ -6834,9 +7222,11 @@ def main() -> int:
     moe = phase_lm_moe(torch, dev, name_limit)
     vision_audio = phase_lm_vision_audio(torch, dev, name_limit)
     lm_train, bwd_entry, ssd_bwd = phase_lm_train(torch, dev, name_limit)
+    _, wide_entries = phase_lm_train_wide(torch, dev, name_limit,
+                                          bwd_entry["sweep"])
     phase_accuracy(torch, name_limit)
     entries.extend((bwd_entry, ssd_bwd, *moe["entries"],
-                    *vision_audio["entries"]))
+                    *vision_audio["entries"], *wide_entries))
     path_launches = {
         "segment_aggregate": train["runs"]["packed"]["launches"],
         "dense_aggregate": train["runs"]["dense"]["launches"],
@@ -6848,7 +7238,8 @@ def main() -> int:
         "flash_attention_bwd": lm_train["train"]["launches"],
         "ssd_scan_bwd": lm_train["ssd_train"]["launches"],
         **{e["name"]: {e["name"]: e["launches"]}
-           for e in (*moe["entries"], *vision_audio["entries"])},
+           for e in (*moe["entries"], *vision_audio["entries"],
+                     *wide_entries)},
     }
     for e in entries:
         # each kernel's count from the path that carries it: GraphSAGE

@@ -201,8 +201,9 @@ class EdgeSoftmax(torch.autograd.Function):
 
 
 class FlashAttention(torch.autograd.Function):
-    """Masked softmax attention of q [B, Sq, H, D] over k, v [B, Skv, Hkv,
-    D] (``flash_attention``); the offsets and window are Python ints."""
+    """Masked softmax attention of q [B, Sq, H, D] over k [B, Skv, Hkv, D]
+    and v [B, Skv, Hkv, Dv] (``flash_attention``; Dv < D is MLA's); the
+    offsets and window are Python ints."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_offset, scale):

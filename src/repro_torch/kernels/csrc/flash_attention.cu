@@ -115,12 +115,14 @@
 //      writes the output itself (no merge).
 //
 // With an `lse` pointer (training: the backward in flash_attention_bwd.cu
-// recomputes p from it) the two Sq > 1 kernels also write each row's
+// recomputes p from it) the three Sq > 1 kernels also write each row's
 // log-sum-exp m + log(max(l, 1e-20)), natural log, float32 [B, H, Sq]: about
-// -1e30 for a row with no kept key, so the backward's p is its mask's 0. A
-// call with `lse` and Sq == 1 takes the Sq > 1 kernels, not the decode. A
-// null `lse` writes nothing more: the serving path launches what it did.
-// The lse, like the backward, takes only D <= 128 with Dv == D.
+// -1e30 for a row with no kept key, so the backward's p is its mask's 0
+// (the mma.sync kernel writes it from the CTA of O's first columns; every
+// CTA of a query tile holds the same m and l). A call with `lse` and Sq ==
+// 1 takes the Sq > 1 kernels, not the decode. A null `lse` writes nothing
+// more: the serving path launches what it did. The lse, like the backward,
+// takes D <= 192 (MLA's 192 / 128 over the full sequence) and any Dv <= D.
 //
 // Head dims: D <= 576 and Dv <= D, both multiples of 8 (the configs use 16,
 // 64, 80, 120, 128; MLA 192 / 128 and 576 / 512); the wrapper checks it.
@@ -139,7 +141,8 @@
 namespace {
 
 constexpr int kMaxD = 576;        // q / k head dim; v's is at most D
-constexpr int kMaxTensorCoreD = 128;  // the wgmma route, the lse
+constexpr int kMaxTensorCoreD = 128;  // the wgmma route
+constexpr int kMaxTrainD = 192;       // the lse (training)
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -1043,6 +1046,11 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(FlashArgs a) {
   }
   const float inv0 = 1.0f / fmaxf(l0, 1e-20f), inv1 = 1.0f / fmaxf(l1, 1e-20f);
   const int qr = q0 + warp * 16 + g;
+  if (a.lse != nullptr && blockIdx.z == 0 && t4 == 0) {   // m in log2 units
+    float* const lb = a.lse + (static_cast<long long>(bi) * a.h + hi) * a.sq;
+    if (qr < a.sq) lb[qr] = m0 * kLn2 + logf(fmaxf(l0, 1e-20f));
+    if (qr + 8 < a.sq) lb[qr + 8] = m1 * kLn2 + logf(fmaxf(l1, 1e-20f));
+  }
   const long long rs = static_cast<long long>(a.h) * a.dv;
   __nv_bfloat16* const ob = static_cast<__nv_bfloat16*>(a.out) +
                             (static_cast<long long>(bi) * a.sq + qr) * rs +
@@ -1560,9 +1568,9 @@ extern "C" {
 // B * H * n_splits * (Dv + 2) floats when n_splits > 1. Returns 0, a
 // cudaError_t, or -CUresult when a TMA descriptor could not be encoded
 // (-1000: no cuTensorMapEncodeTiled entry point was found).
-// `lse`: null, or [B, H, Sq] float32 for each row's log-sum-exp (D <= 128
-// and Dv == D only); with it Sq == 1 takes the Sq > 1 kernels, and with
-// Skv == 0 it is not written.
+// `lse`: null, or [B, H, Sq] float32 for each row's log-sum-exp (D <= 192);
+// with it Sq == 1 takes the Sq > 1 kernels, and with Skv == 0 it is not
+// written.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     void* scratch, void* lse, int dtype, int b, int sq,
                     int skv, int h, int hkv, int d, int dv, float scale,
@@ -1572,7 +1580,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   if (b <= 0 || sq <= 0 || h <= 0) return 0;
   if (d <= 0 || d > kMaxD || d % 8 != 0 || dv <= 0 || dv > d ||
       dv % 8 != 0 || hkv <= 0 || h % hkv != 0 || skv < 0 ||
-      (lse != nullptr && (d > kMaxTensorCoreD || dv != d)))
+      (lse != nullptr && d > kMaxTrainD))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t elem = dtype == 1 ? 2 : 4;

@@ -22,8 +22,9 @@ dtype and D (the source's header says why):
   :func:`decode_split_plan`, then a log-sum-exp merge of the splits.
 
 ``with_lse=True`` (training) also returns each row's log-sum-exp, written
-by the two ``Sq > 1`` kernels (a one-row call then takes them too); it
-and the backward take ``D <= 128`` with ``Dv == D`` only.
+by the three ``Sq > 1`` kernels (a one-row call then takes them too); it
+and the backward take ``D <= 192`` (MLA's 192 over Dv 128 over the full
+sequence) with any ``Dv <= D``.
 
 :func:`flash_attention_bwd_cuda` runs ``csrc/flash_attention_bwd.cu``,
 the gradient: the custom VJP's ``bwd`` of the JAX package's
@@ -57,8 +58,8 @@ from .segment_spmm import (_check, _check_dims, _count, _cuda_device,
 #: head dims the kernel takes: D % 8 == 0 and D <= _MAX_D, Dv % 8 == 0
 #: and Dv <= D
 _MAX_D = 576
-#: the log-sum-exp and the backward: D <= _MAX_D_TRAIN and Dv == D
-_MAX_D_TRAIN = 128
+#: the log-sum-exp and the backward: D <= _MAX_D_TRAIN (and Dv <= D)
+_MAX_D_TRAIN = 192
 #: gridDim.y carries batch × heads
 _MAX_BH = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -148,7 +149,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:func:`decode_split_plan`'s ``waves``; 0 runs one split).
     ``with_lse`` returns ``(out, lse)``, lse [B, H, Sq] float32 as
     :func:`~repro_torch.kernels.ref.flash_attention_ref` gives it
-    (``D <= 128`` and ``Dv == D`` only).
+    (``D <= 192``).
 
     ``launches`` counts calls: one per call that reaches the card, also a
     decode call whose C entry launches the split pass and the merge.
@@ -170,9 +171,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dv % 8 or not 0 < dv <= d:
         raise ValueError(f"v's head dim {dv} is not a multiple of 8 in "
                          f"[8, {d}] (q's head dim)")
-    if with_lse and (d > _MAX_D_TRAIN or dv != d):
-        raise ValueError(f"with_lse takes D <= {_MAX_D_TRAIN} with Dv == D, "
-                         f"got D={d}, Dv={dv} (ROADMAP A14b-3)")
+    if with_lse and d > _MAX_D_TRAIN:
+        raise ValueError(f"with_lse takes D <= {_MAX_D_TRAIN}, got D={d}")
     if hkv == 0 or h % hkv:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     if b * h > _MAX_BH:
@@ -244,26 +244,32 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_cuda` on
     the card (``csrc/flash_attention_bwd.cu``).
 
-    q, out, dout: [B, Sq, H, D]; k, v: [B, Skv, Hkv, D], all float32 or
-    all bfloat16, contiguous, 16-byte aligned; lse: [B, H, Sq] float32
-    (``flash_attention_cuda(..., with_lse=True)``'s). The masks and
-    offsets are the forward's. Returns dq, dk, dv in the inputs' dtype; dk
-    and dv of a kv head are summed over its query heads. ``launches``
-    counts calls (each launches three kernels: delta, dk / dv, dq).
+    q: [B, Sq, H, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, Dv]; out,
+    dout: [B, Sq, H, Dv] (``D`` and ``Dv`` multiples of 8 with ``Dv <= D
+    <= 192``), all float32 or all bfloat16, contiguous, 16-byte aligned;
+    lse: [B, H, Sq] float32 (``flash_attention_cuda(..., with_lse=True)``'s).
+    The masks and offsets are the forward's. Returns dq, dk, dv in the
+    inputs' dtype, shaped as q, k and v; dk and dv of a kv head are summed
+    over its query heads. ``launches`` counts calls (each launches three
+    kernels: delta, dk / dv, dq).
     """
     refuse_grad("flash_attention_bwd", q, k, v, out, lse, dout)
     dev = _cuda_device(q)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be [B, S, H, D], got {tuple(q.shape)} "
                          f"and {tuple(k.shape)}")
+    if v.dim() != 4:
+        raise ValueError(f"v must be [B, S, H, Dv], got {tuple(v.shape)}")
     b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if d % 8 or not 0 < d <= _MAX_D_TRAIN:
         raise ValueError(f"head dim {d} is not a multiple of 8 in [8, "
-                         f"{_MAX_D_TRAIN}] (the backward at larger head "
-                         f"dims is ROADMAP A14b-3)")
+                         f"{_MAX_D_TRAIN}]")
+    if dv % 8 or not 0 < dv <= d:
+        raise ValueError(f"v's head dim {dv} is not a multiple of 8 in "
+                         f"[8, {d}] (q's head dim)")
     if hkv == 0 or h % hkv:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     if b * h > _MAX_BH:
@@ -271,9 +277,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{_MAX_BH}")
     _check_dims(BSHD=b * sq * h * d, BSKD=b * skv * hkv * d)
     for t, name, shape in ((q, "q", (b, sq, h, d)), (k, "k", (b, skv, hkv, d)),
-                           (v, "v", (b, skv, hkv, d)),
-                           (out, "out", (b, sq, h, d)),
-                           (dout, "dout", (b, sq, h, d))):
+                           (v, "v", (b, skv, hkv, dv)),
+                           (out, "out", (b, sq, h, dv)),
+                           (dout, "dout", (b, sq, h, dv))):
         _check(t, name, q.dtype, shape, dev)
     _check(lse, "lse", torch.float32, (b, h, sq), dev)
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
@@ -281,19 +287,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     _check_offsets(sq, skv, q_offset, kv_offset, window)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     with torch.cuda.device(dev):
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        dq, dk, dv_out = (torch.empty_like(t) for t in (q, k, v))
         delta = torch.empty((b, h, sq), device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry("flash_attention_bwd")(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
-            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _DTYPES[q.dtype], b,
-            sq, skv, h, hkv, d, scale, int(causal), int(window), q_offset,
-            kv_offset, stream)
+            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv_out), _DTYPES[q.dtype],
+            b, sq, skv, h, hkv, d, dv, scale, int(causal), int(window),
+            q_offset, kv_offset, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel flash_attention_bwd was not "
                            f"launched: cudaError_t {rc}")
     _count(flash_attention_bwd_cuda)
-    return dq, dk, dv
+    return dq, dk, dv_out
 
 
 flash_attention_bwd_cuda.launches = 0

@@ -447,6 +447,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of :func:`flash_attention_ref` — the
     custom VJP's ``bwd`` of ``_make_flash`` (``repro/models/layers.py``),
     over the same chunk loop: for each key chunk, each query chunk in turn.
+    v, ``out`` and ``dout`` are ``Dv`` wide, q and k ``D`` (MLA: Dv < D).
 
     ``out`` and ``lse`` are the forward's output and log-sum-exp, ``dout``
     the output's gradient. With ``delta = Σ dout·out`` per row, ``p =
@@ -457,17 +458,17 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs); the gradients come back in the inputs' dtypes.
     """
     b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
     rep = h // hkv
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     acc = _acc_dtype(q)
     qf = q.to(acc).reshape(b, sq, hkv, rep, d)
-    dof = dout.to(acc).reshape(b, sq, hkv, rep, d)
+    dof = dout.to(acc).reshape(b, sq, hkv, rep, dv_dim)
     kf, vf = k.to(acc), v.to(acc)
     lsef = lse.to(acc).reshape(b, hkv, rep, sq)
     delta = torch.einsum("bqgrv,bqgrv->bgrq", dof,
-                         out.to(acc).reshape(b, sq, hkv, rep, d))
+                         out.to(acc).reshape(b, sq, hkv, rep, dv_dim))
     rows_all = q_offset + torch.arange(sq, device=q.device)
     cols_all = kv_offset + torch.arange(skv, device=q.device)
     dq = torch.zeros_like(qf)

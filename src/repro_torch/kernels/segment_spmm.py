@@ -95,7 +95,7 @@ _SIGNATURES = {
                         [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_I] * 8
                         + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd",
-                            [_P] * 10 + [_I] * 7 + [ctypes.c_float]
+                            [_P] * 10 + [_I] * 8 + [ctypes.c_float]
                             + [_I] * 4 + [_P]),
     "ssd_scan_smem": ("ssd_scan", [_I, _I, _I, _I]),
     "ssd_scan_occupancy": ("ssd_scan", [_I, _I, _I, _I, _P]),

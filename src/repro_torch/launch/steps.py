@@ -37,31 +37,25 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
     gradients, and ``optimizer.update`` (default :func:`default_optimizer`).
 
     ``batch`` holds ``tokens`` and ``labels`` [B, S] (and optionally
-    ``loss_mask``). ``microbatches > 1`` splits its leading axis, sums the
+    ``loss_mask``), with ``vision_embeds`` [B, vision_tokens,
+    vision_dim] for a cross-attention config; an audio-frame encoder
+    takes ``features`` [B, S, d_model] in place of ``tokens``.
+    ``microbatches > 1`` splits every key's leading axis, sums the
     microbatches' gradients in float32 and divides by their number; the
     metrics are then the last microbatch's and ``loss`` the mean. With one
     microbatch the gradients come in the parameters' dtype, as
     ``jax.value_and_grad`` gives them. ``metrics["loss"]`` is the loss.
     The parameters and optimizer state are returned as new trees; the
-    inputs are not written. The dense attention, Mamba2 and hybrid blocks
-    train (attention through the flash backward, Mamba2 and hybrid
-    through the SSD scan's); an MoE, MLA, cross-attention or audio
-    config raises naming A14b-3, ``compress_grads=True`` A14d.
+    inputs are not written. Every config trains: attention (dense, MLA,
+    cross) through the flash backward, MoE through autograd of its
+    dispatch, Mamba2 and hybrid through the SSD scan's backward;
+    ``compress_grads=True`` raises naming A14d.
     """
     if compress_grads:
         raise NotImplementedError(
             "compress_grads sums int8 gradients over a 'pod' mesh axis; "
             "sharding and launch are not ported yet (ROADMAP A14d)")
     lm.check_supported(cfg)
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training mixture-of-experts and MLA configs is not "
-            f"ported yet (the flash backward at MLA's head dims; ROADMAP "
-            f"A14b-3)")
-    if cfg.cross_attn_every or cfg.frontend == "audio_frames":
-        raise NotImplementedError(
-            f"{cfg.name}: training cross-attention and audio-frame configs "
-            f"is not ported yet (ROADMAP A14b-3)")
     optimizer = optimizer or default_optimizer()
 
     def value_and_grad(params, batch):
@@ -93,10 +87,13 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
         return lsum / microbatches, metrics, grads
 
     def train_step(params, opt_state, step, batch):
-        loss, metrics, grads = compute_grads(params, batch)
+        out = list(compute_grads(params, batch))
+        loss, metrics = out[0], out[1]
         with torch.no_grad():
+            # the gradients' one reference goes to the update, which drops
+            # each once its leaf is updated
             new_params, new_opt = optimizer.update(step, opt_state, params,
-                                                   grads)
+                                                   out.pop())
         metrics = dict(metrics)
         metrics["loss"] = loss
         return new_params, new_opt, step + 1, metrics

@@ -24,8 +24,12 @@ dispatches and combines with torch ops, as the JAX package does outside
 any Pallas kernel; its expert products are batched matrix products.
 Cross-attention (llama-3.2-vision's every fifth layer) takes its keys
 and values from a vision memory, with no RoPE and no causal mask, on the
-same flash kernel. Training MoE, MLA and cross-attention is ROADMAP
-A14b-3, the expert- and tensor-parallel MoE forms A14d.
+same flash kernel. All of them train: MLA's full-sequence form through
+the flash backward at its D 192 over Dv 128, the MoE block through
+autograd of its torch ops (the router's softmax carries the combine
+weights' and the load-balance loss's gradients; dropped replicas get
+exactly 0), the cross layer's ``wk`` / ``wv`` through the memory's K and
+V. The expert- and tensor-parallel MoE forms are ROADMAP A14d.
 
 On the meta device (a trace by ``repro_torch.core.tracer``, which the
 dataset factory's LM entries take) the steps run as the JAX package's

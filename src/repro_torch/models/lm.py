@@ -32,9 +32,12 @@ is read with ``unbind`` (:func:`_unstack`) on that path too, so its
 backward stacks the layers' gradients once. Mamba2 and hybrid configs
 train through the SSD scan's backward kernel (``ops.ssd_scan_train``).
 :func:`forward` sums each layer's MoE load-balance loss as the reference
-does, and :func:`loss_fn` adds ``aux_weight`` times it; training MoE,
-MLA, cross-attention and audio configs is ROADMAP A14b-3
-(``launch.steps.make_train_step`` refuses them).
+does, and :func:`loss_fn` adds ``aux_weight`` times it. Every config
+trains: MoE and MLA decoders, the cross-attention groups (the memory
+``vision_embeds`` is an input: its gradient is not taken) and the audio
+encoder, whose batch is ``features`` [B, S, d_model] with ``labels``
+[B, S], as the reference's ``input_specs`` give an encoder's train
+cell.
 
 :func:`decode_step` updates the cache that :func:`init_cache` made IN
 PLACE (the JAX package's update is functional) and returns it. A cross

@@ -16,7 +16,17 @@ dtype (``torch.bfloat16`` halves their memory); the update still computes
 in float32 and rounds the new states once.
 
 ``update`` returns new trees and never writes into its inputs; call it
-under ``torch.no_grad()``.
+under ``torch.no_grad()``. AdamW updates a leaf of more than
+``_SLICE_ELEMS`` elements a flat slice at a time, into new tensors
+allocated once: the update is elementwise, so the values are the same
+bits, and its float32 temporaries stay at 256 MiB each where a whole
+expert stack's would be 5–6 GB (deepseek-v2's [160, 5120, 1536],
+grok-1's [8, 6144, 32768], each behind a stack's leading axis of 1). It
+also drops each gradient once its leaf is updated: a caller that hands
+over the only reference to the gradients (``launch.steps``' train step
+does) holds at most the old and the new parameters and states and the
+gradients not yet used, which is what lets deepseek-v2's full width
+train in 80 GB.
 """
 from __future__ import annotations
 
@@ -27,6 +37,9 @@ import torch
 
 Params = Any
 OptState = Dict[str, Any]
+#: AdamW's largest slice of a leaf, in elements (float32 temporaries of
+#: 256 MiB)
+_SLICE_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +60,17 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def tree_unflatten(tree, leaves):
     """``leaves`` (an iterable, in :func:`tree_leaves` order) placed in the
     structure of ``tree``."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(tree)
+
+def _build(t, it):
+    # a plain recursion: a nested function that calls itself through its
+    # own closure is a reference cycle, which kept ``leaves`` (a train
+    # step's gradients, 10.7 GB for deepseek-v2 at full width) alive until
+    # the garbage collector ran
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -107,6 +124,20 @@ def adamw(lr: Union[Callable, float], b1: float = 0.9, b2: float = 0.999,
         bc2 = 1.0 - b2 ** t
 
         def upd(p, g, m, v):
+            n = _SLICE_ELEMS
+            if p.numel() <= n:
+                return upd_slice(p, g, m, v)
+            outs = tuple(torch.empty(p.shape, dtype=dt, device=p.device)
+                         for dt in (p.dtype, state_dtype or m.dtype,
+                                    state_dtype or v.dtype))
+            flat = [t.reshape(-1) for t in (p, g, m, v)]
+            for i in range(0, p.numel(), n):
+                part = upd_slice(*(t[i:i + n] for t in flat))
+                for o, x in zip(outs, part):
+                    o.view(-1)[i:i + n] = x
+            return outs
+
+        def upd_slice(p, g, m, v):
             # the reference's expressions, in place on float32 temporaries
             # (a [36, 2048, 11008] stack's would be 3.2 GB each)
             if scale is not None:
@@ -126,10 +157,21 @@ def adamw(lr: Union[Callable, float], b1: float = 0.9, b2: float = 0.999,
             newp = (p.to(torch.float32) - step_).to(p.dtype)
             return newp, new_m, new_v
 
-        out = tree_map(upd, params, grads, state["m"], state["v"])
+        # a leaf at a time; each gradient is dropped once its leaf is
+        # updated, so a tree handed over as the only reference (as
+        # make_train_step hands it) is freed leaf by leaf
+        gl = tree_leaves(grads)
+        del grads
+        out = []
+        for i, (p, m, v) in enumerate(zip(tree_leaves(params),
+                                          tree_leaves(state["m"]),
+                                          tree_leaves(state["v"]))):
+            g, gl[i] = gl[i], None
+            out.append(upd(p, g, m, v))
+            del g
 
         def pick(i):
-            return tree_map(lambda o: o[i], out)
+            return tree_unflatten(params, [o[i] for o in out])
         return pick(0), {"m": pick(1), "v": pick(2)}
 
     return Optimizer(init=init, update=update)

@@ -11,7 +11,7 @@ products against torch's) through 2–4 layers and a vocabulary-wide head
 — and the greedy tokens of ``make_prefill_step`` + ``make_serve_step``
 must equal JAX's. Also: every config and its ``param_count()`` equal the
 JAX package's, the cross-attention and audio archs build, cache and run
-forward while their training raises naming ROADMAP A14b-3, the cross
+forward and take a train step, the cross
 layer takes its keys from the vision memory, and ``init_params`` wants a
 card unless asked for the CPU. The MoE and MLA archs (deepseek-v2,
 grok-1) are held to the JAX package in ``tests/test_torch_lm_moe_mla.py``,
@@ -171,12 +171,12 @@ def test_init_params_needs_a_card_unless_asked(monkeypatch):
 
 @pytest.mark.parametrize("arch", VISION_AUDIO)
 def test_unported_blocks_raise(arch):
-    """What stays unported of the cross-attention and audio archs is their
-    training, which raises naming ROADMAP A14b-3; their parameters, caches
-    and forward run (they raised naming A14c-3 until it was ported)."""
+    """Nothing of the cross-attention and audio archs stays unported:
+    their parameters, caches and forward run (they raised naming A14c-3
+    until it was ported), and so does a train step (it raised naming
+    A14b-3 until training was ported), whose batch carries the vision
+    memory or the frames beside the labels."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A14b-3"):
-        steps.make_train_step(cfg)
     params = lm.init_params(cfg, seed=0, device="cpu")
     assert ("frontend_proj" in params) == (cfg.frontend == "audio_frames")
     assert ("embed" in params) != ("frontend_proj" in params)
@@ -194,6 +194,13 @@ def test_unported_blocks_raise(arch):
     logits, aux = lm.forward(params, cfg, inputs)
     assert logits.shape == (1, 8, cfg.vocab) and float(aux) == 0.0
     assert bool(torch.isfinite(logits).all())
+    opt = steps.default_optimizer()
+    batch = dict(inputs, labels=torch.as_tensor(_tokens(cfg, 1, 8, 1)))
+    new, _, step, m = steps.make_train_step(cfg, opt)(
+        params, opt.init(params), 0, batch)
+    assert step == 1 and bool(torch.isfinite(m["loss"]))
+    assert not torch.equal(new["final_norm"]["scale"],
+                           params["final_norm"]["scale"])
 
 
 # ---------------------------------------------------------------------------

@@ -222,8 +222,9 @@ def test_decode_split_ref_at_dv(case):
 
 def test_wrapper_refuses_head_dims_it_does_not_take(monkeypatch):
     """Checked before the card is touched: Dv > D, Dv not a multiple of 8,
-    D past 576; the log-sum-exp and the backward stay at D <= 128 with
-    Dv == D (ROADMAP A14b-3)."""
+    D past 576; the log-sum-exp and the backward past D = 192, and the
+    backward at Dv > D or Dv not a multiple of 8 (until MLA trained, both
+    stayed at D <= 128 with Dv == D)."""
     monkeypatch.setattr(fa, "_cuda_device",
                         lambda t: torch.device("cuda", 0))
     meta = lambda *s: torch.zeros(s, device="meta")  # noqa: E731
@@ -234,14 +235,20 @@ def test_wrapper_refuses_head_dims_it_does_not_take(monkeypatch):
     big = meta(1, 4, 2, 584)
     with pytest.raises(ValueError, match="head dim 584"):
         fa.flash_attention_cuda(big, big, big, causal=True)
+    wide = meta(1, 4, 2, 200)
+    with pytest.raises(ValueError, match="with_lse takes D <= 192"):
+        fa.flash_attention_cuda(wide, wide, meta(1, 4, 2, 128), causal=True,
+                                with_lse=True)
+    lse = meta(1, 2, 4)
+    with pytest.raises(ValueError, match=r"head dim 200 .*\[8, 192\]"):
+        fa.flash_attention_bwd_cuda(wide, wide, wide, wide, lse, wide,
+                                    causal=True)
     q = k = meta(1, 4, 2, 192)
     v = meta(1, 4, 2, 128)
-    with pytest.raises(ValueError, match="with_lse.*A14b-3"):
-        fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
-    with pytest.raises(ValueError, match="with_lse.*A14b-3"):
-        fa.flash_attention_cuda(q, k, q, causal=True, with_lse=True)
-    with pytest.raises(ValueError, match="A14b-3"):
-        fa.flash_attention_bwd_cuda(q, k, q, q, meta(1, 2, 4), q,
+    with pytest.raises(ValueError, match="v's head dim 200"):
+        fa.flash_attention_bwd_cuda(q, k, wide, wide, lse, wide, causal=True)
+    with pytest.raises(ValueError, match="v's head dim 20 "):
+        fa.flash_attention_bwd_cuda(q, k, meta(1, 4, 2, 20), v, lse, v,
                                     causal=True)
 
 
@@ -658,14 +665,14 @@ def test_greedy_serving_matches_jax(jx, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_traces_and_training_refuse_moe_and_mla(arch):
-    """The serving entry points and a trace take both archs (the trace
-    refused them, naming A14c-2, until their graph forms were ported);
-    training names A14b-3, at the smoke and the full config."""
+    """The serving entry points, a trace and training take both archs
+    (the trace refused them, naming A14c-2, until their graph forms were
+    ported, and training, naming A14b-3, until it was), at the smoke and
+    the full config."""
     for cfg in (get_smoke_config(arch), get_config(arch)):
         lm.check_supported(cfg)
         lm.param_specs(cfg)
-        with pytest.raises(NotImplementedError, match="A14b-3"):
-            steps.make_train_step(cfg)
+        assert callable(steps.make_train_step(cfg))
     steps.make_prefill_step(cfg, 8)
     steps.make_serve_step(cfg)
 

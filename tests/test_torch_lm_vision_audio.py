@@ -27,8 +27,10 @@ seeded numpy inputs go through ``repro.models`` and the port:
   ``vision_embeds`` spec and hubert's ``features`` spec;
 * the dataset factory's shards of a plan with llama-3.2-vision LM
   entries, byte for byte the JAX factory's;
-* the entry points that stay refused: training both archs (ROADMAP
-  A14b-3), and a prefill or serve step of the encoder-only hubert.
+* the entry points: training both archs is taken (a train step's loss
+  against the reference's ``loss_fn``; the full comparison is
+  ``tests/test_torch_lm_train_wide.py``'s), a prefill or serve step of
+  the encoder-only hubert stays refused.
 
 On a card (marked ``cuda``): B8 against its twin at the three shapes the
 two archs give it (a non-causal prefill of text rows over vision keys,
@@ -385,10 +387,24 @@ def test_factory_shards_with_vision_entries_match_reference(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_refuses_naming_a14b3(arch):
-    for cfg in (get_smoke_config(arch), get_config(arch)):
-        with pytest.raises(NotImplementedError, match="A14b-3"):
-            steps.make_train_step(cfg)
+def test_training_refuses_naming_a14b3(jx, arch):
+    """Training both archs was refused naming A14b-3 until it was ported:
+    the full and smoke configs build a train step, and the smoke one's
+    first loss is the reference's ``loss_fn`` on the same batch."""
+    jnp = jx["jnp"]
+    assert callable(steps.make_train_step(get_config(arch)))
+    cfg = get_smoke_config(arch)
+    batch = _inputs(cfg, 2, 12, 71)
+    batch["labels"] = np.random.default_rng(72).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32)
+    want, _ = jx["lm"].loss_fn(_jax_tree(arch)[0], jx["get"](arch),
+                               {k: jnp.asarray(v) for k, v in batch.items()})
+    params = _port_params(arch)
+    opt = steps.default_optimizer()
+    _, _, _, m = steps.make_train_step(cfg, opt)(
+        params, opt.init(params), 0,
+        {k: torch.as_tensor(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(m["loss"]), float(want), rtol=ATOL)
 
 
 def test_encoder_has_no_prefill_or_serve_step():
