@@ -574,6 +574,9 @@ LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = (
 LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ = 2, 2, 128
 LM_TRAIN_PARITY_STEPS, LM_TRAIN_PARITY_LR = 2, 1e-4
 BWD_F32_TOL, BWD_BF16_TOL, LM_TRAIN_LOSS_RTOL = 1e-5, 2e-2, 1e-4
+#: flash_attention_bwd.cu's kernels by profiler name (sum_kernel: the bf16
+#: route's head splits' sum)
+FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel", "sum_kernel")
 #: lm_train's SSD archs: the full run (mamba2-370m, the accuracy plan's
 #: other LM tracing: batch × sequence, LM_TRAIN_STEPS measured steps after
 #: one warm-up), the parity runs against the CPU ((arch, depth): zamba2 at
@@ -5028,14 +5031,25 @@ def build_facts(source: str, opcodes: tuple) -> dict:
     return facts
 
 
-def segment_build_facts(source: str = "segment_aggregate") -> dict:
+def segment_build_facts(source: str = "segment_aggregate",
+                        opcodes: tuple = ()) -> dict:
     """What ptxas reports for the kernels of a library that sums over a
     destination-sorted CSR (``csrc/segment_aggregate.cu``: the segmented
-    sums and the CSR build; ``gat_aggregate.cu``; ``edge_softmax.cu``) and
-    the atomics in its SASS; the run fails if any of them adds a float (a
-    ``RED`` or ``ATOM`` on an F16, F32 or F64): the sums take no float
-    atomic."""
+    sums and the CSR build; ``gat_aggregate.cu``; ``edge_softmax.cu``) or
+    in a fixed order (``flash_attention_bwd.cu``) and the atomics in its
+    SASS; the run fails if any of them adds a float (a ``RED`` or ``ATOM``
+    on an F16, F32 or F64): the sums take no float atomic. ``opcodes``:
+    SASS opcodes also counted under ``sass``, the run failing at a count
+    of 0 (``flash_attention_bwd``: ``HMMA``, or its bf16 route is not on
+    the tensor cores)."""
     facts, sass = built_sass(source)
+    if opcodes:
+        facts["sass"] = {op: len(re.findall(r"\b" + op + r"\b", sass))
+                         for op in opcodes}
+        if not all(facts["sass"].values()):
+            raise AssertionError(f"{source}: SASS counts {facts['sass']}: "
+                                 f"its tensor-core path is not on the "
+                                 f"instructions it was built for")
     ops = re.findall(r"\b(?:RED|ATOMG|ATOMS|ATOM)\b[\w.]*", sass)
     floats = [op for op in ops if re.search(r"\.(?:BF16|F16|F32|F64)", op)]
     facts["sass_atomics"] = len(ops)
@@ -6481,6 +6495,7 @@ def flash_bwd_entry(torch, dev) -> dict:
     nbytes = 2.0 * (3 * q.numel() + 2 * out.numel() + 3 * k.numel()) \
         + 4.0 * lse.numel()
     bound = bound_ms(10.0 * d * kept, nbytes, PEAK_BF16_FLOPS)
+    floor = bwd_floor_ms(10.0 * d * kept, d, d, nbytes)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/layers.py:162",
@@ -6488,7 +6503,8 @@ def flash_bwd_entry(torch, dev) -> dict:
                              "_make_flash, jnp that XLA compiles",
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": library_ms,
+            "bound_by": bound[1], "floor_ms": floor,
+            "floor_note": FLOOR_NOTE, "library_ms": library_ms,
             "library_note": library_note, "fwd_bwd_ms": fwd_bwd_ms,
             "fwd_bwd_note": "this port's forward with lse + backward, the "
                             "like-for-like yardstick to library_ms",
@@ -6496,7 +6512,64 @@ def flash_bwd_entry(torch, dev) -> dict:
                     f"{d}] bf16, causal",
             "device_us_by_kernel": us,
             "sweep": sweep,
-            "build": segment_build_facts("flash_attention_bwd")}
+            "plan": flash_bwd_plan_facts(
+                torch, [(case, "lm_train")]
+                + [(c, n) for n, _, c in WIDE_FLASH if "bwd" in n]),
+            "build": segment_build_facts("flash_attention_bwd", ("HMMA",))}
+
+
+#: the bwd entries' floor_ms
+FLOOR_NOTE = ("the design's own floor: its two kernels each recompute s and "
+              "dout·v, 2 (4 D + 3 Dv) flops a kept pair against the "
+              "bound's 2 (3 D + 2 Dv) (7 / 5 at D = Dv), at the bf16 peak, "
+              "or the bound's bytes")
+
+
+def bwd_floor_ms(flops: float, d: int, dv: int, nbytes: float) -> float:
+    """The least time of ``flash_attention_bwd.cu``'s design for work whose
+    bound is ``flops`` (the custom VJP's five products) and ``nbytes``:
+    its seven products, ``(4 D + 3 Dv) / (3 D + 2 Dv)`` of the flops."""
+    return bound_ms(flops * (4 * d + 3 * dv) / (3 * d + 2 * dv), nbytes,
+                    PEAK_BF16_FLOPS)[0]
+
+
+def flash_bwd_plan_facts(torch, cases) -> list:
+    """For each ``(case, what)``: the bf16 backward's instance and tiles
+    (``flash_bwd_plan``), its dynamic shared memory a dk / dv and a dq
+    block (the plan's and the library's, which must agree), the blocks an
+    SM of each (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and
+    the head splits (``flash_bwd_splits``) on this card."""
+    import ctypes
+    from repro_torch.kernels.flash_attention import (_sm_count,
+                                                     flash_bwd_plan,
+                                                     flash_bwd_splits)
+    from repro_torch.kernels.segment_spmm import _entry
+    out = []
+    for case, what in cases:
+        b, _, skv, h, hkv, d, dv = case[:7]
+        plan = flash_bwd_plan(d, dv, torch.bfloat16)
+        row = {"what": what, "d": d, "dv": dv, "instance": [plan.d_max,
+                                                           plan.dv_max],
+               "bq": plan.bq, "bkq": plan.bkq,
+               "n_split": flash_bwd_splits(b, skv, h, hkv, torch.bfloat16,
+                                           _sm_count(0))}
+        for which, kname in enumerate(("dkdv", "dq")):
+            smem = _entry("flash_attention_bwd_smem")(1, d, dv, which)
+            want = plan.dkdv_smem if which == 0 else plan.dq_smem
+            if smem != want:
+                raise AssertionError(f"flash_attention_bwd {kname} at D {d} "
+                                     f"/ Dv {dv}: flash_bwd_plan says {want} "
+                                     f"bytes, the library {smem}")
+            blocks = ctypes.c_int(0)
+            rc = _entry("flash_attention_bwd_occupancy")(
+                1, d, dv, which, ctypes.addressof(blocks))
+            if rc != 0:
+                raise AssertionError(f"flash_attention_bwd occupancy: "
+                                     f"cudaError_t {rc}")
+            row[f"{kname}_smem"] = smem
+            row[f"{kname}_blocks_an_sm"] = blocks.value
+        out.append(row)
+    return out
 
 
 def lm_train_launch_rule(cfg, steps: int, remat: bool) -> dict:
@@ -7015,6 +7088,18 @@ def wide_flash_entries(torch, dev, launches: dict) -> list:
         ms = time_eager_ms(torch, kern, calls=calls, reps=5)
         plain_ms = time_eager_ms(torch, plain, calls=1, reps=3)
         bound = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        extra = {}
+        if not train:
+            extra = {"floor_ms": bwd_floor_ms(flops, d, dv, nbytes),
+                     "floor_note": FLOOR_NOTE,
+                     "fwd_bwd_ms": time_eager_ms(
+                         torch, lambda: flash_attention_bwd_cuda(
+                             q, k, v, *flash_attention_cuda(
+                                 q, k, v, with_lse=True, **kw), g, **kw),
+                         calls=calls, reps=5),
+                     "fwd_bwd_note": "this port's forward with lse + "
+                                     "backward, the like-for-like yardstick "
+                                     "to library_ms"}
         out.append({
             "name": name, "route": "cuda",
             "source": ("src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -7027,7 +7112,7 @@ def wide_flash_entries(torch, dev, launches: dict) -> list:
                                  "of _make_flash, jnp that XLA compiles"}),
             "launches": launches.get(name, 0), "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": library_ms,
+            "bound_by": bound[1], **extra, "library_ms": library_ms,
             "library_note": lib_note, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6,
             "unit": f"q [{b}, {sq}, {h}, {d}] over k [{b}, {skv}, {hkv}, "
@@ -7083,7 +7168,7 @@ def phase_lm_train_wide(torch, dev, name_limit: str, sweep: dict) -> tuple:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         runs[arch] = lm_train_full(
             torch, dev, cfg, batch, seq, LM_SEED + 40 + len(runs),
-            ("delta_kernel", "dkdv_kernel", "dq_kernel"),
+            FLASH_BWD_KERNELS,
             steps=WIDE_TRAIN_STEPS)
         if cfg.cross_attn_every:
             got = runs[arch]["flash_launches_by_shape"]
@@ -7115,7 +7200,8 @@ def phase_lm_train_wide(torch, dev, name_limit: str, sweep: dict) -> tuple:
            "bwd_cases": wide, "parity": parity, "train": runs,
            "entries": {e["name"]: {k: e[k] for k in
                                    ("launches", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")}
+                                    "floor_ms", "bound_by", "library_ms",
+                                    "fwd_bwd_ms") if k in e}
                        for e in entries},
            "seconds": time.perf_counter() - t0}
     emit(out)
@@ -7147,7 +7233,7 @@ def phase_lm_train(torch, dev, name_limit: str) -> tuple:
         torch.cuda.empty_cache()
     train = lm_train_full(torch, dev, lm_train_config(), LM_TRAIN_BATCH,
                           LM_TRAIN_SEQ, LM_SEED + 20,
-                          ("delta_kernel", "dkdv_kernel", "dq_kernel"))
+                          FLASH_BWD_KERNELS)
     ssd_train = lm_train_full(
         torch, dev, lm_train_config(LM_SSD_TRAIN_ARCH), LM_SSD_TRAIN_BATCH,
         LM_SSD_TRAIN_SEQ, LM_SEED + 30,

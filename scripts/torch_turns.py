@@ -41,6 +41,21 @@ one BODY:
   the LM entries' trace ms, and each graph-form check's error (B8, B9,
   and the MoE block where the checkout has it).
 
+* ``flash_bwd`` — the flash backward (``flash_attention_bwd_cuda``) at
+  the four bf16 shapes of ``chip_smoke.py``'s ``kernels`` entries
+  (qwen2.5-3b's training shape, and ``WIDE_FLASH``'s MLA, cross and
+  encoder shapes), seeded inputs: its ms (CUDA events around eager
+  calls), its device µs by kernel under ``torch.profiler``, this port's
+  forward with lse + backward, and ``scaled_dot_product_attention``
+  forward + backward on the same inputs (the same library call in both
+  turns: a check on the card's drift between turns).
+* ``lm_train`` — ``chip_smoke.lm_train_full`` for qwen2.5-3b and
+  mamba2-370m at ``lm_train``'s full size and for ``WIDE_TRAIN``'s
+  deepseek-v2, llama-3.2-vision and hubert-xlarge (bf16,
+  ``default_optimizer()``, remat): ms a step, tokens/s, peak memory,
+  the card's busy ms and the flash backward's device ms in the profiled
+  step.
+
 It prints one JSON line per turn. ``--pairs N`` runs N rounds of parent,
 this, this, parent. Two versions are compared only within one run of this
 script, on one card.
@@ -251,9 +266,79 @@ def body_factory(torch, _variants: str) -> dict:
                                  {}).get("cases", [])]}
 
 
+def body_flash_bwd(torch, _variants: str) -> dict:
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    cfg = cs.lm_train_config()
+    b, s = cs.LM_TRAIN_BATCH, cs.LM_TRAIN_SEQ
+    rows = [("flash_attention_bwd", (b, s, s, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.resolved_head_dim,
+                                     cfg.resolved_head_dim, True, 0, 0, 0))]
+    rows += [(n, c) for n, _, c in cs.WIDE_FLASH if "bwd" in n]
+    out = {}
+    for i, (name, case) in enumerate(rows):
+        kw = cs.bwd_kw(case)
+        q, k, v, g = cs.bwd_inputs(torch, "cuda", case, torch.bfloat16,
+                                   6300 + i)
+        o, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+
+        def kern():
+            return flash_attention_bwd_cuda(q, k, v, o, lse, g, **kw)
+
+        def fwd_bwd():
+            return flash_attention_bwd_cuda(
+                q, k, v, *flash_attention_cuda(q, k, v, with_lse=True, **kw),
+                g, **kw)
+        out[name] = {
+            "ms": cs.time_eager_ms(torch, kern, calls=5, reps=5),
+            "fwd_bwd_ms": cs.time_eager_ms(torch, fwd_bwd, calls=5, reps=5),
+            "sdpa_fwd_bwd_ms": cs.sdpa_train_ms(torch, q, k, v, g,
+                                                kw["causal"], calls=5)[0],
+            "device_us_by_kernel": cs.device_breakdown_us(
+                torch, {"b": kern}, reps=5)["b"]}
+        del q, k, v, g, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def body_lm_train(torch, _variants: str) -> dict:
+    import dataclasses
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    runs = [(cs.lm_train_config(), cs.LM_TRAIN_BATCH, cs.LM_TRAIN_SEQ,
+             cs.LM_TRAIN_STEPS),
+            (cs.lm_train_config(cs.LM_SSD_TRAIN_ARCH), cs.LM_SSD_TRAIN_BATCH,
+             cs.LM_SSD_TRAIN_SEQ, cs.LM_TRAIN_STEPS)]
+    for arch, layers, batch, seq in cs.WIDE_TRAIN:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        runs.append((cfg, batch, seq, cs.WIDE_TRAIN_STEPS))
+    out = {}
+    for i, (cfg, batch, seq, steps) in enumerate(runs):
+        r = cs.lm_train_full(torch, "cuda", cfg, batch, seq,
+                             cs.LM_SEED + 60 + i, cs.FLASH_BWD_KERNELS,
+                             steps=steps)
+        out[cfg.name] = {
+            "layers": cfg.n_layers, "batch": [batch, seq],
+            "ms_per_step": r["ms_per_step"], "step_ms": r["step_ms"],
+            "tokens_per_s": r["tokens_per_s"],
+            "max_memory_allocated": r["max_memory_allocated"],
+            "losses": r["losses"],
+            "step_device_busy_ms": r["step_device_busy_ms"],
+            "flash_bwd_device_ms": sum(r["bwd_device_ms_by_kernel"].values())
+            if cfg.block != "mamba2" else 0.0,
+            "bwd_device_ms_by_kernel": r["bwd_device_ms_by_kernel"]}
+        torch.cuda.empty_cache()
+    return out
+
+
 BODIES = {"bulk": body_bulk, "lm": body_lm, "lm_host": body_lm_host,
           "flash_host": body_flash_host, "train": body_train,
-          "factory": body_factory}
+          "factory": body_factory, "flash_bwd": body_flash_bwd,
+          "lm_train": body_lm_train}
 
 
 def turn(body: str, tree: str, variants: str) -> dict:

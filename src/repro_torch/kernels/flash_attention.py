@@ -29,8 +29,15 @@ sequence) with any ``Dv <= D``.
 :func:`flash_attention_bwd_cuda` runs ``csrc/flash_attention_bwd.cu``,
 the gradient: the custom VJP's ``bwd`` of the JAX package's
 ``_make_flash`` (no Pallas kernel), semantics those of
-:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`. Training reaches
-both through ``kernels.autograd.FlashAttention``.
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`. In bfloat16 its
+products run on the tensor cores (``mma.sync`` m16n8k16 from ``ldmatrix``
+fragments, p and ds rounded to bf16 before their products, float32 sums),
+in float32 on the FMA pipes; :func:`flash_bwd_plan` gives each call's
+instance and shared memory, and :func:`flash_bwd_splits` how the
+bfloat16 dk / dv kernel splits a group's query heads when a few kv heads
+leave the card short of blocks. Neither route uses atomics: two runs give
+the same bits. Training reaches both through
+``kernels.autograd.FlashAttention``.
 
 The choice is by dtype and shape, not a fallback: a launch that fails
 raises, and so does a tensor map that ``cuTensorMapEncodeTiled`` refuses.
@@ -40,8 +47,8 @@ only, checked for device, dtype (float32 or bfloat16, q, k and v alike),
 shape, contiguity and alignment; outputs and scratch allocated with
 ``torch.empty``; the launches on the current stream, one call counted
 once in ``launches`` (a decode call with more than one split launches two
-kernels, the split pass and the merge, and the backward three, and each
-still counts one); an input that requires grad while grad mode is on
+kernels, the split pass and the merge, and the backward three or four,
+and each still counts one); an input that requires grad while grad mode is on
 raises (use ``ops.flash_attention_train``).
 """
 from __future__ import annotations
@@ -60,6 +67,9 @@ from .segment_spmm import (_check, _check_dims, _count, _cuda_device,
 _MAX_D = 576
 #: the log-sum-exp and the backward: D <= _MAX_D_TRAIN (and Dv <= D)
 _MAX_D_TRAIN = 192
+#: the backward's blocks: keys a dk / dv block (either route), query rows a
+#: dq block
+_BWD_BK, _BWD_BQ_DQ = 64, 64
 #: gridDim.y carries batch × heads
 _MAX_BH = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -235,6 +245,89 @@ def _check_offsets(sq: int, skv: int, q_offset, kv_offset, window) -> None:
     _check_dims(q_end=abs(q_offset) + sq, kv_end=abs(kv_offset) + skv)
 
 
+class BwdPlan(NamedTuple):
+    """How ``csrc/flash_attention_bwd.cu`` blocks a call of head dims D,
+    Dv in one dtype."""
+    route: str         #: "tc" (bfloat16, mma.sync) or "fma" (float32)
+    d_max: int         #: the instance's widest D (its accumulators)
+    dv_max: int        #: and widest Dv
+    bq: int            #: query rows a dk / dv step
+    bkq: int           #: keys a dq tile
+    dkdv_smem: int     #: dynamic shared memory of a dk / dv block
+    dq_smem: int       #: and of a dq block
+    dkdv_opt_in: int   #: the instance's opt-in: its widest call's bytes
+    dq_opt_in: int
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def flash_bwd_plan(d: int, dv: int, dtype: torch.dtype) -> BwdPlan:
+    """The backward's route, instance, tiles and shared memory for q / k
+    head dim ``d`` and v head dim ``dv``, as the C entry
+    ``flash_attention_bwd_smem`` computes them.
+
+    bfloat16 (the tensor cores): four instances by the widest D and Dv
+    their registers hold — D ≤ 64, D ≤ 128, D ≤ 192 with Dv ≤ 128, and
+    D ≤ 192 — taking 64, 64, 32 and 16 query rows a dk / dv step and 64,
+    64, 32 and 32 keys a dq tile. Shared rows are D padded to a multiple
+    of 16 plus 8 bf16 wide; a dk / dv block holds its 64 keys of K and V
+    and two stages of the step's Q and dO rows and of their lse and delta
+    (``2 (pD + pDv)(64 + 2 bq) + 16 bq`` bytes, pX the row pitch), a dq
+    block its 64 rows of Q and dO and two stages of the tile's K and V
+    (``2 (pD + pDv)(64 + 2 bkq)``). float32 (the FMA pipes): 64-row and
+    64-key tiles in float32, ``4 (64 (2 D + 2 Dv + 8) + 2·64² + 128)``
+    bytes a dk / dv block and 16,384 fewer a dq block, in two instances
+    (D ≤ 128, D ≤ 192). Raises ``ValueError`` for dims the kernels do not
+    take.
+    """
+    if d % 8 or not 0 < d <= _MAX_D_TRAIN or dv % 8 or not 0 < dv <= d:
+        raise ValueError(f"D={d}, Dv={dv}: the backward takes multiples of "
+                         f"8 with Dv <= D <= {_MAX_D_TRAIN}")
+    if dtype == torch.float32:
+        def fma(dd, vv):
+            return 4 * (64 * (dd + 4) + 64 * (vv + 4) + 64 * (dd + vv)
+                        + 2 * 64 * 64 + 128)
+        wide = 128 if d <= 128 else 192
+        return BwdPlan("fma", wide, wide, 64, 64, fma(d, dv),
+                       fma(d, dv) - 4 * 64 * 64, fma(wide, wide),
+                       fma(wide, wide) - 4 * 64 * 64)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the backward takes float32 or bfloat16, got "
+                        f"{dtype}")
+    d_max = 64 if d <= 64 else 128 if d <= 128 else 192
+    dv_max = d_max if d_max < 192 or dv > 128 else 128
+    bq = 16 if dv_max > 128 else 32 if d_max > 128 else 64
+    bkq = 32 if d_max > 128 else 64
+
+    def dkdv(dd, vv):
+        return 2 * (_pad16(dd) + _pad16(vv) + 16) * (_BWD_BK + 2 * bq) \
+            + 16 * bq
+
+    def dq(dd, vv):
+        return 2 * (_pad16(dd) + _pad16(vv) + 16) * (_BWD_BQ_DQ + 2 * bkq)
+    return BwdPlan("tc", d_max, dv_max, bq, bkq, dkdv(d, dv), dq(d, dv),
+                   dkdv(d_max, dv_max), dq(d_max, dv_max))
+
+
+def flash_bwd_splits(b: int, skv: int, h: int, hkv: int,
+                     dtype: torch.dtype, sm_count: int) -> int:
+    """The head splits of the bfloat16 dk / dv kernel: 1, unless the
+    grouped query heads of a kv head (``h // hkv`` > 1) leave fewer than
+    two blocks an SM (``ceil(skv / 64) · b · hkv`` < 2 · ``sm_count``);
+    then as many as make up two an SM, at most the group, each taking
+    ``ceil(group / splits)`` heads and none empty. Each split's float32
+    partial dk / dv is summed in order by the C call's last launch.
+    float32 takes 1."""
+    group = h // hkv
+    blocks = -(-skv // _BWD_BK) * b * hkv
+    if dtype != torch.bfloat16 or group == 1 or blocks >= 2 * sm_count:
+        return 1
+    per = -(-group // min(group, -(-2 * sm_count // max(blocks, 1))))
+    return -(-group // per)
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
@@ -250,8 +343,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     lse: [B, H, Sq] float32 (``flash_attention_cuda(..., with_lse=True)``'s).
     The masks and offsets are the forward's. Returns dq, dk, dv in the
     inputs' dtype, shaped as q, k and v; dk and dv of a kv head are summed
-    over its query heads. ``launches`` counts calls (each launches three
-    kernels: delta, dk / dv, dq).
+    over its query heads. bfloat16 runs on the tensor cores, float32 on
+    the FMA pipes (:func:`flash_bwd_plan`); the bfloat16 dk / dv kernel
+    splits a group's heads over :func:`flash_bwd_splits` blocks, whose
+    float32 partials it sums in order. ``launches`` counts calls (each
+    launches three kernels — delta, dk / dv, dq — and a split call a
+    fourth, the splits' sum).
     """
     refuse_grad("flash_attention_bwd", q, k, v, out, lse, dout)
     dev = _cuda_device(q)
@@ -289,12 +386,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(dev):
         dq, dk, dv_out = (torch.empty_like(t) for t in (q, k, v))
         delta = torch.empty((b, h, sq), device=dev)
+        n_split = flash_bwd_splits(b, skv, h, hkv, q.dtype,
+                                   _sm_count(dev.index)) if b * sq * skv else 1
+        part = (torch.empty(n_split * b * skv * hkv * (d + dv), device=dev)
+                if n_split > 1 else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry("flash_attention_bwd")(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse),
-            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv_out), _DTYPES[q.dtype],
-            b, sq, skv, h, hkv, d, dv, scale, int(causal), int(window),
-            q_offset, kv_offset, stream)
+            _ptr(delta), _ptr(part), _ptr(dq), _ptr(dk), _ptr(dv_out),
+            _DTYPES[q.dtype], b, sq, skv, h, hkv, d, dv, scale, int(causal),
+            int(window), q_offset, kv_offset, n_split, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel flash_attention_bwd was not "
                            f"launched: cudaError_t {rc}")

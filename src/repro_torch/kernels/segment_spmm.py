@@ -95,8 +95,11 @@ _SIGNATURES = {
                         [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_I] * 8
                         + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd",
-                            [_P] * 10 + [_I] * 8 + [ctypes.c_float]
-                            + [_I] * 4 + [_P]),
+                            [_P] * 11 + [_I] * 8 + [ctypes.c_float]
+                            + [_I] * 5 + [_P]),
+    "flash_attention_bwd_smem": ("flash_attention_bwd", [_I] * 4),
+    "flash_attention_bwd_occupancy": ("flash_attention_bwd", [_I] * 4
+                                      + [_P]),
     "ssd_scan_smem": ("ssd_scan", [_I, _I, _I, _I]),
     "ssd_scan_occupancy": ("ssd_scan", [_I, _I, _I, _I, _P]),
     "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

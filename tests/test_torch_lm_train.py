@@ -9,6 +9,11 @@
   key (their gradient exactly 0). ``gradcheck`` of
   ``autograd.FlashAttention`` in float64, and the forward's log-sum-exp
   against ``_flash_fwd_chunks``'.
+* The bf16 kernel's arithmetic (p and ds rounded to bf16 before their
+  products, float32 sums) emulated in float32 against the twin and
+  ``jax.vjp`` within the card's bf16 bar; the backward's plan of
+  instances and shared memory over every head dim it takes, and its head
+  splits.
 * A Mamba2 block takes ``ops.ssd_scan_train`` under grad and
   ``ops.ssd_scan`` under ``no_grad``; ``compress_grads`` names A14d
   and every arch takes a train step;
@@ -195,6 +200,136 @@ def test_blockwise_attention_records_the_flash_backward():
         assert layers.blockwise_attention(q, k, v, causal=True).grad_fn is None
     with pytest.raises(RuntimeError, match="inference only"):
         ops.flash_attention(q, k, v, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's arithmetic, emulated in float32
+# ---------------------------------------------------------------------------
+
+#: the bf16 kernel (or its emulation) against the plain version and the
+#: custom VJP, of each gradient's largest magnitude: the card's bar
+#: (CARD_TOL's bf16 entry)
+TC_BAR = 2e-2
+#: FLASH_CASES with Dv = D, and MLA's 192 / 128 at a small length
+TC_CASES = [(*c[:6], c[5], *c[6:]) for c in FLASH_CASES] + [
+    (1, 40, 40, 2, 2, 192, 128, True, 0, 0, 0, 16, 16)]
+
+
+def _bf16(a) -> torch.Tensor:
+    """float32 holding the bf16 rounding of ``a``."""
+    return torch.as_tensor(a).to(torch.bfloat16).float()
+
+
+def tc_bwd_emulation(q, k, v, out, lse, dout, *, causal, window, q_offset,
+                     kv_offset):
+    """``flash_attention_bwd.cu``'s bfloat16 route in float32: q, k, v,
+    out, dout hold bf16 values; s = q k^T and dp = dout v^T summed in
+    float32; p = exp2(s·scale·log2e − lse·log2e) selected to 0 off the
+    mask; ds = p (dp − delta) scale from the float32 p; p rounded to bf16
+    before p^T dout, ds before ds^T q and ds k; float32 sums (dk, dv over
+    a group's heads); each gradient rounded to bf16 once."""
+    b, sq, h, d = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    rep, scale, log2e = h // hkv, 1.0 / np.sqrt(d), 1.4426950408889634
+    qh, oh, gh = (t.permute(0, 2, 1, 3) for t in (q, out, dout))
+    kh, vh = (t.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    delta = (gh * oh).sum(-1, keepdim=True)                  # [B, H, Sq, 1]
+    mask = ref._attention_mask(q_offset + torch.arange(sq),
+                               kv_offset + torch.arange(skv), causal, window)
+    s = qh @ kh.transpose(-1, -2)
+    p = torch.where(mask, torch.exp2(s * np.float32(scale * log2e)
+                                     - lse[..., None] * np.float32(log2e)),
+                    torch.zeros(()))
+    ds = p * (gh @ vh.transpose(-1, -2) - delta) * np.float32(scale)
+    pb, dsb = _bf16(p), _bf16(ds)
+    dq = (dsb @ kh).permute(0, 2, 1, 3)
+    dk = (dsb.transpose(-1, -2) @ qh).reshape(b, hkv, rep, skv, d).sum(2)
+    dvv = (pb.transpose(-1, -2) @ gh).reshape(b, hkv, rep, skv, dv).sum(2)
+    return (_bf16(dq), _bf16(dk.permute(0, 2, 1, 3)),
+            _bf16(dvv.permute(0, 2, 1, 3)))
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_flash_backward_bf16_emulation_matches_plain_and_jax(jx, case):
+    """bf16 inputs (rounded from seeded float32), the forward's output
+    rounded to bf16 as the bf16 forward writes it: the emulation within
+    the card's bf16 bar of the plain version and of ``jax.vjp`` of
+    ``blockwise_attention``, rows with no kept key exactly 0."""
+    jnp = jx["jnp"]
+    b, sq, skv, h, hkv, d, dv = case[:7]
+    rng = np.random.default_rng(15)
+    q, k, v, g = (_bf16(rng.standard_normal(s).astype(np.float32))
+                  for s in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                            (b, sq, h, dv)))
+    kw = dict(causal=case[7], window=case[8], q_offset=case[9],
+              kv_offset=case[10])
+    out, lse = ref.flash_attention_ref(q, k, v, with_lse=True, **kw)
+    got = tc_bwd_emulation(q, k, v, _bf16(out), lse, g, **kw)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, **kw)
+
+    def attn(q, k, v):
+        return jx["layers"].blockwise_attention(
+            q, k, v, q_chunk=case[11], kv_chunk=case[12], **kw)
+
+    _, vjp = jx["jax"].vjp(attn, *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(g.numpy()))
+    for name, a, p_, w in zip("qkv", got, plain, want):
+        _close_scaled(a.numpy(), p_.numpy(), TC_BAR, f"d{name} vs plain")
+        _close_scaled(a.numpy(), w, TC_BAR, f"d{name} vs jax.vjp")
+    if kw["kv_offset"] > 0 and kw["causal"]:
+        dead = got[0][:, :kw["kv_offset"]]
+        assert torch.equal(dead, torch.zeros_like(dead))
+
+
+def test_flash_backward_plan_fits_every_head_dim():
+    """Every (D, Dv) the backward takes, both dtypes: the call's and the
+    instance's shared memory under the 227 KB opt-in, the instance wide
+    enough for the call, the C formula's bytes; the bf16 route at D ≤ 128
+    leaves room for two blocks an SM (228 KB an SM, 1 KB a block
+    reserved)."""
+    from repro_torch.kernels.flash_attention import flash_bwd_plan
+    from repro_torch.kernels.ssd_scan import MAX_SMEM
+    for d in range(8, 193, 8):
+        for dv in range(8, d + 1, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                p = flash_bwd_plan(d, dv, dtype)
+                assert p.route == ("tc" if dtype == torch.bfloat16
+                                   else "fma")
+                assert d <= p.d_max and dv <= p.dv_max
+                assert max(p.dkdv_smem, p.dq_smem) <= max(
+                    p.dkdv_opt_in, p.dq_opt_in) <= MAX_SMEM, (d, dv, p)
+                if dtype == torch.bfloat16:
+                    pitch = (-(-d // 16) * 16 + 8, -(-dv // 16) * 16 + 8)
+                    assert p.dkdv_smem == 2 * sum(pitch) * (64 + 2 * p.bq) \
+                        + 16 * p.bq
+                    assert p.dq_smem == 2 * sum(pitch) * (64 + 2 * p.bkq)
+                    if d <= 128:
+                        assert 2 * (max(p.dkdv_opt_in, p.dq_opt_in)
+                                    + 1024) <= 228 * 1024
+    assert flash_bwd_plan(192, 128, torch.bfloat16)[1:5] == (192, 128, 32, 32)
+    assert flash_bwd_plan(192, 192, torch.bfloat16)[1:5] == (192, 192, 16, 32)
+    for bad in ((200, 128), (12, 8), (64, 72)):
+        with pytest.raises(ValueError):
+            flash_bwd_plan(*bad, torch.bfloat16)
+
+
+def test_flash_backward_splits():
+    """The bf16 dk / dv kernel's head splits: qwen2.5-3b's 2 kv heads of 8
+    at 4 × 1024 on 132 SMs (128 blocks) split 3 ways; enough blocks, one
+    query head a kv head, or float32: 1; no split is ever empty."""
+    from repro_torch.kernels.flash_attention import flash_bwd_splits
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert flash_bwd_splits(4, 1024, 16, 2, bf16, 132) == 3
+    assert flash_bwd_splits(4, 1024, 16, 2, f32, 132) == 1
+    assert flash_bwd_splits(2, 1600, 32, 8, bf16, 132) == 1
+    assert flash_bwd_splits(4, 1500, 16, 16, bf16, 132) == 1
+    for b, skv, h, hkv in ((1, 64, 64, 1), (1, 100, 12, 2), (2, 300, 40, 8),
+                           (1, 8, 6, 1)):
+        n = flash_bwd_splits(b, skv, h, hkv, bf16, 132)
+        group = h // hkv
+        per = -(-group // n)
+        assert 1 <= n <= group and (n - 1) * per < group
 
 
 # ---------------------------------------------------------------------------
