@@ -577,6 +577,11 @@ BWD_F32_TOL, BWD_BF16_TOL, LM_TRAIN_LOSS_RTOL = 1e-5, 2e-2, 1e-4
 #: flash_attention_bwd.cu's kernels by profiler name (sum_kernel: the bf16
 #: route's head splits' sum)
 FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel", "sum_kernel")
+#: the SSD backward's bf16 kernels (the two walks in one launch, the
+#: gradients of a head slice, the sums over a group's slices and over
+#: chunks), read from a profiled training step
+SSD_BWD_KERNELS = ("ssd_bwd_walk_kernel", "ssd_bwd_tc_grad_kernel",
+                   "ssd_bwd_group_kernel", "ssd_bwd_tc_da_kernel")
 #: lm_train's SSD archs: the full run (mamba2-370m, the accuracy plan's
 #: other LM tracing: batch × sequence, LM_TRAIN_STEPS measured steps after
 #: one warm-up), the parity runs against the CPU ((arch, depth): zamba2 at
@@ -592,6 +597,9 @@ LM_SSD_PARITY_BATCH, LM_SSD_PARITY_SEQ = 2, 192
 SSD_BWD_ARCHS, SSD_BWD_BATCH, SSD_BWD_SEQ = (
     ("mamba2-370m", "zamba2-2.7b"), 8, 2048)
 SSD_BWD_F32_TOL, SSD_BWD_BF16_TOL = 1e-4, 1e-2
+#: the rows a chunk at which ssd_bwd_work counts the bound, whatever chunk
+#: the kernel blocks in: the yardstick does not move with the design
+SSD_BWD_BOUND_CHUNK = 64
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "ds0")
 #: (B, Sq, Skv, H, Hkv, D, Dv, causal, window, q_offset, kv_offset); the
 #: last six are lm_train_wide's (WIDE_BWD_CASES): MLA's head dims at smoke
@@ -6774,23 +6782,27 @@ def ssd_bwd_entry(torch, dev) -> dict:
     each gradient against the plain twin on the card within its bar of
     its scale, twice with the same bits, the device time of one call (a
     CUDA graph of 20 calls, median of 50) beside its bound and the twin's
-    time; the SASS free of float atomics. The bound is the larger of the
-    bytes at ``PEAK_BYTES`` and the operations at the card's rate for the
-    type, as the forward's and the flash backward's: bf16 at the bf16
+    time; the SASS free of float atomics and with ``HMMA`` (the run fails
+    at 0: the bf16 route is on the tensor cores). The bound is the larger
+    of the bytes at ``PEAK_BYTES`` and the operations at the card's rate
+    for the type, counted at 64-row chunks whatever the kernel blocks in,
+    as the forward's and the flash backward's: bf16 at the bf16
     tensor-core peak, float32 as three TF32 products (the split that
     keeps float32's precision on the tensor cores, as ``fused_mp_layer``
-    is bounded). The entry's own numbers are mamba2-370m's in bf16, the
-    full training run's; ``sweep`` is :func:`sweep_ssd_bwd`'s."""
+    is bounded); bf16 also carries the design's own floor
+    (:func:`ssd_bwd_floor_ms`). The entry's own numbers are mamba2-370m's
+    in bf16, the full training run's; ``sweep`` is
+    :func:`sweep_ssd_bwd`'s, ``plan`` :func:`ssd_bwd_plan_facts`'."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_spmm import _entry
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
-    shapes = []
+    shapes, plans = [], []
     for arch in SSD_BWD_ARCHS:
         cfg = lm_train_config(arch)
         sc = cfg.ssm
         h, p, n, g = (sc.n_heads(cfg.d_model), sc.head_dim, sc.d_state,
                       sc.n_groups)
         b, s = SSD_BWD_BATCH, SSD_BWD_SEQ
+        plans.extend(ssd_bwd_plan_facts(torch, arch, n, p, h, g))
         for name, tol in (("float32", SSD_BWD_F32_TOL),
                           ("bfloat16", SSD_BWD_BF16_TOL)):
             seed = 7000 + len(shapes)
@@ -6818,11 +6830,15 @@ def ssd_bwd_entry(torch, dev) -> dict:
             plain_ms = time_eager_ms(torch, plain, calls=1, reps=3)
             us = device_breakdown_us(torch, {"bwd": kern}, reps=5)["bwd"]
             flops, nbytes = ssd_bwd_work(b, s, h, g, p, n, x.element_size(),
-                                         _entry("ssd_scan_bwd_chunk")())
+                                         SSD_BWD_BOUND_CHUNK)
             bound = bound_ms(flops, nbytes, PEAK_BF16_FLOPS) if (
                 name == "bfloat16") else bound_ms(3.0 * flops, nbytes,
                                                   PEAK_TF32_FLOPS)
-            shapes.append({"arch": arch, "dtype": name,
+            extra = {}
+            if name == "bfloat16":
+                extra = {"floor_ms": ssd_bwd_floor_ms(torch, b, s, h, g, p, n,
+                                                      nbytes)}
+            shapes.append({"arch": arch, "dtype": name, **extra,
                            "unit": f"x [{b}, {s}, {h}, {p}], B/C [{b}, {s}, "
                                    f"{g}, {n}], chunk {sc.chunk}",
                            "rel_err": rels, "max_abs_err": max(errs.values()),
@@ -6843,6 +6859,7 @@ def ssd_bwd_entry(torch, dev) -> dict:
             "launches": None, "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "floor_ms": main["floor_ms"], "floor_note": SSD_FLOOR_NOTE,
             "library_ms": None,
             "library_note": "none: no single PyTorch call computes the "
                             "chunked SSD scan's gradient",
@@ -6851,8 +6868,77 @@ def ssd_bwd_entry(torch, dev) -> dict:
                           "products at the bf16 tensor-core peak",
             "unit": f"{main['arch']} bf16: {main['unit']}",
             "launches_per_unit": 1, "shapes": shapes,
-            "sweep": sweep_ssd_bwd(torch, dev),
-            "build": segment_build_facts("ssd_scan_bwd")}
+            "sweep": sweep_ssd_bwd(torch, dev), "plan": plans,
+            "build": segment_build_facts("ssd_scan_bwd", ("HMMA",))}
+
+
+#: the SSD backward entry's floor_ms
+SSD_FLOOR_NOTE = ("the bf16 design's own floor: the bytes it moves (the "
+                  "bound's, the walks' states and dy in two bf16 terms "
+                  "written and read once, the head slices' float32 "
+                  "partials of dB and dC written and read once) at 3.35 "
+                  "TB/s, or the m16n8k16 products it issues at the bf16 "
+                  "peak")
+
+
+def ssd_bwd_floor_ms(torch, b: int, s: int, h: int, g: int, p: int, n: int,
+                     io_bytes: float) -> float:
+    """The least time of ``ssd_scan_bwd.cu``'s bf16 design for one call
+    whose bound counts ``io_bytes`` (``ssd_bwd_work``): its scratch and
+    partials beside those bytes at ``PEAK_BYTES``, or its products at the
+    bf16 peak. Per (b, 64-row chunk, h), with KN = N' / 16, KP = P' / 16
+    (``ssd_bwd_plan``'s padded widths), the walks issue 40 KN KP
+    m16n8k16 products (the scaled operand in two terms; dy in two, its lo
+    x lo not issued) and the gradients 120 KN + 140 KP + 72 KN KP (the ten
+    16 x 16 blocks of the causal triangle on each side, the state
+    products)."""
+    from repro_torch.kernels.ssd_scan import ssd_bwd_plan
+    plan = ssd_bwd_plan(n, p, h, g, torch.bfloat16)
+    kn, kp = plan.n_pad // 16, plan.p_pad // 16
+    units = b * (-(-s // plan.lc)) * h
+    mma = units * (120 * kn + 140 * kp + 112 * kn * kp)
+    scratch = 2.0 * units * (8 * plan.n_pad * plan.p_pad
+                             + 4 * plan.lc * plan.p_pad)
+    partials = 2.0 * 2 * 4 * b * s * g * plan.partials * n
+    return bound_ms(4096.0 * mma, io_bytes + scratch + partials,
+                    PEAK_BF16_FLOPS)[0]
+
+
+def ssd_bwd_plan_facts(torch, arch: str, n: int, p: int, h: int,
+                       g: int) -> list:
+    """For each dtype: the backward's route, chunk, heads a gradient block
+    and partials a group (``ssd_bwd_plan``), the gradient block's dynamic
+    shared memory (the plan's and the library's ``ssd_scan_bwd_smem``,
+    which must agree, as must the library's chunk and heads), and the
+    blocks an SM of the gradient kernel and of the walks (float32: the
+    chunk kernel), ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    import ctypes
+    from repro_torch.kernels.segment_spmm import _entry
+    from repro_torch.kernels.ssd_scan import _DTYPES, ssd_bwd_plan
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = ssd_bwd_plan(n, p, h, g, dtype)
+        code = _DTYPES[dtype]
+        lib = (_entry("ssd_scan_bwd_smem")(code, n, p),
+               _entry("ssd_scan_bwd_chunk")(code),
+               _entry("ssd_scan_bwd_heads")(code, h, g))
+        if lib != (plan.smem_bytes, plan.lc, plan.heads):
+            raise AssertionError(f"ssd_scan_bwd {arch} {dtype}: the plan's "
+                                 f"(smem, chunk, heads) "
+                                 f"{(plan.smem_bytes, plan.lc, plan.heads)} "
+                                 f"!= the library's {lib}")
+        row = {"arch": arch, "dtype": str(dtype).removeprefix("torch."),
+               **plan._asdict()}
+        for which, kname in enumerate(("grad", "walk")):
+            blocks = ctypes.c_int(0)
+            rc = _entry("ssd_scan_bwd_occupancy")(code, n, p, which,
+                                                  ctypes.addressof(blocks))
+            if rc != 0:
+                raise AssertionError(f"ssd_scan_bwd occupancy: cudaError_t "
+                                     f"{rc}")
+            row[f"{kname}_blocks_an_sm"] = blocks.value
+        out.append(row)
+    return out
 
 
 def flash_train_shape_recorder():
@@ -7237,8 +7323,7 @@ def phase_lm_train(torch, dev, name_limit: str) -> tuple:
     ssd_train = lm_train_full(
         torch, dev, lm_train_config(LM_SSD_TRAIN_ARCH), LM_SSD_TRAIN_BATCH,
         LM_SSD_TRAIN_SEQ, LM_SEED + 30,
-        ("ssd_bwd_chunk_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_grad_kernel",
-         "ssd_bwd_group_kernel", "ssd_bwd_da_kernel"))
+        SSD_BWD_KERNELS)
     entry["launches"] = train["launches"]["flash_attention_bwd"]
     ssd_entry["launches"] = ssd_train["launches"]["ssd_scan_bwd"]
     out = {"phase": "lm_train", "card": name_limit,

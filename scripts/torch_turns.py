@@ -49,12 +49,19 @@ one BODY:
   forward with lse + backward, and ``scaled_dot_product_attention``
   forward + backward on the same inputs (the same library call in both
   turns: a check on the card's drift between turns).
+* ``ssd_bwd`` — the SSD scan's backward (``ssd_scan_bwd_cuda``) at the
+  two bf16 shapes of ``chip_smoke.py``'s ``ssd_scan_bwd`` entry
+  (mamba2-370m's and zamba2-2.7b's heads and widths, 8 × 2048, the
+  model's chunk, from a given state and with a gradient on the last
+  state), seeded inputs: its ms (``chip_smoke.time_graph_ms``) and its
+  device µs by kernel under ``torch.profiler``.
 * ``lm_train`` — ``chip_smoke.lm_train_full`` for qwen2.5-3b and
   mamba2-370m at ``lm_train``'s full size and for ``WIDE_TRAIN``'s
   deepseek-v2, llama-3.2-vision and hubert-xlarge (bf16,
   ``default_optimizer()``, remat): ms a step, tokens/s, peak memory,
   the card's busy ms and the flash backward's device ms in the profiled
-  step.
+  step, and mamba2-370m's SSD backward's (its kernels by either
+  checkout's names).
 
 It prints one JSON line per turn. ``--pairs N`` runs N rounds of parent,
 this, this, parent. Two versions are compared only within one run of this
@@ -302,6 +309,44 @@ def body_flash_bwd(torch, _variants: str) -> dict:
     return out
 
 
+def body_ssd_bwd(torch, _variants: str) -> dict:
+    import numpy as np
+
+    import chip_smoke as cs
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    out = {}
+    for i, arch in enumerate(cs.SSD_BWD_ARCHS):
+        cfg = cs.lm_train_config(arch)
+        sc = cfg.ssm
+        h, p, n, g = (sc.n_heads(cfg.d_model), sc.head_dim, sc.d_state,
+                      sc.n_groups)
+        b, s = cs.SSD_BWD_BATCH, cs.SSD_BWD_SEQ
+        x, dt, a, bm, cm, s0 = cs.ssd_inputs(torch, "cuda", b, s, h, p, n, g,
+                                             torch.bfloat16, 6400 + i)
+        rng = np.random.default_rng(6500 + i)
+        dy, dl = (torch.as_tensor(rng.standard_normal(shape)
+                                  .astype(np.float32), device="cuda")
+                  for shape in ((b, s, h, p), (b, h, n, p)))
+
+        def kern():
+            return ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy, chunk=sc.chunk,
+                                     s0=s0, d_last=dl)
+        out[arch] = {"ms": cs.time_graph_ms(torch, kern),
+                     "device_us_by_kernel": cs.device_breakdown_us(
+                         torch, {"b": kern}, reps=5)["b"]}
+        del x, dt, a, bm, cm, s0, dy, dl
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the SSD backward's kernels by the names of this tree and of the FMA
+#: design before it, read from a profiled mamba2 step
+SSD_BWD_NAMES = ("ssd_bwd_walk_kernel", "ssd_bwd_tc_grad_kernel",
+                 "ssd_bwd_chunk_kernel", "ssd_bwd_scan_kernel",
+                 "ssd_bwd_grad_kernel", "ssd_bwd_group_kernel",
+                 "ssd_bwd_da_kernel", "ssd_bwd_tc_da_kernel")
+
+
 def body_lm_train(torch, _variants: str) -> dict:
     import dataclasses
 
@@ -318,8 +363,10 @@ def body_lm_train(torch, _variants: str) -> dict:
         runs.append((cfg, batch, seq, cs.WIDE_TRAIN_STEPS))
     out = {}
     for i, (cfg, batch, seq, steps) in enumerate(runs):
+        ssd = cfg.block == "mamba2"
         r = cs.lm_train_full(torch, "cuda", cfg, batch, seq,
-                             cs.LM_SEED + 60 + i, cs.FLASH_BWD_KERNELS,
+                             cs.LM_SEED + 60 + i,
+                             SSD_BWD_NAMES if ssd else cs.FLASH_BWD_KERNELS,
                              steps=steps)
         out[cfg.name] = {
             "layers": cfg.n_layers, "batch": [batch, seq],
@@ -328,8 +375,10 @@ def body_lm_train(torch, _variants: str) -> dict:
             "max_memory_allocated": r["max_memory_allocated"],
             "losses": r["losses"],
             "step_device_busy_ms": r["step_device_busy_ms"],
-            "flash_bwd_device_ms": sum(r["bwd_device_ms_by_kernel"].values())
-            if cfg.block != "mamba2" else 0.0,
+            "flash_bwd_device_ms": 0.0 if ssd
+            else sum(r["bwd_device_ms_by_kernel"].values()),
+            "ssd_bwd_device_ms": sum(r["bwd_device_ms_by_kernel"].values())
+            if ssd else 0.0,
             "bwd_device_ms_by_kernel": r["bwd_device_ms_by_kernel"]}
         torch.cuda.empty_cache()
     return out
@@ -338,7 +387,7 @@ def body_lm_train(torch, _variants: str) -> dict:
 BODIES = {"bulk": body_bulk, "lm": body_lm, "lm_host": body_lm_host,
           "flash_host": body_flash_host, "train": body_train,
           "factory": body_factory, "flash_bwd": body_flash_bwd,
-          "lm_train": body_lm_train}
+          "ssd_bwd": body_ssd_bwd, "lm_train": body_lm_train}
 
 
 def turn(body: str, tree: str, variants: str) -> dict:

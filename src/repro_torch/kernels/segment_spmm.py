@@ -104,9 +104,11 @@ _SIGNATURES = {
     "ssd_scan_occupancy": ("ssd_scan", [_I, _I, _I, _I, _P]),
     "ssd_scan": ("ssd_scan", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P]),
-    "ssd_scan_bwd_smem": ("ssd_scan_bwd", [_I, _I]),
-    "ssd_scan_bwd_chunk": ("ssd_scan_bwd", []),
-    "ssd_scan_bwd": ("ssd_scan_bwd", [_P] * 20 + [_I] * 7 + [_P]),
+    "ssd_scan_bwd_smem": ("ssd_scan_bwd", [_I, _I, _I]),
+    "ssd_scan_bwd_chunk": ("ssd_scan_bwd", [_I]),
+    "ssd_scan_bwd_heads": ("ssd_scan_bwd", [_I, _I, _I]),
+    "ssd_scan_bwd_occupancy": ("ssd_scan_bwd", [_I] * 4 + [_P]),
+    "ssd_scan_bwd": ("ssd_scan_bwd", [_P] * 21 + [_I] * 7 + [_P]),
 }
 #: what each wrapper's autograd refusal tells the caller to use instead
 _GRAD_ENTRY = {

@@ -11,7 +11,11 @@ the kernel runs and its shared memory.
 
 :func:`ssd_scan_bwd_cuda` runs ``csrc/ssd_scan_bwd.cu``, its gradient
 (:func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`): dx, ddt, dA, dB, dC
-and ds0 from the gradients on y and on the last state.
+and ds0 from the gradients on y and on the last state. bfloat16 runs on
+the tensor cores (two walks over the chunks for the entry states and exit
+gradients, then a block a head slice for the gradients, every float
+operand split into bf16 terms), float32 on the FMA pipes;
+:func:`ssd_bwd_plan` says how a call runs.
 
 The wrappers follow :mod:`repro_torch.kernels.segment_spmm`: CUDA tensors
 only, checked for device, dtype, shape, contiguity and alignment; outputs
@@ -29,7 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .segment_spmm import (_call, _check, _check_dims, _count, _cuda_device,
-                           _entry, _ptr, refuse_grad)
+                           _ptr, refuse_grad)
 
 #: gridDim.y carries the batch row
 _MAX_BATCH = 65535
@@ -154,9 +158,71 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_scan_cuda.launches = 0
 
 
+#: the backward blocks the sequence in 64-row chunks on both routes
+_BWD_CHUNK = 64
+#: the backward's tensor-core route: the most heads a gradient block walks
+_BWD_TC_HEADS = 8
+
+
+class SsdBwdPlan(NamedTuple):
+    """How ``csrc/ssd_scan_bwd.cu`` runs one call."""
+    route: str        #: "tc" (bfloat16, the tensor cores) or "fma"
+    lc: int           #: rows a chunk
+    n_pad: int        #: N as the kernel's tiles hold it
+    p_pad: int        #: P as the kernel's tiles hold it
+    heads: int        #: heads a gradient block walks
+    partials: int     #: float32 partials of dB and dC a group
+    smem_bytes: int   #: dynamic shared memory of a gradient block
+    walk_smem: int    #: ... of a walk block (tc) or a chunk block (fma)
+
+
+def ssd_bwd_plan(n: int, p: int, h: int, g: int,
+                 dtype: torch.dtype) -> SsdBwdPlan:
+    """The backward's route, chunk, heads a block, partials and shared
+    memory for N, P, H heads in G groups, as the C entries
+    ``ssd_scan_bwd_smem`` / ``_chunk`` / ``_heads`` compute them.
+
+    float32 (the FMA route, five launches): 64-row chunks, a gradient
+    block a (head, chunk, batch row) writing the head's part of dB and dC
+    (``partials`` = the group's heads), ``4 (2·64 (N + P + 2) + 320 + 2·64·65
+    + N (P + 1) + 3·16·64 + 32 P + 384)`` bytes (189,184 at N 128, P 64) and
+    a chunk block ``4 (2·64 (N + P + 2) + 320)``. bfloat16 (the tensor
+    cores, four launches): N and P padded to a power of two ≥ 16 (N ≤ 128,
+    P ≤ 64, else ``ValueError``); a group's H / G heads in
+    ``ceil(H / G / 8)`` slices as even as they go, each walked by one
+    gradient block and written as one float32 partial; a gradient block
+    holds the chunk's B and C, two ring slots of a head's x, dy, Gout and
+    Sin (each float operand in two bf16 terms) and two heads' per-row terms
+    and row sums: ``256 N' + 2 (384 P' + 8 N' P') + 5,184`` (218,176 at
+    128 / 64); a walk block two slots of a chunk's B or C and
+    its x or dy's two terms and their row scales, and the state's two
+    terms on their way out, ``256 N' + 512 P' + 512 + 4 N' P'`` (98,816).
+    """
+    if g <= 0 or h % g:
+        raise ValueError(f"H={h} is not a multiple of the groups G={g}")
+    hpg = h // g
+    if dtype == torch.float32:
+        stage = 2 * 64 * (n + 1) + 2 * 64 * (p + 1) + 5 * 64
+        grad = stage + 2 * 64 * 65 + n * (p + 1) + 3 * 16 * 64 \
+            + 2 * (p // 4) * 64 + 256 + 2 * 64
+        return SsdBwdPlan("fma", _BWD_CHUNK, n, p, 1, hpg, 4 * grad,
+                          4 * stage)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the backward takes float32 or bfloat16, got {dtype}")
+    if n > _TC_MAX_N or p > _TC_MAX_P:
+        raise ValueError(f"N={n}, P={p}: the bfloat16 kernel takes N ≤ "
+                         f"{_TC_MAX_N} and P ≤ {_TC_MAX_P}")
+    nt, pt = _pad_width(n), _pad_width(p)
+    slices = -(-hpg // _BWD_TC_HEADS)
+    heads = -(-hpg // slices)
+    grad = 256 * nt + 2 * (384 * pt + 8 * nt * pt) + 5184
+    return SsdBwdPlan("tc", _BWD_CHUNK, nt, pt, heads, -(-hpg // heads), grad,
+                      256 * nt + 512 * pt + 512 + 4 * nt * pt)
+
+
 def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor, *,
-                      chunk: int,  # ignored: blocks in ssd_scan_bwd_chunk()
+                      chunk: int,  # ignored: blocks in 64-row chunks
                       s0: Optional[torch.Tensor] = None,
                       d_last: Optional[torch.Tensor] = None):
     """The gradients of :func:`ssd_scan_cuda` on the card
@@ -168,14 +234,18 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dB and dC [Bt, S, G, N] in B's (a group's heads summed in ascending
     order), ddt, dA and ds0 float32; ds0 is None when s0 is. ``chunk``
     selects nothing here: it is taken only so that this wrapper and
-    ``ref.ssd_scan_bwd_ref`` take the same arguments under ``ops.kernel``. The kernel blocks the sequence in the
-    library's ``ssd_scan_bwd_chunk()`` rows (64) whatever ``chunk`` (the
-    same function, blocked otherwise); it raises where N and P are not
-    multiples of 4 or its gradient kernel's shared memory (the library's
-    ``ssd_scan_bwd_smem``: 189,184 bytes at N = 128, P = 64) exceeds
-    227 KB. ``launches`` counts calls (each launches five kernels: the
-    chunks' own terms, the scan over chunks, the gradients, the sums over
-    a group's heads and over chunks).
+    ``ref.ssd_scan_bwd_ref`` take the same arguments under ``ops.kernel``.
+    The kernel blocks the sequence in 64 rows whatever ``chunk`` (the
+    same function, blocked otherwise) on the route of
+    :func:`ssd_bwd_plan`: bfloat16 on the tensor cores (N ≤ 128, P ≤ 64;
+    218,176 bytes of shared memory a gradient block at N = 128, P = 64),
+    float32 on the FMA pipes (189,184); it raises where N and P are not
+    multiples of 4, or a route does not take them. ``launches`` counts
+    calls (each launches five kernels in float32: the chunks' own terms,
+    the scan over chunks, the gradients, the sums over a group's heads and
+    over chunks; four in bfloat16: the two walks over the chunks in one,
+    the gradients of a head slice, the sums over a group's slices and over
+    chunks).
     """
     refuse_grad("ssd_scan_bwd", x, dt, A, B, C, dy, s0, d_last)
     dev = _cuda_device(x)
@@ -193,17 +263,20 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if bt > _MAX_BATCH or bt * h > _MAX_BATCH:
         raise ValueError(f"Bt={bt}, H={h}: Bt and Bt·H must be at most "
                          f"{_MAX_BATCH} (the kernel's grid)")
-    smem = _entry("ssd_scan_bwd_smem")(n, p)
-    if smem > MAX_SMEM:
-        raise ValueError(f"N={n}, P={p}: the backward's block needs {smem} "
-                         f"bytes of shared memory, over {MAX_SMEM}")
-    lc = _entry("ssd_scan_bwd_chunk")()
+    plan = ssd_bwd_plan(n, p, h, g, x.dtype)
+    if plan.smem_bytes > MAX_SMEM:
+        raise ValueError(f"N={n}, P={p}: the backward's block needs "
+                         f"{plan.smem_bytes} bytes of shared memory, over "
+                         f"{MAX_SMEM}")
+    lc = plan.lc
     nc = -(-s // lc)
     if nc > _MAX_BATCH:
         raise ValueError(f"S={s} exceeds the kernel's grid limit "
                          f"{_MAX_BATCH * lc}")
+    tc = plan.route == "tc"
     _check_dims(BSHP=bt * s * h * p, BSHN=bt * s * h * n,
-                BCHNP=bt * nc * h * n * p)
+                BCHNP=bt * nc * h * (2 * plan.n_pad * plan.p_pad if tc
+                                     else n * p))
     f32 = torch.float32
     _check(x, "x", x.dtype, (bt, s, h, p), dev)
     _check(dt, "dt", f32, (bt, s, h), dev)
@@ -214,6 +287,10 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for t, name in ((s0, "s0"), (d_last, "d_last")):
         if t is not None:
             _check(t, name, f32, (bt, h, n, p), dev)
+    if tc and any(t is not None and t.data_ptr() % 16
+                  for t in (x, B, C, dy, s0, d_last)):
+        raise ValueError("x, B, C, dy, s0 and d_last must be 16-byte "
+                         "aligned")
     with torch.cuda.device(dev):
         dx = torch.empty_like(x)
         ddt = torch.empty((bt, s, h), dtype=f32, device=dev)
@@ -223,17 +300,31 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if bt * h * s == 0:
             da.zero_()
             return dx, ddt, da, db, dc, None if ds0 is None else ds0.zero_()
-        sin = torch.empty((bt, nc, h, n, p), dtype=f32, device=dev)
-        gout = torch.empty_like(sin)
-        tot = torch.empty((bt, nc, h), dtype=f32, device=dev)
-        dah = torch.empty_like(tot)
-        dbh = torch.empty((bt, s, h, n), dtype=f32, device=dev)
+        dah = torch.empty((bt, nc, h), dtype=f32, device=dev)
+        if tc:
+            # the walks' states and dy in two bf16 terms, padded widths;
+            # the head slices' float32 partials of dB and dC
+            terms = (bt, nc, h, 2)
+            sin = torch.empty(terms + (plan.n_pad, plan.p_pad),
+                              dtype=torch.bfloat16, device=dev)
+            gout = torch.empty_like(sin)
+            dys = torch.empty(terms + (lc, plan.p_pad), dtype=torch.bfloat16,
+                              device=dev)
+            tot = None
+            dbh = torch.empty((bt, s, g * plan.partials, n), dtype=f32,
+                              device=dev)
+        else:
+            sin = torch.empty((bt, nc, h, n, p), dtype=f32, device=dev)
+            gout = torch.empty_like(sin)
+            dys = None
+            tot = torch.empty((bt, nc, h), dtype=f32, device=dev)
+            dbh = torch.empty((bt, s, h, n), dtype=f32, device=dev)
         dch = torch.empty_like(dbh)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _call("ssd_scan_bwd", _ptr(x), _ptr(dt), _ptr(A), _ptr(B), _ptr(C),
               _ptr(s0), _ptr(dy), _ptr(d_last), _ptr(sin), _ptr(gout),
               _ptr(tot), _ptr(dx), _ptr(ddt), _ptr(dbh), _ptr(dch),
-              _ptr(dah), _ptr(da), _ptr(db), _ptr(dc), _ptr(ds0),
+              _ptr(dah), _ptr(da), _ptr(db), _ptr(dc), _ptr(ds0), _ptr(dys),
               _DTYPES[x.dtype], bt, s, h, p, g, n, stream)
     _count(ssd_scan_bwd_cuda)
     return dx, ddt, da, db, dc, ds0
